@@ -1,0 +1,32 @@
+"""The PyTorch port imports without JAX and without Triton."""
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_import_leaves_jax_and_triton_out():
+    code = (
+        "import sys, xhistogram_torch, xhistogram_torch.ops.cuda_hist, "
+        "xhistogram_torch.ops._build; "
+        "print(sorted(m for m in ('jax', 'triton', 'xhistogram_tpu') "
+        "if m in sys.modules))"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_no_port_file_imports_jax():
+    sources = sorted((REPO / "xhistogram_torch").rglob("*.py"))
+    assert sources
+    for path in sources + [REPO / "chip_smoke.py"]:
+        text = path.read_text()
+        for banned in ("import jax", "from jax", "import xhistogram_tpu",
+                       "from xhistogram_tpu"):
+            assert banned not in text, (path, banned)

@@ -1,0 +1,249 @@
+"""Array API: axis-selective, density-normalizable joint histograms.
+
+Counterpart of ``xhistogram_tpu.core.histogram`` (the contract of the
+reference's ``xhistogram.core.histogram``, reference core.py:250-466) for
+torch tensors. Tensors stay on the device the caller put them on: numpy and
+Python inputs become CPU tensors, nothing moves to the GPU implicitly, and
+the counts come back on the inputs' device.
+
+dtype rules: unweighted counts are int64, the reference's dtype (the JAX
+package's int32 is a TPU word-size artifact). Density results are float32,
+computed in the same order as the JAX package. Weights and ``precision=``
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import bins as _bins
+from .ops.bincount import bincount2d
+from .ops.cuda_hist import joint2, plan
+from .ops.digitize import digitize_edges, joint_bin_index
+from .utils.axes import canonicalize_2d, kept_shape, normalize_axis
+from .utils.profiling import scope
+
+__all__ = ["histogram"]
+
+# ROADMAP entry of each kernel plan() may name that is not ported yet
+_UNPORTED = {
+    "one_input": "queue 2, item 2",
+    "factored": "queue 2, item 3",
+    "factored_per_row": "queue 2, item 3",
+    "factored_packed": "queue 2, item 3",
+    "direct": "queue 2, item 4",
+}
+
+# `range` is a histogram keyword (reference API name)
+_builtin_range = range
+
+_NARROW_INTS = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16)
+
+_COMPLEX_MSG = (
+    "complex input is not supported: complex numbers define no histogram "
+    "ordering; histogram the .real/.imag/abs() parts explicitly"
+)
+_UINT64_MSG = (
+    "uint64 data is not ported yet (ROADMAP queue 1, item 6): torch has no "
+    "search over uint64"
+)
+
+
+def _coerce_host(x):
+    """Input coercion to a tensor the digitize can compare exactly.
+
+    numpy and Python inputs become CPU tensors (datetime64 viewed as int64,
+    since binning only needs order). Sub-32-bit integers are promoted to
+    int32 so the edge-comparison transform never saturates at the dtype
+    boundary; uint32 goes to int64. bfloat16 widens to float32, which is
+    exact and keeps every comparison (numpy has no bfloat16 for the host
+    edge transform). Complex input raises.
+    """
+    if isinstance(x, torch.Tensor):
+        if x.is_complex():
+            raise TypeError(_COMPLEX_MSG)
+        if x.dtype in _NARROW_INTS:
+            return x.to(torch.int32)
+        if x.dtype == torch.uint32:
+            return x.to(torch.int64)
+        if x.dtype == torch.bfloat16:
+            return x.to(torch.float32)
+        if x.dtype == torch.uint64:
+            raise NotImplementedError(_UINT64_MSG)
+        return x
+    x = np.asarray(x)
+    if x.dtype.kind == "c":
+        raise TypeError(_COMPLEX_MSG)
+    if x.dtype.kind in "Mm":
+        x = x.view("i8")
+    elif x.dtype.kind in "iub" and x.dtype.itemsize < 4:
+        x = x.astype(np.int32)
+    elif x.dtype == np.uint32:
+        x = x.astype(np.int64)
+    elif x.dtype == np.uint64:
+        raise NotImplementedError(_UINT64_MSG)
+    if any(s < 0 for s in x.strides):
+        x = x.copy()  # torch views no negative strides
+    return torch.from_numpy(x)
+
+
+def _numpy_dtype(t):
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip):
+    """Counts ``(rows, prod(nbins) + 1)`` from ``kernel``, the kernel the
+    JAX package would run here (``pallas_hist._dispatch``), or a raise if it
+    is not ported."""
+    if any(n_hi_clip):
+        raise NotImplementedError(
+            f"method={method!r} cannot represent bin edges at/beyond the data "
+            "dtype's top value (int max / +inf); use method='auto' or "
+            "method='scatter' for this edge configuration"
+        )
+    if kernel != "joint2":
+        raise NotImplementedError(
+            f"the {kernel!r} kernel is not ported to CUDA yet (ROADMAP "
+            f"{_UNPORTED[kernel]}); method='scatter' runs the plain strategy"
+        )
+    if any(a.dtype != torch.float32 for a in arrays_2d):
+        raise NotImplementedError(
+            "the joint2 CUDA kernel takes float32 data only so far, got "
+            f"{[a.dtype for a in arrays_2d]} (ROADMAP queue 2, item 1)"
+        )
+    a, b = arrays_2d  # joint2 runs only for a full reduction: (1, N) each
+    with scope("cuda_kernel"):
+        return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1])
+
+
+def histogram(
+    *args,
+    bins=None,
+    range=None,
+    axis=None,
+    weights=None,
+    density=False,
+    block_size="auto",
+    method="auto",
+    precision=None,
+):
+    """Histogram applied along specified axis / axes.
+
+    Parameters
+    ----------
+    args : torch tensors, numpy arrays or array-likes
+        N inputs → N-dimensional joint histogram. They are broadcast against
+        each other and must lie on one device.
+    bins : int, str, 1-D array, or per-input list thereof
+        int/str specs are resolved on the host with
+        ``np.histogram_bin_edges``. With edge arrays, all but the last bin
+        are right-open; the last is closed.
+    range : (lo, hi) or per-input list thereof, optional
+    axis : None | int | tuple of int
+        Axes reduced by the histogram; the rest are preserved per element.
+        ``None`` reduces everything.
+    weights : not ported yet; must be None.
+    density : bool — normalize to a PDF per preserved row (integral == 1).
+    block_size : accepted for signature parity with the JAX package; only
+        its ``onehot`` strategy reads it, and that is not ported yet.
+    method : 'auto' | 'scatter' | 'cuda' (alias 'pallas')
+        'auto' runs the CUDA kernel that the JAX package's ``plan()`` names
+        for a CUDA tensor, and the scatter strategy on the CPU or where the
+        JAX package runs its scatter strategy too. A kernel that is not
+        ported yet raises ``NotImplementedError``. 'cuda' forces the fused
+        kernel route (on a CPU tensor it runs the kernel's plain version).
+    precision : not ported yet; must be None.
+
+    Returns
+    -------
+    hist : torch.Tensor on the inputs' device — int64 counts, or float32
+        density.
+    bin_edges : list of np.ndarray.
+    """
+    if not args:
+        raise ValueError("histogram() requires at least one input array")
+    if weights is not None:
+        raise NotImplementedError(
+            "weights= is not ported yet (ROADMAP queue 1, item 8: core.py "
+            "weighted)"
+        )
+    if precision is not None:
+        raise NotImplementedError(
+            "precision= is not ported yet (ROADMAP queue 1, item 8: core.py "
+            "weighted)"
+        )
+    n_inputs = len(args)
+    args = [_coerce_host(a) for a in args]
+    device = args[0].device
+    if any(a.device != device for a in args):
+        raise ValueError(
+            f"histogram inputs must lie on one device, got {[str(a.device) for a in args]}"
+        )
+
+    edges_np = _bins.resolve_bin_edges(args, bins, range)
+    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+    for nb in nbins:
+        if nb < 1:
+            raise ValueError("each bins spec must define at least one bin")
+    forms = [_bins.compare_form(e, _numpy_dtype(a)) for a, e in zip(args, edges_np)]
+    thresholds = [torch.from_numpy(f.edges).to(device) for f in forms]
+    n_hi_clip = [int(f.n_hi_clip) for f in forms]
+
+    try:
+        shape = torch.broadcast_shapes(*(a.shape for a in args))
+    except RuntimeError:
+        raise ValueError(
+            "Incompatible shapes for broadcasting: shapes="
+            f"{[tuple(a.shape) for a in args]}"
+        ) from None
+    arrays = [a.expand(shape) for a in args]
+    axis_t = normalize_axis(axis, len(shape))
+    kshape = kept_shape(shape, axis_t)
+    full_reduce = kshape == ()
+
+    with scope("canonicalize"):
+        arrays_2d = [canonicalize_2d(a, axis_t) for a in arrays]
+
+    # pallas_hist._dispatch's view: a layout with one row is a full reduction
+    m, c = arrays_2d[0].shape
+    reduce_all = full_reduce or m == 1
+    kernel = plan(n_inputs, nbins, 1 if reduce_all else m,
+                  None if reduce_all else c)
+    if method in ("cuda", "pallas"):
+        # forced outside the efficient envelopes: the general kernel
+        kernel = kernel or ("factored" if reduce_all else "direct")
+        counts = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
+                              n_hi_clip)
+    elif (
+        method == "auto"
+        and device.type == "cuda"
+        and kernel is not None
+        and not any(n_hi_clip)  # the JAX package's auto gate
+    ):
+        counts = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
+                              n_hi_clip)
+    else:
+        with scope("digitize"):
+            indices = [
+                digitize_edges(a, t, n_hi_clip=nh)
+                for a, t, nh in zip(arrays_2d, thresholds, n_hi_clip)
+            ]
+            g, n_slots = joint_bin_index(indices, nbins)
+        with scope("bincount"):
+            counts = bincount2d(
+                g, n_slots, method="scatter" if method == "auto" else method
+            )
+    counts = counts[..., :-1]  # drop the trash slot (== reference's [1:-1])
+    h = counts.reshape(kshape + nbins)
+
+    if density:
+        # per-kept-row totals, areas from the original edges, in the JAX
+        # package's order: counts / area / totals, in float32
+        bin_area = torch.as_tensor(
+            _bins.bin_areas(edges_np), dtype=torch.float32, device=device
+        )
+        totals = h.sum(dim=tuple(_builtin_range(-n_inputs, 0)), keepdim=True)
+        h = h / bin_area / totals
+    return h, edges_np
+
