@@ -1,7 +1,10 @@
 """The port's public ``histogram`` end to end, against the JAX package.
 
-Kept rows, density, dtypes and the error contract, on the CPU path.
+Kept rows, density, dtypes, device placement and the error contract, on the
+CPU path.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -10,10 +13,13 @@ import torch
 import xhistogram_tpu
 import xhistogram_torch
 
+# numpy inputs run on the card unless the caller names another device
+histogram_cpu = functools.partial(xhistogram_torch.histogram, device="cpu")
+
 
 def _both(*args, **kwargs):
     """(port result as numpy, JAX result as numpy) for the same call."""
-    h, edges = xhistogram_torch.histogram(*args, **kwargs)
+    h, edges = histogram_cpu(*args, **kwargs)
     jh, jedges = xhistogram_tpu.histogram(*args, **kwargs)
     for e, je in zip(edges, jedges):
         np.testing.assert_array_equal(e, je)
@@ -176,7 +182,7 @@ MISUSE = {
 
 @pytest.mark.parametrize("probe", list(MISUSE), ids=list(MISUSE))
 def test_error_contract_matches_jax(probe):
-    got = _raised(lambda: MISUSE[probe](xhistogram_torch.histogram))
+    got = _raised(lambda: MISUSE[probe](histogram_cpu))
     want = _raised(lambda: MISUSE[probe](xhistogram_tpu.histogram))
     assert want is not None
     assert got == want
@@ -193,7 +199,7 @@ def test_complex_tensor_raises_like_jax():
 def test_top_edge_clip_raises_on_the_kernel_route():
     a = np.array([0.5, 1.0], np.float32)
     bins = [np.array([0.0, np.inf]), E]
-    got = _raised(lambda: xhistogram_torch.histogram(a, a, bins=bins, method="cuda"))
+    got = _raised(lambda: histogram_cpu(a, a, bins=bins, method="cuda"))
     want = _raised(lambda: xhistogram_tpu.histogram(a, a, bins=bins, method="pallas"))
     assert got[0] is want[0] is NotImplementedError
     assert got[1].split(";")[0] == want[1].split(";")[0].replace("'pallas'", "'cuda'")
@@ -210,12 +216,43 @@ def test_top_edge_clip_raises_on_the_kernel_route():
 )
 def test_weighted_not_ported(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
-        xhistogram_torch.histogram(np.ones(4), bins=[E], **kwargs)
+        histogram_cpu(np.ones(4), bins=[E], **kwargs)
 
 
 def test_uint64_not_ported():
     with pytest.raises(NotImplementedError, match="uint64"):
-        xhistogram_torch.histogram(np.arange(4, dtype=np.uint64), bins=[E])
+        histogram_cpu(np.arange(4, dtype=np.uint64), bins=[E])
+
+
+def test_numpy_inputs_need_a_card_or_device_cpu(monkeypatch):
+    # numpy inputs run on the card by default; without one the call names
+    # the way to the CPU instead of quietly running there
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.linspace(0, 2, 10)
+    for call in (
+        lambda: xhistogram_torch.histogram(x, bins=[E]),
+        lambda: xhistogram_torch.histogram(x, bins=[E], device="cuda"),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    h, _ = xhistogram_torch.histogram(x, bins=[E], device="cpu")
+    assert h.device.type == "cpu" and h.tolist() == [5, 5]
+    # a tensor runs where it lies, with or without a matching device=
+    t = torch.from_numpy(x)
+    for kwargs in ({}, {"device": "cpu"}, {"device": torch.device("cpu")}):
+        h, _ = xhistogram_torch.histogram(t, bins=[E], **kwargs)
+        assert h.device.type == "cpu" and h.tolist() == [5, 5]
+    # numpy inputs beside a tensor follow the tensor's device
+    h, _ = xhistogram_torch.histogram(x, t, bins=[E, E])
+    assert h.device.type == "cpu" and int(h.sum()) == 10
+
+
+def test_conflicting_device_raises():
+    t = torch.linspace(0, 2, 10)
+    with pytest.raises(ValueError, match="conflicts with an input tensor"):
+        xhistogram_torch.histogram(t, bins=[E], device="meta")
+    with pytest.raises(ValueError, match="conflicts with an input tensor"):
+        xhistogram_torch.histogram(np.ones(3), t, bins=[E, E], device="meta")
 
 
 @pytest.mark.parametrize(
@@ -229,18 +266,37 @@ def test_uint64_not_ported():
     ids=["one_input", "per_row", "direct", "factored"],
 )
 def test_unported_kernels_raise_on_the_kernel_route(args, kwargs, kernel):
+    """An unported kernel raises on the kernel route; a ported one (one_input)
+    runs its kernel's wrapper there and equals the JAX kernel."""
     bins = [np.linspace(0, 2, 9)] * len(args)
-    with pytest.raises(NotImplementedError, match=f"'{kernel}' kernel is not ported"):
-        xhistogram_torch.histogram(*args, bins=bins, method="cuda", **kwargs)
+    if kernel == "one_input":
+        got, _ = histogram_cpu(*args, bins=bins, method="cuda", **kwargs)
+        jax_kernel, _ = xhistogram_tpu.histogram(
+            *args, bins=bins, method="pallas", **kwargs
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_kernel))
+    else:
+        with pytest.raises(NotImplementedError, match=f"'{kernel}' kernel is not ported"):
+            histogram_cpu(*args, bins=bins, method="cuda", **kwargs)
     # on the CPU, auto runs the plain path for the same call
     h, jh = _both(*args, bins=bins, **kwargs)
     np.testing.assert_array_equal(h.numpy(), jh)
 
 
 def test_joint2_other_dtypes_raise_on_the_kernel_route():
-    a = np.linspace(0, 1, 64)
-    with pytest.raises(NotImplementedError, match="float32 data only"):
-        xhistogram_torch.histogram(a, a, bins=[E, E], method="cuda")
+    """float64, int32, int64 and float16 data take the joint2 route (the
+    wrapper widens float16), bit-equal to the JAX kernel; no raise is left."""
+    rng = np.random.default_rng(11)
+    a = rng.normal(0.5, 0.5, 64)
+    e = np.linspace(-0.5, 1.5, 9)
+    for x in (a, a.astype(np.float16), (a * 8).astype(np.int32),
+              (a * 8).astype(np.int64) << 33):
+        bins = [e * (2**33 if x.dtype == np.int64 else 8 if x.dtype.kind == "i" else 1)] * 2
+        got, _ = histogram_cpu(x, x[::-1].copy(), bins=bins, method="cuda")
+        jax_kernel, _ = xhistogram_tpu.histogram(
+            x, x[::-1].copy(), bins=bins, method="pallas"
+        )
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_kernel))
 
 
 def test_profiler_ranges_carry_the_stage_names():

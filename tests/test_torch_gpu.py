@@ -1,4 +1,5 @@
-"""The CUDA joint2 kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (joint2, one_input) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA card and skips without one. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -14,7 +15,8 @@ import xhistogram_torch
 from xhistogram_torch import bins as tbins
 from xhistogram_torch.ops import cuda_hist
 from ts_cases import (
-    EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, numpy_hist2d, ts_data,
+    EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, edge_case_values, numpy_hist2d,
+    reference_numpy, ts_data,
 )
 
 pytestmark = pytest.mark.gpu
@@ -122,12 +124,169 @@ def test_auto_runs_the_kernel_on_the_main_path(cuda):
 def test_auto_routing_outside_the_kernel(cuda):
     x = torch.linspace(0, 2, 1000, device=cuda)
     e = np.array([0.0, 1.0, 2.0])
-    with pytest.raises(NotImplementedError, match="'one_input' kernel"):
-        xhistogram_torch.histogram(x, bins=[e])
-    with pytest.raises(NotImplementedError, match="float32 data only"):
-        xhistogram_torch.histogram(x.double(), x.double(), bins=[e, e])
+    # one input and float64 pairs now run their kernels
+    before = cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES
+    h, _ = xhistogram_torch.histogram(x, bins=[e])
+    assert h.cpu().tolist() == [500, 500]
+    h, _ = xhistogram_torch.histogram(x.double(), x.double(), bins=[e, e])
+    assert h.cpu().tolist() == [[500, 0], [0, 500]]
+    assert (cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    # int64 with a float has no exact common compare type: raise, no fallback
+    with pytest.raises(NotImplementedError, match="no exact common compare type"):
+        xhistogram_torch.histogram(x.long(), x, bins=[e, e])
     # a +inf top edge: the JAX package's auto gate runs scatter, and so here
-    before = cuda_hist.JOINT2_LAUNCHES
+    before = cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES
     h, _ = xhistogram_torch.histogram(x, x, bins=[np.array([0.0, np.inf]), e])
-    assert cuda_hist.JOINT2_LAUNCHES == before
     assert h.device.type == "cuda" and h.cpu().tolist() == [[500, 500]]
+    h, _ = xhistogram_torch.histogram(x, bins=[np.array([0.0, np.inf])])
+    assert h.cpu().tolist() == [1000]
+    assert (cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.int64, torch.float16],
+                         ids=str)
+def test_joint2_other_dtypes(cuda, dtype):
+    t_np, s_np = ts_data((1 << 20,), seed=6)
+    if dtype.is_floating_point:
+        t, s = (torch.from_numpy(x).to(cuda, dtype) for x in (t_np, s_np))
+        te, se = T_EDGES, S_EDGES
+    else:
+        scale = 2**40 if dtype == torch.int64 else 64
+        t, s = (torch.from_numpy(x * 64).to(cuda).to(dtype) * (scale // 64)
+                for x in (t_np, s_np))
+        te, se = T_EDGES * scale + 0.5, S_EDGES * scale
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    ta, tb = (torch.from_numpy(tbins.compare_form(e, np_dtype).edges).to(cuda)
+              for e in (te, se))
+    before = cuda_hist.JOINT2_LAUNCHES
+    got = cuda_hist.joint2(t, s, ta, tb, 280, 340)
+    want = cuda_hist.joint2_reference(t, s, ta, tb, 280, 340)
+    assert cuda_hist.JOINT2_LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+# --- one_input ----------------------------------------------------------------
+
+
+def _one_input_pair(x2d, edges, reduce_all):
+    """(kernel counts, plain counts) on the card for one (m, c) layout."""
+    nb = len(edges) - 1
+    np_dtype = torch.empty(0, dtype=x2d.dtype).numpy().dtype
+    ce = tbins.compare_form(edges, np_dtype)
+    assert ce.n_hi_clip == 0
+    thr = torch.from_numpy(ce.edges).to(x2d.device)
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    got = cuda_hist.one_input(x2d, thr, nb, reduce_all)
+    torch.cuda.synchronize()
+    assert cuda_hist.ONE_INPUT_LAUNCHES == before + (1 if x2d.numel() else 0)
+    want = cuda_hist.one_input_reference(x2d, thr, nb, reduce_all)
+    assert got.device == x2d.device and got.dtype == torch.int64
+    assert got.shape == (1 if reduce_all else x2d.shape[0], nb + 1)
+    return got.cpu(), want.cpu()
+
+
+def _edges(nb):
+    return np.linspace(-3.0, 3.0, nb + 1)
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["first", "second"])
+@pytest.mark.parametrize("name", list(EDGE_SETS))
+def test_one_input_edge_cases(cuda, name, which):
+    edges = np.asarray(EDGE_SETS[name][which])
+    x_np = edge_case_values(edges, n_random=10_000, seed=which)
+    x = torch.from_numpy(x_np).to(cuda)
+    got, want = _one_input_pair(x.reshape(1, -1), edges, True)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got[0, :-1].numpy(), reference_numpy(x_np, edges))
+    rows = torch.stack([x, x.flip(0)])
+    for layout in (rows, rows.t().contiguous().t()):  # contiguous and strided
+        got, want = _one_input_pair(layout, edges, False)
+        assert torch.equal(got, want)
+
+
+def test_one_input_negative_subnormal_is_below_a_zero_edge(cuda):
+    x = torch.tensor([[-1e-45, 1e-45, -0.0, 0.0]], device=cuda)
+    got, _ = _one_input_pair(x, np.array([0.0, 1.0]), True)
+    assert got.tolist() == [[3, 0]]
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4097, (1 << 20) + 3, 1 << 24])
+def test_one_input_ragged_sizes(cuda, n):
+    x = torch.from_numpy(ts_data((n,), seed=n)[0] - 14.0).to(cuda) / 8
+    for layout, reduce_all in ((x.reshape(1, n), True), (x.reshape(1, n), False)):
+        got, want = _one_input_pair(layout, _edges(50), reduce_all)
+        assert torch.equal(got, want)
+    if n > 1:  # a strided full reduction is read in place
+        got, want = _one_input_pair(x[::2].reshape(1, -1), _edges(50), True)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nb", [1, 50, 64, 1024])
+@pytest.mark.parametrize("c", [1, 7, 365, 100_000])
+def test_one_input_kept_rows(cuda, c, nb):
+    m = max(1, min(4096, (1 << 22) // c))
+    gen = torch.Generator(device=cuda).manual_seed(c + nb)
+    x = 1.5 * torch.randn(m, c, device=cuda, generator=gen)
+    x[::7, ::3] = float("nan")
+    strided = torch.randn(c, m, device=cuda, generator=gen).t()  # strides (1, m)
+    for layout in (x, strided):
+        for reduce_all in (False, True):
+            got, want = _one_input_pair(layout, _edges(nb), reduce_all)
+            assert torch.equal(got, want), (layout.stride(), reduce_all)
+
+
+@pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.float64, torch.int32, torch.int64, torch.float16],
+    ids=str,
+)
+def test_one_input_dtypes(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(1 << 24, device=cuda, generator=gen, dtype=torch.float64)
+    if dtype.is_floating_point:
+        x, edges = x.to(dtype), _edges(50)
+    elif dtype == torch.int32:
+        x, edges = (x * 2000).to(dtype), np.linspace(-3000.5, 3000.5, 51)
+    else:
+        x, edges = (x * 2.0**43).to(dtype), np.linspace(-(2.0**44), 2.0**44, 51)
+    for layout, reduce_all in ((x.reshape(1, -1), True), (x.reshape(4096, -1), False),
+                               (x.reshape(-1, 4096).t(), False)):
+        got, want = _one_input_pair(layout, edges, reduce_all)
+        assert torch.equal(got, want), (dtype, layout.stride())
+
+
+def test_one_input_alternating_shapes(cuda):
+    # each kernel instantiation keeps its own launch shape; switching the
+    # type, the bin count, the layout and full/kept must never reuse another's
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(512, 700, device=cuda, generator=gen)
+    cases = [
+        (x, 50, True), (x.double(), 1024, False), (x.t(), 64, False),
+        ((x * 1000).int(), 1, True), ((x * 1000).long(), 50, False),
+        (x, 1024, True), (x.t(), 50, True), (x.half(), 64, False),
+    ]
+    for layout, nb, reduce_all in cases + cases[::-1]:
+        edges = _edges(nb) * (1000 if not layout.is_floating_point() else 1)
+        got, want = _one_input_pair(layout, edges, reduce_all)
+        assert torch.equal(got, want), (layout.dtype, nb, reduce_all)
+
+
+def test_auto_runs_the_one_input_kernel(cuda):
+    rng = np.random.default_rng(12)
+    x_np = rng.normal(20.0, 5.0, (36, 18, 24)).astype(np.float32)
+    edges = np.linspace(0, 40, 81)
+    for axis in (None, (1, 2), (0,)):  # full, rows, config 4's strided rows
+        before = cuda_hist.ONE_INPUT_LAUNCHES
+        h, _ = xhistogram_torch.histogram(torch.from_numpy(x_np).to(cuda),
+                                          bins=[edges], axis=axis)
+        assert cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+        assert h.device.type == "cuda" and h.dtype == torch.int64
+        np.testing.assert_array_equal(h.cpu().numpy(), reference_numpy(x_np, edges, axis))
+    # numpy inputs run on the card by default
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    h, _ = xhistogram_torch.histogram(x_np, bins=[edges])
+    assert h.device.type == "cuda" and cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+    h_cpu, _ = xhistogram_torch.histogram(x_np, bins=[edges], device="cpu")
+    assert h_cpu.device.type == "cpu" and torch.equal(h.cpu(), h_cpu)
+    with pytest.raises(ValueError, match="conflicts with an input tensor"):
+        xhistogram_torch.histogram(torch.from_numpy(x_np), bins=[edges], device="cuda")

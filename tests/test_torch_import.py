@@ -1,4 +1,7 @@
-"""The PyTorch port imports without JAX and without Triton."""
+"""The PyTorch port imports without JAX and without Triton, and neither it,
+``chip_smoke.py`` (with the numpy references it takes from
+``tests/ts_cases.py``) nor the probes under ``tools/`` import anything of
+the JAX package or its bench."""
 
 import pathlib
 import subprocess
@@ -25,8 +28,10 @@ def test_import_leaves_jax_and_triton_out():
 def test_no_port_file_imports_jax():
     sources = sorted((REPO / "xhistogram_torch").rglob("*.py"))
     assert sources
-    for path in sources + [REPO / "chip_smoke.py"]:
+    scripts = [REPO / "chip_smoke.py", REPO / "tests" / "ts_cases.py",
+               *sorted((REPO / "tools").glob("*.py"))]
+    for path in sources + scripts:
         text = path.read_text()
         for banned in ("import jax", "from jax", "import xhistogram_tpu",
-                       "from xhistogram_tpu"):
+                       "from xhistogram_tpu", "import bench", "from bench"):
             assert banned not in text, (path, banned)

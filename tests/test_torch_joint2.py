@@ -100,8 +100,10 @@ def test_wrapper_contract_on_cpu():
     want = cuda_hist.joint2(t.t().contiguous(), s.t().contiguous(), ta, tb, 280, 340)
     assert torch.equal(got, want)
     assert cuda_hist.JOINT2_LAUNCHES == before  # the CPU path launches nothing
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="thresholds must be in the data's dtype"):
         cuda_hist.joint2(t.double(), s.double(), ta, tb, 280, 340)
+    with pytest.raises(TypeError, match="data, got torch.bfloat16"):
+        cuda_hist.joint2(t.bfloat16(), s, ta.bfloat16(), tb, 280, 340)
     with pytest.raises(ValueError, match="equally many"):
         cuda_hist.joint2(t, s[:2], ta, tb, 280, 340)
     with pytest.raises(ValueError, match="thresholds"):
@@ -123,3 +125,63 @@ def test_plan_matches_jax(nbins):
         assert cuda_hist.plan(len(nbins), nbins, m, c) == pallas_hist.plan(
             len(nbins), nbins, m, c=c, weighted=False, uniform=None
         ), (m, c)
+
+
+def _dtype_case(dtype, seed):
+    """T–S-like data and edges in ``dtype``; integer edges fall between
+    integers and, for int64, beyond float64's exact integers."""
+    t, s = ts_data((8, 512), seed=seed)
+    if dtype == "int64":
+        scale = 2**40
+        return ((t * 64).astype(np.int64) * scale + 3, (s * 64).astype(np.int64) * scale,
+                T_EDGES.astype(np.float64) * 64 * scale + 0.5,
+                S_EDGES.astype(np.float64) * 64 * scale)
+    if dtype == "int32":
+        return ((t * 64).astype(np.int32), (s * 64).astype(np.int32),
+                T_EDGES * 64 + 0.5, S_EDGES * 64)
+    return t.astype(dtype), s.astype(dtype), T_EDGES, S_EDGES
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int32", "int64", "float16"])
+def test_other_dtypes_bit_equal_to_jax_kernel(dtype):
+    t, s, te, se = _dtype_case(dtype, seed=len(dtype))
+    jax_kernel = np.asarray(xhistogram_tpu.histogram(t, s, bins=[te, se], method="pallas")[0])
+    if dtype != "int64":  # numpy's histogram2d compares int64 data in float64
+        np.testing.assert_array_equal(jax_kernel, numpy_hist2d(t, s, te, se))
+    for method in ("auto", "cuda"):
+        h, _ = xhistogram_torch.histogram(
+            torch.from_numpy(t), torch.from_numpy(s), bins=[te, se], method=method
+        )
+        np.testing.assert_array_equal(h.numpy(), jax_kernel, err_msg=method)
+
+
+def test_mixed_dtypes_bit_equal_to_jax_kernel():
+    t, s = ts_data((8, 512), seed=9)
+    s = s.astype(np.float64) + 1e-9  # not a float32 value
+    jax_kernel = np.asarray(
+        xhistogram_tpu.histogram(t, s, bins=[T_EDGES, S_EDGES], method="pallas")[0]
+    )
+    np.testing.assert_array_equal(jax_kernel, numpy_hist2d(t, s, T_EDGES, S_EDGES))
+    h, _ = xhistogram_torch.histogram(
+        torch.from_numpy(t), torch.from_numpy(s), bins=[T_EDGES, S_EDGES], method="cuda"
+    )
+    np.testing.assert_array_equal(h.numpy(), jax_kernel)
+
+
+@pytest.mark.parametrize(
+    "dtypes,want",
+    [
+        ((torch.float16, torch.float16), torch.float32),
+        ((torch.float32, torch.float32), torch.float32),
+        ((torch.float32, torch.float64), torch.float64),
+        ((torch.int32, torch.float32), torch.float64),
+        ((torch.int32, torch.int64), torch.int64),
+        ((torch.int64, torch.int64), torch.int64),
+        ((torch.int64, torch.float64), None),
+        ((torch.int64, torch.float32), None),
+    ],
+    ids=str,
+)
+def test_compare_dtype_widens_exactly(dtypes, want):
+    # the card's joint2 compares both inputs in this one type
+    assert cuda_hist._compare_dtype(dtypes) == want

@@ -1,4 +1,5 @@
-"""Shared inputs of the port's joint2 tests (numpy only, no JAX)."""
+"""Shared inputs and numpy references of the port's tests and of
+``chip_smoke.py`` (numpy only: no JAX, nothing of the JAX package)."""
 
 import numpy as np
 
@@ -50,3 +51,59 @@ def numpy_hist2d(t, s, te, se):
         bins=[np.asarray(te, np.float64), np.asarray(se, np.float64)],
     )
     return h.astype(np.int64)
+
+
+def edge_case_values(edges, n_random=64, seed=0):
+    """One input's edge cases: each edge, one ulp either side, NaN, ±inf,
+    ±0 and the smallest subnormals, then random picks among them."""
+    e = np.asarray(edges, np.float32)
+    specials = np.concatenate([
+        e,
+        np.nextafter(e, np.float32(-np.inf)),
+        np.nextafter(e, np.float32(np.inf)),
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, -1e-45, 1e-45], np.float32),
+    ])
+    rng = np.random.default_rng(seed)
+    return np.concatenate([specials, rng.choice(specials, n_random)])
+
+
+def _searchsorted_inclusive(a, edges):
+    """The reference's digitize: searchsorted-right, with values on the last
+    edge moved into the last bin (reference core.py:163-174)."""
+    idx = np.searchsorted(edges, a, side="right")
+    idx[a == edges[-1]] -= 1
+    return idx
+
+
+def reference_numpy_ts(t, s, t_edges, s_edges):
+    """The reference's exact numpy hot path for the T–S diagram: the port's
+    own copy of ``bench.py::reference_numpy_ts`` (reference core.py:73-83,
+    163-186): searchsorted-right with inclusive last edge, ravel to joint
+    bins, one flat bincount, trim the out-of-range slots."""
+    hist_shapes = [len(t_edges) + 1, len(s_edges) + 1]
+    it = _searchsorted_inclusive(t.ravel(), t_edges)
+    is_ = _searchsorted_inclusive(s.ravel(), s_edges)
+    flat = np.ravel_multi_index([it, is_], hist_shapes)
+    bc = np.bincount(flat, minlength=hist_shapes[0] * hist_shapes[1])
+    return bc.reshape(hist_shapes)[1:-1, 1:-1]
+
+
+def reference_numpy(a, edges, axis=None):
+    """One input's reference histogram, in the style of
+    ``benchmarks/run_baselines.py::reference_numpy``: ``axis`` (a tuple, or
+    None for every axis) is reduced, the other axes are kept as rows, and
+    each row gets one offset bincount. int64 counts shaped
+    ``kept + (nb,)``."""
+    if axis is None:
+        a2, kept = a.reshape(1, -1), ()
+    else:
+        kept_axes = [i for i in range(a.ndim) if i not in axis]
+        kept = tuple(a.shape[i] for i in kept_axes)
+        moved = np.moveaxis(a, axis, tuple(range(-len(axis), 0)))
+        a2 = moved.reshape(int(np.prod(kept, dtype=np.int64)), -1)
+    n = len(edges) + 1
+    idx = _searchsorted_inclusive(a2, edges)
+    m = idx.shape[0]
+    off = (idx + n * np.arange(m)[:, None]).ravel()
+    counts = np.bincount(off, minlength=n * m).reshape(m, n)
+    return counts[:, 1:-1].reshape(kept + (n - 2,)).astype(np.int64)

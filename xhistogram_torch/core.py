@@ -2,9 +2,11 @@
 
 Counterpart of ``xhistogram_tpu.core.histogram`` (the contract of the
 reference's ``xhistogram.core.histogram``, reference core.py:250-466) for
-torch tensors. Tensors stay on the device the caller put them on: numpy and
-Python inputs become CPU tensors, nothing moves to the GPU implicitly, and
-the counts come back on the inputs' device.
+torch tensors. Where it runs: a torch tensor runs on the device it lies on,
+since putting it there was the caller's choice, and nothing moves it. numpy
+and Python inputs are copied to ``device=``, which defaults to the CUDA
+card; without a card they need ``device="cpu"``. The counts come back on
+the inputs' device.
 
 dtype rules: unweighted counts are int64, the reference's dtype (the JAX
 package's int32 is a TPU word-size artifact). Density results are float32,
@@ -19,7 +21,7 @@ import torch
 
 from . import bins as _bins
 from .ops.bincount import bincount2d
-from .ops.cuda_hist import joint2, plan
+from .ops.cuda_hist import joint2, one_input, plan
 from .ops.digitize import digitize_edges, joint_bin_index
 from .utils.axes import canonicalize_2d, kept_shape, normalize_axis
 from .utils.profiling import scope
@@ -28,7 +30,6 @@ __all__ = ["histogram"]
 
 # ROADMAP entry of each kernel plan() may name that is not ported yet
 _UNPORTED = {
-    "one_input": "queue 2, item 2",
     "factored": "queue 2, item 3",
     "factored_per_row": "queue 2, item 3",
     "factored_packed": "queue 2, item 3",
@@ -51,14 +52,16 @@ _UINT64_MSG = (
 
 
 def _coerce_host(x):
-    """Input coercion to a tensor the digitize can compare exactly.
+    """Input coercion to a tensor or numpy array the digitize can compare
+    exactly.
 
-    numpy and Python inputs become CPU tensors (datetime64 viewed as int64,
-    since binning only needs order). Sub-32-bit integers are promoted to
-    int32 so the edge-comparison transform never saturates at the dtype
-    boundary; uint32 goes to int64. bfloat16 widens to float32, which is
-    exact and keeps every comparison (numpy has no bfloat16 for the host
-    edge transform). Complex input raises.
+    numpy and Python inputs become numpy arrays (datetime64 viewed as int64,
+    since binning only needs order); ``_place`` copies them to the device.
+    Sub-32-bit integers are promoted to int32 so the edge-comparison
+    transform never saturates at the dtype boundary; uint32 goes to int64.
+    bfloat16 widens to float32, which is exact and keeps every comparison
+    (numpy has no bfloat16 for the host edge transform). Complex input
+    raises.
     """
     if isinstance(x, torch.Tensor):
         if x.is_complex():
@@ -85,14 +88,56 @@ def _coerce_host(x):
         raise NotImplementedError(_UINT64_MSG)
     if any(s < 0 for s in x.strides):
         x = x.copy()  # torch views no negative strides
-    return torch.from_numpy(x)
+    return x
+
+
+_NO_CARD_MSG = (
+    "no CUDA card is available for the numpy/Python inputs: histogram() "
+    "runs them on the card unless asked otherwise; pass device=\"cpu\" to "
+    "run on the CPU"
+)
+
+
+def _place(args, device):
+    """The inputs as tensors on one device.
+
+    Tensors stay where they lie. numpy inputs go to ``device``, else to the
+    tensor inputs' device, else to the CUDA card (raising without one).
+    An explicit ``device`` that differs from a tensor input's raises.
+    """
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(_NO_CARD_MSG)
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+        for t in tensors:
+            if t.device != device:
+                raise ValueError(
+                    f"device={str(device)!r} conflicts with an input tensor on "
+                    f"{t.device}; histogram() moves no tensor, so move it "
+                    "first or drop device="
+                )
+    elif tensors:
+        device = tensors[0].device
+    elif torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        raise RuntimeError(_NO_CARD_MSG)
+    return [
+        a if isinstance(a, torch.Tensor) else torch.from_numpy(a).to(device)
+        for a in args
+    ]
 
 
 def _numpy_dtype(t):
     return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
-def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip):
+def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
+                 reduce_all):
     """Counts ``(rows, prod(nbins) + 1)`` from ``kernel``, the kernel the
     JAX package would run here (``pallas_hist._dispatch``), or a raise if it
     is not ported."""
@@ -102,18 +147,15 @@ def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip):
             "dtype's top value (int max / +inf); use method='auto' or "
             "method='scatter' for this edge configuration"
         )
-    if kernel != "joint2":
+    if kernel in _UNPORTED:
         raise NotImplementedError(
             f"the {kernel!r} kernel is not ported to CUDA yet (ROADMAP "
             f"{_UNPORTED[kernel]}); method='scatter' runs the plain strategy"
         )
-    if any(a.dtype != torch.float32 for a in arrays_2d):
-        raise NotImplementedError(
-            "the joint2 CUDA kernel takes float32 data only so far, got "
-            f"{[a.dtype for a in arrays_2d]} (ROADMAP queue 2, item 1)"
-        )
-    a, b = arrays_2d  # joint2 runs only for a full reduction: (1, N) each
     with scope("cuda_kernel"):
+        if kernel == "one_input":
+            return one_input(arrays_2d[0], thresholds[0], nbins[0], reduce_all)
+        a, b = arrays_2d  # joint2 runs only for a full reduction: (1, N) each
         return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1])
 
 
@@ -127,6 +169,7 @@ def histogram(
     block_size="auto",
     method="auto",
     precision=None,
+    device=None,
 ):
     """Histogram applied along specified axis / axes.
 
@@ -134,7 +177,8 @@ def histogram(
     ----------
     args : torch tensors, numpy arrays or array-likes
         N inputs → N-dimensional joint histogram. They are broadcast against
-        each other and must lie on one device.
+        each other and must lie on one device. A tensor runs where it lies;
+        numpy and Python inputs are copied to ``device``.
     bins : int, str, 1-D array, or per-input list thereof
         int/str specs are resolved on the host with
         ``np.histogram_bin_edges``. With edge arrays, all but the last bin
@@ -154,6 +198,11 @@ def histogram(
         ported yet raises ``NotImplementedError``. 'cuda' forces the fused
         kernel route (on a CPU tensor it runs the kernel's plain version).
     precision : not ported yet; must be None.
+    device : torch.device or str, optional
+        Where numpy and Python inputs run. ``None`` means the tensor inputs'
+        device, or the CUDA card when every input is numpy/Python; with no
+        card that raises ``RuntimeError`` (pass ``device="cpu"``). A
+        ``device`` that differs from a tensor input's raises ``ValueError``.
 
     Returns
     -------
@@ -174,7 +223,7 @@ def histogram(
             "weighted)"
         )
     n_inputs = len(args)
-    args = [_coerce_host(a) for a in args]
+    args = _place([_coerce_host(a) for a in args], device)
     device = args[0].device
     if any(a.device != device for a in args):
         raise ValueError(
@@ -214,7 +263,7 @@ def histogram(
         # forced outside the efficient envelopes: the general kernel
         kernel = kernel or ("factored" if reduce_all else "direct")
         counts = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
-                              n_hi_clip)
+                              n_hi_clip, reduce_all)
     elif (
         method == "auto"
         and device.type == "cuda"
@@ -222,7 +271,7 @@ def histogram(
         and not any(n_hi_clip)  # the JAX package's auto gate
     ):
         counts = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
-                              n_hi_clip)
+                              n_hi_clip, reduce_all)
     else:
         with scope("digitize"):
             indices = [

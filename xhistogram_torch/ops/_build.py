@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, at first use, into ``_build/``
-beside the package sources, keyed by a hash of the sources and the flags,
-and loaded with ``ctypes``. Nothing here runs at import time: machines
+Every ``csrc/*.cu`` is compiled by one ``nvcc`` call for Hopper
+(``sm_90a``) into one shared library with a plain C interface, at first
+use, into ``_build/`` beside the package sources, keyed by a hash of every
+file under ``csrc/`` (sources and headers) and the flags, and loaded with
+``ctypes``. Nothing here runs at import time: machines
 without ``nvcc`` (and the CPU tests) never call ``load``.
 """
 
@@ -20,7 +21,7 @@ from pathlib import Path
 __all__ = ["load", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "joint2.cu",)
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 # No --use_fast_math / -ftz=true: subnormals must compare exactly.
 _FLAGS = (
@@ -48,10 +49,19 @@ def _nvcc():
     )
 
 
+#: suffix of each kernel symbol, by the data type it takes
+DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
+
+
 def _declare(lib):
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.xh_joint2_f32.argtypes = [p, p, i64, p, i32, p, i32, p, p]
-    lib.xh_joint2_f32.restype = i32
+    for suffix in DTYPE_SUFFIXES:
+        fn = getattr(lib, f"xh_joint2_{suffix}")
+        fn.argtypes = [p, p, i64, p, i32, p, i32, p, p]
+        fn.restype = i32
+        fn = getattr(lib, f"xh_one_input_{suffix}")
+        fn.argtypes = [p, i64, i64, i64, i64, p, i32, i32, p, p]
+        fn.restype = i32
     return lib
 
 
@@ -60,9 +70,11 @@ def load():
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
+    sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
-        h.update(src.read_bytes())
+    for path in sorted(_CSRC.glob("*.cu*")):  # *.cu and *.cuh
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     so = _BUILD_DIR / f"xh_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -72,7 +84,7 @@ def load():
         os.close(fd)
         try:
             res = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", tmp, *map(str, _SOURCES)],
+                [_nvcc(), *_FLAGS, "-o", tmp, *map(str, sources)],
                 capture_output=True,
                 text=True,
             )
