@@ -5,26 +5,38 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (``csrc/joint2.cu``, ``csrc/one_input.cu``)
-from the sources in this checkout, holds each bit-exact against its plain
-PyTorch version on the card, and drives the ported paths through the public
-``xhistogram_torch.histogram``, with the kernels' launch counts set to 0
-just before each path and read just after:
+It builds the port's CUDA kernels (``csrc/joint2.cu``, ``csrc/one_input.cu``,
+``csrc/factored.cu``, ``csrc/direct.cu``) from the sources in this checkout,
+holds each bit-exact against its plain PyTorch version on the card, and
+drives the ported paths through the public ``xhistogram_torch.histogram``,
+with the kernels' launch counts set to 0 just before each path and read
+just after:
 
 - joint2: the 280x340 watermass T–S histogram of bench.py over 2^30 float32
   pairs;
 - one_input: BASELINE config 1 ((1000, 100000) float32, 50 bins, every axis
   reduced), config 2 unweighted (the same array with ``axis=1``, with and
   without ``density``), 2^30 float32 in 64 bins, and config 4 at one year
-  of daily 1° SST ((365, 180, 360) float32, ``axis=0``).
+  of daily 1° SST ((365, 180, 360) float32, ``axis=0``);
+- factored: the README's joint T–S diagram per depth level ((73, 50, 64800)
+  float32 x 2, 280x340 bins, ``axis=(0, 2)``, per row), 5e7 pairs in
+  1000x1000 bins (full), (1000, 100000) x 2 in 150x90 bins (per row) and
+  (16384, 64) x 2 in 120x90 bins (packed);
+- direct: (64800, 64) and (1000, 64) x 2 in 40x40 bins per row;
+- forced ``method="cuda"`` beyond ``plan()``'s caps: a full reduction over
+  2^21 slots (factored) and kept rows over 8192 slots (direct).
 
-It checks the counts against the plain versions and the port's numpy
-references (``tests/ts_cases.py``), and times kernels, plain versions, one
-PyTorch library call each and the public calls with CUDA events or the
-wall clock. Any mismatch raises. The line before the last is the card's
-name and power limit; the last line of standard output is one JSON object,
-``{"ok": true, ...}``. Without a CUDA card it fails before printing a
-result. It imports nothing of JAX.
+Before the paths, factored and direct are held against their plain versions
+on edge cases, ragged sizes, three inputs, one input in 5000 bins, slot
+counts either side of the shared-memory limit, data types, strided and
+broadcast views. It checks the counts against the plain versions and the
+port's numpy references (``tests/ts_cases.py``), and times kernels, plain
+versions, one PyTorch library call where one computes the same function,
+and the public calls with CUDA events or the wall clock. Any mismatch
+raises. The line before the last is the card's name and power limit; the
+last line of standard output is one JSON object, ``{"ok": true, ...}``.
+Without a CUDA card it fails before printing a result. It imports nothing
+of JAX.
 """
 
 import json
@@ -46,6 +58,14 @@ EDGES_ROW = np.linspace(-4, 4, 65)
 SST = (365, 180, 360)  # config 4 at one year of daily 1-degree data
 EDGES_SST = np.linspace(0, 40, 81)
 N_DTYPE = 1 << 24  # kernel vs plain per data type
+
+# the factored and direct paths, all with N(0,1) data except the T-S one
+README_TS = (73, 50, 64800)  # README.md:13-19: (time, depth, cell), axis=(0, 2)
+N_FULL = 50_000_000  # doc/perf_model.md:54, 1000x1000 bins on [-4, 4], full
+PER_ROW = (1000, 100_000)  # perf_model.md:55, axis=1, 150x90 bins
+PACKED = (16384, 64)  # perf_model.md:56, axis=1, 120x90 bins
+DIRECT = ((64800, 64), (1000, 64))  # perf_model.md:57 at config 4's grid and its own
+SLOT_ROUTES = ("full", "per_row", "packed", "direct")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
@@ -71,12 +91,12 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
-def in_turns(plain, kernel):
+def in_turns(plain, kernel, reps=10):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain after a
     warm-up of each."""
     kernel(), plain()
     plain_a, kernel_a, kernel_b, plain_b = (
-        event_ms(f) for f in (plain, kernel, kernel, plain)
+        event_ms(f, reps) for f in (plain, kernel, kernel, plain)
     )
     return (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
 
@@ -92,6 +112,301 @@ def bound(n_bytes, n_ops):
 def search_steps(nb):
     """Comparisons of one binary search over nb + 1 thresholds."""
     return int(np.ceil(np.log2(nb + 2)))
+
+
+def linspace_edges(nb):
+    return np.linspace(-4.0, 4.0, nb + 1)
+
+
+def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
+                        max_abs_err):
+    """The factored and direct kernels: each held bit-exact against its plain
+    version on edge cases, sizes, slot counts, dtypes and views, then the
+    five paths driven through the public API with the launch counts read.
+    Returns the two kernels' entries of the ``kernels`` line."""
+    from ts_cases import EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, numpy_hist2d
+    import xhistogram_torch
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
+    from xhistogram_torch.utils.profiling import measure
+
+    max_abs_err.update(factored=0, direct=0)
+
+    def operands(layouts, edges):
+        """Each input's thresholds on the card, and the bin counts."""
+        np_dtypes = [torch.empty(0, dtype=x.dtype).numpy().dtype for x in layouts]
+        return ([thresholds(e, d) for e, d in zip(edges, np_dtypes)],
+                [len(e) - 1 for e in edges])
+
+    def call(layouts, edges, route, plain=False, ops=None):
+        thr, nbins = ops or operands(layouts, edges)
+        if route == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(layouts, thr, nbins)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(layouts, thr, nbins, route)
+
+    def check(label, got, want, route):
+        key = "direct" if route == "direct" else "factored"
+        err = int((got - want).abs().max()) if got.numel() else 0
+        max_abs_err[key] = max(max_abs_err[key], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: {key} ({route}) != plain (max abs err {err})")
+
+    def compare(label, layouts, edges, routes=SLOT_ROUTES, expected=None):
+        for route in routes:
+            got = call(layouts, edges, route)
+            want = call(layouts, edges, route, plain=True)
+            torch.cuda.synchronize()
+            check(label, got, want, route)
+            if expected is not None and route == "full":
+                np.testing.assert_array_equal(
+                    got[0, :-1].cpu().numpy().reshape(expected.shape), expected,
+                    err_msg=f"{label}: factored (full) != numpy")
+        strides = " ".join("x".join(map(str, x.stride())) for x in layouts)
+        dtypes = "/".join(str(x.dtype).replace("torch.", "") for x in layouts)
+        bins = "x".join(str(len(e) - 1) for e in edges)
+        print(f"# factored/direct == plain: {label} ({len(layouts)} x "
+              f"{tuple(layouts[0].shape)}, strides {strides}, {dtypes}, {bins} bins; "
+              f"{', '.join(routes)})")
+
+    # === kernel vs plain on the card, bit-exact ==============================
+    for name, (te, se) in EDGE_SETS.items():
+        t, s = (x[: len(x) // 2 * 2] for x in edge_case_data(te, se, n_random=100_000))
+        third = np.full_like(t, 0.5)  # in the second of its two bins
+        h2 = numpy_hist2d(t, s, te, se)
+        compare(f"edges ±1 ulp, NaN, ±inf, ±0, subnormals, {name}",
+                [torch.from_numpy(x).to(dev).reshape(2, -1) for x in (t, s, third)],
+                [te, se, [0.0, 0.25, 1.0]], expected=np.stack([0 * h2, h2], -1))
+    x = torch.tensor([[-1e-45, 1e-45, -0.0, 0.0]], device=dev)
+    compare("-1e-45 vs a 0.0 edge is below the range", [x, torch.full_like(x, 0.5)],
+            [[0.0, 1.0]] * 2, expected=np.array([[3]]))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for m, c in ((0, 5), (5, 0), (1, 1), (7, 1), (3, 4097), (1, (1 << 20) + 3), (4099, 3)):
+        compare(f"ragged m={m} c={c}",
+                [torch.randn(m, c, device=dev, generator=gen) for _ in range(2)],
+                [linspace_edges(50), linspace_edges(30)])
+    x3 = [torch.randn(1 << 24, device=dev, generator=gen) for _ in range(3)]
+    e3 = [linspace_edges(100), linspace_edges(100), linspace_edges(50)]
+    compare("three inputs (500,000 slots)", [x.reshape(1, -1) for x in x3], e3,
+            routes=("full",))
+    compare("three inputs (500,000 slots), kept rows", [x.reshape(256, -1) for x in x3],
+            e3, routes=("per_row", "direct"))
+    compare("three inputs, narrow rows", [x.reshape(-1, 64)[:2048] for x in x3],
+            [linspace_edges(20), linspace_edges(25), linspace_edges(20)])
+    compare("one input, 5000 bins", [x3[0].reshape(1, -1)], [linspace_edges(5000)],
+            routes=("full",))
+    compare("one input, 5000 bins, kept rows", [x3[0].reshape(-1, 4096)[:512]],
+            [linspace_edges(5000)], routes=("per_row", "packed", "direct"))
+    compare("one input, 5000 bins, narrow rows", [x3[0].reshape(-1, 64)[:4096]],
+            [linspace_edges(5000)], routes=("packed", "direct"))
+    for nb in (239, 240):  # 57,121 slots in shared memory; 57,600 in device memory
+        compare(f"{nb}x{nb}, either side of the shared-memory limit",
+                [x.reshape(1, -1) for x in x3[:2]], [linspace_edges(nb)] * 2,
+                routes=("full",))
+        compare(f"{nb}x{nb}, either side of the shared-memory limit, kept rows",
+                [x.reshape(64, -1) for x in x3[:2]], [linspace_edges(nb)] * 2,
+                routes=("per_row", "packed", "direct"))
+    x64 = x3[0].reshape(4096, -1).double()
+    for dtypes in ((torch.float64,) * 2, (torch.int32,) * 2, (torch.int64,) * 2,
+                   (torch.float16,) * 2, (torch.float32, torch.float64),
+                   (torch.int32, torch.float32), (torch.int32, torch.int64)):
+        layouts, edges = [], []
+        for i, dtype in enumerate(dtypes):
+            x = x64.roll(i, 1)
+            if dtype.is_floating_point:
+                layouts.append(x.to(dtype))
+                edges.append(linspace_edges(40))
+            elif dtype == torch.int32:
+                layouts.append((x * 2000).to(dtype))
+                edges.append(np.linspace(-3000.5, 3000.5, 41))
+            else:
+                layouts.append((x * 2.0**43).to(dtype))
+                edges.append(np.linspace(-(2.0**44), 2.0**44, 41))
+        compare("dtypes", layouts, edges)
+    compare("30,001 float64 thresholds, searched in device memory",
+            [x64[:256]], [np.sort(np.random.default_rng(5).normal(0, 1.5, 30_001))])
+    a = x3[0].reshape(2048, -1)[:2000, :5000]
+    row = x3[1][:5000].reshape(1, -1).expand(2000, 5000)
+    col = x3[2][:2000].reshape(-1, 1).double().expand(2000, 5000)
+    e_views = [linspace_edges(20), linspace_edges(30), linspace_edges(10)]
+    for label, layouts in (("strided", [a, a.t().contiguous().t()]),
+                           ("broadcast row", [a, row]),
+                           ("broadcast column of another dtype", [a, col]),
+                           ("every other column", [a[:, ::2], row[:, ::2]]),
+                           ("three views", [row, col, a])):
+        compare(label, layouts, e_views[: len(layouts)])
+    del x3, x64, a, row, col, layouts
+
+    # forced method="cuda" beyond plan()'s caps, through the public API
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pair = [torch.randn(1 << 24, device=dev, generator=gen) for _ in range(2)]
+    narrow = torch.randn(4096, 100, device=dev, generator=gen)
+    for label, args, bins, axis, route in (
+        ("full reduction, 1500x1500 = 2,250,000 slots", pair, [linspace_edges(1500)] * 2,
+         None, "full"),
+        ("kept rows, 33,000 bins", [narrow], [linspace_edges(33_000)], (1,), "direct"),
+    ):
+        layouts = [canonicalize_2d(x, normalize_axis(axis, x.ndim)) for x in args]
+        m, c = layouts[0].shape
+        nbins = tuple(len(e) - 1 for e in bins)
+        kernel = cuda_hist.plan(len(args), nbins, 1 if axis is None else m,
+                                None if axis is None else c)
+        if kernel is not None:
+            raise AssertionError(f"forced {label}: plan() names {kernel}")
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, method="cuda")
+        torch.cuda.synchronize()
+        launched = counts_now()
+        key = "direct" if route == "direct" else f"factored {route}"
+        if launched[key] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"forced {label}: launches {launched}")
+        check(f"forced {label}", h.reshape(h.shape[0] if axis else 1, -1),
+              call(layouts, bins, route, plain=True)[:, :-1], route)
+        print(f"# forced method='cuda', {label}: plan() names no kernel, ran {key} "
+              f"once, == plain")
+    del pair, narrow, h
+
+    # === the paths through the public API =====================================
+    def path(label, args, bins, axis, kernel, route, numpy_check, plain_reps=10):
+        """Drives one path with fresh counts, checks it against the plain
+        version and numpy, times kernel, plain version and public call."""
+        axis_t = normalize_axis(axis, args[0].ndim)
+        layouts = [canonicalize_2d(x, axis_t) for x in args]
+        m, c = layouts[0].shape
+        nbins = tuple(len(e) - 1 for e in bins)
+        planned = cuda_hist.plan(len(args), nbins, 1 if axis is None else m,
+                                 None if axis is None else c)
+        if planned != kernel:
+            raise AssertionError(f"{label}: plan() names {planned}, not {kernel}")
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis)
+        torch.cuda.synchronize()
+        launched = counts_now()
+        key = "direct" if route == "direct" else f"factored {route}"
+        if launched[key] < 1 or sum(launched.values()) != launched[key]:
+            raise AssertionError(f"{label}: launches {launched}")
+        rows = 1 if route == "full" else m
+        plain = call(layouts, bins, route, plain=True)
+        check(label, h.reshape(rows, -1), plain[:, :-1], route)
+        del plain
+        numpy_check(h)
+        ops = operands(layouts, bins)  # uploaded once, outside the timing
+        kernel_ms, plain_ms = in_turns(
+            lambda: call(layouts, bins, route, plain=True, ops=ops),
+            lambda: call(layouts, bins, route, ops=ops), reps=plain_reps)
+        med, times = measure(
+            lambda: xhistogram_torch.histogram(*args, bins=bins, axis=axis), reps=5)
+        n_elems = layouts[0].numel()
+        in_bytes = sum(x.element_size() for x in layouts) * n_elems
+        out_bytes = 8 * rows * (int(np.prod(nbins)) + 1)
+        bound_ms, bound_by = bound(in_bytes + out_bytes,
+                                   n_elems * sum(search_steps(nb) for nb in nbins))
+        print(f"# path {label}: plan {kernel}, launches {launched[key]} ({key}), "
+              f"int64 {tuple(h.shape)} == plain and numpy; kernel {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({in_bytes / 1e6:.1f} MB read, {out_bytes / 1e6:.1f} MB written), "
+              f"public call median {med * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in times]} [{card}]")
+        return {"launches": launched[key], "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def per_row_numpy(label, a, b, bins, rows):
+        def run(h):
+            for r in rows:
+                want = numpy_hist2d(a[r].cpu().numpy(), b[r].cpu().numpy(), *bins)
+                np.testing.assert_array_equal(h[r].cpu().numpy(), want,
+                                              err_msg=f"{label}, row {r}")
+        return run
+
+    paths = {}
+    # README.md:13-19: the joint T-S diagram per depth level
+    gen = torch.Generator(device=dev).manual_seed(13)
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)
+
+    def readme_numpy(h):
+        for level in (0, README_TS[1] - 1):
+            want = numpy_hist2d(T[:, level].cpu().numpy(), S[:, level].cpu().numpy(),
+                                T_EDGES, S_EDGES)
+            np.testing.assert_array_equal(h[level].cpu().numpy(), want,
+                                          err_msg=f"README path, level {level}")
+
+    paths["README per-level T-S"] = path(
+        "README per-level T-S, (73, 50, 64800) float32 x 2, 280x340 bins, axis=(0, 2)",
+        [T, S], [T_EDGES, S_EDGES], (0, 2), "factored_per_row", "per_row",
+        readme_numpy, plain_reps=3)
+    del T, S
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(54)
+    a, b = (torch.randn(N_FULL, device=dev, generator=gen) for _ in range(2))
+    e1000 = [linspace_edges(1000)] * 2
+    n_np = 1 << 22
+
+    def full_numpy(h):
+        got, _ = xhistogram_torch.histogram(a[:n_np], b[:n_np], bins=e1000)
+        want = numpy_hist2d(a[:n_np].cpu().numpy(), b[:n_np].cpu().numpy(), *e1000)
+        np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                      err_msg="1000x1000 path, first 2^22 pairs")
+
+    paths["1000x1000 full"] = path(
+        "perf_model.md:54, 5e7 float32 pairs, 1000x1000 bins, full", [a, b], e1000,
+        None, "factored", "full", full_numpy)
+    del a, b
+
+    for key, label, shape, nbins, kernel, route in (
+        ("150x90 per row", "perf_model.md:55, (1000, 100000) float32 x 2, 150x90 bins, "
+         "axis=1", PER_ROW, (150, 90), "factored_per_row", "per_row"),
+        ("120x90 packed", "perf_model.md:56, (16384, 64) float32 x 2, 120x90 bins, "
+         "axis=1", PACKED, (120, 90), "factored_packed", "packed"),
+        ("40x40 direct", "perf_model.md:57 at config 4's grid, (64800, 64) float32 x 2, "
+         "40x40 bins, axis=1", DIRECT[0], (40, 40), "direct", "direct"),
+        ("40x40 direct m=1000", "perf_model.md:57, (1000, 64) float32 x 2, 40x40 bins, "
+         "axis=1", DIRECT[1], (40, 40), "direct", "direct"),
+    ):
+        gen = torch.Generator(device=dev).manual_seed(shape[0])
+        a, b = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
+        bins = [linspace_edges(nb) for nb in nbins]
+        paths[key] = path(label, [a, b], bins, (1,), kernel, route,
+                          per_row_numpy(label, a, b, bins, (0, 1, shape[0] - 1)))
+        del a, b
+        torch.cuda.empty_cache()
+
+    print("# factored and direct yardstick: none; torch.histogramdd raises on CUDA "
+          "tensors (the joint2 yardstick line above), and no other single PyTorch "
+          "call bins N inputs per kept row")
+    factored_paths = [v for k, v in paths.items() if "direct" not in k]
+    direct_paths = [v for k, v in paths.items() if "direct" in k]
+    readme, direct_main = paths["README per-level T-S"], paths["40x40 direct"]
+    return [
+        {
+            "name": "factored",
+            "route": "cuda",
+            "source": "xhistogram_torch/csrc/factored.cu",
+            "replaces": "xhistogram_tpu/ops/pallas_hist.py:1757",
+            "launches": sum(p["launches"] for p in factored_paths),
+            "max_abs_err": max_abs_err["factored"],
+            "ms": readme["ms"],
+            "plain_ms": readme["plain_ms"],
+            "bound_ms": readme["bound_ms"],
+            "bound_by": readme["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "direct",
+            "route": "cuda",
+            "source": "xhistogram_torch/csrc/direct.cu",
+            "replaces": "xhistogram_tpu/ops/pallas_hist.py:2149",
+            "launches": sum(p["launches"] for p in direct_paths),
+            "max_abs_err": max_abs_err["direct"],
+            "ms": direct_main["ms"],
+            "plain_ms": direct_main["plain_ms"],
+            "bound_ms": direct_main["bound_ms"],
+            "bound_by": direct_main["bound_by"],
+            "library_ms": None,
+        },
+    ]
 
 
 def main():
@@ -117,6 +432,14 @@ def main():
     def reset_counts():
         cuda_hist.JOINT2_LAUNCHES = 0
         cuda_hist.ONE_INPUT_LAUNCHES = 0
+        cuda_hist.FACTORED_LAUNCHES.update(dict.fromkeys(cuda_hist.FACTORED_LAUNCHES, 0))
+        cuda_hist.DIRECT_LAUNCHES = 0
+
+    def counts_now():
+        return {"joint2": cuda_hist.JOINT2_LAUNCHES,
+                "one_input": cuda_hist.ONE_INPUT_LAUNCHES,
+                **{f"factored {v}": n for v, n in cuda_hist.FACTORED_LAUNCHES.items()},
+                "direct": cuda_hist.DIRECT_LAUNCHES}
 
     def thresholds(edges, dtype=np.float32):
         ce = compare_form(edges, dtype)
@@ -127,7 +450,8 @@ def main():
     # --- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     _build.load()
-    print(f"# build: {time.perf_counter() - t0:.2f} s (one nvcc call, sm_90a)")
+    print(f"# build: {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+          "parallel, sm_90a)")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"#   ptxas: {line.strip()}")
@@ -472,6 +796,9 @@ def main():
         if n < 1:
             raise AssertionError(f"the one_input path ({name}) did not launch one_input")
 
+    slot = factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
+                               max_abs_err)
+
     print(json.dumps({"kernels": [
         {
             "name": "joint2",
@@ -499,6 +826,7 @@ def main():
             "bound_by": oi_bound_by,
             "library_ms": oi_library_ms,
         },
+        *slot,
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import torch
 
 import xhistogram_tpu
 import xhistogram_torch
+from xhistogram_torch.ops import cuda_hist
 
 # numpy inputs run on the card unless the caller names another device
 histogram_cpu = functools.partial(xhistogram_torch.histogram, device="cpu")
@@ -266,18 +267,15 @@ def test_conflicting_device_raises():
     ids=["one_input", "per_row", "direct", "factored"],
 )
 def test_unported_kernels_raise_on_the_kernel_route(args, kwargs, kernel):
-    """An unported kernel raises on the kernel route; a ported one (one_input)
-    runs its kernel's wrapper there and equals the JAX kernel."""
+    """Every kernel plan() names is ported: the kernel route runs its
+    wrapper, with the counts of the JAX kernel (no kernel raises any more)."""
     bins = [np.linspace(0, 2, 9)] * len(args)
-    if kernel == "one_input":
-        got, _ = histogram_cpu(*args, bins=bins, method="cuda", **kwargs)
-        jax_kernel, _ = xhistogram_tpu.histogram(
-            *args, bins=bins, method="pallas", **kwargs
-        )
-        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_kernel))
-    else:
-        with pytest.raises(NotImplementedError, match=f"'{kernel}' kernel is not ported"):
-            histogram_cpu(*args, bins=bins, method="cuda", **kwargs)
+    m = 1 if not kwargs else args[0].shape[0]
+    c = None if not kwargs else args[0].shape[1]
+    assert cuda_hist.plan(len(args), (8,) * len(args), m, c) == kernel
+    got, _ = histogram_cpu(*args, bins=bins, method="cuda", **kwargs)
+    jax_kernel, _ = xhistogram_tpu.histogram(*args, bins=bins, method="pallas", **kwargs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_kernel))
     # on the CPU, auto runs the plain path for the same call
     h, jh = _both(*args, bins=bins, **kwargs)
     np.testing.assert_array_equal(h.numpy(), jh)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (joint2, one_input) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (joint2, one_input, factored, direct) against their
+plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one. This file imports
 no JAX, so it also runs where JAX is not installed:
@@ -290,3 +290,225 @@ def test_auto_runs_the_one_input_kernel(cuda):
     assert h_cpu.device.type == "cpu" and torch.equal(h.cpu(), h_cpu)
     with pytest.raises(ValueError, match="conflicts with an input tensor"):
         xhistogram_torch.histogram(torch.from_numpy(x_np), bins=[edges], device="cuda")
+
+
+# --- factored and direct (csrc/slot.cuh) ---------------------------------------
+
+ROUTES = ("full", "per_row", "packed", "direct")
+
+
+def _launches():
+    return (*cuda_hist.FACTORED_LAUNCHES.values(), cuda_hist.DIRECT_LAUNCHES)
+
+
+def _slot_pair(layouts, edges, route):
+    """(kernel counts, plain counts) on the card for N (m, c) layouts, one
+    route (a variant of factored, or direct)."""
+    thr, nbins = [], []
+    for x, e in zip(layouts, edges):
+        np_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+        ce = tbins.compare_form(np.asarray(e), np_dtype)
+        assert ce.n_hi_clip == 0
+        thr.append(torch.from_numpy(ce.edges).to(x.device))
+        nbins.append(len(e) - 1)
+    before = _launches()
+    if route == "direct":
+        got = cuda_hist.direct(layouts, thr, nbins)
+        want = cuda_hist.direct_reference(layouts, thr, nbins)
+    else:
+        got = cuda_hist.factored(layouts, thr, nbins, route)
+        want = cuda_hist.factored_reference(layouts, thr, nbins, route)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_launches(), before)]
+    assert launched == [int(r == route and layouts[0].numel() > 0) for r in ROUTES]
+    assert got.dtype == torch.int64 and got.device == layouts[0].device
+    rows = 1 if route == "full" else layouts[0].shape[0]
+    assert got.shape == (rows, int(np.prod(nbins)) + 1)
+    return got.cpu(), want.cpu()
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("name", list(EDGE_SETS))
+def test_slot_edge_cases(cuda, name, route):
+    te, se = EDGE_SETS[name]
+    t, s = (x[: len(x) // 2 * 2] for x in edge_case_data(te, se, n_random=10_000))
+    third = np.full_like(t, 0.5)
+    layouts = [torch.from_numpy(x).to(cuda).reshape(2, -1) for x in (t, s, third)]
+    got, want = _slot_pair(layouts, [te, se, [0.0, 0.25, 1.0]], route)
+    assert torch.equal(got, want)
+    if route == "full":
+        expected = numpy_hist2d(t, s, te, se)
+        np.testing.assert_array_equal(
+            got[0, :-1].reshape(len(te) - 1, len(se) - 1, 2).sum(-1).numpy(), expected
+        )
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_slot_negative_subnormal_is_below_a_zero_edge(cuda, route):
+    t = torch.tensor([[-1e-45, 1e-45, -0.0, 0.0]], device=cuda)
+    got, _ = _slot_pair([t, torch.full_like(t, 0.5)], [[0.0, 1.0]] * 2, route)
+    assert got.tolist() == [[3, 0]]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("m,c", [(0, 5), (5, 0), (1, 1), (7, 1), (3, 4097),
+                                 (1, (1 << 20) + 3), (4099, 3)])
+def test_slot_ragged_sizes(cuda, route, m, c):
+    gen = torch.Generator(device=cuda).manual_seed(m + c)
+    layouts = [torch.randn(m, c, device=cuda, generator=gen) for _ in range(2)]
+    got, want = _slot_pair(layouts, [_edges(50), _edges(30)], route)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("nbins", [(239, 239), (240, 240), (4, 5, 6), (1500, 1500)],
+                         ids=str)
+def test_slot_counts_around_the_shared_memory_limit(cuda, route, nbins):
+    # beside two float32 threshold sets, 57,121 slots fit a block's shared
+    # memory and 57,600 do not; 2.25M slots go beyond the full-reduction
+    # cap of plan()
+    m, c = (3, 1 << 18) if route != "packed" else (40, 64)
+    gen = torch.Generator(device=cuda).manual_seed(sum(nbins))
+    layouts = [torch.randn(m, c, device=cuda, generator=gen) for _ in nbins]
+    got, want = _slot_pair(layouts, [_edges(nb) for nb in nbins], route)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_slot_global_histogram_equals_shared(cuda, route, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    layouts = [torch.randn(64, 3000, device=cuda, generator=gen) for _ in range(2)]
+    edges = [_edges(150), _edges(90)]
+    shared, _ = _slot_pair(layouts, edges, route)
+    monkeypatch.setattr(cuda_hist, "MAX_SHARED_SLOTS", 0)
+    in_global, want = _slot_pair(layouts, edges, route)
+    assert torch.equal(shared, want) and torch.equal(in_global, want)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize(
+    "dtypes",
+    [(torch.float64,) * 2, (torch.int32,) * 2, (torch.int64,) * 2,
+     (torch.float16,) * 2, (torch.float32, torch.float64),
+     (torch.int32, torch.float32), (torch.int32, torch.int64)],
+    ids=str,
+)
+def test_slot_dtypes(cuda, route, dtypes):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    layouts, edges = [], []
+    for dtype in dtypes:
+        x = torch.randn(128, 4096, device=cuda, generator=gen, dtype=torch.float64)
+        if dtype.is_floating_point:
+            layouts.append(x.to(dtype))
+            edges.append(_edges(40))
+        elif dtype == torch.int32:
+            layouts.append((x * 2000).to(dtype))
+            edges.append(np.linspace(-3000.5, 3000.5, 41))
+        else:
+            layouts.append((x * 2.0**43).to(dtype))
+            edges.append(np.linspace(-(2.0**44), 2.0**44, 41))
+    got, want = _slot_pair(layouts, edges, route)
+    assert torch.equal(got, want)
+
+
+def test_slot_int64_with_a_float_raises(cuda):
+    x = torch.zeros(2, 8, device=cuda)
+    thr = torch.tensor([0.0, 1.0], device=cuda)
+    with pytest.raises(NotImplementedError, match="no exact common compare type"):
+        cuda_hist.direct([x.long(), x], [thr.long(), thr], [1, 1])
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_slot_strided_and_broadcast_views(cuda, route):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(300, 500, device=cuda, generator=gen)
+    row = torch.randn(1, 500, device=cuda, generator=gen).expand(300, 500)
+    col = torch.randn(300, 1, device=cuda, generator=gen, dtype=torch.float64)
+    col = col.expand(300, 500)  # a broadcast of another dtype: widened in place
+    for layouts in ([a, row], [a.t().contiguous().t(), col], [a[:, ::2], row[:, ::2]],
+                    [row, col, a]):
+        got, want = _slot_pair(layouts, [_edges(20), _edges(30), _edges(10)][:len(layouts)],
+                               route)
+        assert torch.equal(got, want), [x.stride() for x in layouts]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_slot_thresholds_beyond_shared_memory(cuda, route):
+    # 30,001 float64 thresholds (240 KB) are searched in device memory
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(8, 1 << 16, device=cuda, generator=gen, dtype=torch.float64)
+    edges = np.sort(np.random.default_rng(5).normal(0, 1.5, 30_001))
+    got, want = _slot_pair([x], [edges], route)
+    assert torch.equal(got, want)
+
+
+def test_slot_many_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    layouts = [torch.randn(16, 777, device=cuda, generator=gen) for _ in range(6)]
+    for route in ROUTES:
+        got, want = _slot_pair(layouts, [_edges(4)] * 6, route)
+        assert torch.equal(got, want)
+
+
+def test_slot_alternating_shapes(cuda):
+    # the launch-shape cache must follow switches of type, slots and mode
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(64, 4096, device=cuda, generator=gen)
+    cases = [([x, x], (150, 90), "per_row"), ([x.double(), x.double()], (300, 300), "full"),
+             ([x[:, :60], x[:, :60]], (40, 40), "direct"), ([x, x, x], (20, 25, 20), "packed"),
+             ([(x * 100).int()], (3000,), "full")]
+    for layouts, nbins, route in cases + cases[::-1]:
+        scale = 100 if not layouts[0].is_floating_point() else 1
+        got, want = _slot_pair(layouts, [_edges(nb) * scale for nb in nbins], route)
+        assert torch.equal(got, want), (nbins, route)
+
+
+@pytest.mark.parametrize(
+    "shape,nbins,axis,kernel",
+    [((4, 3000), (150, 90), (1,), "factored_per_row"),
+     ((6, 4, 500), (280, 340), (0, 2), "factored_per_row"),
+     ((64, 64), (120, 90), (1,), "factored_packed"),
+     ((256, 64), (40, 40), (1,), "direct"),
+     ((1 << 16,), (1000, 1000), None, "factored"),
+     ((1 << 16,), (100, 100, 50), None, "factored"),
+     ((1 << 16,), (5000,), None, "factored")],
+    ids=str,
+)
+def test_auto_runs_factored_and_direct(cuda, shape, nbins, axis, kernel):
+    rng = np.random.default_rng(len(nbins) + shape[0])
+    args = [rng.normal(0, 1.5, shape).astype(np.float32) for _ in nbins]
+    bins = [_edges(nb) for nb in nbins]
+    variant = {"factored": "full", "factored_per_row": "per_row",
+               "factored_packed": "packed"}.get(kernel)
+    before = _launches()
+    h, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
+                                      bins=bins, axis=axis)
+    launched = [a - b for a, b in zip(_launches(), before)]
+    assert launched == [int(r == (variant or "direct")) for r in ROUTES]
+    h_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, device="cpu")
+    assert h.device.type == "cuda" and torch.equal(h.cpu(), h_cpu)
+
+
+def test_forced_beyond_the_caps(cuda):
+    # a full reduction over 2^21 slots, and kept rows over 8192 slots with
+    # more thresholds than plan() takes: plan() names no kernel, the forced
+    # route runs factored and direct
+    rng = np.random.default_rng(4)
+    args = [rng.normal(0, 1.5, 1 << 18).astype(np.float32) for _ in range(3)]
+    bins = [_edges(130)] * 3
+    assert cuda_hist.plan(3, (130,) * 3, 1) is None
+    x = rng.normal(0, 1.5, (16, 100)).astype(np.float32)
+    edges = np.linspace(-4, 4, 33_001)
+    assert cuda_hist.plan(1, (33_000,), 16, 100) is None
+    for call, route in (
+        (lambda dev: xhistogram_torch.histogram(*args, bins=bins, device=dev,
+                                                method="cuda"), "full"),
+        (lambda dev: xhistogram_torch.histogram(x, bins=[edges], axis=1, device=dev,
+                                                method="cuda"), "direct"),
+    ):
+        before = _launches()
+        h, _ = call(cuda)
+        launched = [a - b for a, b in zip(_launches(), before)]
+        assert launched == [int(r == route) for r in ROUTES]
+        h_cpu, _ = call("cpu")
+        assert torch.equal(h.cpu(), h_cpu)

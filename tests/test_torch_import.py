@@ -1,7 +1,7 @@
 """The PyTorch port imports without JAX and without Triton, and neither it,
 ``chip_smoke.py`` (with the numpy references it takes from
 ``tests/ts_cases.py``) nor the probes under ``tools/`` import anything of
-the JAX package or its bench."""
+the JAX package or its bench; every kernel symbol it binds has a source."""
 
 import pathlib
 import subprocess
@@ -35,3 +35,19 @@ def test_no_port_file_imports_jax():
         for banned in ("import jax", "from jax", "import xhistogram_tpu",
                        "from xhistogram_tpu", "import bench", "from bench"):
             assert banned not in text, (path, banned)
+
+
+def test_every_declared_kernel_symbol_is_defined():
+    """The C symbols ``ops/_build.py`` binds (joint2, one_input and the four
+    flat-slot routes of csrc/factored.cu and csrc/direct.cu, per data type)
+    are each defined once by a ``csrc/*.cu`` entry macro."""
+    import re
+
+    from xhistogram_torch.ops import _build
+
+    defined = []
+    for path in sorted((REPO / "xhistogram_torch" / "csrc").glob("*.cu")):
+        defined += re.findall(r"^XH_\w+\((xh_\w+),", path.read_text(), re.M)
+    declared = [f"xh_{kernel}_{suffix}" for suffix in _build.DTYPE_SUFFIXES
+                for kernel in ("joint2", "one_input", *_build.SLOT_ROUTES)]
+    assert sorted(defined) == sorted(declared)

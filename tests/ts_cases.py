@@ -107,3 +107,26 @@ def reference_numpy(a, edges, axis=None):
     off = (idx + n * np.arange(m)[:, None]).ravel()
     counts = np.bincount(off, minlength=n * m).reshape(m, n)
     return counts[:, 1:-1].reshape(kept + (n - 2,)).astype(np.int64)
+
+
+def reference_numpy_joint(arrays, edges, axis=None):
+    """N inputs' joint histogram with numpy's ``histogramdd``, in float64:
+    the inputs broadcast against each other, ``axis`` (a tuple, or None for
+    every axis) is reduced and the other axes are kept as rows. int64
+    counts shaped ``kept + nbins``."""
+    arrays = np.broadcast_arrays(*(np.asarray(a) for a in arrays))
+    edges = [np.asarray(e, np.float64) for e in edges]
+    nbins = tuple(len(e) - 1 for e in edges)
+    if axis is None:
+        kept, flat = (), [a.reshape(1, -1) for a in arrays]
+    else:
+        kept = tuple(n for i, n in enumerate(arrays[0].shape) if i not in axis)
+        m = int(np.prod(kept, dtype=np.int64))
+        c = int(np.prod([arrays[0].shape[i] for i in axis], dtype=np.int64))
+        flat = [np.moveaxis(a, axis, tuple(range(-len(axis), 0))).reshape(m, c)
+                for a in arrays]
+    out = np.zeros((flat[0].shape[0],) + nbins, np.int64)
+    for r in range(flat[0].shape[0]):
+        sample = np.stack([x[r].astype(np.float64) for x in flat], -1)
+        out[r] = np.histogramdd(sample, bins=edges)[0]
+    return out.reshape(kept + nbins)

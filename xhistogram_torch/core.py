@@ -6,7 +6,10 @@ torch tensors. Where it runs: a torch tensor runs on the device it lies on,
 since putting it there was the caller's choice, and nothing moves it. numpy
 and Python inputs are copied to ``device=``, which defaults to the CUDA
 card; without a card they need ``device="cpu"``. The counts come back on
-the inputs' device.
+the inputs' device. On a CUDA tensor each call runs the hand-written
+kernel that the JAX package's ``plan()`` names (one_input, joint2,
+factored or direct; ``ops/cuda_hist``), or the plain scatter strategy where
+the JAX package runs its scatter strategy too.
 
 dtype rules: unweighted counts are int64, the reference's dtype (the JAX
 package's int32 is a TPU word-size artifact). Density results are float32,
@@ -21,19 +24,18 @@ import torch
 
 from . import bins as _bins
 from .ops.bincount import bincount2d
-from .ops.cuda_hist import joint2, one_input, plan
+from .ops.cuda_hist import direct, factored, joint2, one_input, plan
 from .ops.digitize import digitize_edges, joint_bin_index
 from .utils.axes import canonicalize_2d, kept_shape, normalize_axis
 from .utils.profiling import scope
 
 __all__ = ["histogram"]
 
-# ROADMAP entry of each kernel plan() may name that is not ported yet
-_UNPORTED = {
-    "factored": "queue 2, item 3",
-    "factored_per_row": "queue 2, item 3",
-    "factored_packed": "queue 2, item 3",
-    "direct": "queue 2, item 4",
+# the variant of the factored kernel each factored route of plan() runs
+_FACTORED_VARIANT = {
+    "factored": "full",
+    "factored_per_row": "per_row",
+    "factored_packed": "packed",
 }
 
 # `range` is a histogram keyword (reference API name)
@@ -139,24 +141,22 @@ def _numpy_dtype(t):
 def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
                  reduce_all):
     """Counts ``(rows, prod(nbins) + 1)`` from ``kernel``, the kernel the
-    JAX package would run here (``pallas_hist._dispatch``), or a raise if it
-    is not ported."""
+    JAX package would run here (``pallas_hist._dispatch``)."""
     if any(n_hi_clip):
         raise NotImplementedError(
             f"method={method!r} cannot represent bin edges at/beyond the data "
             "dtype's top value (int max / +inf); use method='auto' or "
             "method='scatter' for this edge configuration"
         )
-    if kernel in _UNPORTED:
-        raise NotImplementedError(
-            f"the {kernel!r} kernel is not ported to CUDA yet (ROADMAP "
-            f"{_UNPORTED[kernel]}); method='scatter' runs the plain strategy"
-        )
     with scope("cuda_kernel"):
         if kernel == "one_input":
             return one_input(arrays_2d[0], thresholds[0], nbins[0], reduce_all)
-        a, b = arrays_2d  # joint2 runs only for a full reduction: (1, N) each
-        return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1])
+        if kernel == "joint2":
+            a, b = arrays_2d  # joint2 runs only for a full reduction
+            return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1])
+        if kernel == "direct":
+            return direct(arrays_2d, thresholds, nbins)
+        return factored(arrays_2d, thresholds, nbins, _FACTORED_VARIANT[kernel])
 
 
 def histogram(
@@ -194,9 +194,10 @@ def histogram(
     method : 'auto' | 'scatter' | 'cuda' (alias 'pallas')
         'auto' runs the CUDA kernel that the JAX package's ``plan()`` names
         for a CUDA tensor, and the scatter strategy on the CPU or where the
-        JAX package runs its scatter strategy too. A kernel that is not
-        ported yet raises ``NotImplementedError``. 'cuda' forces the fused
-        kernel route (on a CPU tensor it runs the kernel's plain version).
+        JAX package runs its scatter strategy too. 'cuda' forces the fused
+        kernel route at any shape, with the JAX package's fallback outside
+        ``plan()``'s envelopes (factored for a full reduction, direct for
+        kept rows); on a CPU tensor it runs the kernel's plain version.
     precision : not ported yet; must be None.
     device : torch.device or str, optional
         Where numpy and Python inputs run. ``None`` means the tensor inputs'

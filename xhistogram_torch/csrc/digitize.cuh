@@ -15,7 +15,9 @@
 // elements side by side. Its probes step by halves of the threshold count;
 // at a power-of-two count (1024 bins) a warp's probes at one step would all
 // fall in one or two shared-memory banks, so the thresholds are stored
-// skewed, one padding slot after every 32 (skew()).
+// skewed, one padding slot after every 32 (skew()). A kernel whose
+// thresholds do not fit in shared memory searches them in place in device
+// memory, unskewed (kSkewed = false).
 
 #pragma once
 
@@ -38,11 +40,13 @@ __device__ __forceinline__ void stage_thresholds(T* dst, const T* src, int n) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[skew(k)] = src[k];
 }
 
-// bin[k]: the 0-based bin of x[k] against the nb + 1 skewed thresholds t,
-// or -1 when x[k] is NaN or outside [t[0], t[nb]).
-template <typename T, int K>
+// bin[k]: the 0-based bin of x[k] against the nb + 1 thresholds t (skewed
+// unless kSkewed is false), or -1 when x[k] is NaN or outside
+// [t[0], t[nb]).
+template <typename T, int K, bool kSkewed = true>
 __device__ __forceinline__ void bins_of(const T* t, int nb, const T (&x)[K],
                                         int (&bin)[K]) {
+  auto at = [t](int i) { return t[kSkewed ? skew(i) : i]; };
   // lo[k] <= #{t <= x[k]} <= lo[k] + len, narrowed to len == 1
   int lo[K];
 #pragma unroll
@@ -51,12 +55,12 @@ __device__ __forceinline__ void bins_of(const T* t, int nb, const T (&x)[K],
     const int half = len >> 1;
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      lo[k] = t[skew(lo[k] + half)] <= x[k] ? lo[k] + half : lo[k];
+      lo[k] = at(lo[k] + half) <= x[k] ? lo[k] + half : lo[k];
     len -= half;
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int i = lo[k] + (t[skew(lo[k])] <= x[k] ? 1 : 0) - 1;
+    const int i = lo[k] + (at(lo[k]) <= x[k] ? 1 : 0) - 1;
     bool nan = false;
     if constexpr (std::is_floating_point<T>::value) nan = isnan(x[k]);
     bin[k] = (!nan && i >= 0 && i < nb) ? i : -1;

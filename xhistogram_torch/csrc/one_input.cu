@@ -14,12 +14,8 @@
 // the caller; bin b of row r goes to out[r * (nb + 1) + b], and the trailing
 // trash slot stays zero.
 //
-// Work is cut into tiles of R rows by C columns. A block walks its tiles in
-// a grid-stride loop and enumerates each tile's elements in memory order,
-// along whichever dimension has the smaller stride: a warp reads
-// neighbouring addresses both in the contiguous (m, c) layout and in the
-// (1, m)-strided view that canonicalize_2d gives for axis=0 of (time, lat,
-// lon) data.
+// Work is cut into tiles of R rows by C columns (tile.cuh), walked by each
+// block in a grid-stride loop in memory order.
 // - Full reduction: one histogram per block, flushed once at the end with
 //   64-bit global atomics into out[0].
 // - Kept rows: a tile holds R * nb counters, one histogram per row, and is
@@ -42,6 +38,7 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -51,57 +48,19 @@ constexpr int kUnroll = 4;
 constexpr int kMaxBins = 1024;
 constexpr int kHistCounters = 10 * 1024;  // 40 KB of int32 counters a block
 constexpr long long kMinTile = (long long)kThreads * kUnroll;
-constexpr long long kMaxTile = 64 * 1024;        // elements of a tile
-constexpr long long kMaxWholeRowTile = 1 << 20;  // elements, whole rows
 
-struct Tiling {
-  long long rows;       // R
-  long long cols;       // C
-  long long row_tiles;  // ceil(m / R)
-  long long col_tiles;  // ceil(c / C)
-  int copies;           // histogram replicas in shared memory
-  int row_fast;         // enumerate a tile rows first (rows have stride sm)
-};
+using xh::Tiling;
 
 __host__ __device__ constexpr size_t thr_bytes(int nb, size_t elem) {
   return ((size_t)xh::skewed_len(nb + 1) * elem + 15) / 16 * 16;
 }
 
-long long ceil_div(long long x, long long y) { return (x + y - 1) / y; }
-
-// C columns cut into equal column tiles of at most `most` columns.
-long long balanced(long long c, long long most) {
-  return ceil_div(c, ceil_div(c, most));
-}
-
 Tiling make_tiling(long long m, long long c, long long sm, long long sc, int nb,
                    bool reduce_all, long long resident) {
-  Tiling tl;
-  tl.row_fast = m > 1 && (c == 1 || sm < sc);
-  // each resident block's share of the elements, within [kMinTile, kMaxTile]
-  long long target = ceil_div(m * c, resident);
-  target = target < kMinTile ? kMinTile : target > kMaxTile ? kMaxTile : target;
-  const long long max_rows = reduce_all ? kMaxTile : kHistCounters / nb;
-  if (tl.row_fast) {
-    tl.rows = m < max_rows ? m : max_rows;
-    if (tl.rows > target) tl.rows = target;
-    const long long row_tiles = ceil_div(m, tl.rows);
-    if ((row_tiles * 2 >= resident || tl.rows * c <= target) &&
-        tl.rows * c <= kMaxWholeRowTile)
-      tl.cols = c;  // enough tiles of whole rows: no split row
-    else
-      tl.cols = balanced(c, target / tl.rows > 1 ? target / tl.rows : 1);
-  } else if (c >= target) {
-    tl.rows = 1;
-    tl.cols = balanced(c, target);
-  } else {
-    tl.rows = target / c;
-    if (tl.rows > m) tl.rows = m;
-    if (tl.rows > max_rows) tl.rows = max_rows;
-    tl.cols = c;
-  }
-  tl.row_tiles = ceil_div(m, tl.rows);
-  tl.col_tiles = ceil_div(c, tl.cols);
+  const bool row_fast = m > 1 && (c == 1 || sm < sc);
+  Tiling tl = xh::make_tiling(m, c, row_fast,
+                              reduce_all ? xh::kMaxTile : kHistCounters / nb,
+                              kMinTile, resident);
   const long long one_copy = (reduce_all ? 1 : tl.rows) * nb;
   const long long copies = kHistCounters / one_copy;
   tl.copies = copies < 1 ? 1 : copies > kWarps ? kWarps : (int)copies;
@@ -222,7 +181,7 @@ int launch_one_input(const void* a, long long m, long long c, long long sm,
   const long long grid = n_tiles < resident ? n_tiles : resident;
   // a block's shared counters are 32-bit: bound the elements one block
   // visits before it flushes (a full reduction flushes only at the end)
-  const long long visits = reduce_all ? ceil_div(n_tiles, grid) : 1;
+  const long long visits = reduce_all ? xh::ceil_div(n_tiles, grid) : 1;
   if (visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, into ``_build/`` beside the package sources, keyed by a hash of every
-file under ``csrc/`` (sources and headers) and the flags, and loaded with
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, at first use, into
+``_build/`` beside the package sources, keyed by a hash of every file
+under ``csrc/`` (sources and headers) and the flags, and loaded with
 ``ctypes``. Nothing here runs at import time: machines
 without ``nvcc`` (and the CPU tests) never call ``load``.
 """
@@ -26,7 +27,7 @@ _BUILD_DIR = _PKG / "_build"
 # No --use_fast_math / -ftz=true: subnormals must compare exactly.
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -51,6 +52,9 @@ def _nvcc():
 
 #: suffix of each kernel symbol, by the data type it takes
 DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
+#: the flat-slot routes of csrc/slot.cuh, each its own C symbol
+#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu)
+SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 
 
 def _declare(lib):
@@ -62,6 +66,10 @@ def _declare(lib):
         fn = getattr(lib, f"xh_one_input_{suffix}")
         fn.argtypes = [p, i64, i64, i64, i64, p, i32, i32, p, p]
         fn.restype = i32
+        for route in SLOT_ROUTES:
+            fn = getattr(lib, f"xh_{route}_{suffix}")
+            fn.argtypes = [i32, p, p, p, p, i64, i64, i64, p, p]
+            fn.restype = i32
     return lib
 
 
@@ -78,24 +86,35 @@ def load():
     so = _BUILD_DIR / f"xh_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name, then rename: a concurrent or cut-off
-        # build never leaves a half-written library under the final name
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
+        # build in a temporary directory, then rename: a concurrent or
+        # cut-off build never leaves a half-written library under the final
+        # name
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+            procs = [
+                subprocess.Popen(
+                    [_nvcc(), *_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for src, obj in zip(sources, objs)
+            ]
+            logs = [proc.communicate()[0] for proc in procs]
+            failed = [(src.name, proc.returncode, log)
+                      for src, proc, log in zip(sources, procs, logs)
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+            lib = os.path.join(tmp, so.name)
             res = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", tmp, *map(str, sources)],
-                capture_output=True,
-                text=True,
+                [_nvcc(), "-shared", "-o", lib, *objs],
+                capture_output=True, text=True,
             )
             if res.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
+                    f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}"
                 )
-            BUILD_LOG = res.stdout + res.stderr
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            BUILD_LOG = "".join(logs) + res.stdout + res.stderr
+            os.replace(lib, so)
     _LIB = _declare(ctypes.CDLL(str(so)))
     return _LIB

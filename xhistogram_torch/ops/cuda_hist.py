@@ -3,21 +3,25 @@
 Counterpart of ``xhistogram_tpu.ops.pallas_hist``. ``plan`` is that
 module's routing table copied as host code (unweighted, no uniform-spacing
 certificates yet), so both packages name the same kernel for the same
-problem. Of the four kernel families it names, two are ported, each a
-hand-written CUDA kernel with its plain PyTorch version beside it:
-``one_input`` (``csrc/one_input.cu``, ``one_input_reference``) and
-``joint2`` (``csrc/joint2.cu``, ``joint2_reference``). The others are not
-ported yet and the caller raises for them (ROADMAP queue 2).
+problem. Every kernel family it names is ported, each a hand-written CUDA
+kernel with its plain PyTorch version beside it: ``one_input``
+(``csrc/one_input.cu``), ``joint2`` (``csrc/joint2.cu``), ``factored`` in
+its three variants (``csrc/factored.cu``) and ``direct``
+(``csrc/direct.cu``); the last two share the flat-slot histogram of
+``csrc/slot.cuh``. Each ``*_reference`` is the plain version: digitize,
+flat slot, bincount.
 
 The kernels compare in the data's own type: float32, float64, int32 or
 int64. float16 data and its thresholds widen to float32 first, which is
 exact and keeps every comparison (the JAX package's ``_dispatch`` does the
-same). A wrapper takes the plain version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+same); inputs of several dtypes all widen to the narrowest type that holds
+each exactly. A wrapper takes the plain version only for CPU tensors; for
+a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -32,8 +36,14 @@ __all__ = [
     "one_input_reference",
     "joint2",
     "joint2_reference",
+    "factored",
+    "factored_reference",
+    "direct",
+    "direct_reference",
     "ONE_INPUT_LAUNCHES",
     "JOINT2_LAUNCHES",
+    "FACTORED_LAUNCHES",
+    "DIRECT_LAUNCHES",
 ]
 
 _SUB = 8  # the JAX package's sublane rounding, kept so plan() agrees with it
@@ -43,6 +53,17 @@ _MAX_EDGES = 32768
 #: does not count)
 ONE_INPUT_LAUNCHES = 0
 JOINT2_LAUNCHES = 0
+#: by variant: "full", "per_row", "packed"
+FACTORED_LAUNCHES = {"full": 0, "per_row": 0, "packed": 0}
+DIRECT_LAUNCHES = 0
+
+#: the most slots of a row's histogram that factored and direct keep in
+#: shared memory; by default every histogram that fits a block's 227 KB
+#: beside the thresholds. Beyond, each element adds straight into the int64
+#: output in device memory (csrc/slot.cuh); tools/factored_probe.py and the
+#: card-only tests set 0 to time and check that path at any size
+MAX_SHARED_SLOTS = 232448 // 4
+_MAX_SLOT_INPUTS = 32  # csrc/slot.cuh kMaxInputs
 
 _MAX_ONE_INPUT_BINS = 1024  # plan()'s one_input gate, and the kernel's limit
 
@@ -164,19 +185,23 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def one_input_reference(a2d, thr, nb, reduce_all):
-    """Plain PyTorch one_input: digitize, bin index, bincount.
-
-    Same contract as ``one_input``: ``(1 if reduce_all else m, nb + 1)``
-    int64 counts whose trailing trash slot is zero, as
-    ``pallas_hist._run_one_input`` returns.
-    """
-    g, n_slots = joint_bin_index([digitize_edges(a2d, thr)], [nb])
+def _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all):
+    """The plain version of every kernel: digitize each input, flat slot,
+    bincount. ``(1 if reduce_all else m, prod(nbins) + 1)`` int64 counts
+    whose trailing trash slot is zero, as the JAX kernels return."""
+    indices = [digitize_edges(a, t) for a, t in zip(arrays_2d, thresholds)]
+    g, n_slots = joint_bin_index(indices, nbins)
     if reduce_all:
         g = g.reshape(1, -1)
     counts = bincount2d_scatter(g, n_slots)
     counts[:, -1] = 0
     return counts
+
+
+def one_input_reference(a2d, thr, nb, reduce_all):
+    """Plain PyTorch one_input, with ``one_input``'s contract
+    (``pallas_hist._run_one_input``'s counts)."""
+    return _slot_counts_reference([a2d], [thr], [nb], reduce_all)
 
 
 def one_input(a2d, thr, nb, reduce_all):
@@ -225,17 +250,11 @@ def one_input(a2d, thr, nb, reduce_all):
 
 
 def joint2_reference(a, b, thr_a, thr_b, nba, nbb):
-    """Plain PyTorch joint2: digitize, joint index, bincount.
-
-    Same contract as ``joint2``: ``(1, nba * nbb + 1)`` int64 counts whose
-    trailing trash slot is zero, as ``pallas_hist._run_joint2`` returns.
-    """
-    ia = digitize_edges(a.reshape(1, -1), thr_a)
-    ib = digitize_edges(b.reshape(1, -1), thr_b)
-    g, n_slots = joint_bin_index([ia, ib], [nba, nbb])
-    counts = bincount2d_scatter(g, n_slots)
-    counts[:, -1] = 0
-    return counts
+    """Plain PyTorch joint2, with ``joint2``'s contract
+    (``pallas_hist._run_joint2``'s counts)."""
+    return _slot_counts_reference(
+        [a.reshape(1, -1), b.reshape(1, -1)], [thr_a, thr_b], [nba, nbb], True
+    )
 
 
 def joint2(a, b, thr_a, thr_b, nba, nbb):
@@ -288,3 +307,138 @@ def joint2(a, b, thr_a, thr_b, nba, nbb):
         raise RuntimeError(f"joint2 CUDA kernel failed to launch: cudaError {rc}")
     JOINT2_LAUNCHES += 1
     return out.reshape(1, -1)
+
+
+_FACTORED_VARIANTS = tuple(FACTORED_LAUNCHES)
+
+
+def _widen(x, dtype):
+    """``x`` in ``dtype``. Only the distinct elements are converted: a
+    broadcast (zero-stride) dimension stays a broadcast."""
+    if x.dtype == dtype:
+        return x
+    distinct = x[tuple(
+        slice(0, 1) if stride == 0 else slice(None) for stride in x.stride()
+    )]
+    return distinct.to(dtype).expand(x.shape)
+
+
+def _check_slot_operands(name, arrays_2d, thresholds, nbins):
+    if not 1 <= len(arrays_2d) == len(thresholds) == len(nbins):
+        raise ValueError(
+            f"{name} needs one threshold tensor and one bin count per input, "
+            f"got {len(arrays_2d)} inputs, {len(thresholds)} threshold "
+            f"tensors and {len(nbins)} bin counts"
+        )
+    shape = arrays_2d[0].shape
+    if len(shape) != 2 or any(a.shape != shape for a in arrays_2d):
+        raise ValueError(
+            f"{name} takes 2-D layouts of one shape, got "
+            f"{[tuple(a.shape) for a in arrays_2d]}"
+        )
+    if any(nb < 1 for nb in nbins):
+        raise ValueError(f"{name} needs at least one bin per input, got {nbins}")
+    _check_operands(name, arrays_2d, thresholds, nbins)
+
+
+def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all):
+    """(counts, launches) of the flat-slot kernel of ``route``
+    (``csrc/slot.cuh``) on CUDA tensors; any failure raises."""
+    dtype = _compare_dtype([a.dtype for a in arrays_2d])
+    if dtype is None:
+        raise NotImplementedError(
+            f"{name} has no exact common compare type for "
+            f"{[str(a.dtype) for a in arrays_2d]} data (int64 with a float)"
+        )
+    if len(arrays_2d) > _MAX_SLOT_INPUTS:
+        raise NotImplementedError(
+            f"the {name} CUDA kernel takes at most {_MAX_SLOT_INPUTS} inputs, "
+            f"got {len(arrays_2d)}"
+        )
+    arrays = [_widen(a, dtype) for a in arrays_2d]
+    thr = [t.to(dtype).contiguous() for t in thresholds]
+    device = arrays[0].device
+    m, c = arrays[0].shape
+    shape = (1 if reduce_all else m, math.prod(nbins) + 1)
+    if m == 0 or c == 0:
+        return torch.zeros(shape, dtype=torch.int64, device=device), 0
+    # every slot of the output is written by the kernel or zeroed by its
+    # launcher
+    out = torch.empty(shape, dtype=torch.int64, device=device)
+    n = len(arrays)
+    fn = getattr(_build.load(), f"xh_{route}_{_SUFFIX[dtype]}")
+    with torch.cuda.device(device):
+        rc = fn(
+            n,
+            (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays)),
+            (ctypes.c_int64 * (2 * n))(*(s for a in arrays for s in a.stride())),
+            (ctypes.c_void_p * n)(*(t.data_ptr() for t in thr)),
+            (ctypes.c_int * n)(*nbins),
+            m, c, MAX_SHARED_SLOTS, out.data_ptr(), _stream(device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
+    return out, 1
+
+
+def factored_reference(arrays_2d, thresholds, nbins, variant):
+    """Plain PyTorch factored, with ``factored``'s contract
+    (``pallas_hist._run_factored``'s counts)."""
+    return _slot_counts_reference(arrays_2d, thresholds, nbins, variant == "full")
+
+
+def factored(arrays_2d, thresholds, nbins, variant):
+    """Joint histogram of N inputs over all elements or per kept row: the
+    routes ``factored`` (``variant="full"``), ``factored_per_row``
+    (``"per_row"``) and ``factored_packed`` (``"packed"``) of ``plan``.
+
+    ``arrays_2d`` are N ``(m, c)`` layouts of one shape, with any strides
+    (broadcast inputs keep their zero strides; the kernel reads every view
+    in place); ``thresholds[k]`` is input k's compare-form thresholds
+    (``bins.compare_form(edges, dtype).edges`` with ``n_hi_clip == 0``) in
+    its dtype on its device, ``nbins[k]`` its bin count. Returns
+    ``(1 if variant == "full" else m, prod(nbins) + 1)`` int64 counts with
+    a zero trailing trash slot.
+
+    A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
+    failure raises; inputs of several dtypes widen to the narrowest compare
+    type that holds each exactly, and int64 with a float raises
+    ``NotImplementedError``. A CPU tensor runs ``factored_reference``.
+    """
+    if variant not in _FACTORED_VARIANTS:
+        raise ValueError(
+            f"factored variant must be one of {_FACTORED_VARIANTS}, got {variant!r}"
+        )
+    _check_slot_operands("factored", arrays_2d, thresholds, nbins)
+    if arrays_2d[0].device.type == "cpu":
+        return factored_reference(arrays_2d, thresholds, nbins, variant)
+    out, launched = _slot_hist_cuda("factored", f"factored_{variant}", arrays_2d,
+                                    thresholds, nbins, variant == "full")
+    FACTORED_LAUNCHES[variant] += launched
+    return out
+
+
+def direct_reference(arrays_2d, thresholds, nbins):
+    """Plain PyTorch direct, with ``direct``'s contract
+    (``pallas_hist._run_direct``'s counts)."""
+    return _slot_counts_reference(arrays_2d, thresholds, nbins, False)
+
+
+def direct(arrays_2d, thresholds, nbins):
+    """Joint histogram of N inputs per kept row: the route ``direct`` of
+    ``plan`` (narrow rows, few slots) and every kept-row call forced onto
+    the kernels outside ``plan``'s envelopes.
+
+    Arguments as for ``factored``. Returns ``(m, prod(nbins) + 1)`` int64
+    counts with a zero trailing trash slot. A CUDA tensor launches the CUDA
+    kernel (``csrc/direct.cu``), and any failure raises. A CPU tensor runs
+    ``direct_reference``.
+    """
+    global DIRECT_LAUNCHES
+    _check_slot_operands("direct", arrays_2d, thresholds, nbins)
+    if arrays_2d[0].device.type == "cpu":
+        return direct_reference(arrays_2d, thresholds, nbins)
+    out, launched = _slot_hist_cuda("direct", "direct", arrays_2d, thresholds,
+                                    nbins, False)
+    DIRECT_LAUNCHES += launched
+    return out
