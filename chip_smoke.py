@@ -6,8 +6,10 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``csrc/joint2.cu``, ``csrc/one_input.cu``,
-``csrc/factored.cu``, ``csrc/direct.cu``) from the sources in this checkout,
-holds each bit-exact against its plain PyTorch version on the card, and
+``csrc/factored.cu``, ``csrc/direct.cu`` and the weighted flat-slot entries
+``csrc/slot_w*.cu``) from the sources in this checkout, holds each
+bit-exact against its plain PyTorch version on the card (weighted float
+sums within a stated tolerance), and
 drives the ported paths through the public ``xhistogram_torch.histogram``,
 with the kernels' launch counts set to 0 just before each path and read
 just after:
@@ -24,15 +26,27 @@ just after:
   (16384, 64) x 2 in 120x90 bins (packed);
 - direct: (64800, 64) and (1000, 64) x 2 in 40x40 bins per row;
 - forced ``method="cuda"`` beyond ``plan()``'s caps: a full reduction over
-  2^21 slots (factored) and kept rows over 8192 slots (direct).
+  2^21 slots (factored) and kept rows over 8192 slots (direct);
+- weighted (``weights=``): BASELINE config 2 with U(0,1) float32 weights and
+  ``density`` (one_input); the T–S diagram over 2^28 pairs with float32
+  weights and with int32 weights of one, two and four base-256 digits
+  (joint2); the README call weighted by a (50, 64800) cell volume broadcast
+  over time (factored per row); three inputs of 5e7 in 60x60x60 bins
+  (factored, full); 40x40 direct with float32 weights at (1000, 64) and
+  int32 weights at (64800, 64), where float weights run the scatter
+  strategy, as in the JAX package.
 
 Before the paths, factored and direct are held against their plain versions
 on edge cases, ragged sizes, three inputs, one input in 5000 bins, slot
 counts either side of the shared-memory limit, data types, strided and
-broadcast views. It checks the counts against the plain versions and the
+broadcast views; each weighted kernel against its plain version for every
+kind of weight (integer-valued, float32, float64, wrapping int32, int64,
+NaN and infinities, stride-0 and strided) and against float64 and
+math.fsum oracles. It checks the counts against the plain versions and the
 port's numpy references (``tests/ts_cases.py``), and times kernels, plain
 versions, one PyTorch library call where one computes the same function,
-and the public calls with CUDA events or the wall clock. Any mismatch
+and the public calls with CUDA events or the wall clock; each weighted
+kernel also beside its unweighted form at the same shape. Any mismatch
 raises. The line before the last is the card's name and power limit; the
 last line of standard output is one JSON object, ``{"ok": true, ...}``.
 Without a CUDA card it fails before printing a result. It imports nothing
@@ -66,6 +80,14 @@ PER_ROW = (1000, 100_000)  # perf_model.md:55, axis=1, 150x90 bins
 PACKED = (16384, 64)  # perf_model.md:56, axis=1, 120x90 bins
 DIRECT = ((64800, 64), (1000, 64))  # perf_model.md:57 at config 4's grid and its own
 SLOT_ROUTES = ("full", "per_row", "packed", "direct")
+
+# the weighted paths
+N_TS_W = (256, 1 << 20)  # 2^28 pairs: the weighted T-S rows of doc/perf_model.md:49-53
+# int32 weights spanning one, two and four signed base-256 digits (the int1,
+# int2 and int4 rows there)
+INT_WEIGHT_SPANS = {"int1": (0, 100), "int2": (-(2**14), 2**14),
+                    "int4": (-(2**30), 2**30)}
+N_3IN = 50_000_000  # three inputs in 60x60x60 bins, full
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
@@ -407,6 +429,406 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
             "library_ms": None,
         },
     ]
+
+
+
+def weighted_turns(plain, weighted, unweighted, reps=10):
+    """(weighted kernel ms, plain ms, unweighted kernel ms), timed plain,
+    weighted, unweighted, unweighted, weighted, plain after a warm-up of
+    each."""
+    weighted(), unweighted(), plain()
+    t = [event_ms(f, reps) for f in (plain, weighted, unweighted, unweighted,
+                                     weighted, plain)]
+    return (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+
+
+def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
+    """The weighted forms of the four kernels (csrc/weights.cuh): each held
+    against its plain version on the card, integer sums and sums of
+    integer-valued floats bit for bit, float sums within two float32 ulps
+    (float32 results; rtol 1e-10 for float64 ones, whose float64 adds run
+    in another order) with NaN and infinities in the same bins, and float
+    sums against a float64 numpy oracle and math.fsum within the JAX
+    package's 'highest' bound (rtol 3e-7, atol 1e-6). Then the weighted
+    paths through the public API, each with the launch counts set to 0
+    just before it and read just after. Returns each kernel's weighted
+    entries of the ``kernels`` line."""
+    import math
+
+    from ts_cases import S_EDGES, T_EDGES, reference_numpy_weighted
+    import xhistogram_torch
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.ops.bincount import weighted_dtype
+    from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
+    from xhistogram_torch.utils.profiling import measure
+
+    family = {"joint2": "joint2", "one_input_full": "one_input",
+              "one_input_rows": "one_input", "full": "factored",
+              "per_row": "factored", "packed": "factored", "direct": "direct"}
+    errs = dict.fromkeys(("joint2", "one_input", "factored", "direct"), 0.0)
+    launches = dict.fromkeys(errs, 0)
+
+    def operands(layouts, edges):
+        np_dtypes = [torch.empty(0, dtype=x.dtype).numpy().dtype for x in layouts]
+        return ([thresholds(e, d) for e, d in zip(edges, np_dtypes)],
+                [len(e) - 1 for e in edges])
+
+    def run(kernel, layouts, edges, weights, plain=False, ops=None):
+        thr, nbins = ops or operands(layouts, edges)
+        if kernel == "joint2":
+            fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+            return fn(*layouts, *thr, *nbins, weights=weights)
+        if kernel.startswith("one_input"):
+            fn = cuda_hist.one_input_reference if plain else cuda_hist.one_input
+            return fn(layouts[0], thr[0], nbins[0], kernel == "one_input_full",
+                      weights=weights)
+        if kernel == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(layouts, thr, nbins, weights=weights)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(layouts, thr, nbins, kernel, weights=weights)
+
+    def check(label, kernel, got, want, exact=False, rtol=None, atol=0.0):
+        """got against want: bit for bit when ``exact`` or integer, else
+        within rtol (two float32 ulps, or 1e-10 for float64) and atol, with
+        NaN, +inf and -inf in the same bins."""
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{label}: {kernel} gave {got.dtype} {tuple(got.shape)}, "
+                                 f"want {want.dtype} {tuple(want.shape)}")
+        if got.dtype == torch.uint64:
+            got, want = got.view(torch.int64), want.view(torch.int64)
+        if not got.is_floating_point():
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            ok = torch.equal(got, want)
+        else:
+            for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(cls(got), cls(want)):
+                    raise AssertionError(f"{label}: {kernel} NaN/inf bins differ from plain")
+            fin = torch.isfinite(want)
+            diff = (got.double() - want.double()).abs()[fin]
+            err = float(diff.max()) if diff.numel() else 0.0
+            if exact:
+                ok = torch.equal(got[fin], want[fin])
+            else:
+                if rtol is None:
+                    rtol = 1e-10 if got.dtype == torch.float64 else 2.4e-7
+                ok = bool((diff <= rtol * want.double().abs()[fin] + atol).all())
+        errs[family[kernel]] = max(errs[family[kernel]], err)
+        if not ok:
+            raise AssertionError(f"{label}: {kernel} != plain (max abs err {err})")
+
+    # === kernel vs plain on the card ==========================================
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x2 = torch.randn(2, 4096, 4096, device=dev, generator=gen)
+    cases = {
+        "joint2": ([14.0 + 8.0 * x2[0], 35.0 + 1.5 * x2[1]], [T_EDGES, S_EDGES]),
+        "one_input_full": ([x2[0]], [EDGES1]),
+        "one_input_rows": ([x2[0]], [EDGES1]),
+        "full": ([x2[0], x2[1]], [linspace_edges(150), linspace_edges(90)]),
+        "per_row": ([x2[0].reshape(256, -1), x2[1].reshape(256, -1)],
+                    [linspace_edges(150), linspace_edges(90)]),
+        "packed": ([x2[0].reshape(-1, 64)[:16384], x2[1].reshape(-1, 64)[:16384]],
+                   [linspace_edges(120), linspace_edges(90)]),
+        "direct": ([x2[0].reshape(-1, 64)[:16384], x2[1].reshape(-1, 64)[:16384]],
+                   [linspace_edges(40)] * 2),
+    }
+
+    def weight_cases(shape):
+        """(label, weights, bit-exact) of every weight kind at ``shape``."""
+        g = torch.Generator(device=dev).manual_seed(shape[0])
+        u = torch.rand(shape, device=dev, generator=g)
+        nonfinite = u.clone()
+        flat = nonfinite.view(-1)
+        for value in (float("nan"), float("inf"), -float("inf")):
+            flat[torch.randint(0, flat.numel(), (64,), device=dev, generator=g)] = value
+        # +inf beside -inf in the bins of a run of elements: NaN there
+        flat[:32:2], flat[1:32:2] = float("inf"), -float("inf")
+        return [
+            ("integer-valued float32", torch.randint(-100, 100, shape, device=dev,
+                                                     generator=g).float(), True),
+            ("U(0,1) float32", u, False),
+            ("U(0,1) float64", torch.rand(shape, device=dev, generator=g,
+                                          dtype=torch.float64), False),
+            ("int32 in ±2^30 (wraps)", torch.randint(-(2**30), 2**30, shape, device=dev,
+                                                    generator=g, dtype=torch.int32), True),
+            ("int64 in ±2^40", torch.randint(-(2**40), 2**40, shape, device=dev,
+                                             generator=g), True),
+            ("NaN, +inf, -inf", nonfinite, False),
+            ("broadcast row (stride 0)", u[:1].expand(shape), False),
+            ("strided view", u.t().contiguous().t(), False),
+        ]
+
+    for kernel, (layouts, edges) in cases.items():
+        for label, w, exact in weight_cases(tuple(layouts[0].shape)):
+            got = run(kernel, layouts, edges, w)
+            want = run(kernel, layouts, edges, w, plain=True)
+            torch.cuda.synchronize()
+            if got.dtype != weighted_dtype(w.dtype):
+                raise AssertionError(f"{kernel}, {label}: gave {got.dtype}")
+            check(label, kernel, got, want, exact)
+        print(f"# weighted {kernel} == plain ({tuple(layouts[0].shape)} x {len(layouts)}, "
+              f"{'x'.join(str(len(e) - 1) for e in edges)} bins): integer-valued "
+              f"float32, U(0,1) float32 and float64, int32 wrapping, int64, NaN/+inf/"
+              f"-inf, stride-0 and strided weights")
+
+    # float sums against a float64 oracle (np.bincount) and math.fsum
+    for kernel in ("joint2", "one_input_rows", "full", "direct"):
+        layouts, edges = cases[kernel]
+        sub = [x[:64].contiguous() if kernel != "direct" else x[:1024] for x in layouts]
+        g = torch.Generator(device=dev).manual_seed(5)
+        for w in (torch.rand(sub[0].shape, device=dev, generator=g),
+                  torch.rand(sub[0].shape, device=dev, generator=g, dtype=torch.float64)):
+            got = run(kernel, sub, edges, w)[..., :-1]
+            axis = None if kernel in ("joint2", "full") else (1,)
+            oracle = reference_numpy_weighted([x.cpu().numpy() for x in sub], edges,
+                                              w.cpu().numpy(), axis)
+            np.testing.assert_allclose(got.cpu().numpy().reshape(oracle.shape), oracle,
+                                       rtol=3e-7 if w.dtype == torch.float32 else 1e-12,
+                                       atol=1e-6, err_msg=f"{kernel} != float64 oracle")
+    te, se = np.linspace(-2, 30, 9), np.linspace(30, 40, 10)
+    t, s = cases["joint2"][0][0][:1].reshape(-1), cases["joint2"][0][1][:1].reshape(-1)
+    w = torch.rand(t.shape, device=dev, generator=gen)
+    got = run("joint2", [t, s], [te, se], w)[0, :-1].cpu().numpy()
+    t_np, s_np = (x.cpu().numpy().astype(np.float64) for x in (t, s))
+    it = np.searchsorted(te, t_np, side="right") - 1 - (t_np == te[-1])
+    is_ = np.searchsorted(se, s_np, side="right") - 1 - (s_np == se[-1])
+    keep = (it >= 0) & (it < 8) & (is_ >= 0) & (is_ < 9)
+    slot, w_np = (it * 9 + is_)[keep], w.cpu().numpy().astype(np.float64)[keep]
+    fsum = np.array([math.fsum(w_np[slot == k]) for k in range(72)], np.float32)
+    np.testing.assert_allclose(got, fsum, rtol=1.2e-7, atol=0,
+                               err_msg="joint2 != math.fsum, rounded to float32")
+    print("# weighted float sums within rtol 3e-7 of a float64 numpy oracle (joint2, "
+          "one_input, factored, direct; float32 and float64 weights), and joint2 within "
+          "one float32 ulp of math.fsum (4096 pairs, 8x9 bins)")
+    del x2, cases, layouts, sub
+    torch.cuda.empty_cache()
+
+    # === the weighted paths through the public API =============================
+    def drive(label, args, bins, axis, weights, kernel, density=False):
+        """One public call with fresh counts; checks plan() and that the
+        kernel's counter, and only it, moved. Returns (h, layouts, w2d)."""
+        axis_t = normalize_axis(axis, args[0].ndim)
+        shape = torch.broadcast_shapes(*(a.shape for a in args), weights.shape)
+        layouts = [canonicalize_2d(x.expand(shape), axis_t) for x in args]
+        w2d = canonicalize_2d(weights.expand(shape), axis_t)
+        m, c = layouts[0].shape
+        nbins = tuple(len(e) - 1 for e in bins)
+        wmode = None if weights.is_floating_point() else "int4"
+        planned = cuda_hist.plan(len(args), nbins, 1 if axis is None else m,
+                                 None if axis is None else c,
+                                 weights_dtype=weights.dtype, wmode=wmode)
+        if planned != kernel:
+            raise AssertionError(f"{label}: plan() names {planned}, not {kernel}")
+        key = {"factored": "factored full", "factored_per_row": "factored per_row",
+               "factored_packed": "factored packed"}.get(kernel, kernel)
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=weights,
+                                          density=density)
+        torch.cuda.synchronize()
+        launched = counts_now()
+        if launched[key] < 1 or sum(launched.values()) != launched[key]:
+            raise AssertionError(f"{label}: launches {launched}")
+        launches[key.split()[0]] += launched[key]
+        print(f"# weighted path {label}: plan {kernel}, launches {launched[key]} ({key}), "
+              f"{h.dtype} {tuple(h.shape)}")
+        return h, layouts, w2d
+
+    out = {}
+
+    # --- BASELINE config 2: weighted + density, kept rows ---------------------
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(CONFIG1, device=dev, generator=gen)
+    w = torch.rand(CONFIG1, device=dev, generator=gen)
+    d2, layouts, w2d = drive("BASELINE config 2, (1000, 100000) float32, U(0,1) float32 "
+                             "weights, 50 bins, axis=1, density", [x], [EDGES1], (1,), w,
+                             "one_input", density=True)
+    h2, _ = xhistogram_torch.histogram(x, bins=[EDGES1], axis=1, weights=w)
+    plain = run("one_input_rows", layouts, [EDGES1], w2d, plain=True)[:, :-1]
+    check("config 2", "one_input_rows", h2, plain)
+    x_np, w_np = x.cpu().numpy(), w.cpu().numpy()
+    want = reference_numpy_weighted([x_np], [EDGES1], w_np, (1,))
+    want = want / np.diff(EDGES1) / want.sum(axis=-1, keepdims=True)
+    np.testing.assert_allclose(d2.cpu().numpy(), want, rtol=2e-4, atol=1e-9,
+                               err_msg="config 2 density != numpy")
+    print("# config 2 weighted: sums == plain (2 ulps), density within rtol 2e-4 of "
+          "numpy (run_baselines.py:144)")
+    ops = operands(layouts, [EDGES1])
+    ms, plain_ms, unw_ms = weighted_turns(
+        lambda: run("one_input_rows", layouts, [EDGES1], w2d, plain=True, ops=ops),
+        lambda: run("one_input_rows", layouts, [EDGES1], w2d, ops=ops),
+        lambda: run("one_input_rows", layouts, [EDGES1], None, ops=ops))
+    bound_ms, _ = bound(8 * x.numel() + 4 * 1000 * 51, x.numel() * search_steps(50))
+    med, times = measure(lambda: xhistogram_torch.histogram(
+        x, bins=[EDGES1], axis=1, weights=w, density=True), reps=5)
+    print(f"# one_input weighted at config 2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"unweighted kernel {unw_ms:.4f} ms, bound {bound_ms:.4f} ms (800 MB read); "
+          f"public call with density median {med * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in times]} [{card}]")
+    out["one_input"] = (ms, plain_ms, bound_ms, unw_ms)
+    del x, w, layouts, w2d, plain, x_np, w_np, d2, h2
+    torch.cuda.empty_cache()
+
+    # --- the T-S diagram at 2^28 pairs: float32 weights, int1/int2/int4 ------
+    gen = torch.Generator(device=dev).manual_seed(28)
+    T = 14.0 + 8.0 * torch.randn(N_TS_W, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(N_TS_W, device=dev, generator=gen)
+    ta, tb = thresholds(T_EDGES), thresholds(S_EDGES)
+    kernel_ms = {"unweighted": event_ms(
+        lambda: cuda_hist.joint2(T, S, ta, tb, 280, 340), reps=3)}
+    for kind, spec in (("float32 U(0,1)", None), *INT_WEIGHT_SPANS.items()):
+        if spec is None:
+            w = torch.rand(N_TS_W, device=dev, generator=gen)
+        else:
+            w = torch.randint(spec[0], spec[1] + 1, N_TS_W, device=dev, generator=gen,
+                              dtype=torch.int32)
+        h, _, _ = drive(f"T-S 2^28 pairs, 280x340 bins, {kind} weights", [T, S],
+                        [T_EDGES, S_EDGES], None, w, "joint2")
+        # the plain version over blocks of 2^26 pairs, summed in float64 or
+        # int64 and then given the sums' dtype
+        acc = w.double() if w.is_floating_point() else w.long()
+        plain = sum(cuda_hist.joint2_reference(t_, s_, ta, tb, 280, 340, weights=w_)
+                    for t_, s_, w_ in zip(T.split(64), S.split(64), acc.split(64)))
+        plain = plain[0, :-1].reshape(280, 340).to(h.dtype)
+        check(f"T-S 2^28, {kind}", "joint2", h, plain)
+        kernel_ms[kind] = event_ms(
+            lambda: cuda_hist.joint2(T, S, ta, tb, 280, 340, weights=w), reps=3)
+        med, times = measure(lambda: xhistogram_torch.histogram(
+            T, S, bins=[T_EDGES, S_EDGES], weights=w), reps=3)
+        print(f"# T-S 2^28 {kind}: == plain over 4 blocks of 2^26; kernel "
+              f"{kernel_ms[kind]:.4f} ms, public call median {med * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in times]} [{card}]")
+        del plain, acc, h
+    print(f"# joint2 kernel at 2^28 pairs by weights: "
+          f"{ {k: round(v, 4) for k, v in kernel_ms.items()} } ms [{card}]")
+    t26, s26 = T[:64], S[:64]  # 2^26 pairs, the unweighted entry's size
+    w26 = torch.rand(t26.shape, device=dev, generator=gen)
+    ms, plain_ms, unw_ms = weighted_turns(
+        lambda: cuda_hist.joint2_reference(t26, s26, ta, tb, 280, 340, weights=w26),
+        lambda: cuda_hist.joint2(t26, s26, ta, tb, 280, 340, weights=w26),
+        lambda: cuda_hist.joint2(t26, s26, ta, tb, 280, 340))
+    bound_ms, _ = bound(12 * t26.numel() + 4 * 95201,
+                        t26.numel() * (search_steps(280) + search_steps(340)))
+    print(f"# joint2 weighted at 2^26 pairs, float32 weights: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, unweighted kernel {unw_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"[{card}]")
+    out["joint2"] = (ms, plain_ms, bound_ms, unw_ms)
+    del T, S, w, t26, s26, w26
+    torch.cuda.empty_cache()
+
+    # --- README per-level T-S, weighted by cell volume, broadcast over time ----
+    gen = torch.Generator(device=dev).manual_seed(73)
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)
+    vol = 1e9 * (0.5 + torch.rand(README_TS[1:], device=dev, generator=gen))
+    h, layouts, w2d = drive("README per-level T-S, (73, 50, 64800) float32 x 2, "
+                            "(50, 64800) cell-volume weights, axis=(0, 2)", [T, S],
+                            [T_EDGES, S_EDGES], (0, 2), vol, "factored_per_row")
+    edges = [T_EDGES, S_EDGES]
+    plain = run("per_row", layouts, edges, w2d, plain=True)[:, :-1]
+    check("README weighted", "per_row", h.reshape(50, -1), plain)
+    for level in (0, README_TS[1] - 1):
+        want = reference_numpy_weighted(
+            [T[:, level].cpu().numpy(), S[:, level].cpu().numpy()], edges,
+            vol[level].cpu().numpy(), None)
+        np.testing.assert_allclose(h[level].cpu().numpy(), want, rtol=3e-7, atol=1e-6,
+                                   err_msg=f"README weighted, level {level}")
+    del plain
+    ops = operands(layouts, edges)
+    ms, plain_ms, unw_ms = weighted_turns(
+        lambda: run("per_row", layouts, edges, w2d, plain=True, ops=ops),
+        lambda: run("per_row", layouts, edges, w2d, ops=ops),
+        lambda: run("per_row", layouts, edges, None, ops=ops), reps=3)
+    n = layouts[0].numel()
+    # the weights' own bytes: the (50, 64800) volume, not the copy of its
+    # broadcast that canonicalize_2d makes
+    bound_ms, _ = bound(8 * n + 4 * vol.numel() + 4 * 50 * 95201,
+                        n * (search_steps(280) + search_steps(340)))
+    med, times = measure(lambda: xhistogram_torch.histogram(
+        T, S, bins=edges, axis=(0, 2), weights=vol), reps=3)
+    print(f"# README weighted: == plain and numpy (levels 0, 49); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, unweighted kernel {unw_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms; public call median {med * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in times]} [{card}]")
+    out["factored"] = (ms, plain_ms, bound_ms, unw_ms)
+    del T, S, vol, h, layouts, w2d
+    torch.cuda.empty_cache()
+
+    # --- three inputs in 60x60x60 bins, full --------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(60)
+    xs = [torch.randn(N_3IN, device=dev, generator=gen) for _ in range(3)]
+    w = torch.rand(N_3IN, device=dev, generator=gen)
+    e60 = [linspace_edges(60)] * 3
+    h, layouts, w2d = drive("3 x 5e7 float32, 60x60x60 bins, U(0,1) float32 weights, "
+                            "full", xs, e60, None, w, "factored")
+    check("3 inputs", "full", h.reshape(1, -1),
+          run("full", layouts, e60, w2d, plain=True)[:, :-1])
+    n_np = 1 << 22
+    got, _ = xhistogram_torch.histogram(*(x[:n_np] for x in xs), bins=e60,
+                                        weights=w[:n_np])
+    want = reference_numpy_weighted([x[:n_np].cpu().numpy() for x in xs], e60,
+                                    w[:n_np].cpu().numpy())
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=3e-7, atol=1e-6,
+                               err_msg="3 inputs, first 2^22 elements")
+    ms3 = event_ms(lambda: run("full", layouts, e60, w2d), reps=5)
+    print(f"# 3 inputs weighted: == plain, and numpy on the first 2^22; kernel "
+          f"{ms3:.4f} ms (216,000 float64 slots in device memory) [{card}]")
+    del xs, w, h, layouts, w2d, got
+    torch.cuda.empty_cache()
+
+    # --- 40x40 direct: float32 at m = 1000, int32 at m = 64800 -----------------
+    for shape, dtype in ((DIRECT[1], torch.float32), (DIRECT[0], torch.int32)):
+        gen = torch.Generator(device=dev).manual_seed(shape[0] + 1)
+        a, b = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
+        if dtype == torch.int32:
+            w = torch.randint(-(2**30), 2**30, shape, device=dev, generator=gen,
+                              dtype=torch.int32)
+        else:
+            w = torch.rand(shape, device=dev, generator=gen)
+        e40 = [linspace_edges(40)] * 2
+        h, layouts, w2d = drive(f"40x40 direct, {shape} float32 x 2, {dtype} weights, "
+                                "axis=1", [a, b], e40, (1,), w, "direct")
+        check(f"direct {shape}", "direct", h.reshape(shape[0], -1),
+              run("direct", layouts, e40, w2d, plain=True)[:, :-1])
+        exact = dtype == torch.int32
+        for r in (0, 1, shape[0] - 1):
+            want = reference_numpy_weighted([a[r].cpu().numpy(), b[r].cpu().numpy()], e40,
+                                            w[r].cpu().numpy(), None, exact=exact)
+            if exact:
+                want = (want % 2**32).astype(np.int64)
+                want = np.where(want >= 2**31, want - 2**32, want)
+                np.testing.assert_array_equal(h[r].cpu().numpy(), want)
+            else:
+                np.testing.assert_allclose(h[r].cpu().numpy(), want, rtol=3e-7, atol=1e-6)
+        if dtype == torch.int32:  # the entry's shape: the unweighted kernel's
+            ops = operands(layouts, e40)
+            ms, plain_ms, unw_ms = weighted_turns(
+                lambda: run("direct", layouts, e40, w2d, plain=True, ops=ops),
+                lambda: run("direct", layouts, e40, w2d, ops=ops),
+                lambda: run("direct", layouts, e40, None, ops=ops))
+            bound_ms, _ = bound(12 * a.numel() + 4 * shape[0] * 1601,
+                                a.numel() * 2 * search_steps(40))
+            print(f"# direct weighted at {shape}, int32 weights: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, unweighted kernel {unw_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms [{card}]")
+            out["direct"] = (ms, plain_ms, bound_ms, unw_ms)
+            # float weights at this shape: the JAX package runs scatter here
+            # (its four per-slot outputs pass the 2^28 gate), and so does the port
+            reset_counts()
+            xhistogram_torch.histogram(a, b, bins=e40, axis=1, weights=w.float())
+            torch.cuda.synchronize()
+            if any(counts_now().values()):
+                raise AssertionError(f"float-weighted 40x40 at {shape}: {counts_now()}")
+            print(f"# float-weighted 40x40 at {shape}: no kernel launched (scatter, as "
+                  "in the JAX package)")
+        del a, b, w, h, layouts, w2d
+        torch.cuda.empty_cache()
+
+    return {
+        name: {"weighted_ms": ms, "weighted_plain_ms": plain_ms,
+               "weighted_bound_ms": bound_ms, "unweighted_same_shape_ms": unw_ms,
+               "weighted_launches": launches[name], "weighted_max_abs_err": errs[name]}
+        for name, (ms, plain_ms, bound_ms, unw_ms) in out.items()
+    }
 
 
 def main():
@@ -798,8 +1220,9 @@ def main():
 
     slot = factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
                                max_abs_err)
+    weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {
             "name": "joint2",
             "route": "cuda",
@@ -827,7 +1250,11 @@ def main():
             "library_ms": oi_library_ms,
         },
         *slot,
-    ]}))
+    ]
+    for entry in kernels:  # the weighted paths' launches join the counts
+        entry.update(weighted[entry["name"]])
+        entry["launches"] += entry["weighted_launches"]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -208,18 +208,6 @@ def test_top_edge_clip_raises_on_the_kernel_route():
     np.testing.assert_array_equal(h.numpy(), jh)
 
 
-@pytest.mark.parametrize(
-    "kwargs,match",
-    [
-        ({"weights": np.ones(4)}, "weights= is not ported"),
-        ({"precision": "split"}, "precision= is not ported"),
-    ],
-)
-def test_weighted_not_ported(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        histogram_cpu(np.ones(4), bins=[E], **kwargs)
-
-
 def test_uint64_not_ported():
     with pytest.raises(NotImplementedError, match="uint64"):
         histogram_cpu(np.arange(4, dtype=np.uint64), bins=[E])

@@ -76,13 +76,13 @@ def _spy(monkeypatch):
         ran["jax"].append("direct")
         return run_direct(*args, **kwargs)
 
-    def port_factored(arrays_2d, thresholds, nbins, variant):
+    def port_factored(arrays_2d, thresholds, nbins, variant, weights=None):
         ran["port"].append(ROUTE[variant])
-        return cuda_hist.factored(arrays_2d, thresholds, nbins, variant)
+        return cuda_hist.factored(arrays_2d, thresholds, nbins, variant, weights)
 
-    def port_direct(arrays_2d, thresholds, nbins):
+    def port_direct(arrays_2d, thresholds, nbins, weights=None):
         ran["port"].append("direct")
-        return cuda_hist.direct(arrays_2d, thresholds, nbins)
+        return cuda_hist.direct(arrays_2d, thresholds, nbins, weights)
 
     monkeypatch.setattr(pallas_hist, "_run_factored", jax_factored)
     monkeypatch.setattr(pallas_hist, "_run_direct", jax_direct)

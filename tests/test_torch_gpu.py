@@ -14,6 +14,7 @@ import torch
 import xhistogram_torch
 from xhistogram_torch import bins as tbins
 from xhistogram_torch.ops import cuda_hist
+from xhistogram_torch.ops.bincount import weighted_dtype
 from ts_cases import (
     EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, edge_case_values, numpy_hist2d,
     reference_numpy, ts_data,
@@ -512,3 +513,266 @@ def test_forced_beyond_the_caps(cuda):
         assert launched == [int(r == route) for r in ROUTES]
         h_cpu, _ = call("cpu")
         assert torch.equal(h.cpu(), h_cpu)
+
+
+# --- weighted (csrc/weights.cuh), every kernel -----------------------------------
+
+WEIGHT_DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
+                 torch.int32, torch.uint32, torch.int16, torch.uint16, torch.int8,
+                 torch.uint8, torch.bool, torch.int64, torch.uint64]
+KERNELS = ("joint2", "one_input_full", "one_input_rows", *ROUTES)
+
+
+def _launch_counts():
+    return (cuda_hist.JOINT2_LAUNCHES, cuda_hist.ONE_INPUT_LAUNCHES, *_launches())
+
+
+def _weights(shape, dtype, device, seed):
+    """Random weights of ``dtype``: floats in [-1, 3), int32 spanning ±2^30
+    (the sums wrap), 64-bit integers beyond 2^32, the rest over their whole
+    range."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_floating_point:
+        return (torch.rand(shape, device=device, generator=gen) * 4 - 1).to(dtype)
+    if dtype == torch.bool:
+        return torch.rand(shape, device=device, generator=gen) < 0.5
+    if dtype in (torch.int64, torch.uint64):
+        w = torch.randint(-(2**62), 2**62, shape, device=device, generator=gen)
+        return w.view(dtype)
+    lo, hi = {torch.int32: (-(2**30), 2**30), torch.uint32: (0, 2**32),
+              torch.int16: (-(2**15), 2**15), torch.uint16: (0, 2**16),
+              torch.int8: (-128, 128), torch.uint8: (0, 256)}[dtype]
+    return torch.randint(lo, hi, shape, device=device, generator=gen).to(dtype)
+
+
+def _run(kernel, layouts, edges, weights, plain):
+    """One kernel (or its plain version) on the card with weights."""
+    thr = []
+    for x, e in zip(layouts, edges):
+        np_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
+        ce = tbins.compare_form(np.asarray(e), np_dtype)
+        assert ce.n_hi_clip == 0
+        thr.append(torch.from_numpy(ce.edges).to(x.device))
+    nbins = [len(e) - 1 for e in edges]
+    if kernel == "joint2":
+        fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+        return fn(*layouts, *thr, *nbins, weights=weights)
+    if kernel.startswith("one_input"):
+        fn = cuda_hist.one_input_reference if plain else cuda_hist.one_input
+        return fn(layouts[0], thr[0], nbins[0], kernel == "one_input_full",
+                  weights=weights)
+    if kernel == "direct":
+        fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+        return fn(layouts, thr, nbins, weights=weights)
+    fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+    return fn(layouts, thr, nbins, kernel, weights=weights)
+
+
+def _assert_sums_equal(got, want, exact=False):
+    """Integer sums bit for bit; float sums (float64 adds in atomic order,
+    rounded once) within one float32 rounding of each other, with NaN and
+    infinities in the same bins."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.uint64:
+        got, want = got.view(torch.int64), want.view(torch.int64)
+    if exact or not got.dtype.is_floating_point:
+        assert torch.equal(got.cpu(), want.cpu())
+    elif got.dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-9, equal_nan=True)
+    else:
+        torch.testing.assert_close(got, want, rtol=3e-7, atol=1e-5, equal_nan=True)
+
+
+def _weighted_pair(kernel, layouts, edges, weights, exact=False):
+    """Runs kernel and plain version on the card, checks the launch count
+    and the sums."""
+    before = _launch_counts()
+    got = _run(kernel, layouts, edges, weights, plain=False)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    slot = {"joint2": 0, "one_input_full": 1, "one_input_rows": 1}.get(
+        kernel, 2 + ROUTES.index(kernel) if kernel in ROUTES else None)
+    nonempty = int(layouts[0].numel() > 0)
+    assert launched == [nonempty * (i == slot) for i in range(len(launched))]
+    want = _run(kernel, layouts, edges, weights, plain=True)
+    assert got.dtype == weighted_dtype(weights.dtype)
+    _assert_sums_equal(got, want, exact)
+    return got
+
+
+def _layouts(kernel, m, c, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 1 if kernel.startswith("one_input") else 2
+    return [1.5 * torch.randn(m, c, device=device, generator=gen) for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", WEIGHT_DTYPES, ids=str)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_weighted_kernel_equals_plain(cuda, kernel, dtype):
+    m, c = (16, 1 << 14) if kernel != "packed" else (256, 64)
+    layouts = _layouts(kernel, m, c, cuda, seed=len(kernel))
+    layouts[0][::5, ::7] = float("nan")
+    edges = [_edges(50), _edges(40)][: len(layouts)]
+    if kernel == "joint2":  # the T-S grid in four float64 chunks
+        layouts = [14.0 + 8.0 * layouts[0], 35.0 + 1.5 * layouts[1]]
+        edges = [T_EDGES, S_EDGES]
+    _weighted_pair(kernel, layouts, edges, _weights((m, c), dtype, cuda, seed=3))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_weighted_integer_valued_floats_bit_equal(cuda, kernel):
+    m, c = 32, 1 << 13
+    layouts = _layouts(kernel, m, c, cuda, seed=5)
+    w = torch.randint(-100, 100, (m, c), device=cuda).float()
+    _weighted_pair(kernel, layouts, [_edges(30), _edges(20)][: len(layouts)], w,
+                   exact=True)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("m,c", [(0, 5), (5, 0), (1, 1), (7, 1), (3, 4097),
+                                 (1, (1 << 20) + 3), (4099, 3)])
+def test_weighted_ragged_sizes(cuda, kernel, m, c):
+    layouts = _layouts(kernel, m, c, cuda, seed=m + c)
+    for dtype in (torch.float32, torch.int32, torch.int64):
+        _weighted_pair(kernel, layouts, [_edges(50), _edges(30)][: len(layouts)],
+                       _weights((m, c), dtype, cuda, seed=m * c))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_weighted_strided_and_broadcast_weights(cuda, kernel):
+    m, c = 300, 500
+    layouts = _layouts(kernel, m, c, cuda, seed=7)
+    edges = [_edges(20), _edges(30)][: len(layouts)]
+    w = _weights((m, c), torch.float32, cuda, seed=8)
+    row = _weights((1, c), torch.float32, cuda, seed=9).expand(m, c)  # stride 0
+    col = _weights((m, 1), torch.int32, cuda, seed=10).expand(m, c)
+    for weights in (w.t().contiguous().t(), row, col, w[:, ::2]):
+        views = [x[:, ::2] for x in layouts] if weights.shape[1] != c else layouts
+        _assert_sums_equal(_weighted_pair(kernel, views, edges, weights),
+                           _weighted_pair(kernel, views, edges, weights.contiguous()))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("nb", [169, 170, 239, 240])
+def test_weighted_slot_counts_around_the_shared_memory_limit(cuda, route, nb):
+    # beside two float32 threshold sets, 169^2 = 28,561 float64 or 64-bit
+    # sums fit a block's shared memory and 170^2 do not; for 32-bit sums the
+    # limit lies between 239^2 and 240^2, as for the counts
+    m, c = (3, 1 << 17) if route != "packed" else (40, 64)
+    layouts = _layouts(route, m, c, cuda, seed=nb)
+    for dtype in (torch.float32, torch.int32, torch.int64):
+        _weighted_pair(route, layouts, [_edges(nb)] * 2,
+                       _weights((m, c), dtype, cuda, seed=nb))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_weighted_global_histogram_equals_shared(cuda, route, monkeypatch):
+    layouts = _layouts(route, 64, 3000, cuda, seed=11)
+    edges = [_edges(150), _edges(90)]
+    for dtype in (torch.float32, torch.int32, torch.uint64):
+        w = _weights((64, 3000), dtype, cuda, seed=12)
+        shared = _weighted_pair(route, layouts, edges, w)
+        monkeypatch.setattr(cuda_hist, "MAX_SHARED_SLOTS", 0)
+        in_global = _weighted_pair(route, layouts, edges, w)
+        monkeypatch.undo()
+        _assert_sums_equal(shared, in_global)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_weighted_nonfinite(cuda, kernel):
+    """NaN makes its own bin NaN, +inf and -inf together make it NaN, one
+    infinity makes it that infinity; NaN data drop their weight."""
+    m, c = 8, 4096
+    layouts = _layouts(kernel, m, c, cuda, seed=13)
+    layouts[0][:, ::11] = float("nan")
+    w = _weights((m, c), torch.float32, cuda, seed=14)
+    w[:, ::11] = float("nan")  # on NaN data: never added
+    # row 0, columns 1-5: bins 0-3 of the first input (the others' bin 3)
+    # take NaN, +inf, -inf, and +inf with -inf
+    layouts[0][0, 1:6] = torch.tensor([-2.625, -1.875, -1.125, -0.375, -0.375])
+    for x in layouts[1:]:
+        x[0, 1:6] = 0.25
+    inf = float("inf")
+    w[0, 1:6] = torch.tensor([float("nan"), inf, -inf, inf, -inf])
+    got = _weighted_pair(kernel, layouts, [_edges(8), _edges(6)][: len(layouts)], w)
+    assert got.isnan().any() and got.isposinf().any() and got.isneginf().any()
+
+
+@pytest.mark.parametrize(
+    "shape,nbins,axis,wdtype,kernel",
+    [((4, 3000), (50,), (1,), torch.float32, "one_input"),
+     ((1 << 16,), (280, 340), None, torch.float32, "joint2"),
+     ((1 << 16,), (280, 340), None, torch.int16, "joint2"),
+     ((6, 4, 500), (280, 340), (0, 2), torch.float32, "factored_per_row"),
+     ((1 << 16,), (60, 60, 60), None, torch.float32, "factored"),
+     ((1000, 64), (40, 40), (1,), torch.float32, "direct"),
+     ((2000, 64), (40, 40), (1,), torch.int32, "direct"),
+     ((64, 64), (120, 90), (1,), torch.int32, "factored_packed")],
+    ids=str,
+)
+def test_auto_runs_the_weighted_kernels(cuda, shape, nbins, axis, wdtype, kernel):
+    rng = np.random.default_rng(len(nbins) + shape[0])
+    args = [rng.normal(0, 1.5, shape).astype(np.float32) for _ in nbins]
+    w = _weights(shape, wdtype, "cpu", seed=16)
+    bins = [_edges(nb) for nb in nbins]
+    counters = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 3,
+                "factored_packed": 4, "direct": 5}
+    before = _launch_counts()
+    h, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
+                                      bins=bins, axis=axis, weights=w.to(cuda))
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    assert launched == [int(i == counters[kernel]) for i in range(len(launched))]
+    h_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                          device="cpu")
+    _assert_sums_equal(h.cpu(), h_cpu)
+    # where the JAX package runs scatter (float weights, 64,800 rows of
+    # 40x40), the port does too
+    if kernel == "direct" and wdtype == torch.int32:
+        big = [rng.normal(0, 1.5, (64800, 8)).astype(np.float32) for _ in range(2)]
+        before = _launch_counts()
+        xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in big),
+                                   bins=bins, axis=(1,),
+                                   weights=torch.ones(64800, 8, device=cuda))
+        assert _launch_counts() == before
+
+
+def test_weighted_autograd_on_the_card(cuda):
+    t_np, s_np = ts_data((64, 4096), seed=17)
+    w = torch.rand(4096, device=cuda, requires_grad=True)  # broadcast over rows
+    h, _ = xhistogram_torch.histogram(torch.from_numpy(t_np).to(cuda),
+                                      torch.from_numpy(s_np).to(cuda),
+                                      bins=[T_EDGES, S_EDGES], weights=w)
+    coef = torch.randn(h.shape, device=cuda)
+    (h * coef).sum().backward()
+    w_cpu = w.detach().cpu().requires_grad_()
+    h_cpu, _ = xhistogram_torch.histogram(torch.from_numpy(t_np), torch.from_numpy(s_np),
+                                          bins=[T_EDGES, S_EDGES], weights=w_cpu)
+    (h_cpu * coef.cpu()).sum().backward()
+    torch.testing.assert_close(w.grad.cpu(), w_cpu.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", WEIGHT_DTYPES, ids=str)
+def test_public_histogram_launches_for_every_weight_dtype(cuda, dtype):
+    """Through the public histogram, weights of every dtype launch the
+    route's kernel (one_input per row, joint2 full), with the sums of the
+    CPU path in their weighted_dtype; density too."""
+    rng = np.random.default_rng(23)
+    x, y = (rng.normal(0, 1.5, (64, 2048)).astype(np.float32) for _ in range(2))
+    w = _weights((64, 2048), dtype, "cpu", seed=24)
+    for args, bins, axis, counter in (([x], [_edges(50)], (1,), 1),
+                                      ([x, y], [_edges(50), _edges(40)], None, 0)):
+        before = _launch_counts()
+        h, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
+                                          bins=bins, axis=axis, weights=w.to(cuda))
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert launched == [int(i == counter) for i in range(len(launched))]
+        assert h.dtype == weighted_dtype(dtype) and h.device.type == "cuda"
+        h_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                              device="cpu")
+        _assert_sums_equal(h.cpu(), h_cpu)
+        d, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
+                                          bins=bins, axis=axis, weights=w.to(cuda),
+                                          density=True)
+        d_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                              density=True, device="cpu")
+        torch.testing.assert_close(d.cpu(), d_cpu, rtol=1e-5, atol=1e-7, equal_nan=True)

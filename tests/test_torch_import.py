@@ -39,15 +39,27 @@ def test_no_port_file_imports_jax():
 
 def test_every_declared_kernel_symbol_is_defined():
     """The C symbols ``ops/_build.py`` binds (joint2, one_input and the four
-    flat-slot routes of csrc/factored.cu and csrc/direct.cu, per data type)
-    are each defined once by a ``csrc/*.cu`` entry macro."""
+    flat-slot routes of csrc/factored.cu and csrc/direct.cu, per data type,
+    unweighted and per weight class) are each defined once by a
+    ``csrc/*.cu`` entry macro, the weighted ones through a macro that
+    names a class's entries ``xh_<kernel>_<data>_##cls``."""
     import re
 
     from xhistogram_torch.ops import _build
 
+    csrc = REPO / "xhistogram_torch" / "csrc"
+    per_class = {}  # class macro -> the entries it defines, less the class
+    for path in sorted(csrc.glob("*.cu*")):
+        for macro, body in re.findall(r"^#define (XH_\w+_CLASS)\(cls, A\)((?:.*\\\n)*.*)",
+                                      path.read_text(), re.M):
+            per_class[macro] = re.findall(r"\((xh_\w+)_##cls,", body)
     defined = []
-    for path in sorted((REPO / "xhistogram_torch" / "csrc").glob("*.cu")):
-        defined += re.findall(r"^XH_\w+\((xh_\w+),", path.read_text(), re.M)
-    declared = [f"xh_{kernel}_{suffix}" for suffix in _build.DTYPE_SUFFIXES
-                for kernel in ("joint2", "one_input", *_build.SLOT_ROUTES)]
+    for path in sorted(csrc.glob("*.cu")):
+        text = path.read_text()
+        defined += re.findall(r"^XH_\w+\((xh_\w+),", text, re.M)
+        for macro, cls in re.findall(r"^(XH_\w+_CLASS)\((\w+),", text, re.M):
+            defined += [f"{name}_{cls}" for name in per_class[macro]]
+    declared = [f"xh_{kernel}_{suffix}{cls}" for suffix in _build.DTYPE_SUFFIXES
+                for kernel in ("joint2", "one_input", *_build.SLOT_ROUTES)
+                for cls in ("", *(f"_{c}" for c in _build.WEIGHT_CLASSES))]
     assert sorted(defined) == sorted(declared)

@@ -118,13 +118,34 @@ NBINS_GRID = [
 ]
 
 
+# weighted plan() inputs: (torch dtype, JAX dtype, modes); integer weights
+# ride the JAX package's "intN" digit modes
+WEIGHT_KINDS = [
+    (torch.float32, "float32", [None, "split", "highest", "i8", "i8x3"]),
+    (torch.int32, "int32", [None, "int1", "int2", "int3", "int4"]),
+]
+
+
 @pytest.mark.parametrize("nbins", NBINS_GRID, ids=str)
 def test_plan_matches_jax(nbins):
+    import jax.numpy as jnp
+
     for m, c in [(1, None), (2, 64), (7, 1000), (8, 256), (1000, 100000),
-                 (16384, 64), (3, 255), (0, 10), (5, 0)]:
+                 (16384, 64), (3, 255), (0, 10), (5, 0), (64800, 64),
+                 (50, 73 * 64800)]:
         assert cuda_hist.plan(len(nbins), nbins, m, c) == pallas_hist.plan(
             len(nbins), nbins, m, c=c, weighted=False, uniform=None
         ), (m, c)
+        # weighted, by weight dtype and mode: the 2^18-2^20 full caps, the
+        # per-slot outputs of the kept-row gate, the 2^24 kept cap
+        for dtype, jdtype, modes in WEIGHT_KINDS:
+            for mode in modes:
+                assert cuda_hist.plan(
+                    len(nbins), nbins, m, c, weights_dtype=dtype, wmode=mode
+                ) == pallas_hist.planned_kernel(
+                    len(nbins), nbins, m, c, weighted=True,
+                    weights_dtype=getattr(jnp, jdtype), wmode=mode,
+                ), (m, c, jdtype, mode)
 
 
 def _dtype_case(dtype, seed):

@@ -130,3 +130,39 @@ def reference_numpy_joint(arrays, edges, axis=None):
         sample = np.stack([x[r].astype(np.float64) for x in flat], -1)
         out[r] = np.histogramdd(sample, bins=edges)[0]
     return out.reshape(kept + nbins)
+
+
+def reference_numpy_weighted(arrays, edges, weights, axis=None, exact=False):
+    """numpy's weighted joint histogram: the inputs and the weights
+    broadcast against each other, ``axis`` (a tuple, or None for every
+    axis) is reduced and the other axes are kept as rows; each input is
+    compared in float64 with an inclusive last edge, as numpy does. float64
+    sums in ``np.bincount``'s order, or (``exact=True``, integer weights)
+    exact Python-int sums in an object array. Shaped ``kept + nbins``."""
+    *arrays, w = np.broadcast_arrays(*(np.asarray(a) for a in arrays),
+                                     np.asarray(weights))
+    nbins = tuple(len(e) - 1 for e in edges)
+    shape = arrays[0].shape
+    if axis is None:
+        kept, rows = (), (lambda a: a.reshape(1, -1))
+    else:
+        kept = tuple(n for i, n in enumerate(shape) if i not in axis)
+        m = int(np.prod(kept, dtype=np.int64))
+        rows = (lambda a: np.moveaxis(a, axis, tuple(range(-len(axis), 0)))
+                .reshape(m, -1))
+    flat, valid = 0, True
+    for a, e, nb in zip(arrays, edges, nbins):
+        idx = _searchsorted_inclusive(rows(a).astype(np.float64),
+                                      np.asarray(e, np.float64)) - 1
+        valid = valid & (idx >= 0) & (idx < nb)
+        flat = flat * nb + np.clip(idx, 0, nb - 1)
+    n = int(np.prod(nbins))
+    m = flat.shape[0]
+    off = (flat + n * np.arange(m)[:, None])[valid]
+    w = rows(w)[valid]
+    if exact:
+        out = np.zeros(m * n, object)
+        np.add.at(out, off, w.astype(object))
+    else:
+        out = np.bincount(off, weights=w.astype(np.float64), minlength=m * n)
+    return out.reshape(kept + nbins)

@@ -47,9 +47,11 @@ def is_traced(x) -> bool:
 
 
 def _host(x):
-    """numpy view of a torch tensor (copied to the host); others unchanged."""
+    """numpy view of a torch tensor (copied to the host; bfloat16, which
+    numpy lacks, as float32); others unchanged."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return x
 
 
@@ -136,14 +138,15 @@ def validate_edges(e):
     return e
 
 
-def resolve_bin_edges(arrays, bins, range_=None):
+def resolve_bin_edges(arrays, bins, range_=None, weights=None):
     """Resolve per-input bin specs to concrete 1-D numpy edge arrays.
 
     ``arrays`` are the (broadcast-compatible) inputs, numpy or torch.
     Explicit edge arrays pass through ``validate_edges``; int/str specs are
     resolved with ``np.histogram_bin_edges`` on host copies of the fully
-    broadcast data (the reference's broadcast-before-resolve order,
-    reference core.py:366-388).
+    broadcast data and weights (the reference's broadcast-before-resolve
+    order, reference core.py:366-388: the weights may have more dimensions
+    than any input).
     """
     n = len(arrays)
     bins = normalize_bins(bins, n)
@@ -151,15 +154,19 @@ def resolve_bin_edges(arrays, bins, range_=None):
 
     edges = []
     arrs_np = None
+    w_np = None
     for i, (b, r) in enumerate(zip(bins, ranges)):
         if isinstance(b, np.ndarray):
             edges.append(validate_edges(b))
             continue
         if arrs_np is None:
             arrs_np = [_view_datetime_as_int(np.asarray(_host(a))) for a in arrays]
-            if len(arrs_np) > 1:
+            if weights is not None:
+                bc = np.broadcast_arrays(*arrs_np, np.asarray(_host(weights)))
+                arrs_np, w_np = list(bc[:-1]), bc[-1]
+            elif len(arrs_np) > 1:
                 arrs_np = list(np.broadcast_arrays(*arrs_np))
-        edges.append(np.histogram_bin_edges(arrs_np[i], bins=b, range=r))
+        edges.append(np.histogram_bin_edges(arrs_np[i], bins=b, range=r, weights=w_np))
     return edges
 
 

@@ -1,4 +1,5 @@
-// Direct-route histograms: N inputs, kept rows, int64 counts.
+// Direct-route histograms: N inputs, kept rows, int64 counts or weighted
+// sums.
 //
 // Replaces the TPU kernel xhistogram_tpu/ops/pallas_hist.py::_direct_kernel
 // (driven by _run_direct, with _pick_tiles_direct). That kernel builds a
@@ -18,6 +19,11 @@
 // What bounds it on an H100: the output. Each row writes 8 (S + 1) bytes
 // against 2 sizeof(T) c bytes read, 830 MB of int64 against 33 MB of
 // float32 at (64800, 64) x 2 inputs in 40x40 bins.
+//
+// Weighted entries xh_direct_<data>_<class> (slot_wf64.cu, slot_wu32.cu,
+// slot_wu64.cu) add each element's weight (weights.cuh) in place of the
+// TPU kernel's weight limbs and channels; the output rows are then
+// sizeof(A) bytes a slot.
 
 #include "slot.cuh"
 

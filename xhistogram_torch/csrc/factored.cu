@@ -1,4 +1,5 @@
-// Factored-route histograms: N inputs, int64 counts, in three variants.
+// Factored-route histograms: N inputs, int64 counts or weighted sums, in
+// three variants.
 //
 // Replaces the TPU kernel xhistogram_tpu/ops/pallas_hist.py::_factored_kernel
 // (driven by _run_factored, with _pick_factorization and _packed_tm). That
@@ -22,12 +23,18 @@
 //   over 8192 slots (route factored_packed), where each tile holds whole
 //   rows and the output writes dominate.
 // They share the kernel and differ in their launch counts and timings.
+// Each has weighted entries, xh_factored_<variant>_<data>_<class>, one per
+// accumulator class of weights.cuh, in slot_wf64.cu, slot_wu32.cu and
+// slot_wu64.cu, in place of the TPU kernel's weight limbs, Kahan outputs
+// and NaN/inf channels.
 //
 // What bounds it on an H100: each element reads sizeof(T) bytes per input
 // and each output row writes 8 (S + 1) bytes. A full reduction or wide
 // rows are bound by the per-element searches and atomics (PERF.md §5);
 // packed rows by the output writes (8 B a slot against 2 sizeof(T) B an
-// element read).
+// element read). Weighted: one more read of the weight an element, and
+// float64 or 64-bit shared atomics, which keep half the slots in shared
+// memory.
 
 #include "slot.cuh"
 

@@ -1,4 +1,4 @@
-// Joint two-input histogram, full reduction, int64 counts.
+// Joint two-input histogram, full reduction, int64 counts or weighted sums.
 //
 // Replaces the TPU kernel xhistogram_tpu/ops/pallas_hist.py::_joint2_kernel
 // (driven by _run_joint2). That kernel builds cumulative compare rows for
@@ -29,6 +29,13 @@
 // one pass.
 // Integer atomics commute, so the result is deterministic and exact.
 //
+// Weighted (policy xh::Sum<A>, weights.cuh; the TPU kernel's weighted form
+// multiplies weight limbs into its compare rows, with Kahan and NaN/inf
+// channel outputs): each pair in the chunk's rows adds its weight, read
+// contiguously beside the pair and converted at load to the accumulator A,
+// in place of one. A chunk holds kMaxChunkBytes of accumulators, so float64
+// and 64-bit sums cut the T bins into twice as many chunks, each a pass.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, without --use_fast_math: subnormal data must compare
 // exactly against a 0.0 threshold (no flush to zero).
@@ -37,24 +44,40 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "weights.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
-constexpr int kMaxChunkSlots = 48 * 1024;
+constexpr int kMaxChunkBytes = 192 * 1024;  // a chunk's shared histogram
 
-template <typename T>
+// The byte offset of the histogram past both threshold sets of `elem`
+// bytes each, aligned for its accumulators of `acc` bytes.
+__host__ __device__ constexpr size_t hist_offset(int nba, int nbb, size_t elem,
+                                                 size_t acc) {
+  return (elem * (size_t)(xh::skewed_len(nba + 1) + xh::skewed_len(nbb + 1)) +
+          acc - 1) / acc * acc;
+}
+
+// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]).
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
 joint2_kernel(const T* __restrict__ a, const T* __restrict__ b, long long n,
               const T* __restrict__ thr_a, int nba,
               const T* __restrict__ thr_b, int nbb, int rows_per_chunk,
-              unsigned long long* __restrict__ out) {
+              const void* __restrict__ w, int wcode,
+              typename W::Out* __restrict__ out) {
+  using Shared = typename W::Shared;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ta = reinterpret_cast<T*>(smem);
   T* tb = ta + xh::skewed_len(nba + 1);
-  unsigned int* hist =
-      reinterpret_cast<unsigned int*>(tb + xh::skewed_len(nbb + 1));
+  Shared* hist;
+  if constexpr (W::kWeighted)
+    hist = reinterpret_cast<Shared*>(
+        smem + hist_offset(nba, nbb, sizeof(T), sizeof(Shared)));
+  else  // the same offset, computed as the unweighted kernel always has
+    hist = reinterpret_cast<Shared*>(tb + xh::skewed_len(nbb + 1));
 
   const int row0 = blockIdx.y * rows_per_chunk;  // first T bin of the chunk
   const int rows = min(rows_per_chunk, nba - row0);
@@ -62,7 +85,8 @@ joint2_kernel(const T* __restrict__ a, const T* __restrict__ b, long long n,
 
   xh::stage_thresholds(ta, thr_a, nba + 1);
   xh::stage_thresholds(tb, thr_b, nbb + 1);
-  for (int s = threadIdx.x; s < chunk_slots; s += blockDim.x) hist[s] = 0u;
+  for (int s = threadIdx.x; s < chunk_slots; s += blockDim.x)
+    hist[s] = Shared(0);
   __syncthreads();
 
   const long long step = (long long)blockDim.x * kUnroll;
@@ -83,39 +107,55 @@ joint2_kernel(const T* __restrict__ a, const T* __restrict__ b, long long n,
     int j[kUnroll];
     xh::bins_of(ta, nba, av, i);
     xh::bins_of(tb, nbb, bv, j);
+    if constexpr (W::kWeighted) {
+      bool take[kUnroll];  // in this chunk's rows
+      Shared wt[kUnroll];  // loaded only for the pairs this chunk adds
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (ok[u] && i[u] >= row0 && i[u] < row0 + rows && j[u] >= 0)
-        atomicAdd(&hist[(i[u] - row0) * nbb + j[u]], 1u);
+      for (int u = 0; u < kUnroll; ++u) {
+        take[u] = ok[u] && i[u] >= row0 && i[u] < row0 + rows && j[u] >= 0;
+        wt[u] = Shared(0);
+        if (take[u])
+          xh::load_weight(w, base + (long long)u * blockDim.x, wcode, wt[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (take[u]) atomicAdd(&hist[(i[u] - row0) * nbb + j[u]], wt[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (ok[u] && i[u] >= row0 && i[u] < row0 + rows && j[u] >= 0)
+          atomicAdd(&hist[(i[u] - row0) * nbb + j[u]], 1u);
+      }
     }
   }
   __syncthreads();
 
-  unsigned long long* dst = out + (long long)row0 * nbb;
+  typename W::Out* dst = out + (long long)row0 * nbb;
   for (int s = threadIdx.x; s < chunk_slots; s += blockDim.x) {
-    const unsigned int v = hist[s];
-    if (v) atomicAdd(&dst[s], (unsigned long long)v);
+    const Shared v = hist[s];
+    if (v != Shared(0))  // NaN != 0: a NaN sum is added
+      atomicAdd(&dst[s], (typename W::Out)v);
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
-                  int nba, const void* thr_b, int nbb, void* out,
-                  void* stream) {
+                  int nba, const void* thr_b, int nbb, const void* w,
+                  int wcode, void* out, void* stream) {
   if (n <= 0 || nba < 1 || nbb < 1) return (int)cudaErrorInvalidValue;
-  const int rows_per_chunk =
-      kMaxChunkSlots / nbb < nba ? kMaxChunkSlots / nbb : nba;
+  const int chunk_slots = kMaxChunkBytes / (int)sizeof(typename W::Shared);
+  const int rows_per_chunk = chunk_slots / nbb < nba ? chunk_slots / nbb : nba;
   if (rows_per_chunk < 1) return (int)cudaErrorInvalidValue;
   const int n_chunks = (nba + rows_per_chunk - 1) / rows_per_chunk;
   const size_t smem =
-      sizeof(T) * (size_t)(xh::skewed_len(nba + 1) + xh::skewed_len(nbb + 1)) +
-      sizeof(unsigned int) * (size_t)rows_per_chunk * nbb;
+      hist_offset(nba, nbb, sizeof(T), sizeof(typename W::Shared)) +
+      sizeof(typename W::Shared) * (size_t)rows_per_chunk * nbb;
 
   static xh::LaunchShape shape;
   int sms = 0;
   int per_sm = 0;
-  const cudaError_t err =
-      shape.get((const void*)joint2_kernel<T>, kThreads, smem, &sms, &per_sm);
+  const cudaError_t err = shape.get((const void*)joint2_kernel<T, W>, kThreads,
+                                    smem, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
 
   // One resident wave: every chunk gets the same share of the card, and no
@@ -126,14 +166,16 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   if (grid_x < 1) grid_x = 1;
   if (grid_x > groups) grid_x = groups;
   // a block's shared counters are 32-bit: bound the pairs one block visits
-  if ((groups + grid_x - 1) / grid_x * kThreads * kUnroll > 0xffffffffLL)
+  // (weighted sums wrap or round by their own type's rules instead)
+  if (!W::kWeighted &&
+      (groups + grid_x - 1) / grid_x * kThreads * kUnroll > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
   dim3 grid((unsigned int)grid_x, (unsigned int)n_chunks);
-  joint2_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  joint2_kernel<T, W><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), n,
       static_cast<const T*>(thr_a), nba, static_cast<const T*>(thr_b), nbb,
-      rows_per_chunk, static_cast<unsigned long long*>(out));
+      rows_per_chunk, w, wcode, static_cast<typename W::Out*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -147,10 +189,34 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   extern "C" int name(const void* a, const void* b, long long n,            \
                       const void* thr_a, int nba, const void* thr_b, int nbb, \
                       void* out, void* stream) {                            \
-    return launch_joint2<T>(a, b, n, thr_a, nba, thr_b, nbb, out, stream);  \
+    return launch_joint2<T, xh::Count>(a, b, n, thr_a, nba, thr_b, nbb,     \
+                                       nullptr, 0, out, stream);            \
+  }
+
+// Weighted: adds the sums of the n contiguous weights w (of the type
+// `wcode` names within accumulator class A; weights.cuh) into
+// out[nba * nbb], of type A, which the caller zeroes.
+#define XH_JOINT2_WEIGHTED(name, T, A)                                       \
+  extern "C" int name(const void* a, const void* b, long long n,            \
+                      const void* thr_a, int nba, const void* thr_b, int nbb, \
+                      const void* w, int wcode, void* out, void* stream) {  \
+    return launch_joint2<T, xh::Sum<A>>(a, b, n, thr_a, nba, thr_b, nbb, w, \
+                                        wcode, out, stream);                \
   }
 
 XH_JOINT2(xh_joint2_f32, float)
 XH_JOINT2(xh_joint2_f64, double)
 XH_JOINT2(xh_joint2_i32, int)
 XH_JOINT2(xh_joint2_i64, long long)
+
+// The weighted entries xh_joint2_<data>_<cls> of the accumulator
+// class cls (accumulator type A), for the four data types.
+#define XH_JOINT2_WEIGHTED_CLASS(cls, A)                                      \
+  XH_JOINT2_WEIGHTED(xh_joint2_f32_##cls, float, A)                           \
+  XH_JOINT2_WEIGHTED(xh_joint2_f64_##cls, double, A)                          \
+  XH_JOINT2_WEIGHTED(xh_joint2_i32_##cls, int, A)                             \
+  XH_JOINT2_WEIGHTED(xh_joint2_i64_##cls, long long, A)
+
+XH_JOINT2_WEIGHTED_CLASS(wf64, double)
+XH_JOINT2_WEIGHTED_CLASS(wu32, unsigned int)
+XH_JOINT2_WEIGHTED_CLASS(wu64, unsigned long long)

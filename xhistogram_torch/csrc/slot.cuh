@@ -1,4 +1,5 @@
-// N-input flat-slot histogram, full reduction or kept rows, int64 counts.
+// N-input flat-slot histogram, full reduction or kept rows: int64 counts,
+// or weighted sums (weights.cuh).
 //
 // The one template behind factored.cu (routes factored, factored_per_row,
 // factored_packed) and direct.cu (route direct). Each input k is an (m, c)
@@ -9,7 +10,11 @@
 //   g = ((t_0 * nb_1 + t_1) * nb_2 + ...) + t_{n-1},  t_k its bin on input k,
 // computed in 64 bits (a forced call may have 2^31 slots or more). Output:
 // int64 (1 or m, S + 1) with S = prod(nb_k); slot S is the trash slot and
-// stays zero.
+// stays zero. A weighted instantiation (policy xh::Sum<A>) adds the
+// element's weight, an (m, c) view with its own strides, in place of one,
+// into accumulators and an output of type A (weights.cuh); its shared
+// histograms take sizeof(A) bytes a slot, so float64 and 64-bit integer
+// sums keep half as many slots in shared memory as the 32-bit counters.
 //
 // Each element is digitized once per input by the binary search of
 // digitize.cuh and counted with an atomic. Where the slots go:
@@ -40,6 +45,7 @@
 #include "digitize.cuh"
 #include "launch.cuh"
 #include "tile.cuh"
+#include "weights.cuh"
 
 // Each including file gets its own copy of the kernels and launch caches.
 namespace {
@@ -52,9 +58,9 @@ constexpr int kMinBlocks = 2;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 constexpr long long kMinTile = (long long)kThreads * kUnroll;
-// int32 counters a block aims to keep in shared memory (48 KB): several
-// kept rows a tile, or warp replicas of a full reduction
-constexpr long long kHistTarget = 12 * 1024;
+// shared histogram bytes a block aims for (48 KB): several kept rows a
+// tile, or warp replicas of a full reduction
+constexpr long long kHistBytes = 48 * 1024;
 
 template <typename T>
 struct Input {
@@ -128,11 +134,14 @@ __device__ __forceinline__ void flat_slots(const Input<T>* in, int n,
     if (!valid[u]) g[u] = -1;
 }
 
-template <typename T, bool kShared, int kN>
+// W: xh::Count (adds one) or xh::Sum<A> (adds the weight in w).
+template <typename T, typename W, bool kShared, int kN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-slot_hist_kernel(const Inputs<T> p, long long m, long long c, long long S,
-                 xh::Tiling tl, Mode md,
-                 unsigned long long* __restrict__ out) {
+slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
+                 long long c, long long S, xh::Tiling tl, Mode md,
+                 typename W::Out* __restrict__ out) {
+  using Shared = typename W::Shared;
+  using Out = typename W::Out;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Input<T> in[kMaxInputs];
   const int n = p.n;
@@ -148,13 +157,13 @@ slot_hist_kernel(const Inputs<T> p, long long m, long long c, long long S,
   if (staged)
     for (int i = 0; i < n; ++i)
       xh::stage_thresholds(t + in[i].soff, in[i].thr, in[i].nb + 1);
-  unsigned int* hist = reinterpret_cast<unsigned int*>(smem + md.thr_bytes);
+  Shared* hist = reinterpret_cast<Shared*>(smem + md.thr_bytes);
   const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
   if (kShared)
     for (long long k = threadIdx.x; k < one_copy * tl.copies; k += blockDim.x)
-      hist[k] = 0u;
+      hist[k] = Shared(0);
   __syncthreads();
-  unsigned int* mine = hist + (threadIdx.x / 32) % tl.copies * one_copy;
+  Shared* mine = hist + (threadIdx.x / 32) % tl.copies * one_copy;
   const long long out_row = S + 1;
 
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
@@ -191,33 +200,54 @@ slot_hist_kernel(const Inputs<T> p, long long m, long long c, long long S,
       long long g[kUnroll];
       flat_slots<T, kUnroll, kN>(in, n, t, staged, r0, c0, tl.row_fast, fs, ss,
                                  ok, g);
+      Shared wt[kUnroll];  // each counted element's weight
+      if constexpr (W::kWeighted) {
+        const long long fast = tl.row_fast ? w.sm : w.sc;
+        const long long slow = tl.row_fast ? w.sc : w.sm;
+        const long long base = r0 * w.sm + c0 * w.sc;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          wt[u] = Shared(0);
+          if (g[u] >= 0)
+            xh::load_weight(w.data, base + fs[u] * fast + ss[u] * slow, w.code,
+                            wt[u]);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (g[u] < 0) continue;
         const long long row = md.reduce_all ? 0 : (tl.row_fast ? fs[u] : ss[u]);
-        if (kShared)
-          atomicAdd(&mine[row * S + g[u]], 1u);
-        else
-          atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
-                    1ull);
+        if constexpr (W::kWeighted) {
+          if (kShared)
+            atomicAdd(&mine[row * S + g[u]], wt[u]);
+          else
+            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
+                      wt[u]);
+        } else {
+          if (kShared)
+            atomicAdd(&mine[row * S + g[u]], 1u);
+          else
+            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
+                      1ull);
+        }
       }
     }
 
     if (kShared && !md.reduce_all) {
       __syncthreads();
       for (unsigned r = 0; r < rr; ++r) {
-        unsigned long long* dst = out + (r0 + r) * out_row;
+        Out* dst = out + (r0 + r) * out_row;
         for (long long sl = threadIdx.x; sl <= S; sl += blockDim.x) {
-          unsigned long long v = 0;  // sl == S: the trash slot, zero
+          Out v = 0;  // sl == S: the trash slot, zero
           if (sl < S)
             for (int cp = 0; cp < tl.copies; ++cp) {
-              unsigned int* h = hist + cp * one_copy + r * S + sl;
+              Shared* h = hist + cp * one_copy + r * S + sl;
               v += *h;
-              *h = 0u;
+              *h = Shared(0);
             }
           if (md.whole_rows)
             dst[sl] = v;
-          else if (v)
+          else if (v != Out(0))  // NaN != 0: a NaN sum is added
             atomicAdd(&dst[sl], v);
         }
       }
@@ -228,24 +258,27 @@ slot_hist_kernel(const Inputs<T> p, long long m, long long c, long long S,
   if (kShared && md.reduce_all) {
     __syncthreads();
     for (long long sl = threadIdx.x; sl < S; sl += blockDim.x) {
-      unsigned long long v = 0;
+      Out v = 0;
       for (int cp = 0; cp < tl.copies; ++cp) v += hist[cp * one_copy + sl];
-      if (v) atomicAdd(&out[sl], v);
+      if (v != Out(0)) atomicAdd(&out[sl], v);
     }
   }
 }
 
-template <typename T, bool kShared, int kN>
-int launch_kernel(const Inputs<T>& p, long long m, long long c, long long S,
-                  long long most_counters, bool row_fast, Mode md,
-                  void* out, cudaStream_t stream) {
+template <typename T, typename W, bool kShared, int kN>
+int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
+                  long long c, long long S, long long most_counters,
+                  bool row_fast, Mode md, void* out, cudaStream_t stream) {
+  using Shared = typename W::Shared;
+  using Out = typename W::Out;
   static xh::LaunchShape shape;
   const size_t smem_most =
-      md.thr_bytes + sizeof(unsigned int) * (size_t)most_counters;
+      md.thr_bytes + sizeof(Shared) * (size_t)most_counters;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = shape.get((const void*)slot_hist_kernel<T, kShared, kN>,
-                              kThreads, smem_most, &sms, &per_sm);
+  cudaError_t err =
+      shape.get((const void*)slot_hist_kernel<T, W, kShared, kN>, kThreads,
+                smem_most, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const long long resident = (long long)sms * per_sm;
 
@@ -258,42 +291,43 @@ int launch_kernel(const Inputs<T>& p, long long m, long long c, long long S,
     const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
     const long long copies = most_counters / one_copy;
     tl.copies = copies < 1 ? 1 : copies > kWarps ? kWarps : (int)copies;
-    smem += sizeof(unsigned int) * (size_t)(tl.copies * one_copy);
+    smem += sizeof(Shared) * (size_t)(tl.copies * one_copy);
   }
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
   const long long grid = n_tiles < resident ? n_tiles : resident;
   // a block's shared counters are 32-bit: bound the elements one block
-  // counts before it flushes (a full reduction flushes only at the end)
+  // counts before it flushes (a full reduction flushes only at the end);
+  // weighted sums wrap or round by their own type's rules instead
   const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, grid) : 1;
-  if (kShared && visits * tl.rows * tl.cols > 0xffffffffLL)
+  if (!W::kWeighted && kShared && visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
   md.whole_rows = kShared && !md.reduce_all && tl.col_tiles == 1;
   if (!md.whole_rows) {
     const long long rows_out = md.reduce_all ? 1 : m;
-    err = cudaMemsetAsync(out, 0, sizeof(unsigned long long) * rows_out *
-                                      (S + 1), stream);
+    err = cudaMemsetAsync(out, 0, sizeof(Out) * rows_out * (S + 1), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  slot_hist_kernel<T, kShared, kN><<<(unsigned int)grid, kThreads, smem,
-                                     stream>>>(
-      p, m, c, S, tl, md, static_cast<unsigned long long*>(out));
+  slot_hist_kernel<T, W, kShared, kN><<<(unsigned int)grid, kThreads, smem,
+                                        stream>>>(p, w, m, c, S, tl, md,
+                                                  static_cast<Out*>(out));
   return (int)cudaGetLastError();
 }
 
-// The C entries' common body: counts of the n inputs' (m, c) layouts into
-// out, (1 if reduce_all else m, S + 1) int64, which needs no zeroing.
+// The C entries' common body: counts (W = xh::Count) or weighted sums
+// (W = xh::Sum<A>, weights w) of the n inputs' (m, c) layouts into out,
+// (1 if reduce_all else m, S + 1) of W::Out, which needs no zeroing.
 // data[k], thr[k]: device pointers of type T; strides[2k], strides[2k + 1]:
 // input k's (sm, sc) in elements; nb[k] its bin count. Histograms of at
 // most max_shared_slots slots a row are kept in shared memory where they
 // fit. Launches on `stream` and returns cudaGetLastError() (or the first
 // failing CUDA call's error); never synchronises.
-template <typename T>
+template <typename T, typename W>
 int launch_slot_hist(int n, const void* const* data, const long long* strides,
                      const void* const* thr, const int* nb, long long m,
                      long long c, int reduce_all, long long max_shared_slots,
-                     void* out, void* stream) {
-  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0)
+                     const xh::Weights& w, void* out, void* stream) {
+  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || w.sm < 0 || w.sc < 0)
     return (int)cudaErrorInvalidValue;
   Inputs<T> p = {};
   p.n = n;
@@ -317,6 +351,8 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
     row_cost += d.sm > 1;
     col_cost += d.sc > 1;
   }
+  row_cost += w.sm > 1;  // the weights' view (all zero when unweighted)
+  col_cost += w.sc > 1;
   const bool row_fast = m > 1 && (c == 1 || row_cost < col_cost);
 
   Mode md = {};
@@ -324,18 +360,23 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   const size_t thr_bytes = (thr_slots * sizeof(T) + 15) / 16 * 16;
   const size_t budget = kSmemMax<T>;
   md.thr_bytes = thr_bytes <= budget ? thr_bytes : 0;
-  const size_t room = (budget - md.thr_bytes) / sizeof(unsigned int);
+  const size_t room = (budget - md.thr_bytes) / sizeof(typename W::Shared);
+  const long long target = kHistBytes / (long long)sizeof(typename W::Shared);
   const cudaStream_t st = (cudaStream_t)stream;
   if (S <= max_shared_slots && (size_t)S <= room) {
-    long long most = S > kHistTarget ? S : kHistTarget;
+    long long most = S > target ? S : target;
     if ((size_t)most > room) most = (long long)room;
     if (n == 2)
-      return launch_kernel<T, true, 2>(p, m, c, S, most, row_fast, md, out, st);
-    return launch_kernel<T, true, 0>(p, m, c, S, most, row_fast, md, out, st);
+      return launch_kernel<T, W, true, 2>(p, w, m, c, S, most, row_fast, md,
+                                          out, st);
+    return launch_kernel<T, W, true, 0>(p, w, m, c, S, most, row_fast, md,
+                                        out, st);
   }
   if (n == 2)
-    return launch_kernel<T, false, 2>(p, m, c, S, 0, row_fast, md, out, st);
-  return launch_kernel<T, false, 0>(p, m, c, S, 0, row_fast, md, out, st);
+    return launch_kernel<T, W, false, 2>(p, w, m, c, S, 0, row_fast, md, out,
+                                         st);
+  return launch_kernel<T, W, false, 0>(p, w, m, c, S, 0, row_fast, md, out,
+                                       st);
 }
 
 }  // namespace slot
@@ -347,7 +388,42 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c,               \
                       long long max_shared_slots, void* out, void* stream) { \
-    return slot::launch_slot_hist<T>(n, data, strides, thr, nb, m, c,        \
-                                     reduce_all, max_shared_slots, out,      \
-                                     stream);                                \
+    return slot::launch_slot_hist<T, xh::Count>(                             \
+        n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
+        xh::Weights{}, out, stream);                                         \
   }
+
+// The weighted C entry of one route: sums of the weights w (an (m, c) view
+// with strides wsm, wsc, of the type `wcode` names within accumulator
+// class A; weights.cuh) into out, of type A; see launch_slot_hist.
+#define XH_SLOT_WEIGHTED_ENTRY(name, T, A, reduce_all)                        \
+  extern "C" int name(int n, const void* const* data,                        \
+                      const long long* strides, const void* const* thr,      \
+                      const int* nb, long long m, long long c,               \
+                      long long max_shared_slots, const void* w,             \
+                      long long wsm, long long wsc, int wcode, void* out,    \
+                      void* stream) {                                        \
+    return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
+        n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
+        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
+  }
+
+// Every route's weighted entries xh_<route>_<data>_<cls> of the
+// accumulator class cls (accumulator type A), for the four data types.
+#define XH_SLOT_WEIGHTED_CLASS(cls, A)                                        \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_f32_##cls, float, A, 1)             \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_f64_##cls, double, A, 1)            \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_i32_##cls, int, A, 1)               \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_i64_##cls, long long, A, 1)         \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_f32_##cls, float, A, 0)          \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_f64_##cls, double, A, 0)         \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_i32_##cls, int, A, 0)            \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_i64_##cls, long long, A, 0)      \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_f32_##cls, float, A, 0)           \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_f64_##cls, double, A, 0)          \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_i32_##cls, int, A, 0)             \
+  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_i64_##cls, long long, A, 0)       \
+  XH_SLOT_WEIGHTED_ENTRY(xh_direct_f32_##cls, float, A, 0)                    \
+  XH_SLOT_WEIGHTED_ENTRY(xh_direct_f64_##cls, double, A, 0)                   \
+  XH_SLOT_WEIGHTED_ENTRY(xh_direct_i32_##cls, int, A, 0)                      \
+  XH_SLOT_WEIGHTED_ENTRY(xh_direct_i64_##cls, long long, A, 0)

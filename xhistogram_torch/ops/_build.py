@@ -55,21 +55,30 @@ DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
 #: the flat-slot routes of csrc/slot.cuh, each its own C symbol
 #: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu)
 SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
+#: the weighted kernels' accumulator classes (csrc/weights.cuh): each
+#: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
+WEIGHT_CLASSES = ("wf64", "wu32", "wu64")
 
 
 def _declare(lib):
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    # each kernel's arguments, and the weights' (pointer, strides, type code)
+    # that its weighted entries take before the output
+    kernels = {
+        "joint2": ([p, p, i64, p, i32, p, i32], [p, i32]),
+        "one_input": ([p, i64, i64, i64, i64, p, i32, i32], [p, i64, i64, i32]),
+        **{route: ([i32, p, p, p, p, i64, i64, i64], [p, i64, i64, i32])
+           for route in SLOT_ROUTES},
+    }
     for suffix in DTYPE_SUFFIXES:
-        fn = getattr(lib, f"xh_joint2_{suffix}")
-        fn.argtypes = [p, p, i64, p, i32, p, i32, p, p]
-        fn.restype = i32
-        fn = getattr(lib, f"xh_one_input_{suffix}")
-        fn.argtypes = [p, i64, i64, i64, i64, p, i32, i32, p, p]
-        fn.restype = i32
-        for route in SLOT_ROUTES:
-            fn = getattr(lib, f"xh_{route}_{suffix}")
-            fn.argtypes = [i32, p, p, p, p, i64, i64, i64, p, p]
+        for kernel, (args, weight_args) in kernels.items():
+            fn = getattr(lib, f"xh_{kernel}_{suffix}")
+            fn.argtypes = [*args, p, p]
             fn.restype = i32
+            for cls in WEIGHT_CLASSES:
+                fn = getattr(lib, f"xh_{kernel}_{suffix}_{cls}")
+                fn.argtypes = [*args, *weight_args, p, p]
+                fn.restype = i32
     return lib
 
 
