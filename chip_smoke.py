@@ -36,6 +36,16 @@ just after:
   int32 weights at (64800, 64), where float weights run the scatter
   strategy, as in the JAX package.
 
+First, joint2, factored (full, per row, packed) and direct are held bit for
+bit against their plain versions on the adversarial threshold sets of the
+bucketed digitize (``tests/ts_cases.BUCKET_EDGE_SETS``), at the default
+cluster cap and at one block. Each path prints the cluster size, passes and
+histogram place of its launch, and the cell count K and widest window L of
+each input's table (``ops.digitize.bucket_table``); the T–S path must run
+one pass in clusters of two, and the README call keep its histogram in a
+cluster. joint2 with float64 and uint64 sums is timed at its default
+cluster against chunk passes of one block.
+
 Before the paths, factored and direct are held against their plain versions
 on edge cases, ragged sizes, three inputs, one input in 5000 bins, slot
 counts either side of the shared-memory limit, data types, strided and
@@ -140,6 +150,89 @@ def linspace_edges(nb):
     return np.linspace(-4.0, 4.0, nb + 1)
 
 
+def launch_note(thresholds):
+    """(record, text) of the last joint2 or flat-slot launch: its cluster,
+    passes and histogram place, and for the first two inputs (``thresholds``,
+    CPU tensors in the compare type) the cells K and the widest window L of
+    the table the kernel built (``ops.digitize.bucket_table``)."""
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.ops.digitize import bucket_table
+    rec = cuda_hist.last_launch()
+    tables = []
+    for thr, cells in zip(thresholds, rec["cells"]):
+        if cells == 0:
+            tables.append("thresholds searched in device memory")
+            continue
+        _, widest, (_, _, k) = bucket_table(thr, cells)
+        tables.append(f"K={k} L={widest}")
+    place = "shared" if rec["shared"] else "device"
+    return rec, (f"cluster {rec['cluster']}, passes {rec['passes']}, histogram in "
+                 f"{place} memory, {', '.join(tables)}")
+
+
+def bucket_phase(dev, max_abs_err):
+    """joint2, factored (full, per row, packed) and direct held bit for bit
+    against their plain versions on the adversarial threshold sets of the
+    bucketed digitize (``ts_cases.BUCKET_EDGE_SETS``: the T-S edges,
+    linspace(-4, 4, 91), log-spaced, repeated, +-0 and subnormal, one and
+    16384 bins, int32 and int64 around 2^53, float64 offset by 1e9), each
+    beside a partner input whose bins make the joint histogram need a
+    cluster, at the default cluster cap and at one block."""
+    from ts_cases import BUCKET_EDGE_SETS, bucket_case_values
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.ops import cuda_hist
+
+    routes = ("joint2", "full", "per_row", "packed", "direct")
+    for name, (edges, dtype) in BUCKET_EDGE_SETS.items():
+        x = bucket_case_values(compare_form(edges, dtype).edges, dtype,
+                               n_random=400_000, seed=len(name))
+        x = x[: x.size // 64 * 64]
+        nba = int(np.clip(160_000 // (len(edges) - 1), 8, 3000))
+        rng = np.random.default_rng(nba)
+        if np.issubdtype(dtype, np.floating):
+            pe, partner = np.linspace(-4, 4, nba + 1), rng.normal(0, 2, x.size)
+        else:
+            pe = np.linspace(-3000.5, 3000.5, nba + 1)
+            partner = rng.integers(-3500, 3500, x.size)
+        all_edges = [edges, pe]
+        thr = [torch.from_numpy(compare_form(e, dtype).edges) for e in all_edges]
+        notes = []
+        for route in routes:
+            rows = {"joint2": 1, "full": 1, "per_row": 4, "packed": 16, "direct": 8}[route]
+            layouts = [torch.from_numpy(v.astype(dtype)).to(dev).reshape(rows, -1)
+                       for v in (x, partner)]
+            th = [t.to(dev) for t in thr]
+            nbins = [len(e) - 1 for e in all_edges]
+            for most in (cuda_hist.MAX_CLUSTER_CTAS, 1):
+                default = cuda_hist.MAX_CLUSTER_CTAS
+                cuda_hist.MAX_CLUSTER_CTAS = most
+                try:
+                    if route == "joint2":
+                        got = cuda_hist.joint2(*layouts, *th, *nbins)
+                        want = cuda_hist.joint2_reference(*layouts, *th, *nbins)
+                    elif route == "direct":
+                        got = cuda_hist.direct(layouts, th, nbins)
+                        want = cuda_hist.direct_reference(layouts, th, nbins)
+                    else:
+                        got = cuda_hist.factored(layouts, th, nbins, route)
+                        want = cuda_hist.factored_reference(layouts, th, nbins, route)
+                    torch.cuda.synchronize()
+                    _, note = launch_note(thr)
+                finally:
+                    cuda_hist.MAX_CLUSTER_CTAS = default
+                key = {"joint2": "joint2", "direct": "direct"}.get(route, "factored")
+                err = int((got - want).abs().max())
+                max_abs_err[key] = max(max_abs_err[key], err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"bucket set {name}: {route} at <= {most} blocks "
+                                         f"!= plain (max abs err {err}; {note})")
+                if most != 1:
+                    notes.append(f"{route}: {note}")
+        print(f"# bucketed digitize == plain: {name} ({dtype.__name__}, "
+              f"{len(edges) - 1} x {nba} bins, {x.size} values; default cluster cap "
+              f"and one block) | " + " | ".join(notes))
+
+
 def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
                         max_abs_err):
     """The factored and direct kernels: each held bit-exact against its plain
@@ -152,7 +245,6 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
     from xhistogram_torch.utils.profiling import measure
 
-    max_abs_err.update(factored=0, direct=0)
 
     def operands(layouts, edges):
         """Each input's thresholds on the card, and the bin counts."""
@@ -222,7 +314,7 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
             [linspace_edges(5000)], routes=("per_row", "packed", "direct"))
     compare("one input, 5000 bins, narrow rows", [x3[0].reshape(-1, 64)[:4096]],
             [linspace_edges(5000)], routes=("packed", "direct"))
-    for nb in (239, 240):  # 57,121 slots in shared memory; 57,600 in device memory
+    for nb in (239, 240):  # either side of one block's limit before the cell tables
         compare(f"{nb}x{nb}, either side of the shared-memory limit",
                 [x.reshape(1, -1) for x in x3[:2]], [linspace_edges(nb)] * 2,
                 routes=("full",))
@@ -305,6 +397,8 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis)
         torch.cuda.synchronize()
         launched = counts_now()
+        ops = operands(layouts, bins)  # uploaded once, outside the timing
+        launch, note = launch_note([t.cpu() for t in ops[0]])
         key = "direct" if route == "direct" else f"factored {route}"
         if launched[key] < 1 or sum(launched.values()) != launched[key]:
             raise AssertionError(f"{label}: launches {launched}")
@@ -313,7 +407,6 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         check(label, h.reshape(rows, -1), plain[:, :-1], route)
         del plain
         numpy_check(h)
-        ops = operands(layouts, bins)  # uploaded once, outside the timing
         kernel_ms, plain_ms = in_turns(
             lambda: call(layouts, bins, route, plain=True, ops=ops),
             lambda: call(layouts, bins, route, ops=ops), reps=plain_reps)
@@ -325,13 +418,14 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         bound_ms, bound_by = bound(in_bytes + out_bytes,
                                    n_elems * sum(search_steps(nb) for nb in nbins))
         print(f"# path {label}: plan {kernel}, launches {launched[key]} ({key}), "
+              f"{note}, "
               f"int64 {tuple(h.shape)} == plain and numpy; kernel {kernel_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
               f"({in_bytes / 1e6:.1f} MB read, {out_bytes / 1e6:.1f} MB written), "
               f"public call median {med * 1e3:.3f} ms of "
               f"{[round(t * 1e3, 3) for t in times]} [{card}]")
         return {"launches": launched[key], "ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by, "launch": launch}
 
     def per_row_numpy(label, a, b, bins, rows):
         def run(h):
@@ -358,6 +452,10 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         "README per-level T-S, (73, 50, 64800) float32 x 2, 280x340 bins, axis=(0, 2)",
         [T, S], [T_EDGES, S_EDGES], (0, 2), "factored_per_row", "per_row",
         readme_numpy, plain_reps=3)
+    readme_launch = paths["README per-level T-S"].pop("launch")
+    if not readme_launch["shared"] or readme_launch["cluster"] != 2:
+        raise AssertionError(f"README path: histogram not in a cluster of two "
+                             f"({readme_launch})")
     del T, S
     torch.cuda.empty_cache()
 
@@ -398,6 +496,8 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
     print("# factored and direct yardstick: none; torch.histogramdd raises on CUDA "
           "tensors (the joint2 yardstick line above), and no other single PyTorch "
           "call bins N inputs per kept row")
+    for p in paths.values():
+        p.pop("launch", None)
     factored_paths = [v for k, v in paths.items() if "direct" not in k]
     direct_paths = [v for k, v in paths.items() if "direct" in k]
     readme, direct_main = paths["README per-level T-S"], paths["40x40 direct"]
@@ -629,8 +729,11 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
         if launched[key] < 1 or sum(launched.values()) != launched[key]:
             raise AssertionError(f"{label}: launches {launched}")
         launches[key.split()[0]] += launched[key]
+        note = ""  # one_input keeps no launch record
+        if kernel != "one_input":
+            note = launch_note([t.cpu() for t in operands(layouts, bins)[0]])[1] + ", "
         print(f"# weighted path {label}: plan {kernel}, launches {launched[key]} ({key}), "
-              f"{h.dtype} {tuple(h.shape)}")
+              f"{note}{h.dtype} {tuple(h.shape)}")
         return h, layouts, w2d
 
     out = {}
@@ -711,6 +814,27 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
     print(f"# joint2 weighted at 2^26 pairs, float32 weights: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, unweighted kernel {unw_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"[{card}]")
+    # 8-byte accumulators: one pass in clusters of four against four chunk
+    # passes of one block, in turns
+    l26 = torch.randint(-(2**40), 2**40, t26.shape, device=dev, generator=gen)
+    default = cuda_hist.MAX_CLUSTER_CTAS
+    for kind, w_ in (("float32 [f64]", w26), ("int64 [u64]", l26)):
+        times = {}
+        notes = {}
+        try:
+            for most in (default, 1, 1, default):
+                cuda_hist.MAX_CLUSTER_CTAS = most
+                fn = lambda: cuda_hist.joint2(t26, s26, ta, tb, 280, 340, weights=w_)  # noqa: E731
+                fn()
+                torch.cuda.synchronize()
+                _, notes[most] = launch_note([ta.cpu(), tb.cpu()])
+                times.setdefault(most, []).append(event_ms(fn))
+        finally:
+            cuda_hist.MAX_CLUSTER_CTAS = default
+        print(f"# joint2 at 2^26 pairs, {kind} weights: "
+              + "; ".join(f"{notes[k]}: {sum(v) / len(v):.4f} ms" for k, v in times.items())
+              + f" [{card}]")
+    del l26
     out["joint2"] = (ms, plain_ms, bound_ms, unw_ms)
     del T, S, w, t26, s26, w26
     torch.cuda.empty_cache()
@@ -881,7 +1005,8 @@ def main():
     # === joint2 ===============================================================
     # --- kernel vs plain on the card, bit-exact --------------------------------
     t_edges, s_edges = T_EDGES, S_EDGES  # bench.py's float32 edges
-    max_abs_err = {"joint2": 0, "one_input": 0}
+    max_abs_err = {"joint2": 0, "one_input": 0, "factored": 0, "direct": 0}
+    bucket_phase(dev, max_abs_err)
 
     def compare(label, t, s, te, se, expected=None):
         np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
@@ -978,8 +1103,16 @@ def main():
     total = int(counts.sum())
     if total != in_range:
         raise AssertionError(f"joint2 path counted {total} pairs, {in_range} are in range")
+    launch, note = launch_note([ta.cpu(), tb.cpu()])
+    if (launch["cluster"], launch["passes"]) != (2, 1):
+        raise AssertionError(f"joint2 path: {note}, not one pass in clusters of two")
     print(f"# joint2 path: JOINT2_LAUNCHES={j2_launches}, int64 (280, 340), "
-          f"{total} of {T.numel()} pairs in range")
+          f"{total} of {T.numel()} pairs in range; {note}")
+    ts_kernel_ms = event_ms(lambda: cuda_hist.joint2(T, S, ta, tb, 280, 340), reps=3)
+    ts_bound_ms, _ = bound(8 * T.numel() + 8 * 95201, 0)
+    print(f"# joint2 kernel at the path's 2^30 pairs: {ts_kernel_ms:.4f} ms "
+          f"({8 * T.numel() / ts_kernel_ms / 1e6:.1f} GB/s), bound {ts_bound_ms:.4f} ms "
+          f"by bytes [{card}]")
 
     # every bin against the plain version, run over row blocks of 2^26 pairs
     # so its int64 index tensors stay ~2 GiB

@@ -16,8 +16,8 @@ from xhistogram_torch import bins as tbins
 from xhistogram_torch.ops import cuda_hist
 from xhistogram_torch.ops.bincount import weighted_dtype
 from ts_cases import (
-    EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, edge_case_values, numpy_hist2d,
-    reference_numpy, ts_data,
+    BUCKET_EDGE_SETS, EDGE_SETS, S_EDGES, T_EDGES, bucket_case_values, edge_case_data,
+    edge_case_values, numpy_hist2d, reference_numpy, ts_data,
 )
 
 pytestmark = pytest.mark.gpu
@@ -365,9 +365,10 @@ def test_slot_ragged_sizes(cuda, route, m, c):
 @pytest.mark.parametrize("nbins", [(239, 239), (240, 240), (4, 5, 6), (1500, 1500)],
                          ids=str)
 def test_slot_counts_around_the_shared_memory_limit(cuda, route, nbins):
-    # beside two float32 threshold sets, 57,121 slots fit a block's shared
-    # memory and 57,600 do not; 2.25M slots go beyond the full-reduction
-    # cap of plan()
+    # 57,121 and 57,600 slots, either side of what one block held beside
+    # the thresholds alone: beside their cell tables both now take a
+    # cluster of two; 2.25M slots go past eight blocks, to device memory,
+    # and beyond the full-reduction cap of plan()
     m, c = (3, 1 << 18) if route != "packed" else (40, 64)
     gen = torch.Generator(device=cuda).manual_seed(sum(nbins))
     layouts = [torch.randn(m, c, device=cuda, generator=gen) for _ in nbins]
@@ -655,9 +656,10 @@ def test_weighted_strided_and_broadcast_weights(cuda, kernel):
 @pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("nb", [169, 170, 239, 240])
 def test_weighted_slot_counts_around_the_shared_memory_limit(cuda, route, nb):
-    # beside two float32 threshold sets, 169^2 = 28,561 float64 or 64-bit
-    # sums fit a block's shared memory and 170^2 do not; for 32-bit sums the
-    # limit lies between 239^2 and 240^2, as for the counts
+    # either side of what one block held of 8-byte sums (169^2 = 28,561)
+    # and of 32-bit ones (239^2) beside the thresholds alone: beside their
+    # cell tables uint64 and uint32 sums take clusters of two or four,
+    # float64 sums add in device memory
     m, c = (3, 1 << 17) if route != "packed" else (40, 64)
     layouts = _layouts(route, m, c, cuda, seed=nb)
     for dtype in (torch.float32, torch.int32, torch.int64):
@@ -776,3 +778,101 @@ def test_public_histogram_launches_for_every_weight_dtype(cuda, dtype):
         d_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
                                               density=True, device="cpu")
         torch.testing.assert_close(d.cpu(), d_cpu, rtol=1e-5, atol=1e-7, equal_nan=True)
+
+
+# --- the bucketed digitize and the cluster histograms ------------------------------
+
+CLUSTER_KERNELS = ("joint2", *ROUTES)
+# counts, then one weight dtype of each accumulator class: float64, uint32,
+# uint64
+ACCUMULATORS = (None, torch.float32, torch.int32, torch.int64)
+
+
+def _bucket_case(name, kernel, device):
+    """(layouts, edges): the set's adversarial values (thresholds and their
+    neighbours, NaN, ±inf, ±0, subnormals, integer extremes), then a
+    partner input over enough bins that the joint histogram needs a
+    cluster (up to ~160,000 slots), both of the set's dtype, in the
+    kernel's (m, c) shape."""
+    edges, dtype = BUCKET_EDGE_SETS[name]
+    x = bucket_case_values(tbins.compare_form(edges, dtype).edges, dtype,
+                           n_random=20_000, seed=len(name))
+    x = x[: x.size // 64 * 64]  # the specials lead; random values are cut
+    nba = int(np.clip(160_000 // (len(edges) - 1), 8, 3000))
+    rng = np.random.default_rng(nba)
+    if np.issubdtype(dtype, np.floating):
+        partner_edges = np.linspace(-4, 4, nba + 1)
+        partner = rng.normal(0, 2, x.size).astype(dtype)
+    else:
+        partner_edges = np.linspace(-3000.5, 3000.5, nba + 1)
+        partner = rng.integers(-3500, 3500, x.size).astype(dtype)
+    rows = {"joint2": 1, "full": 1, "per_row": 4, "packed": 16, "direct": 8}[kernel]
+    layouts = [torch.from_numpy(v).to(device).reshape(rows, -1) for v in (x, partner)]
+    return layouts, [edges, partner_edges]
+
+
+@pytest.mark.parametrize("kernel", CLUSTER_KERNELS)
+@pytest.mark.parametrize("name", list(BUCKET_EDGE_SETS))
+def test_bucket_edge_sets_at_every_cluster_size(cuda, name, kernel, monkeypatch):
+    # bit for bit against the plain version (weighted float sums within one
+    # float32 rounding), with the clusters capped at 1, 2, 4 and 8 blocks,
+    # for counts and each accumulator class
+    layouts, edges = _bucket_case(name, kernel, cuda)
+    n_slots = (len(edges[0]) - 1) * (len(edges[1]) - 1)
+    for wdtype in ACCUMULATORS:
+        w = None if wdtype is None else _weights(layouts[0].shape, wdtype, cuda, seed=1)
+        want = _run(kernel, layouts, edges, w, plain=True)
+        acc_bytes = 4 if wdtype in (None, torch.int32) else 8
+        for most in (1, 2, 4, 8):
+            monkeypatch.setattr(cuda_hist, "MAX_CLUSTER_CTAS", most)
+            got = _run(kernel, layouts, edges, w, plain=False)
+            torch.cuda.synchronize()
+            launch = cuda_hist.last_launch()
+            assert launch["cluster"] <= most, (most, launch)
+            if most > 1 and n_slots * acc_bytes > 232448:  # more than a block
+                assert launch["cluster"] > 1 or not launch["shared"], (most, launch)
+            if w is None:
+                assert torch.equal(got, want), (most, launch)
+            else:
+                _assert_sums_equal(got, want)
+
+
+def test_readme_call_runs_in_a_cluster(cuda):
+    # the README's per-depth T-S call: 95,201 slots a row, two blocks of
+    # int32 counters, four of uint64 sums; float64 sums add in device
+    # memory, which beats a cluster for them
+    t_np, s_np = ts_data((6, 4, 500), seed=11)
+    vol = np.random.default_rng(12).uniform(0.5, 1.5, (4, 500)).astype(np.float32)
+    for weights, cluster, shared in ((None, 2, True), ((vol * 1000).astype(np.int64), 4, True),
+                                     (vol, 1, False)):
+        before = cuda_hist.FACTORED_LAUNCHES["per_row"]
+        args = [torch.from_numpy(x).to(cuda) for x in (t_np, s_np)]
+        w = None if weights is None else torch.from_numpy(weights).to(cuda)
+        h, _ = xhistogram_torch.histogram(*args, bins=[T_EDGES, S_EDGES], axis=(0, 2),
+                                          weights=w)
+        torch.cuda.synchronize()
+        launch = cuda_hist.last_launch()
+        assert cuda_hist.FACTORED_LAUNCHES["per_row"] == before + 1
+        assert (launch["cluster"], launch["passes"], launch["shared"]) == (cluster, 1, shared)
+        h_cpu, _ = xhistogram_torch.histogram(t_np, s_np, bins=[T_EDGES, S_EDGES],
+                                              axis=(0, 2), weights=weights, device="cpu")
+        if weights is None or weights.dtype == np.int64:
+            assert torch.equal(h.cpu(), h_cpu)
+        else:
+            torch.testing.assert_close(h.cpu(), h_cpu, rtol=3e-7, atol=1e-5)
+
+
+def test_grids_past_eight_blocks_take_chunk_passes(cuda):
+    # joint2's 1000x500 int32 grid (2 MB) needs more than eight blocks: the
+    # T rows go in chunks, each a pass; factored's 1000x1000 grid adds in
+    # device memory
+    t_np, s_np = ts_data((1 << 20,), seed=13)
+    t, s = torch.from_numpy(t_np).to(cuda), torch.from_numpy(s_np).to(cuda)
+    te, se = np.linspace(-2, 30, 1001), np.linspace(30, 40, 501)
+    got, want = _kernel_and_plain(t, s, te, se, cuda)
+    launch = cuda_hist.last_launch()
+    assert torch.equal(got, want)
+    assert launch["cluster"] == 8 and launch["passes"] >= 2, launch
+    layouts = [x.reshape(1, -1) for x in (t - 14, s - 35)]
+    got, want = _slot_pair(layouts, [_edges(1000)] * 2, "full")
+    assert torch.equal(got, want) and not cuda_hist.last_launch()["shared"]

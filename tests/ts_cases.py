@@ -166,3 +166,57 @@ def reference_numpy_weighted(arrays, edges, weights, axis=None, exact=False):
     else:
         out = np.bincount(off, weights=w.astype(np.float64), minlength=m * n)
     return out.reshape(kept + nbins)
+
+
+F32_TINY = np.float32(1e-45)  # the smallest float32 subnormal
+
+# Adversarial threshold sets of the kernels' bucketed digitize
+# (csrc/digitize.cuh): name -> (edges, data dtype); each compare-forms with
+# n_hi_clip == 0, as the kernels take it.
+BUCKET_EDGE_SETS = {
+    "bench-T": (T_EDGES, np.float32),
+    "bench-S": (S_EDGES, np.float32),
+    "linspace-4-4-91": (np.linspace(-4, 4, 91), np.float32),
+    "linspace-4-4-91-f64": (np.linspace(-4, 4, 91), np.float64),
+    "logspace-f32": (np.logspace(-30, 30, 61), np.float32),
+    "logspace-f64": (np.logspace(-30, 30, 61), np.float64),
+    "repeated": (np.array([-1.0, 0.0, 0.0, 0.0, 0.5, 0.5, 2.0, 2.0, 3.0]), np.float32),
+    "signed-zeros-subnormals": (
+        np.array([-1e-38, -F32_TINY, -0.0, 0.0, F32_TINY, 2 * F32_TINY, 1e-38, 1.0],
+                 np.float32), np.float32),
+    "subnormal-span": (np.array([0.0, F32_TINY, 2 * F32_TINY], np.float32), np.float32),
+    "huge-span": (np.array([-3e38, 0.0, 3e38], np.float32), np.float32),
+    "one-bin": (np.array([0.0, 1.0]), np.float32),
+    "16384-bins": (np.linspace(-4, 4, 16385), np.float32),
+    "int32-full-range": (
+        np.array([-(2**31), -(2**31) + 1, -5, 0, 7, 2**31 - 2], np.int64), np.int32),
+    "int32-linspace": (np.linspace(-3000.5, 3000.5, 41), np.int32),
+    "int64-2^53": (
+        np.array([-(2**60), -(2**53) - 3, -(2**53), -(2**53) + 1, 0, 2**53 - 1, 2**53,
+                  2**53 + 1, 2**53 + 2, 2**53 + 4, 2**62], np.int64), np.int64),
+    "int64-past-2^53": ((2**55 + np.arange(0, 64, 3)).astype(np.int64), np.int64),
+    "f64-offset-1e9": (1e9 + np.linspace(0.0, 1.0, 101), np.float64),
+}
+
+
+def bucket_case_values(thr, dtype, n_random=5000, seed=0):
+    """Every threshold of ``thr`` (compare-form, numpy) and its neighbours
+    either side, NaN, ±inf, ±0 and the smallest subnormals for floats, the
+    type's extremes for integers, and random values over the thresholds'
+    range, all of ``dtype``."""
+    t = np.asarray(thr)
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(dtype, np.floating):
+        near = [t, np.nextafter(t, dtype(-np.inf)), np.nextafter(t, dtype(np.inf))]
+        special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, F32_TINY, -F32_TINY],
+                           dtype)
+        lo, hi = float(t[0]), float(t[-1])
+        rand = rng.uniform(max(lo, -1e300), min(hi, 1e300), n_random).astype(dtype)
+    else:
+        info = np.iinfo(dtype)
+        wide = t.astype(object)
+        near = [t, np.array([max(v - 1, info.min) for v in wide], dtype),
+                np.array([min(v + 1, info.max) for v in wide], dtype)]
+        special = np.array([info.min, info.max, 0], dtype)
+        rand = rng.integers(int(t[0]), int(t[-1]), n_random, dtype=dtype, endpoint=True)
+    return np.concatenate([*near, special, rand]).astype(dtype)

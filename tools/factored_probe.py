@@ -18,10 +18,15 @@ It prints, each line beside the card's name and power limit:
   (the share of the wall outside the kernel: the device's idle share,
   plus the README call's layout copy);
 - the README call's ``canonicalize_2d`` copy of both inputs, timed alone;
-- the kernel with its histograms in shared memory against the same kernel
-  adding straight into the int64 output in device memory
-  (``MAX_SHARED_SLOTS = 0``), at 13,500 and 57,121 slots, full and per row,
-  and at 57,600 slots, one past what a block's shared memory holds;
+- the kernel as it runs by default (histograms in one block's shared
+  memory, or spread over a cluster's), capped at one block a cluster
+  (``MAX_CLUSTER_CTAS = 1``: one block's shared memory where the histogram
+  fits, device memory past that) and adding straight into the output in
+  device memory (``MAX_SHARED_SLOTS = 0``), each with the cluster size it
+  took: at 13,500, 57,121 and 57,600 slots, full and per row, the README
+  call's 95,201 slots a row, three inputs in 60^3 bins, and for the
+  README call and 60^3 also with float32, int32 and int64 weights (the
+  float64, uint32 and uint64 accumulator classes);
 - at the packed and direct shapes, the kernel that stores every slot of
   whole rows against the one that adds into a zeroed output, and the
   zeroing alone;
@@ -107,11 +112,11 @@ def main():
         spans = []
         launch = getattr(core, wrapper)
 
-        def timed(*args):
+        def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = launch(*args)
+            out = launch(*args, **kwargs)
             stop.record()
             spans.append((start, stop))
             return out
@@ -133,19 +138,45 @@ def main():
               f"{kernel_ms / BACK_TO_BACK:.4f} ms per call, outside the kernel "
               f"{1 - kernel_ms / wall_ms:.4f} of the wall [{card}]")
 
-    def modes(label, route, layouts, ops):
-        """The kernel as it runs by default (histograms in shared memory
-        where they fit), and forced to add in device memory."""
+    def modes(label, route, layouts, ops, weights=None):
+        """The kernel as it runs by default, capped at one block a cluster,
+        and forced to add in device memory, in turns."""
         times = {}
-        default = cuda_hist.MAX_SHARED_SLOTS
+        slots, most = cuda_hist.MAX_SHARED_SLOTS, cuda_hist.MAX_CLUSTER_CTAS
+        thr, nbins = ops
+        if route == "direct":
+            run = lambda: cuda_hist.direct(layouts, thr, nbins, weights=weights)  # noqa: E731
+        else:
+            run = lambda: cuda_hist.factored(layouts, thr, nbins, route,  # noqa: E731
+                                             weights=weights)
         try:
-            for name, limit in (("default", default), ("device memory", 0)):
-                cuda_hist.MAX_SHARED_SLOTS = limit
-                times[name] = event_ms(kernel(route, layouts, ops))
+            for name, limit, cap in (("default", slots, most), ("one block", slots, 1),
+                                     ("device memory", 0, most),
+                                     ("device memory", 0, most), ("one block", slots, 1),
+                                     ("default", slots, most)):
+                cuda_hist.MAX_SHARED_SLOTS, cuda_hist.MAX_CLUSTER_CTAS = limit, cap
+                ms = event_ms(run)
+                launch = cuda_hist.last_launch()
+                where = (f"cluster {launch['cluster']}" if launch["shared"]
+                         else "device memory")
+                times.setdefault(f"{name} ({where})", []).append(ms)
         finally:
-            cuda_hist.MAX_SHARED_SLOTS = default
-        print(f"# {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
-              + f" [{card}]")
+            cuda_hist.MAX_SHARED_SLOTS, cuda_hist.MAX_CLUSTER_CTAS = slots, most
+        print(f"# {label}: " + ", ".join(f"{k} {sum(v) / len(v):.4f} ms"
+                                         for k, v in times.items()) + f" [{card}]")
+
+    def weighted_modes(label, route, layouts, ops):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        shape = layouts[0].shape
+        for kind, w in (
+            ("float32 [f64]", torch.rand(shape, device=dev, generator=gen)),
+            ("int32 [u32]", torch.randint(-(2**30), 2**30, shape, device=dev,
+                                          generator=gen, dtype=torch.int32)),
+            ("int64 [u64]", torch.randint(-(2**40), 2**40, shape, device=dev,
+                                          generator=gen)),
+        ):
+            modes(f"{label}, {kind} weights", route, layouts, ops, weights=w)
+            del w
 
     # --- the paths: kernel, public call, idle share -----------------------------
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -167,6 +198,8 @@ def main():
     print(f"# README layout, T above every edge (searches, no atomics): kernel "
           f"{ms:.4f} ms [{card}]")
     del above
+    modes("README per-level T-S, 95,201 slots a row", "per_row", layouts, ops)
+    weighted_modes("README per-level T-S", "per_row", layouts, ops)
     idle_share("README per-level T-S public call",
                lambda: xhistogram_torch.histogram(T, S, bins=ts_edges, axis=(0, 2)),
                "factored")
@@ -185,9 +218,14 @@ def main():
     idle_share("1000x1000 full public call",
                lambda: xhistogram_torch.histogram(a, b, bins=[edges(1000)] * 2),
                "factored")
-    for nbins in ((150, 90), (239, 239), (240, 240)):  # 13,500 / 57,121 / 57,600 slots
+    for nbins in ((150, 90), (239, 239), (240, 240)):  # one block; two; two
         modes(f"5e7 pairs, {nbins[0]}x{nbins[1]} bins, full", "full", full,
               operands([edges(nb) for nb in nbins]))
+    three = [full[0], full[1], torch.randn(1, 50_000_000, device=dev, generator=gen)]
+    ops3 = operands([edges(60)] * 3)
+    modes("3 x 5e7 inputs, 60x60x60 bins, full", "full", three, ops3)
+    weighted_modes("3 x 5e7 inputs, 60x60x60 bins, full", "full", three, ops3)
+    del three
     ops = operands(ts_edges)
     ts = [14.0 + 8.0 * a[: 1 << 26].reshape(1, -1), 35.0 + 1.5 * b[: 1 << 26].reshape(1, -1)]
     ms_f = event_ms(kernel("full", ts, ops))

@@ -7,9 +7,16 @@ toolkit:
 
 It prints, each line beside the card's name and power limit:
 
-- the joint2 kernel's device time per call at 2^26 T–S pairs for grids of
-  one to eleven shared-memory slot chunks, and a plain read of the same
-  bytes (``a.sum() + b.sum()``);
+- the joint2 kernel's device time per call at 2^26 T–S pairs for grids from
+  one block's shared memory to past a cluster of eight (each with the
+  cluster size and passes it took), and a plain read of the same bytes
+  (``a.sum() + b.sum()``);
+- at 280x340, the time broken down: the searches alone (T above every
+  edge: read and digitized, never counted), the atomics all local (280x170,
+  which fits one block, one pass), one pass in clusters of two (half the
+  atomics remote, in distributed shared memory) and two passes of one
+  block (all local), with the weighted kernel for each accumulator class
+  (float64, uint32, uint64) at clusters of at most 1, 2 and 4 blocks;
 - for the main path (2^30 pairs, 280x340 bins, the public ``histogram``):
   the host time from the call to its return with the card idle, and, over
   back-to-back calls, their wall time against the device time of the
@@ -32,7 +39,7 @@ import torch
 
 N_MAIN = (1024, 1 << 20)  # bench.py's 2^30 pairs
 N_CMP = 1 << 26
-GRIDS = ((144, 340), (280, 170), (280, 340), (8, 9), (1, 1), (1000, 500))
+GRIDS = ((144, 340), (280, 170), (280, 340), (8, 9), (1, 1), (560, 680), (1000, 500))
 BACK_TO_BACK = 100
 
 
@@ -80,19 +87,64 @@ def main():
     for nba, nbb in GRIDS:
         ta = thresholds(np.linspace(-2, 30, nba + 1).astype(np.float32))
         tb = thresholds(np.linspace(30, 40, nbb + 1).astype(np.float32))
-        rows = min((48 * 1024) // nbb, nba)  # joint2.cu's kMaxChunkSlots
-        chunks = -(-nba // rows)
         run = lambda: cuda_hist.joint2(a, b, ta, tb, nba, nbb)  # noqa: E731
         run()
+        launch = cuda_hist.last_launch()
         ms = event_ms(run)
-        print(f"# 2^26 pairs {nba}x{nbb} ({chunks} chunks): kernel {ms:.4f} ms, "
+        print(f"# 2^26 pairs {nba}x{nbb} (cluster {launch['cluster']}, "
+              f"{launch['passes']} passes): kernel {ms:.4f} ms, "
               f"{8 * N_CMP / ms / 1e6:.1f} GB/s [{card}]")
     read = lambda: (a.sum(), b.sum())  # noqa: E731
     read()
     ms = event_ms(read)
     print(f"# 2^26 pairs: a.sum() + b.sum() {ms:.4f} ms, "
           f"{8 * N_CMP / ms / 1e6:.1f} GB/s [{card}]")
-    del a, b
+
+    # --- 280x340: searches, local and remote atomics, passes -----------------
+    ta = thresholds(np.linspace(-2, 30, 281).astype(np.float32))
+    tb = thresholds(np.linspace(30, 40, 341).astype(np.float32))
+    tb_half = thresholds(np.linspace(30, 40, 171).astype(np.float32))
+    above = a + 100.0  # above every T edge: searched, never counted
+    default = cuda_hist.MAX_CLUSTER_CTAS
+    parts = {}
+    try:
+        for label, most, run in (
+            ("searches alone (T above every edge)", default,
+             lambda: cuda_hist.joint2(above, b, ta, tb, 280, 340)),
+            ("280x170, one block, one pass (atomics all local)", default,
+             lambda: cuda_hist.joint2(a, b, ta, tb_half, 280, 170)),
+            ("280x340, clusters of two, one pass (half the atomics remote)", default,
+             lambda: cuda_hist.joint2(a, b, ta, tb, 280, 340)),
+            ("280x340, one block, two passes (atomics all local)", 1,
+             lambda: cuda_hist.joint2(a, b, ta, tb, 280, 340)),
+        ):
+            cuda_hist.MAX_CLUSTER_CTAS = most
+            run()
+            launch = cuda_hist.last_launch()
+            parts[label] = event_ms(run)
+            print(f"# 2^26 T-S pairs, {label}: cluster {launch['cluster']}, "
+                  f"{launch['passes']} passes, kernel {parts[label]:.4f} ms [{card}]")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        weights = {
+            "float32 [f64]": torch.rand(N_CMP, device=dev, generator=gen),
+            "int32 [u32]": torch.randint(-(2**30), 2**30, (N_CMP,), device=dev,
+                                         generator=gen, dtype=torch.int32),
+            "int64 [u64]": torch.randint(-(2**40), 2**40, (N_CMP,), device=dev,
+                                         generator=gen),
+        }
+        for kind, w in weights.items():
+            line = []
+            for most in (1, 2, 4, 1):  # in turns: 1, 2, 4, then 1 again
+                cuda_hist.MAX_CLUSTER_CTAS = most
+                run = lambda: cuda_hist.joint2(a, b, ta, tb, 280, 340, weights=w)  # noqa: E731
+                run()
+                launch = cuda_hist.last_launch()
+                line.append(f"cluster {launch['cluster']} x {launch['passes']} passes "
+                            f"{event_ms(run):.4f} ms")
+            print(f"# 2^26 T-S pairs, 280x340, {kind} weights: {'; '.join(line)} [{card}]")
+    finally:
+        cuda_hist.MAX_CLUSTER_CTAS = default
+    del a, b, above
 
     # --- the main path -------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -119,11 +171,11 @@ def main():
     spans = []
     launch = core.joint2
 
-    def timed(*args):
+    def timed(*args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = launch(*args)
+        out = launch(*args, **kwargs)
         stop.record()
         spans.append((start, stop))
         return out

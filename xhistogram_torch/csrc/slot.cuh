@@ -14,23 +14,34 @@
 // element's weight, an (m, c) view with its own strides, in place of one,
 // into accumulators and an output of type A (weights.cuh); its shared
 // histograms take sizeof(A) bytes a slot, so float64 and 64-bit integer
-// sums keep half as many slots in shared memory as the 32-bit counters.
+// sums keep half as many slots in a block as the 32-bit counters.
 //
-// Each element is digitized once per input by the binary search of
-// digitize.cuh and counted with an atomic. Where the slots go:
-// - shared histograms (S <= max_shared_slots and they fit beside the
+// Each element is digitized once per input and counted with one atomic.
+// The thresholds of all inputs, and a cell table for each, are staged in
+// shared memory when they fit (227 KB a block), and the search is the
+// bucketed one of digitize.cuh; otherwise each search is a binary search of
+// the thresholds in device memory. Where the slots go:
+// - one block's shared memory (S <= max_shared_slots and S fits beside the
 //   thresholds): one histogram per row of the tile (tile.cuh), or, for a
 //   full reduction, one per block in up to 16 warp-private replicas
-//   against hot bins; 32-bit counters, flushed into the int64 output. A
-//   tile of whole kept rows stores every slot of its rows, zeros and the
-//   trash slot included, so the output needs no zeroing pass; a row split
-//   over column tiles, and a full reduction, add with 64-bit atomics into
-//   an output the launcher zeroes first.
-// - global histogram (more slots than that): every element adds one with a
-//   64-bit atomic straight into the zeroed int64 output, which stays in
-//   the card's 50 MB L2 cache up to about six million slots.
-// The thresholds of all inputs are staged in shared memory when they fit
-// (227 KB a block); otherwise each search reads them in device memory.
+//   against hot bins; 32-bit counters, flushed into the int64 output.
+// - a cluster's shared memory (S fits C = 2, 4 or 8 blocks, C <=
+//   max_cluster; not float64 sums, which add faster in device memory):
+//   the histogram of one row (or of the full reduction) is
+//   spread over the cluster in runs of 32 slots, run g / 32 in block
+//   (g / 32) % C, and every element adds with one atomic in its owner's
+//   shared memory (distributed shared memory for another block's). The
+//   cluster walks its tiles together: one row a tile, each row cut into
+//   the column tiles that balance the tiles over the resident clusters
+//   against a flush per tile.
+// - device memory (more slots than that, or max_shared_slots == 0): every
+//   element adds one with a 64-bit atomic straight into the zeroed int64
+//   output, which stays in the card's 50 MB L2 cache up to about six
+//   million slots.
+// A tile of whole kept rows stores every slot of its rows, zeros and the
+// trash slot included, so the output needs no zeroing pass; a row split over
+// column tiles, and a full reduction, add with 64-bit atomics into an output
+// the launcher zeroes first.
 // The input count is read at run time, except for two inputs, the common
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
@@ -40,7 +51,10 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "digitize.cuh"
 #include "launch.cuh"
@@ -51,12 +65,19 @@
 namespace {
 namespace slot {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxInputs = 32;
 constexpr int kThreads = 512;
-// two resident blocks an SM at the least: caps registers at 64 a thread
-constexpr int kMinBlocks = 2;
+// a cluster's blocks each fill an SM's shared memory alone, so they take
+// twice the threads; either way registers are capped at 64 a thread
+constexpr int kClusterThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+// a cluster's blocks own a row's slots in runs of 32, so a warp's flush
+// stores 32 neighbouring slots
+constexpr int kRunBits = 5;
 constexpr int kUnroll = 4;
+constexpr int kMaxCluster = 8;
 constexpr long long kMinTile = (long long)kThreads * kUnroll;
 // shared histogram bytes a block aims for (48 KB): several kept rows a
 // tile, or warp replicas of a full reduction
@@ -69,7 +90,9 @@ struct Input {
   long long sm;
   long long sc;
   int nb;
-  int soff;  // slot of its first threshold in shared memory (skewed)
+  int soff;   // slot of its first threshold in shared memory (skewed)
+  int toff;   // its first cell in the staged cell tables
+  int cells;  // cells asked for its table
 };
 
 template <typename T>
@@ -78,12 +101,17 @@ struct Inputs {
   int n;
 };
 
-// 227 KB a block, less the kernel's static copy of the input table
+// 227 KB a block, less the kernel's static shared memory (the input table,
+// the cell maps and the windows' widths)
 template <typename T>
-constexpr size_t kSmemMax = 232448 - sizeof(Input<T>) * kMaxInputs;
+constexpr size_t kSmemMax = 232448 - (sizeof(Input<T>) + sizeof(xh::CellMap<T>) +
+                                      sizeof(int)) * kMaxInputs - 64;
 
 struct Mode {
-  size_t thr_bytes;  // staged thresholds' shared bytes; 0: searched in place
+  size_t thr_bytes;    // staged thresholds' shared bytes; 0: searched in place
+  size_t stage_bytes;  // thresholds and cell tables: the histogram's offset
+  long long s_local;   // slots of a row each block of a cluster holds
+  int log2c;           // log2 of the blocks a cluster
   int reduce_all;
   int whole_rows;  // each tile holds whole rows and stores all their slots
 };
@@ -91,17 +119,16 @@ struct Mode {
 // g[u]: the flat slot of element u, at offset f[u] along the fast and s[u]
 // along the slow dimension from the tile's corner (r0, c0), or -1 where
 // ok[u] is false or any input's value is NaN or out of range. t: every
-// input's thresholds staged (skewed) in shared memory when `staged`, else
-// each input's are searched in device memory. kN: the input count n when
-// it is known at compile time (0: read n at run time).
+// input's thresholds staged (skewed) in shared memory, with its cell map
+// maps[i], cell table at win + toff and widest window widest[i], when
+// `staged`; else each input's are searched in device memory. kN: the input
+// count n when it is known at compile time (0: read n at run time).
 template <typename T, int K, int kN>
-__device__ __forceinline__ void flat_slots(const Input<T>* in, int n,
-                                           const T* t, bool staged, long long r0,
-                                           long long c0, bool row_fast,
-                                           const unsigned (&f)[K],
-                                           const unsigned (&s)[K],
-                                           const bool (&ok)[K],
-                                           long long (&g)[K]) {
+__device__ __forceinline__ void flat_slots(
+    const Input<T>* in, int n, const T* t, const xh::CellMap<T>* maps,
+    const int2* win, const int* widest, bool staged, long long r0,
+    long long c0, bool row_fast, const unsigned (&f)[K],
+    const unsigned (&s)[K], const bool (&ok)[K], long long (&g)[K]) {
   bool valid[K];
 #pragma unroll
   for (int u = 0; u < K; ++u) {
@@ -120,7 +147,8 @@ __device__ __forceinline__ void flat_slots(const Input<T>* in, int n,
       v[u] = ok[u] ? base[f[u] * fast + s[u] * slow] : T(0);
     int bin[K];
     if (staged)
-      xh::bins_of<T, K, true>(t + d.soff, d.nb, v, bin);
+      xh::bins_bucketed<T, K>(t + d.soff, d.nb, maps[i], win + d.toff,
+                              xh::first_step(widest[i]), v, bin);
     else
       xh::bins_of<T, K, false>(d.thr, d.nb, v, bin);
 #pragma unroll
@@ -134,9 +162,16 @@ __device__ __forceinline__ void flat_slots(const Input<T>* in, int n,
     if (!valid[u]) g[u] = -1;
 }
 
+// The slot of a row held at local index l by block `rank` of a cluster of
+// 1 << log2c blocks (runs of 32 slots dealt round the cluster).
+__device__ __forceinline__ long long slot_of(long long l, int log2c, int rank) {
+  return log2c == 0 ? l
+                    : ((((l >> kRunBits) << log2c) + rank) << kRunBits) + (l & 31);
+}
+
 // W: xh::Count (adds one) or xh::Sum<A> (adds the weight in w).
 template <typename T, typename W, bool kShared, int kN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kClusterThreads, 1)
 slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
                  long long c, long long S, xh::Tiling tl, Mode md,
                  typename W::Out* __restrict__ out) {
@@ -144,6 +179,8 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   using Out = typename W::Out;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Input<T> in[kMaxInputs];
+  __shared__ xh::CellMap<T> maps[kMaxInputs];
+  __shared__ int widest[kMaxInputs];
   const int n = p.n;
 #pragma unroll
   for (int k = 0; k < kMaxInputs; ++k)  // static indices: no local copy of p
@@ -153,41 +190,61 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   // t always points into shared memory, so the searches load from it with
   // shared-memory instructions rather than generic ones
   T* t = reinterpret_cast<T*>(smem);
+  int2* win = reinterpret_cast<int2*>(smem + md.thr_bytes);
   const bool staged = md.thr_bytes != 0;
-  if (staged)
+  if (staged) {
     for (int i = 0; i < n; ++i)
       xh::stage_thresholds(t + in[i].soff, in[i].thr, in[i].nb + 1);
-  Shared* hist = reinterpret_cast<Shared*>(smem + md.thr_bytes);
-  const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const xh::CellMap<T> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
+      if (threadIdx.x == 0) maps[i] = mp;
+      xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff, &widest[i]);
+    }
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log2c = md.log2c;
+  const int cl = 1 << log2c;  // blocks a cluster
+  const int rank = cl > 1 ? (int)cluster.block_rank() : 0;
+  const long long s_local = md.s_local;
+  Shared* hist = reinterpret_cast<Shared*>(smem + md.stage_bytes);
+  const long long one_copy = (md.reduce_all ? 1 : tl.rows) * s_local;
   if (kShared)
     for (long long k = threadIdx.x; k < one_copy * tl.copies; k += blockDim.x)
       hist[k] = Shared(0);
   __syncthreads();
+  if (kShared && cl > 1) cluster.sync();  // zeroed before another's add
   Shared* mine = hist + (threadIdx.x / 32) % tl.copies * one_copy;
   const long long out_row = S + 1;
 
+  // the blocks of a cluster walk each of its tiles together, as one
+  // block of lanes threads would
+  const unsigned lanes = blockDim.x << log2c;
+  const unsigned tid = rank * blockDim.x + threadIdx.x;
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (long long tile = blockIdx.x >> log2c; tile < n_tiles;
+       tile += gridDim.x >> log2c) {
     const long long r0 = tile / tl.col_tiles * tl.rows;
     const long long c0 = tile % tl.col_tiles * tl.cols;
     const unsigned rr = (unsigned)min(tl.rows, m - r0);
     const unsigned cc = (unsigned)min(tl.cols, c - c0);
     const unsigned total = rr * cc;
     // (f, s): a thread's position along the fast and the slow dimension of
-    // the tile, advanced by blockDim.x elements a step without a division
+    // the tile, advanced by `lanes` elements a step without a division
     const unsigned fast_n = tl.row_fast ? rr : cc;
-    const unsigned df = blockDim.x % fast_n;
-    const unsigned ds = blockDim.x / fast_n;
-    unsigned f = threadIdx.x % fast_n;
-    unsigned s = threadIdx.x / fast_n;
+    const unsigned df = lanes % fast_n;
+    const unsigned ds = lanes / fast_n;
+    unsigned f = tid % fast_n;
+    unsigned s = tid / fast_n;
 
-    for (unsigned k = threadIdx.x; k < total; k += kUnroll * blockDim.x) {
+    for (unsigned k = tid; k < total; k += kUnroll * lanes) {
       unsigned fs[kUnroll];
       unsigned ss[kUnroll];
       bool ok[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        ok[u] = k + u * blockDim.x < total;
+        ok[u] = k + u * lanes < total;
         fs[u] = f;
         ss[u] = s;
         f += df;
@@ -198,8 +255,8 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
         }
       }
       long long g[kUnroll];
-      flat_slots<T, kUnroll, kN>(in, n, t, staged, r0, c0, tl.row_fast, fs, ss,
-                                 ok, g);
+      flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged, r0, c0,
+                                 tl.row_fast, fs, ss, ok, g);
       Shared wt[kUnroll];  // each counted element's weight
       if constexpr (W::kWeighted) {
         const long long fast = tl.row_fast ? w.sm : w.sc;
@@ -212,36 +269,45 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
             xh::load_weight(w.data, base + fs[u] * fast + ss[u] * slow, w.code,
                             wt[u]);
         }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) wt[u] = Shared(1);
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (g[u] < 0) continue;
         const long long row = md.reduce_all ? 0 : (tl.row_fast ? fs[u] : ss[u]);
-        if constexpr (W::kWeighted) {
-          if (kShared)
-            atomicAdd(&mine[row * S + g[u]], wt[u]);
-          else
-            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
-                      wt[u]);
+        if (kShared && cl == 1) {
+          atomicAdd(&mine[row * s_local + g[u]], wt[u]);
+        } else if (kShared) {
+          const long long run = g[u] >> kRunBits;
+          const long long slot = row * s_local +
+                                 ((run >> log2c) << kRunBits) + (g[u] & 31);
+          atomicAdd(cluster.map_shared_rank(hist, (int)(run & (cl - 1))) + slot,
+                    wt[u]);
         } else {
-          if (kShared)
-            atomicAdd(&mine[row * S + g[u]], 1u);
-          else
-            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
-                      1ull);
+          atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
+                    (Out)wt[u]);
         }
       }
     }
 
     if (kShared && !md.reduce_all) {
-      __syncthreads();
+      if (cl > 1)
+        cluster.sync();  // every add of the tile landed
+      else
+        __syncthreads();
+      // this block's slots of each row, and the trash slot S by its owner
+      // (one block: l = S)
       for (unsigned r = 0; r < rr; ++r) {
         Out* dst = out + (r0 + r) * out_row;
-        for (long long sl = threadIdx.x; sl <= S; sl += blockDim.x) {
+        for (long long l = threadIdx.x; l < s_local + (cl == 1); l += blockDim.x) {
+          const long long sl = slot_of(l, log2c, rank);
+          if (sl > S) break;  // l rises, and with it sl
           Out v = 0;  // sl == S: the trash slot, zero
           if (sl < S)
             for (int cp = 0; cp < tl.copies; ++cp) {
-              Shared* h = hist + cp * one_copy + r * S + sl;
+              Shared* h = hist + cp * one_copy + r * s_local + l;
               v += *h;
               *h = Shared(0);
             }
@@ -251,18 +317,51 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
             atomicAdd(&dst[sl], v);
         }
       }
-      __syncthreads();
+      if (cl > 1)
+        cluster.sync();  // zeroed again before the next tile's adds
+      else
+        __syncthreads();
     }
   }
 
   if (kShared && md.reduce_all) {
-    __syncthreads();
-    for (long long sl = threadIdx.x; sl < S; sl += blockDim.x) {
+    if (cl > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    for (long long l = threadIdx.x; l < s_local; l += blockDim.x) {
+      const long long sl = slot_of(l, log2c, rank);
+      if (sl >= S) break;
       Out v = 0;
-      for (int cp = 0; cp < tl.copies; ++cp) v += hist[cp * one_copy + sl];
+      for (int cp = 0; cp < tl.copies; ++cp) v += hist[cp * one_copy + l];
       if (v != Out(0)) atomicAdd(&out[sl], v);
     }
   }
+}
+
+// Kept rows over a cluster: one row a tile, each row cut into ct column
+// tiles, ct minimising the rounds of tiles over the resident clusters times
+// a round's work (a tile's elements and the S slots it flushes).
+inline xh::Tiling cluster_row_tiling(long long m, long long c, bool row_fast,
+                                     long long S, long long resident) {
+  long long best_ct = 1;
+  double best = -1.0;
+  for (long long ct = 1; ct <= c && ct <= 4096; ++ct) {
+    const double cost = (double)xh::ceil_div(m * ct, resident) *
+                        (double)(xh::ceil_div(c, ct) + S);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_ct = ct;
+    }
+  }
+  xh::Tiling tl;
+  tl.row_fast = row_fast;
+  tl.copies = 1;
+  tl.rows = 1;
+  tl.cols = xh::ceil_div(c, best_ct);
+  tl.row_tiles = m;
+  tl.col_tiles = xh::ceil_div(c, tl.cols);
+  return tl;
 }
 
 template <typename T, typename W, bool kShared, int kN>
@@ -271,34 +370,43 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
                   bool row_fast, Mode md, void* out, cudaStream_t stream) {
   using Shared = typename W::Shared;
   using Out = typename W::Out;
-  static xh::LaunchShape shape;
+  static xh::ClusterShape shape;
+  const int cl = 1 << md.log2c;
+  const int threads = cl > 1 ? kClusterThreads : kThreads;
   const size_t smem_most =
-      md.thr_bytes + sizeof(Shared) * (size_t)most_counters;
-  int sms = 0;
-  int per_sm = 0;
+      md.stage_bytes + sizeof(Shared) * (size_t)most_counters;
+  long long resident = 0;  // clusters
   cudaError_t err =
-      shape.get((const void*)slot_hist_kernel<T, W, kShared, kN>, kThreads,
-                smem_most, &sms, &per_sm);
+      shape.get((const void*)slot_hist_kernel<T, W, kShared, kN>, threads,
+                smem_most, cl, &resident);
   if (err != cudaSuccess) return (int)err;
-  const long long resident = (long long)sms * per_sm;
 
-  const long long max_rows =
-      kShared && !md.reduce_all ? most_counters / S : xh::kMaxTile;
-  xh::Tiling tl = xh::make_tiling(m, c, row_fast, max_rows > 0 ? max_rows : 1,
-                                  kMinTile, resident);
-  size_t smem = md.thr_bytes;
-  if (kShared) {
-    const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
-    const long long copies = most_counters / one_copy;
-    tl.copies = copies < 1 ? 1 : copies > kWarps ? kWarps : (int)copies;
-    smem += sizeof(Shared) * (size_t)(tl.copies * one_copy);
+  xh::Tiling tl;
+  size_t smem = md.stage_bytes;
+  if (kShared && cl > 1) {
+    tl = md.reduce_all
+             ? xh::make_tiling(m, c, row_fast, xh::kMaxTile, kMinTile, resident)
+             : cluster_row_tiling(m, c, row_fast, S, resident);
+    smem = smem_most;  // one histogram share, no replicas
+  } else {
+    const long long max_rows =
+        kShared && !md.reduce_all ? most_counters / S : xh::kMaxTile;
+    tl = xh::make_tiling(m, c, row_fast, max_rows > 0 ? max_rows : 1, kMinTile,
+                         resident);
+    if (kShared) {
+      const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
+      const long long copies = most_counters / one_copy;
+      tl.copies = copies < 1 ? 1 : copies > kWarps ? kWarps : (int)copies;
+      smem += sizeof(Shared) * (size_t)(tl.copies * one_copy);
+    }
   }
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  const long long grid = n_tiles < resident ? n_tiles : resident;
-  // a block's shared counters are 32-bit: bound the elements one block
-  // counts before it flushes (a full reduction flushes only at the end);
-  // weighted sums wrap or round by their own type's rules instead
-  const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, grid) : 1;
+  const long long clusters = n_tiles < resident ? n_tiles : resident;
+  // each block's shared counters are 32-bit and every block of a cluster
+  // adds into them: bound the elements one cluster counts before it
+  // flushes (a full reduction flushes only at the end); weighted sums wrap
+  // or round by their own type's rules instead
+  const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, clusters) : 1;
   if (!W::kWeighted && kShared && visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
@@ -308,10 +416,20 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
     err = cudaMemsetAsync(out, 0, sizeof(Out) * rows_out * (S + 1), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  slot_hist_kernel<T, W, kShared, kN><<<(unsigned int)grid, kThreads, smem,
-                                        stream>>>(p, w, m, c, S, tl, md,
-                                                  static_cast<Out*>(out));
-  return (int)cudaGetLastError();
+  xh::last_launch = {cl, 1, kShared ? 1 : 0,
+                     {p.in[0].cells, p.n > 1 ? p.in[1].cells : 0}};
+  return (int)xh::launch_clustered(slot_hist_kernel<T, W, kShared, kN>,
+                                   dim3((unsigned int)(clusters * cl)), threads,
+                                   smem, cl, stream, p, w, m, c, S, tl, md,
+                                   static_cast<Out*>(out));
+}
+
+// The slots of a row each block of a cluster of 1 << log2c blocks holds:
+// all S for one block, else its runs of 32 of slots 0..S.
+inline long long share(long long S, int log2c) {
+  if (log2c == 0) return S;
+  const long long runs = ((S + 1) >> kRunBits) + ((S + 1) & 31 ? 1 : 0);
+  return xh::ceil_div(runs, 1LL << log2c) << kRunBits;
 }
 
 // The C entries' common body: counts (W = xh::Count) or weighted sums
@@ -319,20 +437,25 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
 // (1 if reduce_all else m, S + 1) of W::Out, which needs no zeroing.
 // data[k], thr[k]: device pointers of type T; strides[2k], strides[2k + 1]:
 // input k's (sm, sc) in elements; nb[k] its bin count. Histograms of at
-// most max_shared_slots slots a row are kept in shared memory where they
-// fit. Launches on `stream` and returns cudaGetLastError() (or the first
-// failing CUDA call's error); never synchronises.
+// most max_shared_slots slots a row are kept in the shared memory of one
+// block, or of a cluster of at most max_cluster blocks (1, 2, 4 or 8),
+// where they fit. Launches on `stream` and returns cudaGetLastError() (or
+// the first failing CUDA call's error); never synchronises.
 template <typename T, typename W>
 int launch_slot_hist(int n, const void* const* data, const long long* strides,
                      const void* const* thr, const int* nb, long long m,
                      long long c, int reduce_all, long long max_shared_slots,
-                     const xh::Weights& w, void* out, void* stream) {
-  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || w.sm < 0 || w.sc < 0)
+                     int max_cluster, const xh::Weights& w, void* out,
+                     void* stream) {
+  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || w.sm < 0 || w.sc < 0 ||
+      max_cluster < 1)
     return (int)cudaErrorInvalidValue;
+  using Shared = typename W::Shared;
   Inputs<T> p = {};
   p.n = n;
   long long S = 1;
   size_t thr_slots = 0;
+  size_t cells = 0;
   int row_cost = 0;  // inputs a rows-first walk reads with a stride > 1
   int col_cost = 0;
   for (int k = 0; k < n; ++k) {
@@ -348,6 +471,8 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
     // read only when the thresholds are staged, and then below 2^16
     d.soff = thr_slots < (1u << 30) ? (int)thr_slots : 0;
     thr_slots += xh::skewed_len(d.nb + 1);
+    d.cells = d.nb < xh::kMaxCells / 2 ? 2 * d.nb : xh::kMaxCells;
+    cells += d.cells;
     row_cost += d.sm > 1;
     col_cost += d.sc > 1;
   }
@@ -355,23 +480,62 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   col_cost += w.sc > 1;
   const bool row_fast = m > 1 && (c == 1 || row_cost < col_cost);
 
+  // thresholds and their cell tables where they fit; one cell a table
+  // (the plain binary search) where only the thresholds do
+  const size_t budget = kSmemMax<T>;
+  const size_t thr_bytes = (thr_slots * sizeof(T) + 15) / 16 * 16;
+  if (thr_bytes + xh::cells_bytes((int)cells) > budget) {
+    cells = 0;
+    for (int k = 0; k < n; ++k) cells += (p.in[k].cells = 1);
+  }
   Mode md = {};
   md.reduce_all = reduce_all != 0;
-  const size_t thr_bytes = (thr_slots * sizeof(T) + 15) / 16 * 16;
-  const size_t budget = kSmemMax<T>;
-  md.thr_bytes = thr_bytes <= budget ? thr_bytes : 0;
-  const size_t room = (budget - md.thr_bytes) / sizeof(typename W::Shared);
-  const long long target = kHistBytes / (long long)sizeof(typename W::Shared);
+  if (thr_bytes + xh::cells_bytes((int)cells) <= budget) {
+    md.thr_bytes = thr_bytes;
+    md.stage_bytes = (thr_bytes + xh::cells_bytes((int)cells) + 15) / 16 * 16;
+    for (int k = 0, toff = 0; k < n; toff += p.in[k++].cells) p.in[k].toff = toff;
+  } else {
+    for (int k = 0; k < n; ++k) p.in[k].cells = 0;
+  }
+  const long long room = (long long)((budget - md.stage_bytes) / sizeof(Shared));
+  const long long target = kHistBytes / (long long)sizeof(Shared);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (S <= max_shared_slots && (size_t)S <= room) {
+
+  // the fewest blocks whose shared memory holds a row's histogram (and,
+  // past one block, its trash slot: runs of 32 cover slots 0..S). Float64
+  // sums add by compare-and-swap loops, slower still into another block,
+  // and lose to device memory's native float64 adds wherever a cluster
+  // would hold them (README call 5.26 against 3.29 ms, 60^3 1.43 against
+  // 1.02; tools/factored_probe.py, PERF.md §5): one block or device memory
+  const int kind_most = std::is_same<Shared, double>::value ? 1 : kMaxCluster;
+  const int most = max_cluster < kind_most ? max_cluster : kind_most;
+  int log2c = -1;
+  if (S <= max_shared_slots)
+    for (int l = 0; (1 << l) <= most; ++l)
+      if (share(S, l) <= room) {
+        log2c = l;
+        break;
+      }
+  if (log2c == 0) {
     long long most = S > target ? S : target;
-    if ((size_t)most > room) most = (long long)room;
+    if (most > room) most = room;
+    md.s_local = S;
     if (n == 2)
       return launch_kernel<T, W, true, 2>(p, w, m, c, S, most, row_fast, md,
                                           out, st);
     return launch_kernel<T, W, true, 0>(p, w, m, c, S, most, row_fast, md,
                                         out, st);
   }
+  if (log2c > 0) {
+    md.log2c = log2c;
+    md.s_local = share(S, log2c);
+    if (n == 2)
+      return launch_kernel<T, W, true, 2>(p, w, m, c, S, md.s_local, row_fast,
+                                          md, out, st);
+    return launch_kernel<T, W, true, 0>(p, w, m, c, S, md.s_local, row_fast, md,
+                                        out, st);
+  }
+  md.s_local = S;
   if (n == 2)
     return launch_kernel<T, W, false, 2>(p, w, m, c, S, 0, row_fast, md, out,
                                          st);
@@ -387,10 +551,11 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c,               \
-                      long long max_shared_slots, void* out, void* stream) { \
+                      long long max_shared_slots, int max_cluster, void* out, \
+                      void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
         n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
-        xh::Weights{}, out, stream);                                         \
+        max_cluster, xh::Weights{}, out, stream);                            \
   }
 
 // The weighted C entry of one route: sums of the weights w (an (m, c) view
@@ -400,12 +565,12 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c,               \
-                      long long max_shared_slots, const void* w,             \
-                      long long wsm, long long wsc, int wcode, void* out,    \
-                      void* stream) {                                        \
+                      long long max_shared_slots, int max_cluster,           \
+                      const void* w, long long wsm, long long wsc, int wcode, \
+                      void* out, void* stream) {                             \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
         n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
-        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
+        max_cluster, xh::Weights{w, wsm, wsc, wcode}, out, stream);          \
   }
 
 // Every route's weighted entries xh_<route>_<data>_<cls> of the

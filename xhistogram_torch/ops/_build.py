@@ -65,9 +65,9 @@ def _declare(lib):
     # each kernel's arguments, and the weights' (pointer, strides, type code)
     # that its weighted entries take before the output
     kernels = {
-        "joint2": ([p, p, i64, p, i32, p, i32], [p, i32]),
+        "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32]),
         "one_input": ([p, i64, i64, i64, i64, p, i32, i32], [p, i64, i64, i32]),
-        **{route: ([i32, p, p, p, p, i64, i64, i64], [p, i64, i64, i32])
+        **{route: ([i32, p, p, p, p, i64, i64, i64, i32], [p, i64, i64, i32])
            for route in SLOT_ROUTES},
     }
     for suffix in DTYPE_SUFFIXES:
@@ -79,6 +79,8 @@ def _declare(lib):
                 fn = getattr(lib, f"xh_{kernel}_{suffix}_{cls}")
                 fn.argtypes = [*args, *weight_args, p, p]
                 fn.restype = i32
+    lib.xh_last_launch.argtypes = [p]
+    lib.xh_last_launch.restype = None
     return lib
 
 

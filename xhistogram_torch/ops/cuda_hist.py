@@ -2,7 +2,8 @@
 
 Counterpart of ``xhistogram_tpu.ops.pallas_hist``. ``plan`` is that
 module's routing table copied as host code (unweighted and weighted, no
-uniform-spacing certificates yet), so both packages name the same kernel
+uniform-spacing certificates: the kernels' bucketed digitize is exact for
+any thresholds and needs none), so both packages name the same kernel
 for the same problem. Every kernel family it names is ported, each a
 hand-written CUDA kernel with its plain PyTorch version beside it:
 ``one_input`` (``csrc/one_input.cu``), ``joint2`` (``csrc/joint2.cu``),
@@ -55,6 +56,9 @@ __all__ = [
     "JOINT2_LAUNCHES",
     "FACTORED_LAUNCHES",
     "DIRECT_LAUNCHES",
+    "MAX_SHARED_SLOTS",
+    "MAX_CLUSTER_CTAS",
+    "last_launch",
 ]
 
 _SUB = 8  # the JAX package's sublane rounding, kept so plan() agrees with it
@@ -69,11 +73,18 @@ FACTORED_LAUNCHES = {"full": 0, "per_row": 0, "packed": 0}
 DIRECT_LAUNCHES = 0
 
 #: the most slots of a row's histogram that factored and direct keep in
-#: shared memory; by default every histogram that fits a block's 227 KB
-#: beside the thresholds. Beyond, each element adds straight into the int64
-#: output in device memory (csrc/slot.cuh); tools/factored_probe.py and the
-#: card-only tests set 0 to time and check that path at any size
-MAX_SHARED_SLOTS = 232448 // 4
+#: shared memory; by default every histogram that fits the 227 KB of the
+#: blocks of one cluster (at most eight) beside the thresholds. Beyond, each
+#: element adds straight into the int64 output in device memory
+#: (csrc/slot.cuh); tools/factored_probe.py and the card-only tests set 0 to
+#: time and check that path at any size
+MAX_SHARED_SLOTS = 8 * 232448 // 4
+#: the most blocks of a cluster whose shared memory joint2, factored and
+#: direct spread one histogram over (1, 2, 4 or 8); each launch takes the
+#: fewest that hold it (float64 sums, as measured faster: at most two in
+#: joint2, none in factored and direct). tools and the card-only tests set
+#: 1, 2 and 4 to time and check each cluster size
+MAX_CLUSTER_CTAS = 8
 _MAX_SLOT_INPUTS = 32  # csrc/slot.cuh kMaxInputs
 
 _MAX_ONE_INPUT_BINS = 1024  # plan()'s one_input gate, and the kernel's limit
@@ -251,6 +262,19 @@ def _check_operands(name, data, thresholds, nbins):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def last_launch():
+    """What the last joint2, factored or direct launch of this process chose
+    (``xh_last_launch``): ``cluster`` (blocks whose shared memory held the
+    histogram, 1 to 8), ``passes`` over the data (joint2's chunks of T
+    rows), ``shared`` (False: the histogram was in device memory) and
+    ``cells`` (the cell-table sizes asked for the first two inputs;
+    ``ops.digitize.bucket_table`` gives the table the kernel built)."""
+    out = (ctypes.c_int * 5)()
+    _build.load().xh_last_launch(out)
+    return {"cluster": out[0], "passes": out[1], "shared": bool(out[2]),
+            "cells": (out[3], out[4])}
 
 
 #: each weight dtype's accumulator class (csrc/weights.cuh), and the code of
@@ -444,7 +468,7 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     with torch.cuda.device(a.device):
         rc = fn(
             a.data_ptr(), b.data_ptr(), n,
-            thr_a.data_ptr(), nba, thr_b.data_ptr(), nbb,
+            thr_a.data_ptr(), nba, thr_b.data_ptr(), nbb, MAX_CLUSTER_CTAS,
             *w_args, out.data_ptr(), _stream(a.device),
         )
     if rc != 0:
@@ -523,7 +547,8 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
             (ctypes.c_int64 * (2 * n))(*(s for a in arrays for s in a.stride())),
             (ctypes.c_void_p * n)(*(t.data_ptr() for t in thr)),
             (ctypes.c_int * n)(*nbins),
-            m, c, MAX_SHARED_SLOTS, *w_args, out.data_ptr(), _stream(device),
+            m, c, MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args, out.data_ptr(),
+            _stream(device),
         )
     if rc != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
