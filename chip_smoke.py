@@ -5,9 +5,11 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (``csrc/joint2.cu``, ``csrc/one_input.cu``,
-``csrc/factored.cu``, ``csrc/direct.cu`` and the weighted flat-slot entries
-``csrc/slot_w*.cu``) from the sources in this checkout, holds each
+It builds the port's CUDA kernels (``csrc/joint2.cu`` with
+``csrc/joint2_mixed.cu``, ``csrc/one_input.cu`` with
+``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, ``csrc/direct.cu``, the
+weighted flat-slot entries ``csrc/slot_w*.cu`` and the mixed ones
+``csrc/slot_mixed.cu``) from the sources in this checkout, holds each
 bit-exact against its plain PyTorch version on the card (weighted float
 sums within a stated tolerance), and
 drives the ported paths through the public ``xhistogram_torch.histogram``,
@@ -27,6 +29,14 @@ just after:
 - direct: (64800, 64) and (1000, 64) x 2 in 40x40 bins per row;
 - forced ``method="cuda"`` beyond ``plan()``'s caps: a full reduction over
   2^21 slots (factored) and kept rows over 8192 slots (direct);
+- one_input on narrow data read in place: 2^30 values in 64 bins as
+  bfloat16 and as int8, each beside a widening copy and the kernel on it;
+- int64 beside float data, each input compared in its own type:
+  ``histogram(x.long(), x)`` over ``linspace(0, 2, 1000)`` (joint2), T in
+  int64 millidegrees beside float32 S at 2^26 pairs (joint2), 5e7 pairs in
+  1000x1000 bins (factored), the README's per-level layout cut to 8 times
+  (factored per row), 40x40 at (64800, 64) (direct); and 10^8 uint64
+  values in 50 bins, flipped onto int64 (one_input);
 - weighted (``weights=``): BASELINE config 2 with U(0,1) float32 weights and
   ``density`` (one_input); the T–S diagram over 2^28 pairs with float32
   weights and with int32 weights of one, two and four base-256 digits
@@ -39,7 +49,13 @@ just after:
 First, joint2, factored (full, per row, packed) and direct are held bit for
 bit against their plain versions on the adversarial threshold sets of the
 bucketed digitize (``tests/ts_cases.BUCKET_EDGE_SETS``), at the default
-cluster cap and at one block. Each path prints the cluster size, passes and
+cluster cap and at one block; one_input on the same sets (up to 1024 bins)
+in each of its counter layouts (lane-private, warp replicas, aggregated;
+all three must run) for counts and each accumulator class, with the widest
+window L of each launch against the mirror's table, and on bfloat16,
+float16, int16, int8, uint8 and bool data read in place. int64 beside
+float32, float64 and float16 data is held against the plain versions on
+every kernel, in both input orders, with and without weights. Each path prints the cluster size, passes and
 histogram place of its launch, and the cell count K and widest window L of
 each input's table (``ops.digitize.bucket_table``); the T–S path must run
 one pass in clusters of two, and the README call keep its histogram in a
@@ -532,6 +548,315 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
 
 
 
+def one_input_phase(dev, card, reset_counts, counts_now, max_abs_err):
+    """The one_input kernel's bucketed search, counter layouts and narrow
+    loads (csrc/one_input.cuh): held against its plain version on the
+    adversarial threshold sets (``ts_cases.BUCKET_EDGE_SETS`` up to 1024
+    bins) in each counter layout (lane-private, warp replicas, aggregated)
+    and for counts and each accumulator class, the launch's K and L against
+    the mirror's table; then bfloat16, float16, int16, int8, uint8 and bool
+    data read in place, against the plain version on a widened copy, and
+    the 2^30 row in 64 bins as bfloat16 and int8 through the public API
+    with the launch counts read, timed against a widening copy and the
+    kernel on it. Returns (launches of the paths, their times)."""
+    from ts_cases import BUCKET_EDGE_SETS, bucket_case_values
+    import xhistogram_torch
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.ops.bincount import weighted_dtype
+    from xhistogram_torch.ops.digitize import bucket_table
+
+    def thr_of(edges, x):
+        ce = compare_form(np.asarray(edges), _compare_dtype(x))
+        if ce.n_hi_clip:
+            raise ValueError("the kernels take thresholds with n_hi_clip == 0")
+        return torch.from_numpy(ce.edges).to(dev)
+
+    def weights_of(shape, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if dtype is None:
+            return None
+        if dtype.is_floating_point:
+            return torch.rand(shape, device=dev, generator=g).to(dtype)
+        return torch.randint(-(2**30), 2**30, shape, device=dev, generator=g).to(dtype)
+
+    def check(label, x2d, edges, reduce_all, w=None):
+        thr = thr_of(edges, x2d)
+        nb = len(edges) - 1
+        got = cuda_hist.one_input(x2d, thr, nb, reduce_all, weights=w)
+        want = cuda_hist.one_input_reference(x2d, thr, nb, reduce_all, weights=w)
+        torch.cuda.synchronize()
+        launch = cuda_hist.last_launch()
+        if w is not None and got.dtype != weighted_dtype(w.dtype):
+            raise AssertionError(f"{label}: one_input gave {got.dtype}")
+        if w is None or not got.is_floating_point():
+            err = int((got - want).abs().max()) if got.numel() else 0
+            ok = torch.equal(got, want)
+        else:  # float64 adds in another order, rounded once
+            err = float((got.double() - want.double()).abs().max())
+            ok = bool(((got.double() - want.double()).abs()
+                       <= 2.4e-7 * want.double().abs() + 1e-6).all())
+        if w is None:
+            max_abs_err["one_input"] = max(max_abs_err["one_input"], err)
+        if not ok:
+            raise AssertionError(f"{label}: one_input kernel != plain (max abs err {err}; "
+                                 f"{launch})")
+        return launch, thr
+
+    # --- adversarial threshold sets, every layout and accumulator class --------
+    layouts_seen = set()
+    for name, (edges, dtype) in BUCKET_EDGE_SETS.items():
+        if len(edges) - 1 > 1024:
+            continue
+        thr_np = compare_form(edges, dtype).edges
+        x = bucket_case_values(thr_np, dtype, n_random=400_000, seed=len(name))
+        x = torch.from_numpy(x[: x.size // 64 * 64]).to(dev)
+        _, widest, _ = bucket_table(torch.from_numpy(thr_np), 2 * (len(edges) - 1))
+        notes = set()
+        for wdtype in (None, torch.float32, torch.int32, torch.int64):
+            for x2d, reduce_all in ((x.reshape(1, -1), True),
+                                    (x.reshape(-1, 4).t(), False),
+                                    (x.reshape(16, -1), False)):
+                w = weights_of(tuple(x2d.shape), wdtype, seed=len(name))
+                launch, _ = check(f"bucket set {name}, {wdtype}", x2d, edges,
+                                  reduce_all, w)
+                if launch["widest"] != widest:
+                    raise AssertionError(f"bucket set {name}: L {launch['widest']} != "
+                                         f"the mirror's {widest}")
+                layouts_seen.add(launch["layout"])
+                notes.add(f"{launch['layout']}")
+        print(f"# one_input == plain, bucket set {name} ({dtype.__name__}, "
+              f"{len(edges) - 1} bins, {x.numel()} values; counts, float64, uint32 and "
+              f"uint64 sums; full, strided and kept rows): K={2 * (len(edges) - 1)} "
+              f"L={widest}, layouts {sorted(notes)}")
+    if layouts_seen != set(cuda_hist.ONE_INPUT_LAYOUTS.values()):
+        raise AssertionError(f"one_input layouts run: {layouts_seen}")
+
+    # --- narrow data read in place ---------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(16)
+    base = torch.randn(N_DTYPE, device=dev, generator=gen)
+    narrow = {
+        torch.bfloat16: (base.bfloat16(), EDGES_ROW),
+        torch.float16: (base.half(), EDGES_ROW),
+        torch.int16: ((base * 8000).round().clamp(-32768, 32767).to(torch.int16),
+                      np.linspace(-32768.5, 32770, 65)),
+        torch.int8: ((base * 30).round().clamp(-128, 127).to(torch.int8),
+                     np.linspace(-128, 128, 65)),
+        torch.uint8: ((base * 30 + 128).round().clamp(0, 255).to(torch.uint8),
+                      np.linspace(0, 256, 65)),
+        torch.bool: (base > 0.3, np.array([0.0, 0.5, 1.0])),
+    }
+    for dtype, (x, edges) in narrow.items():
+        for x2d, reduce_all in ((x.reshape(1, -1), True), (x.reshape(4096, -1), False),
+                                (x.reshape(-1, 4096).t(), False)):
+            for wdtype in (None, torch.float32):
+                launch, _ = check(f"{dtype} data", x2d, edges, reduce_all,
+                                  weights_of(tuple(x2d.shape), wdtype, seed=3))
+                if launch["load"] != dtype:
+                    raise AssertionError(f"{dtype}: one_input read {launch['load']}")
+        # the plain version on a widened copy gives the same counts
+        wide = x.to(torch.float32 if dtype.is_floating_point else torch.int32)
+        thr = thr_of(edges, x)
+        a = cuda_hist.one_input(x.reshape(1, -1), thr, len(edges) - 1, True)
+        b = cuda_hist.one_input_reference(wide.reshape(1, -1), thr.to(wide.dtype),
+                                          len(edges) - 1, True)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{dtype}: kernel != plain on a widened copy")
+        print(f"# one_input == plain: {dtype} data read in place ({N_DTYPE} values; "
+              "full, kept and strided rows; counts and float32 weights), == the plain "
+              "version on a widened copy")
+    del base, narrow, x, wide
+
+    # --- the 2^30 row as bfloat16 and int8 through the public API ------------------
+    launches, times = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xr = torch.randn(N_ROW, device=dev, generator=gen)
+    for dtype, edges in ((torch.bfloat16, EDGES_ROW), (torch.int8, np.linspace(-128, 128, 65))):
+        x = xr.bfloat16() if dtype == torch.bfloat16 else \
+            (xr * 30).round().clamp(-128, 127).to(torch.int8)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(x, bins=[edges])
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base_mem
+        launched = counts_now()
+        if launched["one_input"] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"2^30 {dtype} row: launches {launched}")
+        if extra > x.numel() * x.element_size() // 4:
+            raise AssertionError(f"2^30 {dtype} row: {extra} bytes allocated beside the data")
+        launch = cuda_hist.last_launch()
+        thr = thr_of(edges, x)
+        plain = sum(cuda_hist.one_input_reference(block.reshape(1, -1), thr, 64, True)
+                    for block in x.split(N_CMP))[0, :-1]
+        if not torch.equal(h, plain):
+            raise AssertionError(f"2^30 {dtype} row: public call != plain version")
+        label = f"2^30 {str(dtype).replace('torch.', '')} row"
+        launches[label] = launched["one_input"]
+        wide_dtype = torch.float32 if dtype == torch.bfloat16 else torch.int32
+        thr_wide = thr.to(wide_dtype)
+        x2d = x.reshape(1, -1)
+        kernel_ms = event_ms(lambda: cuda_hist.one_input(x2d, thr, 64, True), reps=5)
+        widened_ms = event_ms(lambda: cuda_hist.one_input(x2d.to(wide_dtype), thr_wide,
+                                                          64, True), reps=5)
+        bound_ms, _ = bound(x.numel() * x.element_size() + 8 * 65, 0)
+        times[label] = (kernel_ms, widened_ms, bound_ms)
+        print(f"# {label}, 64 bins, full: ONE_INPUT_LAUNCHES=1, {launch['layout']}, "
+              f"K={launch['cells'][0]} L={launch['widest']}, read as {launch['load']}, "
+              f"{extra} bytes allocated beside the data, == plain (16 blocks of 2^26); "
+              f"kernel {kernel_ms:.4f} ms ({x.numel() * x.element_size() / kernel_ms / 1e6:.1f}"
+              f" GB/s), widening copy then kernel {widened_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms [{card}]")
+        del x, h, plain, x2d
+        torch.cuda.empty_cache()
+    del xr
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err):
+    """int64 data beside float data, compared each in its own type (joint2's
+    mixed pairs, the template's mixed entries), and uint64 data flipped onto
+    int64: each kernel held bit for bit against its plain version in both
+    input orders, unweighted and with float32 and int32 weights, then the
+    paths through the public API with the launch counts read
+    (``histogram(x.long(), x)`` over ``linspace(0, 2, 1000)``, a T–S diagram
+    with T in int64 millidegrees at 2^26 pairs, 5e7 pairs in 1000x1000 bins, the
+    README's per-level layout cut to 8 times, 40x40 direct at (64800, 64), and
+    10^8 uint64 values in 50 bins). Returns each kernel family's launches."""
+    from ts_cases import S_EDGES, T_EDGES
+    import xhistogram_torch
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+
+    def thr_of(edges, x):
+        return torch.from_numpy(compare_form(np.asarray(edges),
+                                             _compare_dtype(x)).edges).to(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    big = torch.randint(-(2**45), 2**45, (64, 1 << 16), device=dev, generator=gen)
+    big[0, :3] = torch.tensor([2**45 - 1, -(2**45), 0])
+    e_int = np.linspace(-(2.0**45), 2.0**45, 91) + 0.5
+    for float_dtype in (torch.float32, torch.float64, torch.float16):
+        f = (1.5 * torch.randn(big.shape, device=dev, generator=gen)).to(float_dtype)
+        f[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        for layouts, edges in (([big, f], [e_int, linspace_edges(40)]),
+                               ([f, big], [linspace_edges(40), e_int])):
+            thr = [thr_of(e, x) for e, x in zip(edges, layouts)]
+            nbins = [len(e) - 1 for e in edges]
+            for wdtype in (None, torch.float32, torch.int32):
+                w = None if wdtype is None else (
+                    torch.rand(big.shape, device=dev, generator=gen) if wdtype.is_floating_point
+                    else torch.randint(-(2**30), 2**30, big.shape, device=dev,
+                                       generator=gen, dtype=torch.int32))
+                for route in ("joint2", "full", "per_row", "packed", "direct"):
+                    if route == "joint2":
+                        got = cuda_hist.joint2(*layouts, *thr, *nbins, weights=w)
+                        want = cuda_hist.joint2_reference(*layouts, *thr, *nbins, weights=w)
+                        key = "joint2"
+                    elif route == "direct":
+                        got = cuda_hist.direct(layouts, thr, nbins, weights=w)
+                        want = cuda_hist.direct_reference(layouts, thr, nbins, weights=w)
+                        key = "direct"
+                    else:
+                        got = cuda_hist.factored(layouts, thr, nbins, route, weights=w)
+                        want = cuda_hist.factored_reference(layouts, thr, nbins, route,
+                                                            weights=w)
+                        key = "factored"
+                    torch.cuda.synchronize()
+                    if w is None or not got.is_floating_point():
+                        err = int((got - want).abs().max())
+                        ok = torch.equal(got, want)
+                    else:
+                        diff = (got.double() - want.double()).abs()
+                        err = float(diff.max())
+                        ok = bool((diff <= 2.4e-7 * want.double().abs() + 1e-6).all())
+                    if w is None:
+                        max_abs_err[key] = max(max_abs_err[key], err)
+                    if not ok:
+                        raise AssertionError(
+                            f"int64 beside {float_dtype}: {route} != plain "
+                            f"(max abs err {err}, weights {wdtype})")
+        print(f"# int64 beside {float_dtype} (both orders; counts, float32 and int32 "
+              "weights): joint2, factored full, per row, packed and direct == plain")
+    del big, f, layouts, w, got, want
+
+    launches = {"joint2": 0, "factored": 0, "direct": 0, "one_input": 0}
+
+    def path(label, args, bins, axis, key, expected=None):
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis)
+        torch.cuda.synchronize()
+        launched = counts_now()
+        if launched[key] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"{label}: launches {launched}")
+        h_plain, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis,
+                                                method="scatter")
+        if not torch.equal(h, h_plain):
+            raise AssertionError(f"{label}: kernel path != scatter path")
+        if expected is not None and h.cpu().tolist() != expected:
+            raise AssertionError(f"{label}: {h.cpu().tolist()} != {expected}")
+        launches[key.split()[0]] += 1
+        print(f"# mixed path {label}: {key} launched once, int64 {tuple(h.shape)} == the "
+              f"scatter path{'' if expected is None else f' == {expected}'}")
+
+    x = torch.linspace(0, 2, 1000, device=dev)
+    e = np.array([0.0, 1.0, 2.0])
+    path("histogram(x.long(), x), x = linspace(0, 2, 1000) float32, edges [0, 1, 2]",
+         [x.long(), x], [e, e], None, "joint2", [[500, 0], [0, 500]])
+    gen = torch.Generator(device=dev).manual_seed(26)
+    T = (1000 * (14.0 + 8.0 * torch.randn(N_CMP, device=dev, generator=gen))).long()
+    S = 35.0 + 1.5 * torch.randn(N_CMP, device=dev, generator=gen)
+    path("T-S 2^26 pairs, T int64 millidegrees, S float32, 280x340 bins", [T, S],
+         [T_EDGES.astype(np.float64) * 1000, S_EDGES], None, "joint2")
+    ta, tb = thr_of(T_EDGES.astype(np.float64) * 1000, T), thr_of(S_EDGES, S)
+    mixed_ms = event_ms(lambda: cuda_hist.joint2(T, S, ta, tb, 280, 340))
+    del T, S
+    a = torch.randint(-(2**40), 2**40, (N_FULL,), device=dev, generator=gen)
+    b = torch.randn(N_FULL, device=dev, generator=gen)
+    path("5e7 pairs, int64 beside float32, 1000x1000 bins, full", [a, b],
+         [np.linspace(-(2.0**40), 2.0**40, 1001), linspace_edges(1000)], None,
+         "factored full")
+    del a, b
+    T = (1000 * (14.0 + 8.0 * torch.randn((8,) + README_TS[1:], device=dev,
+                                          generator=gen))).long()
+    S = 35.0 + 1.5 * torch.randn(T.shape, device=dev, generator=gen)
+    path("README per-level layout (8, 50, 64800), T int64 millidegrees, 280x340 bins, "
+         "axis=(0, 2)", [T, S], [T_EDGES.astype(np.float64) * 1000, S_EDGES], (0, 2),
+         "factored per_row")
+    del T, S
+    a = torch.randint(-(2**40), 2**40, DIRECT[0], device=dev, generator=gen)
+    b = torch.randn(DIRECT[0], device=dev, generator=gen)
+    path("40x40 direct, (64800, 64) int64 beside float32, axis=1", [a, b],
+         [np.linspace(-(2.0**40), 2.0**40, 41), linspace_edges(40)], (1,), "direct")
+    del a, b
+    u = torch.randint(-(2**63), 2**63 - 1, CONFIG1, device=dev, generator=gen)
+    u = u.view(torch.uint64)
+    u_edges = np.linspace(0.0, 2.0**64 - 4096, 51)
+    path("10^8 uint64 values (1000, 100000), 50 bins on [0, 2^64 - 4096], full",
+         [u], [u_edges], None, "one_input")
+    got, _ = xhistogram_torch.histogram(u[:2, :1000], bins=[u_edges])
+    want, _ = np.histogram(u[:2, :1000].cpu().numpy().astype(np.float64).ravel(),
+                           bins=u_edges)
+    if got.cpu().tolist() != want.tolist():
+        raise AssertionError("uint64: 2000 values != numpy")
+    print("# uint64 path: == numpy on the first 2000 values; the call "
+          "[0, 1, 2^63, 2^64 - 1] in [0, 2^63, 2^64] (an edge past the top value: "
+          "scatter, as in the JAX package) == [2, 2]")
+    u4 = torch.tensor([0, 1, 2**63, 2**64 - 1], dtype=torch.uint64, device=dev)
+    h, _ = xhistogram_torch.histogram(u4, bins=[np.array([0.0, 2.0**63, 2.0**64])])
+    if h.cpu().tolist() != [2, 2]:
+        raise AssertionError(f"uint64 [0, 1, 2^63, 2^64 - 1] gave {h.cpu().tolist()}")
+    print(f"# joint2 with T int64 beside S float32 at 2^26 pairs: kernel {mixed_ms:.4f} "
+          f"ms [{card}]")
+    del u
+    torch.cuda.empty_cache()
+    return launches
+
+
 def weighted_turns(plain, weighted, unweighted, reps=10):
     """(weighted kernel ms, plain ms, unweighted kernel ms), timed plain,
     weighted, unweighted, unweighted, weighted, plain after a warm-up of
@@ -729,9 +1054,12 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
         if launched[key] < 1 or sum(launched.values()) != launched[key]:
             raise AssertionError(f"{label}: launches {launched}")
         launches[key.split()[0]] += launched[key]
-        note = ""  # one_input keeps no launch record
         if kernel != "one_input":
             note = launch_note([t.cpu() for t in operands(layouts, bins)[0]])[1] + ", "
+        else:
+            rec = cuda_hist.last_launch()
+            note = (f"{rec['layout']} ({rec['copies']} copies), K={rec['cells'][0]} "
+                    f"L={rec['widest']}, ")
         print(f"# weighted path {label}: plan {kernel}, launches {launched[key]} ({key}), "
               f"{note}{h.dtype} {tuple(h.shape)}")
         return h, layouts, w2d
@@ -960,15 +1288,20 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path[:0] = [root, os.path.join(root, "tests")]
-    from ts_cases import (
-        EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, edge_case_values,
-        numpy_hist2d, reference_numpy, reference_numpy_ts, ts_data,
-    )
-    import xhistogram_torch
-    from xhistogram_torch.bins import compare_form
-    from xhistogram_torch.ops import _build, cuda_hist
-    from xhistogram_torch.utils.axes import canonicalize_2d
-    from xhistogram_torch.utils.profiling import measure
+    try:
+        from ts_cases import (
+            EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, edge_case_values,
+            numpy_hist2d, reference_numpy, reference_numpy_ts, ts_data,
+        )
+        import xhistogram_torch
+        from xhistogram_torch.bins import compare_form
+        from xhistogram_torch.ops import _build, cuda_hist
+        from xhistogram_torch.utils.axes import canonicalize_2d
+        from xhistogram_torch.utils.profiling import measure
+    except ImportError as ex:
+        # run alone, outside a checkout: nothing to build or drive
+        raise SystemExit(f"chip_smoke.py runs from the root of a checkout of the "
+                         f"repository, beside xhistogram_torch/ and tests/: {ex}") from None
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -986,6 +1319,14 @@ def main():
                 "one_input": cuda_hist.ONE_INPUT_LAUNCHES,
                 **{f"factored {v}": n for v, n in cuda_hist.FACTORED_LAUNCHES.items()},
                 "direct": cuda_hist.DIRECT_LAUNCHES}
+
+    def one_input_note():
+        """The last one_input launch's layout, copies, K and L, printed."""
+        rec = cuda_hist.last_launch()
+        note = (f"{rec['layout']} ({rec['copies']} copies), K={rec['cells'][0]} "
+                f"L={rec['widest']}, read as {rec['load']}")
+        print(f"#   one_input launch: {note}")
+        return note
 
     def thresholds(edges, dtype=np.float32):
         ce = compare_form(edges, dtype)
@@ -1229,6 +1570,7 @@ def main():
     h1, _ = xhistogram_torch.histogram(x1, bins=[EDGES1])
     torch.cuda.synchronize()
     launches = {"config 1": cuda_hist.ONE_INPUT_LAUNCHES}
+    oi_layouts = {"config 1": one_input_note()}
     plain1 = cuda_hist.one_input_reference(x1.reshape(1, -1), thr1, 50, True)[0, :-1]
     max_abs_err["one_input"] = max(max_abs_err["one_input"], int((h1 - plain1).abs().max()))
     if not torch.equal(h1, plain1):
@@ -1244,6 +1586,7 @@ def main():
     d2, _ = xhistogram_torch.histogram(x1, bins=[EDGES1], axis=1, density=True)
     torch.cuda.synchronize()
     launches["config 2"] = cuda_hist.ONE_INPUT_LAUNCHES
+    oi_layouts["config 2"] = one_input_note()
     plain2 = cuda_hist.one_input_reference(x1, thr1, 50, False)[:, :-1]
     max_abs_err["one_input"] = max(max_abs_err["one_input"], int((h2 - plain2).abs().max()))
     if not torch.equal(h2, plain2):
@@ -1290,6 +1633,7 @@ def main():
     hr, _ = xhistogram_torch.histogram(xr, bins=[EDGES_ROW])
     torch.cuda.synchronize()
     launches["2^30 row"] = cuda_hist.ONE_INPUT_LAUNCHES
+    oi_layouts["2^30 row"] = one_input_note()
     plain_r = sum(
         cuda_hist.one_input_reference(block.reshape(1, -1), thr_row, 64, True)
         for block in xr.split(N_CMP)
@@ -1318,6 +1662,7 @@ def main():
     h4, _ = xhistogram_torch.histogram(sst, bins=[EDGES_SST], axis=0)
     torch.cuda.synchronize()
     launches["config 4"] = cuda_hist.ONE_INPUT_LAUNCHES
+    oi_layouts["config 4"] = one_input_note()
     if h4.dtype != torch.int64 or tuple(h4.shape) != (180, 360, 80):
         raise AssertionError(f"config 4 gave {h4.dtype} {tuple(h4.shape)}")
     plain4 = cuda_hist.one_input_reference(layout, thresholds(EDGES_SST), 80, False)
@@ -1347,19 +1692,23 @@ def main():
               f"of input [{card}]")
     print(f"# config 4 bound (94.6 MB read + {8 * 64800 * 81 / 1e6:.1f} MB of int64 "
           f"written): {sst_bound_ms:.4f} ms")
+    oi_launches, oi_narrow = one_input_phase(dev, card, reset_counts, counts_now,
+                                             max_abs_err)
+    launches.update(oi_launches)
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the one_input path ({name}) did not launch one_input")
 
     slot = factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
                                max_abs_err)
+    mixed = mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err)
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
 
     kernels = [
         {
             "name": "joint2",
             "route": "cuda",
-            "source": "xhistogram_torch/csrc/joint2.cu",
+            "source": "xhistogram_torch/csrc/joint2.cuh",
             "replaces": "xhistogram_tpu/ops/pallas_hist.py:1506",
             "launches": j2_launches,
             "max_abs_err": max_abs_err["joint2"],
@@ -1372,7 +1721,7 @@ def main():
         {
             "name": "one_input",
             "route": "cuda",
-            "source": "xhistogram_torch/csrc/one_input.cu",
+            "source": "xhistogram_torch/csrc/one_input.cuh",
             "replaces": "xhistogram_tpu/ops/pallas_hist.py:1268",
             "launches": sum(launches.values()),
             "max_abs_err": max_abs_err["one_input"],
@@ -1381,12 +1730,16 @@ def main():
             "bound_ms": oi_bound_ms,
             "bound_by": oi_bound_by,
             "library_ms": oi_library_ms,
+            "layouts": oi_layouts,
+            "narrow_rows": {label: {"ms": ms, "widened_copy_and_kernel_ms": wide_ms,
+                                    "bound_ms": b_ms}
+                            for label, (ms, wide_ms, b_ms) in oi_narrow.items()},
         },
         *slot,
     ]
-    for entry in kernels:  # the weighted paths' launches join the counts
+    for entry in kernels:  # the weighted and mixed paths' launches join the counts
         entry.update(weighted[entry["name"]])
-        entry["launches"] += entry["weighted_launches"]
+        entry["launches"] += entry["weighted_launches"] + mixed[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -208,9 +208,75 @@ def test_top_edge_clip_raises_on_the_kernel_route():
     np.testing.assert_array_equal(h.numpy(), jh)
 
 
-def test_uint64_not_ported():
-    with pytest.raises(NotImplementedError, match="uint64"):
-        histogram_cpu(np.arange(4, dtype=np.uint64), bins=[E])
+U64_TOP = 2**64 - 1
+UINT64_CASES = {
+    # values past 2^63 and the top value, edges at 0, 2^63 and 2^64
+    "past-2^63": (np.array([0, 1, 2**63 - 1, 2**63, 2**63 + 5, U64_TOP], np.uint64),
+                  [0, 2**63, 2**64]),
+    "float-edges": (np.array([0, 1, 2**63, U64_TOP], np.uint64),
+                    np.array([0.0, 2.0**63, 2.0**64])),
+    # edges below 0 clamp to 0; an edge past the top is one past every value
+    "below-0": (np.array([0, 3, 7, 2**40, U64_TOP], np.uint64),
+                np.array([-5.0, 3.0, 2.0**40, 2.0**65])),
+    # a last edge at the top value itself: the closed last bin holds it
+    "top-edge": (np.array([0, 10, U64_TOP - 1, U64_TOP], np.uint64),
+                 np.array([0, 10, U64_TOP], np.uint64)),
+    "small": (np.arange(0, 300, dtype=np.uint64), np.array([0, 100, 299])),
+    "2-D": (np.random.default_rng(3).integers(0, U64_TOP, (6, 40), np.uint64,
+                                              endpoint=True),
+            np.linspace(0.0, 2.0**64, 9)),
+}
+
+
+@pytest.mark.parametrize("axis", [None, 0], ids=["full", "kept"])
+@pytest.mark.parametrize("name", list(UINT64_CASES))
+def test_uint64_bit_equal(name, axis):
+    """uint64 data runs as int64 through the order-preserving flip of data
+    and thresholds (``bins.flip_uint64``), bit-equal to the JAX package's
+    exact host path (``_exact_rank_codes``); numpy and torch inputs alike."""
+    x, edges = UINT64_CASES[name]
+    if axis is not None and x.ndim == 1:
+        x = np.stack([x, x[::-1]])
+    h, jh = _both(x, bins=[edges], axis=axis)
+    np.testing.assert_array_equal(h.numpy(), jh)
+    th, _ = xhistogram_torch.histogram(torch.from_numpy(x), bins=[edges], axis=axis)
+    np.testing.assert_array_equal(th.numpy(), jh)
+
+
+def test_uint64_past_2_63_in_two_bins():
+    x = np.array([0, 1, 2**63, U64_TOP], np.uint64)
+    h, jh = _both(x, bins=[np.array([0.0, 2.0**63, 2.0**64])])
+    assert h.tolist() == [2, 2] and jh.tolist() == [2, 2]
+
+
+@pytest.mark.parametrize("weights", ["float32", "uint64"])
+def test_uint64_beside_float32_and_weighted(weights):
+    """A uint64 input beside a float32 one (int64 beside a float after the
+    flip), unweighted and with float32 or uint64 weights."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, U64_TOP, 500, np.uint64, endpoint=True)
+    x[:4] = [0, 2**63, U64_TOP, 2**63 - 1]
+    y = rng.normal(0, 1.5, 500).astype(np.float32)
+    bins = [np.linspace(0.0, 2.0**64, 5), np.linspace(-3, 3, 7)]
+    h, jh = _both(x, y, bins=bins)
+    np.testing.assert_array_equal(h.numpy(), jh)
+    if weights == "float32":
+        w = rng.uniform(0, 1, 500).astype(np.float32)
+    else:
+        w = rng.integers(0, U64_TOP, 500, np.uint64, endpoint=True)
+    h, jh = _both(x, y, bins=bins, weights=w)
+    if weights == "float32":
+        np.testing.assert_allclose(h.numpy(), jh, rtol=3e-7, atol=1e-6)
+    else:  # exact mod 2^64, as the JAX package's uint64 sums
+        assert h.dtype == torch.uint64
+        np.testing.assert_array_equal(h.view(torch.int64).numpy().view(np.uint64), jh)
+    # and with the uint64 input weighted alone, per kept row
+    h, jh = _both(np.stack([x, x[::-1]]), bins=bins[:1], axis=1,
+                  weights=np.stack([w, w]))
+    if weights == "float32":
+        np.testing.assert_allclose(h.numpy(), jh, rtol=3e-7, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(h.view(torch.int64).numpy().view(np.uint64), jh)
 
 
 def test_numpy_inputs_need_a_card_or_device_cpu(monkeypatch):
@@ -254,7 +320,7 @@ def test_conflicting_device_raises():
     ],
     ids=["one_input", "per_row", "direct", "factored"],
 )
-def test_unported_kernels_raise_on_the_kernel_route(args, kwargs, kernel):
+def test_kernel_routes_match_the_jax_kernels(args, kwargs, kernel):
     """Every kernel plan() names is ported: the kernel route runs its
     wrapper, with the counts of the JAX kernel (no kernel raises any more)."""
     bins = [np.linspace(0, 2, 9)] * len(args)
@@ -269,7 +335,7 @@ def test_unported_kernels_raise_on_the_kernel_route(args, kwargs, kernel):
     np.testing.assert_array_equal(h.numpy(), jh)
 
 
-def test_joint2_other_dtypes_raise_on_the_kernel_route():
+def test_joint2_other_dtypes_match_the_jax_kernel():
     """float64, int32, int64 and float16 data take the joint2 route (the
     wrapper widens float16), bit-equal to the JAX kernel; no raise is left."""
     rng = np.random.default_rng(11)

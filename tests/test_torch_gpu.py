@@ -13,6 +13,7 @@ import torch
 
 import xhistogram_torch
 from xhistogram_torch import bins as tbins
+from xhistogram_torch.core import _compare_dtype
 from xhistogram_torch.ops import cuda_hist
 from xhistogram_torch.ops.bincount import weighted_dtype
 from ts_cases import (
@@ -133,9 +134,21 @@ def test_auto_routing_outside_the_kernel(cuda):
     assert h.cpu().tolist() == [[500, 0], [0, 500]]
     assert (cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES) == (
         before[0] + 1, before[1] + 1)
-    # int64 with a float has no exact common compare type: raise, no fallback
-    with pytest.raises(NotImplementedError, match="no exact common compare type"):
-        xhistogram_torch.histogram(x.long(), x, bins=[e, e])
+    # int64 beside a float: each compared in its own type, through joint2
+    before = cuda_hist.JOINT2_LAUNCHES
+    h, _ = xhistogram_torch.histogram(x.long(), x, bins=[e, e])
+    assert h.cpu().tolist() == [[500, 0], [0, 500]]
+    assert cuda_hist.JOINT2_LAUNCHES == before + 1
+    # uint64 runs flipped onto int64: an edge at 2^64 is past the top value,
+    # so the JAX package's auto gate runs scatter, and so here; below it
+    # one_input runs
+    u = torch.tensor([0, 1, 2**63, 2**64 - 1], dtype=torch.uint64, device=cuda)
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    h, _ = xhistogram_torch.histogram(u, bins=[np.array([0.0, 2.0**63, 2.0**64])])
+    assert h.cpu().tolist() == [2, 2] and cuda_hist.ONE_INPUT_LAUNCHES == before
+    u = torch.tensor([0, 1, 2**63, 2**64 - 5000], dtype=torch.uint64, device=cuda)
+    h, _ = xhistogram_torch.histogram(u, bins=[np.array([0.0, 2.0**63, 2.0**64 - 4096])])
+    assert h.cpu().tolist() == [2, 2] and cuda_hist.ONE_INPUT_LAUNCHES == before + 1
     # a +inf top edge: the JAX package's auto gate runs scatter, and so here
     before = cuda_hist.ONE_INPUT_LAUNCHES, cuda_hist.JOINT2_LAUNCHES
     h, _ = xhistogram_torch.histogram(x, x, bins=[np.array([0.0, np.inf]), e])
@@ -173,8 +186,7 @@ def test_joint2_other_dtypes(cuda, dtype):
 def _one_input_pair(x2d, edges, reduce_all):
     """(kernel counts, plain counts) on the card for one (m, c) layout."""
     nb = len(edges) - 1
-    np_dtype = torch.empty(0, dtype=x2d.dtype).numpy().dtype
-    ce = tbins.compare_form(edges, np_dtype)
+    ce = tbins.compare_form(edges, _compare_dtype(x2d))
     assert ce.n_hi_clip == 0
     thr = torch.from_numpy(ce.edges).to(x2d.device)
     before = cuda_hist.ONE_INPUT_LAUNCHES
@@ -307,8 +319,7 @@ def _slot_pair(layouts, edges, route):
     route (a variant of factored, or direct)."""
     thr, nbins = [], []
     for x, e in zip(layouts, edges):
-        np_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
-        ce = tbins.compare_form(np.asarray(e), np_dtype)
+        ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
         assert ce.n_hi_clip == 0
         thr.append(torch.from_numpy(ce.edges).to(x.device))
         nbins.append(len(e) - 1)
@@ -413,11 +424,42 @@ def test_slot_dtypes(cuda, route, dtypes):
     assert torch.equal(got, want)
 
 
-def test_slot_int64_with_a_float_raises(cuda):
-    x = torch.zeros(2, 8, device=cuda)
-    thr = torch.tensor([0.0, 1.0], device=cuda)
-    with pytest.raises(NotImplementedError, match="no exact common compare type"):
-        cuda_hist.direct([x.long(), x], [thr.long(), thr], [1, 1])
+MIXED_KERNELS = ("joint2", "joint2-reversed", *ROUTES)
+
+
+@pytest.mark.parametrize("wdtype", [None, torch.float32, torch.int32], ids=str)
+@pytest.mark.parametrize("float_dtype", [torch.float32, torch.float64, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("kernel", MIXED_KERNELS)
+def test_int64_beside_a_float_equals_plain(cuda, kernel, float_dtype, wdtype):
+    # no common compare type: each input compares in its own, through the
+    # kernels' mixed entries, bit for bit (weighted float sums within one
+    # float32 rounding) against the plain versions; the kernel's counter rises
+    rows = {"joint2": 1, "joint2-reversed": 1, "full": 1, "per_row": 8,
+            "packed": 64, "direct": 64}[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(len(kernel))
+    big = torch.randint(-(2**45), 2**45, (rows, (1 << 18) // rows), device=cuda,
+                        generator=gen)
+    big[0, :3] = torch.tensor([2**45 - 1, -(2**45), 0])
+    f = (1.5 * torch.randn(big.shape, device=cuda, generator=gen)).to(float_dtype)
+    f[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    e_int = np.linspace(-(2.0**45), 2.0**45, 91) + 0.5
+    e_float = _edges(40)
+    layouts, edges = [big, f], [e_int, e_float]
+    if kernel == "joint2-reversed":
+        layouts, edges, kernel = layouts[::-1], edges[::-1], "joint2"
+    w = None if wdtype is None else _weights(big.shape, wdtype, cuda, seed=2)
+    before = _launch_counts()
+    got = _run(kernel, layouts, edges, w, plain=False)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    assert launched == [int(i == (0 if kernel == "joint2" else 2 + ROUTES.index(kernel)))
+                        for i in range(len(launched))]
+    want = _run(kernel, layouts, edges, w, plain=True)
+    if w is None:
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+    else:
+        _assert_sums_equal(got, want)
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -550,8 +592,7 @@ def _run(kernel, layouts, edges, weights, plain):
     """One kernel (or its plain version) on the card with weights."""
     thr = []
     for x, e in zip(layouts, edges):
-        np_dtype = torch.empty(0, dtype=x.dtype).numpy().dtype
-        ce = tbins.compare_form(np.asarray(e), np_dtype)
+        ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
         assert ce.n_hi_clip == 0
         thr.append(torch.from_numpy(ce.edges).to(x.device))
     nbins = [len(e) - 1 for e in edges]
@@ -876,3 +917,154 @@ def test_grids_past_eight_blocks_take_chunk_passes(cuda):
     layouts = [x.reshape(1, -1) for x in (t - 14, s - 35)]
     got, want = _slot_pair(layouts, [_edges(1000)] * 2, "full")
     assert torch.equal(got, want) and not cuda_hist.last_launch()["shared"]
+
+
+# --- one_input: counter layouts, the bucketed search, narrow loads ----------------
+
+from xhistogram_torch.ops.digitize import bucket_table  # noqa: E402
+
+
+def _one_input_run(x2d, edges, reduce_all, weights=None):
+    """(kernel result, plain result, launch record) of one_input on the
+    card, with the launch counted once and the record read after it."""
+    thr = torch.from_numpy(tbins.compare_form(np.asarray(edges), _compare_dtype(x2d)).edges)
+    thr = thr.to(x2d.device)
+    nb = len(edges) - 1
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    got = cuda_hist.one_input(x2d, thr, nb, reduce_all, weights=weights)
+    torch.cuda.synchronize()
+    assert cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+    launch = cuda_hist.last_launch()
+    assert launch["kernel"] == "one_input" and launch["load"] == x2d.dtype
+    want = cuda_hist.one_input_reference(x2d, thr, nb, reduce_all, weights=weights)
+    if weights is None:
+        assert got.dtype == torch.int64 and torch.equal(got, want), launch
+    else:
+        _assert_sums_equal(got, want)
+    return got, launch
+
+
+# (shape, strided (1, m) view, bins, full reduction, weight dtype, layout):
+# lane-private counters for a full reduction or long rows while
+# nb * 256 accumulators fit 110 KB (110 bins of 32-bit, 55 of 64-bit);
+# 32-bit warp replicas and 64-bit aggregated copies past that and for short
+# or strided rows
+LAYOUT_CASES = [
+    ((4, 1 << 18), False, 50, True, None, "lane-private"),
+    ((4, 1 << 18), False, 110, True, None, "lane-private"),
+    ((4, 1 << 18), False, 111, True, None, "warp replicas"),
+    ((4, 1 << 18), False, 1024, True, None, "warp replicas"),
+    ((4, 1 << 18), False, 55, True, torch.float32, "lane-private"),
+    ((4, 1 << 18), False, 56, True, torch.float32, "aggregated"),
+    ((4, 1 << 18), False, 1024, True, torch.int64, "aggregated"),
+    ((4, 1 << 18), False, 50, True, torch.int32, "lane-private"),
+    ((16, 1 << 17), False, 50, False, None, "lane-private"),
+    ((16, 1 << 17), False, 50, False, torch.float32, "lane-private"),
+    ((16, 1 << 17), False, 50, False, torch.int64, "lane-private"),
+    ((16, 1 << 17), False, 200, False, None, "warp replicas"),
+    ((4096, 64), False, 50, False, None, "warp replicas"),
+    ((4096, 64), False, 50, False, torch.float32, "aggregated"),
+    ((365, 4096), True, 80, False, None, "warp replicas"),
+    ((365, 4096), True, 80, False, torch.float64, "aggregated"),
+    ((365, 4096), True, 80, False, torch.int32, "warp replicas"),
+    ((365, 4096), True, 80, False, torch.uint64, "aggregated"),
+    ((365, 4096), True, 80, True, None, "lane-private"),
+]
+
+
+@pytest.mark.parametrize("shape,strided,nb,reduce_all,wdtype,layout", LAYOUT_CASES,
+                         ids=[f"{c[0][0]}x{c[0][1]}-{'strided-' if c[1] else ''}"
+                              f"{c[2]}-{'full' if c[3] else 'rows'}-{c[4]}"
+                              for c in LAYOUT_CASES])
+def test_one_input_counter_layouts(cuda, shape, strided, nb, reduce_all, wdtype, layout):
+    gen = torch.Generator(device=cuda).manual_seed(nb)
+    if strided:  # config 4's view: (cells, time) with strides (1, cells)
+        x = 1.5 * torch.randn(shape[1], shape[0], device=cuda, generator=gen).t()
+    else:
+        x = 1.5 * torch.randn(shape, device=cuda, generator=gen)
+    x[::7, ::3] = float("nan")
+    w = None if wdtype is None else _weights(tuple(x.shape), wdtype, cuda, seed=nb)
+    if w is not None and strided:
+        w = w.t().contiguous().t()  # weights of the data's layout, read in place
+    edges = _edges(nb) if nb <= 64 else np.sort(
+        np.random.default_rng(nb).normal(0, 1.5, nb + 1))
+    _, launch = _one_input_run(x, edges, reduce_all, weights=w)
+    assert launch["layout"] == layout, launch
+    assert launch["cells"][0] == 2 * nb
+
+
+ONE_INPUT_BUCKET_SETS = [name for name, (e, _) in BUCKET_EDGE_SETS.items()
+                         if len(e) - 1 <= 1024]
+
+
+@pytest.mark.parametrize("wdtype", [None, torch.float32, torch.int32, torch.int64],
+                         ids=str)
+@pytest.mark.parametrize("name", ONE_INPUT_BUCKET_SETS)
+def test_one_input_bucket_edge_sets(cuda, name, wdtype):
+    # bit for bit against the plain version on the adversarial threshold sets
+    # (float sums within one float32 rounding), full and kept rows, in each
+    # accumulator class; the table's widest window is the mirror's
+    edges, dtype = BUCKET_EDGE_SETS[name]
+    thr = tbins.compare_form(edges, dtype).edges
+    x = bucket_case_values(thr, dtype, n_random=40_000, seed=len(name))
+    x = torch.from_numpy(x[: x.size // 64 * 64]).to(cuda)
+    for layout, reduce_all in ((x.reshape(1, -1), True), (x.reshape(4, -1), False),
+                               (x.reshape(-1, 4).t(), False), (x.reshape(64, -1), True)):
+        w = None if wdtype is None else _weights(tuple(layout.shape), wdtype, cuda,
+                                                 seed=3)
+        _, launch = _one_input_run(layout, edges, reduce_all, weights=w)
+        _, widest, (_, _, k) = bucket_table(torch.from_numpy(thr), 2 * (len(edges) - 1))
+        assert launch["cells"][0] == 2 * (len(edges) - 1)
+        assert launch["widest"] == widest, (launch, widest, k)
+
+
+NARROW_DTYPES = [torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+                 torch.float16, torch.bfloat16]
+
+
+def _narrow_data(dtype, shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand(shape, device=device, generator=gen) < 0.3, np.array([0, 0.5, 1])
+    if dtype.is_floating_point:
+        x = (1.5 * torch.randn(shape, device=device, generator=gen)).to(dtype)
+        x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        return x, _edges(50)
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max + 1, shape, device=device, generator=gen,
+                      dtype=torch.int32).to(dtype)
+    edges = np.linspace(info.min - 0.5, info.max + 3.0, 51)
+    edges[1], edges[-2] = info.min, info.max
+    return x, edges
+
+
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+def test_one_input_reads_narrow_data_in_place(cuda, dtype):
+    # the kernel reads the narrow data itself (its load type in the launch
+    # record), bit-equal to the plain version on a widened copy and to the
+    # public call on the CPU; the public call on the card allocates no
+    # widened copy of it
+    x, edges = _narrow_data(dtype, (64, 1 << 16), cuda, seed=9)
+    for layout, reduce_all in ((x.reshape(1, -1), True), (x, False),
+                               (x.reshape(-1, 64).t(), False)):
+        for wdtype in (None, torch.float32, torch.int32, torch.int64):
+            w = None if wdtype is None else _weights(tuple(layout.shape), wdtype,
+                                                     cuda, seed=4)
+            _one_input_run(layout, edges, reduce_all, weights=w)
+    for axis in (None, (1,), (0,)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = cuda_hist.ONE_INPUT_LAUNCHES
+        h, _ = xhistogram_torch.histogram(x, bins=[edges], axis=axis)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+        assert cuda_hist.last_launch()["load"] == dtype
+        # a widened copy would take 4 bytes an element; beside the int64
+        # output (trash slot included) the thresholds take a few hundred bytes
+        nb = len(edges) - 1
+        out_bytes = 8 * (h.numel() // nb) * (nb + 1)
+        assert extra < out_bytes + x.numel() * x.element_size() / 2, (axis, extra)
+        h_cpu, _ = xhistogram_torch.histogram(x.cpu(), bins=[edges], axis=axis)
+        assert torch.equal(h.cpu(), h_cpu)

@@ -38,9 +38,10 @@ def test_no_port_file_imports_jax():
 
 
 def test_every_declared_kernel_symbol_is_defined():
-    """The C symbols ``ops/_build.py`` binds (joint2, one_input and the four
-    flat-slot routes of csrc/factored.cu and csrc/direct.cu, per data type,
-    unweighted and per weight class) are each defined once by a
+    """The C symbols ``ops/_build.py`` binds (joint2 with its mixed pairs,
+    one_input with its narrow loads, and the four flat-slot routes of
+    csrc/factored.cu and csrc/direct.cu with their mixed entries, per data
+    type, unweighted and per weight class) are each defined once by a
     ``csrc/*.cu`` entry macro, the weighted ones through a macro that
     names a class's entries ``xh_<kernel>_<data>_##cls``."""
     import re
@@ -59,7 +60,6 @@ def test_every_declared_kernel_symbol_is_defined():
         defined += re.findall(r"^XH_\w+\((xh_\w+),", text, re.M)
         for macro, cls in re.findall(r"^(XH_\w+_CLASS)\((\w+),", text, re.M):
             defined += [f"{name}_{cls}" for name in per_class[macro]]
-    declared = [f"xh_{kernel}_{suffix}{cls}" for suffix in _build.DTYPE_SUFFIXES
-                for kernel in ("joint2", "one_input", *_build.SLOT_ROUTES)
-                for cls in ("", *(f"_{c}" for c in _build.WEIGHT_CLASSES))]
+    declared = [name for name, _ in _build.symbols()]
+    assert len(declared) == 4 * (8 + 10 + 4 * 4 + 4)  # each unweighted and in 3 classes
     assert sorted(defined) == sorted(declared)

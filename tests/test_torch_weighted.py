@@ -312,7 +312,7 @@ def test_precision_errors_match_jax(precision, weighted):
 def test_precision_f64_not_ported_for_float_weights():
     x = np.linspace(0, 1.9, 16)
     e = [np.array([0.0, 1.0, 2.0])]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
         histogram_cpu(x, bins=e, weights=np.ones(16), precision="f64")
     # exact in every mode already: the request normalizes away, as in JAX
     for w in (None, np.arange(16, dtype=np.int32), np.arange(16, dtype=np.int64)):

@@ -5,25 +5,34 @@ toolkit:
 
     python3 tools/one_input_probe.py
 
-It prints, each line beside the card's name and power limit:
+It prints, each line beside the card's name and power limit, and as one
+JSON line at the end, for each one_input cell: BASELINE config 1 (10^8
+float32, 50 bins, every axis reduced), config 2 with U(0,1) float32 weights
+((1000, 100000), 50 bins, kept rows), 2^30 N(0,1) values in 64 bins as
+float32, bfloat16, int16 (8000 N(0,1) rounded, 64 bins over
+[-32768, 32768)) and int8 (30 N(0,1) rounded, in 64 bins over
+[-128, 128)), and config 4 ((365, 180, 360) float32, ``axis=0``, 80 bins,
+strided kept rows):
 
-- the one_input kernel's device time at BASELINE config 1's size (10^8
-  float32, every axis reduced) for data and bin counts that separate its
-  costs: N(0,1) and uniform data in 1, 50, 64 and 1024 bins (how many
-  atomics land on the same counter), and data that lies above every edge
-  (the binary search without any atomic); beside them a plain read of the
-  same bytes (``x.sum()``);
-- the kernel at 2^30 float32 in 64 bins;
-- for config 1 and config 4 ((365, 180, 360) float32, ``axis=0``): the
-  public call's host time from the call to its return with the card idle,
-  and over back-to-back calls their wall time against the device time of
-  the kernel's own launches in the same calls (the device's idle share);
-- for config 4, the device time of zeroing the int64 output, and of the
-  kernel on a contiguous copy of the strided layout (copy included).
+- the kernel's launch: its counter layout, copies, cells K and widest
+  window L (``cuda_hist.last_launch()``);
+- the breakdown of its device time (CUDA events): the read alone (a
+  ``sum()`` over the same data, and weights), the read and the search with
+  nothing counted (the data above every edge), the whole kernel (the
+  counts added, then flushed), and a launch at 2^19 elements of the same
+  data, which is little more than the prologue (thresholds, cell table)
+  and the flush of every block;
+- the bytes' bound at 3.35 TB/s;
+- for the narrow rows, what the path cost before the kernel read them in
+  place: a widening copy to float32 or int32, then the kernel on it.
 
-It imports nothing of JAX.
+Then, for config 1 and config 4, the public call's host time from the call
+to its return with the card idle, and over back-to-back calls their wall
+time against the device time of the kernel's own launches in the same
+calls (the device's idle share). It imports nothing of JAX.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -35,7 +44,9 @@ import torch
 CONFIG1 = (1000, 100_000)
 SST = (365, 180, 360)
 N_ROW = 1 << 30
+N_SMALL = 1 << 19
 BACK_TO_BACK = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def card_line():
@@ -73,35 +84,89 @@ def main():
     card = card_line()
     print(f"# card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.load()
+    result = {"card": card, "cells": {}}
 
-    def thresholds(edges):
-        return torch.from_numpy(compare_form(edges, np.float32).edges).to(dev)
+    def thresholds(edges, x):
+        return torch.from_numpy(compare_form(edges, core._compare_dtype(x)).edges).to(dev)
 
-    # --- the kernel alone at config 1's size ---------------------------------
+    def breakdown(label, x2d, edges, above_edges, reduce_all, weights=None,
+                  widen=None):
+        """The kernel's time, broken down, at one cell."""
+        nb = len(edges) - 1
+        thr, thr_above = thresholds(edges, x2d), thresholds(above_edges, x2d)
+        run = lambda t: cuda_hist.one_input(x2d, t, nb, reduce_all, weights=weights)  # noqa: E731
+        run(thr)
+        torch.cuda.synchronize()
+        launch = cuda_hist.last_launch()
+        in_bytes = x2d.numel() * x2d.element_size()
+        if weights is not None:
+            in_bytes += weights.numel() * weights.element_size()
+        out_bytes = 8 * (1 if reduce_all else x2d.shape[0]) * (nb + 1)
+        if reduce_all:
+            small = x2d.reshape(-1)[:N_SMALL].reshape(1, -1)
+        else:
+            small = x2d[:, : max(1, N_SMALL // x2d.shape[0])]
+        w_small = None if weights is None else weights[:, : small.shape[1]]
+        row = {
+            "layout": launch["layout"], "copies": launch["copies"],
+            "K": launch["cells"][0], "L": launch["widest"],
+            "read_ms": event_ms(lambda: (x2d.sum(), None if weights is None
+                                         else weights.sum())),
+            "search_ms": event_ms(lambda: run(thr_above)),
+            "kernel_ms": event_ms(lambda: run(thr)),
+            "prologue_flush_ms": event_ms(lambda: cuda_hist.one_input(
+                small, thr, nb, reduce_all, weights=w_small)),
+            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3,
+        }
+        if widen is not None:
+            thr_wide = thr.to(widen)
+            row["widened_copy_and_kernel_ms"] = event_ms(
+                lambda: cuda_hist.one_input(x2d.to(widen), thr_wide, nb, reduce_all))
+        result["cells"][label] = row
+        print(f"# {label}: {launch['layout']} ({launch['copies']} copies), K="
+              f"{row['K']} L={row['L']}; read alone {row['read_ms']:.4f} ms, read and "
+              f"searched (above every edge) {row['search_ms']:.4f}, kernel "
+              f"{row['kernel_ms']:.4f}, 2^19 elements (prologue and flush) "
+              f"{row['prologue_flush_ms']:.4f}, bound {row['bound_ms']:.4f} ms "
+              f"({in_bytes / 1e9:.3f} GB read)"
+              + (f"; widening copy then kernel {row['widened_copy_and_kernel_ms']:.4f} ms"
+                 if widen is not None else "") + f" [{card}]")
+
+    e50, e64 = np.linspace(-4, 4, 51), np.linspace(-4, 4, 65)
     gen = torch.Generator(device=dev).manual_seed(0)
-    normal = torch.randn(CONFIG1, device=dev, generator=gen).reshape(1, -1)
-    uniform = (8 * torch.rand(CONFIG1, device=dev, generator=gen) - 4).reshape(1, -1)
-    above = normal.abs() + 5  # above the top edge 4: searched, never counted
-    n_bytes = 4 * normal.numel()
-    for label, x, nb in (
-        ("N(0,1)", normal, 50), ("uniform", uniform, 50),
-        ("N(0,1)", normal, 1), ("uniform", uniform, 1),
-        ("N(0,1)", normal, 64), ("N(0,1)", normal, 1024),
-        ("uniform", uniform, 1024), ("above every edge", above, 50),
-        ("above every edge", above, 1024),
-    ):
-        thr = thresholds(np.linspace(-4, 4, nb + 1))
-        ms = event_ms(lambda: cuda_hist.one_input(x, thr, nb, True))
-        print(f"# config 1 size, {label}, {nb} bins, full: kernel {ms:.4f} ms, "
-              f"{n_bytes / ms / 1e6:.1f} GB/s [{card}]")
-    ms = event_ms(lambda: normal.sum())
-    print(f"# config 1 size: x.sum() {ms:.4f} ms, {n_bytes / ms / 1e6:.1f} GB/s [{card}]")
-    thr = thresholds(np.linspace(-4, 4, 51))
-    rows = normal.reshape(CONFIG1)
-    ms = event_ms(lambda: cuda_hist.one_input(rows, thr, 50, False))
-    print(f"# config 2 layout (1000, 100000), 50 bins, kept rows: kernel {ms:.4f} ms, "
-          f"{n_bytes / ms / 1e6:.1f} GB/s [{card}]")
-    del uniform, above
+    x = torch.randn(CONFIG1, device=dev, generator=gen)
+    w = torch.rand(CONFIG1, device=dev, generator=gen)
+    breakdown("config 1, (1, 10^8) float32, 50 bins, full", x.reshape(1, -1), e50,
+              e50 - 100, True)
+    breakdown("config 2, (1000, 100000) float32, U(0,1) float32 weights, 50 bins, "
+              "kept rows", x, e50, e50 - 100, False, weights=w)
+    breakdown("config 2 unweighted", x, e50, e50 - 100, False)
+    del w
+
+    xr = torch.randn(1, N_ROW, device=dev, generator=gen)
+    breakdown("2^30 float32, 64 bins, full", xr, e64, e64 - 100, True)
+    xb = xr.bfloat16()
+    del xr
+    breakdown("2^30 bfloat16, 64 bins, full", xb, e64, e64 - 100, True,
+              widen=torch.float32)
+    xs = (xb.float() * 8000).round().clamp(-32768, 32767).to(torch.int16)
+    e_i16 = np.linspace(-32768, 32768, 65)
+    breakdown("2^30 int16, 64 bins, full", xs, e_i16, e_i16 - 100_000, True,
+              widen=torch.int32)
+    del xs
+    xi = (xb.float() * 30).round().clamp(-128, 127).to(torch.int8)
+    del xb
+    e_i8 = np.linspace(-128, 128, 65)
+    breakdown("2^30 int8, 64 bins, full", xi, e_i8, e_i8 - 1000, True,
+              widen=torch.int32)
+    del xi
+    torch.cuda.empty_cache()
+
+    sst = 20.0 + 5.0 * torch.randn(SST, device=dev, generator=gen)
+    layout = canonicalize_2d(sst, (0,))
+    e80 = np.linspace(0, 40, 81)
+    breakdown(f"config 4, {tuple(layout.shape)} strides {layout.stride()} float32, "
+              "80 bins, kept rows", layout, e80, e80 - 100, False)
 
     def idle_share(label, call):
         """Host time to return, then back-to-back wall against the kernel's
@@ -118,11 +183,11 @@ def main():
         spans = []
         launch = core.one_input
 
-        def timed(*args):
+        def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = launch(*args)
+            out = launch(*args, **kwargs)
             stop.record()
             spans.append((start, stop))
             return out
@@ -138,45 +203,19 @@ def main():
         finally:
             core.one_input = launch
         kernel_ms = sum(s.elapsed_time(e) for s, e in spans)
+        result.setdefault("public", {})[label] = {
+            "host_ms": host, "wall_ms": wall_ms / BACK_TO_BACK,
+            "kernel_ms": kernel_ms / BACK_TO_BACK, "idle_share": 1 - kernel_ms / wall_ms}
         print(f"# {label}: host ms from call to return, card idle: "
-              f"{[round(x, 3) for x in host]}; {BACK_TO_BACK} back-to-back calls: "
+              f"{[round(v, 3) for v in host]}; {BACK_TO_BACK} back-to-back calls: "
               f"{wall_ms / BACK_TO_BACK:.4f} ms per call on the wall, kernel "
               f"(output zeroing included) {kernel_ms / BACK_TO_BACK:.4f} ms per call, "
               f"device idle share {1 - kernel_ms / wall_ms:.4f} [{card}]")
 
-    edges1 = np.linspace(-4, 4, 51)
-    idle_share("config 1 public call",
-               lambda: xhistogram_torch.histogram(rows, bins=[edges1]))
-    del normal, rows
-
-    # --- config 4: strided kept rows ------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(4)
-    sst = 20.0 + 5.0 * torch.randn(SST, device=dev, generator=gen)
-    layout = canonicalize_2d(sst, (0,))
-    m = layout.shape[0]
-    edges4 = np.linspace(0, 40, 81)
-    thr4 = thresholds(edges4)
-    ms = event_ms(lambda: cuda_hist.one_input(layout, thr4, 80, False))
-    print(f"# config 4 layout {tuple(layout.shape)} strides {layout.stride()}, 80 bins: "
-          f"kernel (output zeroing included) {ms:.4f} ms, "
-          f"{4 * sst.numel() / ms / 1e6:.1f} GB/s of input [{card}]")
-    ms = event_ms(lambda: cuda_hist.one_input(layout.contiguous(), thr4, 80, False))
-    print(f"# config 4 as a contiguous copy: copy + kernel {ms:.4f} ms [{card}]")
-    ms = event_ms(lambda: torch.zeros(m, 81, dtype=torch.int64, device=dev))
-    print(f"# config 4: zeroing the ({m}, 81) int64 output {ms:.4f} ms [{card}]")
+    idle_share("config 1 public call", lambda: xhistogram_torch.histogram(x, bins=[e50]))
     idle_share("config 4 public call",
-               lambda: xhistogram_torch.histogram(sst, bins=[edges4], axis=0))
-    del sst, layout
-
-    # --- the 2^30 row ----------------------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(0)
-    xr = torch.randn(1, N_ROW, device=dev, generator=gen)
-    thr = thresholds(np.linspace(-4, 4, 65))
-    ms = event_ms(lambda: cuda_hist.one_input(xr, thr, 64, True), reps=5)
-    print(f"# 2^30 float32, 64 bins, full: kernel {ms:.4f} ms, "
-          f"{4 * N_ROW / ms / 1e6:.1f} GB/s [{card}]")
-    ms = event_ms(lambda: xr.sum(), reps=5)
-    print(f"# 2^30 float32: x.sum() {ms:.4f} ms, {4 * N_ROW / ms / 1e6:.1f} GB/s [{card}]")
+               lambda: xhistogram_torch.histogram(sst, bins=[e80], axis=0))
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

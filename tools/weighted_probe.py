@@ -12,9 +12,12 @@ prints, each line beside the card's name and power limit, and as one JSON
 line at the end:
 
 - each unweighted kernel at the shape of its PERF.md §6 row (joint2 at 2^26
-  T–S pairs in 280x340 bins; one_input at BASELINE config 1; factored per
-  row at the README's per-depth T–S layout; direct at (64800, 64) x 2 in
-  40x40 bins), in CUDA-event milliseconds;
+  T–S pairs in 280x340 bins, and at the main path's 2^30; one_input at
+  BASELINE config 1, config 2's kept rows, unweighted and with float32
+  weights, config 4's strided rows and the 2^30 row in 64 bins; factored
+  per row at the README's per-depth T–S layout; direct at (64800, 64) x 2
+  in 40x40 bins), in CUDA-event milliseconds, in turns (each shape's calls
+  twice, in reverse order the second time);
 - each weighted kernel at config 2 (one_input, kept rows), config 1 (full),
   the T–S shape (joint2), (1000, 100000) x 2 in 150x90 bins per row
   (factored, shared memory) and the direct shape, with weights of every
@@ -24,7 +27,9 @@ line at the end:
   of float64 atomics against integer ones of the same width;
 - the atomic instructions each kernel compiles to (from ``cuobjdump
   -sass`` of the built library), which show whether an accumulator's
-  atomic is one instruction or a compare-and-swap loop.
+  atomic is one instruction or a compare-and-swap loop; one_input's
+  kernels by counter layout (lane-private, or copies: warp replicas and
+  aggregated).
 
 It imports nothing of JAX.
 """
@@ -89,6 +94,8 @@ def sass_atomics(lib_path):
                                        "slot_hist_kernel") if k in mangled), None)
             policy = next((v for k, v in policies.items() if k in mangled), None)
             name = f"{kernel} {policy}" if kernel and policy else None
+            if name and kernel == "one_input_kernel":
+                name += " private" if "ELb1E" in mangled else " copies"
             if name:
                 kinds.setdefault(name, set())
             continue
@@ -137,17 +144,34 @@ def main():
     del T, S
     a, b = (torch.randn(64800, 64, device=dev, generator=gen) for _ in range(2))
     t40 = [thr(linspace_edges(40))] * 2
+    w2 = torch.rand(x.shape, device=dev, generator=gen)
+    sst = canonicalize_2d(20.0 + 5.0 * torch.randn(365, 180, 360, device=dev,
+                                                   generator=gen), (0,))
+    t80 = thr(np.linspace(0, 40, 81))
+    xr = torch.randn(1, 1 << 30, device=dev, generator=gen)
+    t64 = thr(linspace_edges(64))
+    T30 = 14.0 + 8.0 * torch.randn(1024, 1 << 20, device=dev, generator=gen)
+    S30 = 35.0 + 1.5 * torch.randn(1024, 1 << 20, device=dev, generator=gen)
     calls = {
         "joint2": lambda: cuda_hist.joint2(t, s, ta, tb, 280, 340),
+        "joint2 2^30": lambda: cuda_hist.joint2(T30, S30, ta, tb, 280, 340),
         "one_input": lambda: cuda_hist.one_input(x_row, t1, 50, True),
+        "one_input config 2": lambda: cuda_hist.one_input(x, t1, 50, False),
+        "one_input config 2 float32 weights": lambda: cuda_hist.one_input(
+            x, t1, 50, False, weights=w2),
+        "one_input config 4": lambda: cuda_hist.one_input(sst, t80, 80, False),
+        "one_input 2^30 row": lambda: cuda_hist.one_input(xr, t64, 64, True),
         "factored": lambda: cuda_hist.factored(readme, [ta, tb], [280, 340], "per_row"),
         "direct": lambda: cuda_hist.direct([a, b], t40, [40, 40]),
     }
-    for name, fn in calls.items():
-        result["unweighted"][name] = event_ms(fn, reps=20 if name != "factored" else 5)
-    print(f"# unweighted kernels at their PERF.md §6 shapes (ms): "
+    times = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:  # in turns
+        big = name in ("factored", "joint2 2^30", "one_input 2^30 row")
+        times[name].append(event_ms(calls[name], reps=5 if big else 20))
+    result["unweighted"] = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"# kernels at their PERF.md §6 shapes (ms): "
           f"{ {k: round(v, 4) for k, v in result['unweighted'].items()} } [{card}]")
-    del readme
+    del readme, w2, sst, xr, T30, S30
     torch.cuda.empty_cache()
 
     if not args.unweighted_only:

@@ -12,8 +12,12 @@ Semantics contracts replicated from the reference:
   - ``normalize_range`` ~ ``_ensure_correctly_formatted_range`` (core.py:51-70)
 
 The uniform-spacing certificates (``uniform_form`` and the ``_ds_*``
-helpers) are not here: only the factored and direct kernels consume them,
-and those are not ported yet.
+helpers) are not here: the kernels' bucketed digitize is exact for any
+sorted thresholds and needs none.
+
+uint64 data, which torch cannot search, is compared as int64 through the
+order-preserving flip ``x ^ 2^63`` (``flip_uint64``), applied alike to the
+data and to the compare-form thresholds computed in the uint64 domain.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ __all__ = [
     "bin_areas",
     "CompareEdges",
     "compare_form",
+    "flip_uint64",
 ]
 
 
@@ -104,6 +109,16 @@ def normalize_range(range_, n_expected):
     raise ValueError("The number of ranges doesn't match the number of args")
 
 
+def _host_data(x):
+    """Host view of an input for ``np.histogram_bin_edges``: bool and
+    sub-32-bit integers widened to int32, as the JAX package's host coercion
+    gives them (inputs stay narrow on the device; only this copy widens)."""
+    x = np.asarray(_host(x))
+    if x.dtype.kind in "iub" and x.dtype.itemsize < 4:
+        x = x.astype(np.int32)
+    return x
+
+
 def _view_datetime_as_int(x):
     """View datetime64/timedelta64 numpy data as int64 (order-preserving)."""
     if isinstance(x, np.ndarray) and x.dtype.kind in "Mm":
@@ -160,7 +175,7 @@ def resolve_bin_edges(arrays, bins, range_=None, weights=None):
             edges.append(validate_edges(b))
             continue
         if arrs_np is None:
-            arrs_np = [_view_datetime_as_int(np.asarray(_host(a))) for a in arrays]
+            arrs_np = [_view_datetime_as_int(_host_data(a)) for a in arrays]
             if weights is not None:
                 bc = np.broadcast_arrays(*arrs_np, np.asarray(_host(weights)))
                 arrs_np, w_np = list(bc[:-1]), bc[-1]
@@ -312,6 +327,21 @@ def compare_form(edges, dtype) -> CompareEdges:
     return CompareEdges(
         np.concatenate([ceil_cast[:-1], upper]).astype(dtype), n_hi
     )
+
+
+_SIGN64 = np.uint64(1 << 63)
+
+
+def flip_uint64(x):
+    """uint64 values as int64 in the same order: ``x ^ 2^63`` viewed as
+    int64, which sends 0 to the int64 minimum and 2^64 - 1 to its maximum.
+    ``x`` is a numpy uint64 array or a torch uint64 tensor (flipped on its
+    device, as a copy). Applied to the data and to ``compare_form(edges,
+    np.uint64).edges`` alike, it keeps every comparison, and the int64 top
+    value is the flip of the uint64 one, so ``n_hi_clip`` carries over."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int64) ^ -(1 << 63)
+    return (np.asarray(x, np.uint64) ^ _SIGN64).view(np.int64)
 
 
 def bin_centers(edges):

@@ -62,16 +62,22 @@ _FACTORED_VARIANT = {
 # `range` is a histogram keyword (reference API name)
 _builtin_range = range
 
-_NARROW_INTS = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16)
-
 _COMPLEX_MSG = (
     "complex input is not supported: complex numbers define no histogram "
     "ordering; histogram the .real/.imag/abs() parts explicitly"
 )
-_UINT64_MSG = (
-    "uint64 data is not ported yet (ROADMAP queue 1, item 6): torch has no "
-    "search over uint64"
-)
+
+#: the dtype each data dtype is compared in, where it is not its own: the
+#: dtype of its compare-form thresholds (``bins.compare_form``). The data
+#: itself stays narrow: the one_input kernel reads it at its own width and
+#: widens it in registers; the plain path and the other kernels widen a
+#: copy (``ops.digitize.digitize_edges``, ``ops.cuda_hist``). int32
+#: thresholds never saturate at a narrow type's bounds, and every bfloat16
+#: value is exact in float32
+_COMPARE_AS = {
+    torch.bool: np.int32, torch.int8: np.int32, torch.uint8: np.int32,
+    torch.int16: np.int32, torch.uint16: np.int32, torch.bfloat16: np.float32,
+}
 
 
 def _coerce_host(x):
@@ -80,38 +86,36 @@ def _coerce_host(x):
 
     numpy and Python inputs become numpy arrays (datetime64 viewed as int64,
     since binning only needs order); ``_place`` copies them to the device.
-    Sub-32-bit integers are promoted to int32 so the edge-comparison
-    transform never saturates at the dtype boundary; uint32 goes to int64.
-    bfloat16 widens to float32, which is exact and keeps every comparison
-    (numpy has no bfloat16 for the host edge transform). Complex input
-    raises.
+    uint32 goes to int64. Narrow inputs (bool, 8- and 16-bit integers,
+    float16, bfloat16) and uint64 keep their dtype: ``_compare_dtype``
+    names the thresholds' dtype, and uint64 is flipped onto int64 after
+    placement (``bins.flip_uint64``). Complex input raises.
     """
     if isinstance(x, torch.Tensor):
         if x.is_complex():
             raise TypeError(_COMPLEX_MSG)
-        if x.dtype in _NARROW_INTS:
-            return x.to(torch.int32)
         if x.dtype == torch.uint32:
             return x.to(torch.int64)
-        if x.dtype == torch.bfloat16:
-            return x.to(torch.float32)
-        if x.dtype == torch.uint64:
-            raise NotImplementedError(_UINT64_MSG)
         return x
     x = np.asarray(x)
     if x.dtype.kind == "c":
         raise TypeError(_COMPLEX_MSG)
     if x.dtype.kind in "Mm":
         x = x.view("i8")
-    elif x.dtype.kind in "iub" and x.dtype.itemsize < 4:
-        x = x.astype(np.int32)
     elif x.dtype == np.uint32:
         x = x.astype(np.int64)
-    elif x.dtype == np.uint64:
-        raise NotImplementedError(_UINT64_MSG)
     if any(s < 0 for s in x.strides):
         x = x.copy()  # torch views no negative strides
     return x
+
+
+def _compare_dtype(t):
+    """The numpy dtype of a placed input's compare-form thresholds: its own,
+    int32 for bool and sub-32-bit integers, float32 for bfloat16 (uint64
+    thresholds are then flipped onto int64 with the data)."""
+    if t.dtype in _COMPARE_AS:
+        return np.dtype(_COMPARE_AS[t.dtype])
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
 def _coerce_weights(w):
@@ -212,10 +216,6 @@ def _place(args, device):
         a if isinstance(a, torch.Tensor) else torch.from_numpy(a).to(device)
         for a in args
     ]
-
-
-def _numpy_dtype(t):
-    return torch.empty(0, dtype=t.dtype).numpy().dtype
 
 
 def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
@@ -337,11 +337,15 @@ def histogram(
         if weights is not None and weights.is_floating_point():
             raise NotImplementedError(
                 "precision='f64' (correctly rounded float64 weighted sums) is "
-                "not ported yet (ROADMAP queue 1, item 9: exact tiers)"
+                "not ported yet (ROADMAP queue 1, item 3: exact tiers)"
             )
         precision = None
-    forms = [_bins.compare_form(e, _numpy_dtype(a)) for a, e in zip(args, edges_np)]
-    thresholds = [torch.from_numpy(f.edges).to(device) for f in forms]
+    forms = [_bins.compare_form(e, _compare_dtype(a)) for a, e in zip(args, edges_np)]
+    thr_np = [f.edges for f in forms]
+    for i, a in enumerate(args):
+        if a.dtype == torch.uint64:  # searched as int64, in the same order
+            args[i], thr_np[i] = _bins.flip_uint64(a), _bins.flip_uint64(thr_np[i])
+    thresholds = [torch.from_numpy(t).to(device) for t in thr_np]
     n_hi_clip = [int(f.n_hi_clip) for f in forms]
 
     operands = args if weights is None else [*args, weights]

@@ -1,271 +1,32 @@
-// Joint two-input histogram, full reduction, int64 counts or weighted sums.
-//
-// Replaces the TPU kernel xhistogram_tpu/ops/pallas_hist.py::_joint2_kernel
-// (driven by _run_joint2). That kernel builds cumulative compare rows for
-// each input and multiplies them on the TPU's matrix unit, because the TPU
-// has no fast scatter. Hopper has fast shared-memory atomics and thread
-// block clusters, so this kernel is a shared-memory histogram spread over
-// the blocks of a cluster instead.
-//
-// What it computes, per element pair (a_e, b_e) of data type T (float,
-// double, int32 or int64), against the compare-form thresholds of
-// xhistogram_torch.bins.compare_form in T (digitize.cuh):
-//   i = #{t in thr_a : t <= a_e},  j = #{t in thr_b : t <= b_e}
-//   the pair counts iff neither value is NaN, 1 <= i <= nba, 1 <= j <= nbb,
-//   and then adds one to slot (i-1)*nbb + (j-1) of the int64 output.
-//
-// What bounds it on an H100: each pair reads 2 sizeof(T) bytes from device
-// memory. What its design does about the rest:
-// - The digitize is the bucketed search of digitize.cuh: one cell-table
-//   load and one or two threshold compares for the T-S edges, where a binary
-//   search over 281 or 341 thresholds made about nine dependent
-//   shared-memory loads and set the kernel's pace.
-// - The full 280x340 grid (381 KB of int32) does not fit one block's 227 KB
-//   of shared memory, so it is spread over a cluster of C blocks (the
-//   smallest of 1, 2, 4 and 8 that holds it; C = 2 for counts, C = 4 for
-//   64-bit integer sums): block r of the cluster owns the T rows i with
-//   i % C == r, which spreads the hot central rows of a T-S diagram over
-//   the SMs. Each pair is read and digitized once and added with one
-//   atomic in its owner's shared memory (distributed shared memory when
-//   that is another block). Grids past eight blocks cut the T rows into
-//   chunks over gridDim.y, each a pass over every pair.
-// Integer atomics commute, so the result is deterministic and exact.
-//
-// Weighted (policy xh::Sum<A>, weights.cuh; the TPU kernel's weighted form
-// multiplies weight limbs into its compare rows, with Kahan and NaN/inf
-// channel outputs): each pair in the chunk's rows adds its weight, read
-// contiguously beside the pair and converted at load to the accumulator A,
-// in place of one. 8-byte accumulators take twice the blocks; float64
-// sums at most two blocks a cluster, in passes past that.
-//
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// -Xcompiler -fPIC, without --use_fast_math: subnormal data must compare
-// exactly against a 0.0 threshold (no flush to zero).
+// Joint two-input histogram, full reduction: the entries for inputs of one
+// type (joint2.cuh has the kernel, which replaces
+// xhistogram_tpu/ops/pallas_hist.py::_joint2_kernel, and its design), and
+// the launch record every kernel of the library reports through.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
+#include "joint2.cuh"
 
-#include <type_traits>
-
-#include "digitize.cuh"
-#include "launch.cuh"
-#include "weights.cuh"
-
-namespace cg = cooperative_groups;
-
-namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kUnroll = 4;
-constexpr int kMaxCluster = 8;
-// 227 KB a block, less the kernel's static shared memory
-constexpr size_t kSmemMax = 232448 - 64;
-
-__host__ __device__ inline size_t align8(size_t x) { return (x + 7) / 8 * 8; }
-
-// Dynamic shared memory: both threshold sets (skewed), then the two cell
-// tables of ka and kb cells, then the histogram.
-__host__ __device__ inline size_t tables_offset(int nba, int nbb, size_t elem) {
-  return align8(elem * (size_t)(xh::skewed_len(nba + 1) + xh::skewed_len(nbb + 1)));
-}
-
-__host__ __device__ inline size_t hist_offset(int nba, int nbb, size_t elem,
-                                              int ka, int kb) {
-  return tables_offset(nba, nbb, elem) + xh::cells_bytes(ka) + xh::cells_bytes(kb);
-}
-
-// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]).
-template <typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
-joint2_kernel(const T* __restrict__ a, const T* __restrict__ b, long long n,
-              const T* __restrict__ thr_a, int nba,
-              const T* __restrict__ thr_b, int nbb, int ka, int kb,
-              int rows_per_chunk, int log2c, const void* __restrict__ w,
-              int wcode, typename W::Out* __restrict__ out) {
-  using Shared = typename W::Shared;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int widest[2];
-  T* ta = reinterpret_cast<T*>(smem);
-  T* tb = ta + xh::skewed_len(nba + 1);
-  int2* win_a = reinterpret_cast<int2*>(smem + tables_offset(nba, nbb, sizeof(T)));
-  int2* win_b = win_a + ka;
-  Shared* hist =
-      reinterpret_cast<Shared*>(smem + hist_offset(nba, nbb, sizeof(T), ka, kb));
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cl = 1 << log2c;  // blocks a cluster
-  const int rank = cl > 1 ? (int)cluster.block_rank() : 0;
-  const int row0 = blockIdx.y * rows_per_chunk;  // first T bin of the chunk
-  const int rows = min(rows_per_chunk, nba - row0);
-  // this block's rows of the chunk: row0 + rank, row0 + rank + cl, ...
-  const int my_slots = (rows > rank ? (rows - rank + cl - 1) >> log2c : 0) * nbb;
-
-  xh::stage_thresholds(ta, thr_a, nba + 1);
-  xh::stage_thresholds(tb, thr_b, nbb + 1);
-  for (int s = threadIdx.x; s < my_slots; s += blockDim.x) hist[s] = Shared(0);
-  __syncthreads();
-  const xh::CellMap<T> ma = xh::cell_map(ta, nba, ka);
-  const xh::CellMap<T> mb = xh::cell_map(tb, nbb, kb);
-  xh::build_cells(ta, nba, ma, win_a, &widest[0]);
-  xh::build_cells(tb, nbb, mb, win_b, &widest[1]);
-  const int step_a = xh::first_step(widest[0]);
-  const int step_b = xh::first_step(widest[1]);
-  if (cl > 1) cluster.sync();  // every block's histogram zeroed before an add
-
-  const long long step = (long long)blockDim.x * kUnroll;
-  const long long stride = step * gridDim.x;
-  for (long long base = (long long)blockIdx.x * step + threadIdx.x; base < n;
-       base += stride) {
-    T av[kUnroll];
-    T bv[kUnroll];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long e = base + (long long)u * blockDim.x;
-      ok[u] = e < n;
-      av[u] = ok[u] ? a[e] : T(0);
-      bv[u] = ok[u] ? b[e] : T(0);
-    }
-    int i[kUnroll];  // -1: NaN or out of range
-    int j[kUnroll];
-    xh::bins_bucketed(ta, nba, ma, win_a, step_a, av, i);
-    xh::bins_bucketed(tb, nbb, mb, win_b, step_b, bv, j);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      // in this chunk's rows; r: the row within the chunk
-      const int r = i[u] - row0;
-      if (!(ok[u] && r >= 0 && r < rows && j[u] >= 0)) continue;
-      Shared v = Shared(1);
-      if constexpr (W::kWeighted)
-        xh::load_weight(w, base + (long long)u * blockDim.x, wcode, v);
-      const int slot = (r >> log2c) * nbb + j[u];
-      if (cl == 1)
-        atomicAdd(&hist[slot], v);
-      else
-        atomicAdd(cluster.map_shared_rank(hist, r & (cl - 1)) + slot, v);
-    }
-  }
-  if (cl > 1)
-    cluster.sync();  // every add of the cluster landed
-  else
-    __syncthreads();
-
-  for (int s = threadIdx.x; s < my_slots; s += blockDim.x) {
-    const Shared v = hist[s];
-    if (v != Shared(0)) {  // NaN != 0: a NaN sum is added
-      const int row = row0 + ((s / nbb) << log2c) + rank;
-      atomicAdd(&out[(long long)row * nbb + s % nbb], (typename W::Out)v);
-    }
-  }
-}
-
-template <typename T, typename W>
-int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
-                  int nba, const void* thr_b, int nbb, int max_cluster,
-                  const void* w, int wcode, void* out, void* stream) {
-  using Shared = typename W::Shared;
-  if (n <= 0 || nba < 1 || nbb < 1 || max_cluster < 1)
-    return (int)cudaErrorInvalidValue;
-  const int ka = nba < xh::kMaxCells / 2 ? 2 * nba : xh::kMaxCells;
-  const int kb = nbb < xh::kMaxCells / 2 ? 2 * nbb : xh::kMaxCells;
-  const size_t hoff = hist_offset(nba, nbb, sizeof(T), ka, kb);
-  const long long rows_fit =
-      hoff < kSmemMax ? (long long)((kSmemMax - hoff) / sizeof(Shared)) / nbb : 0;
-  if (rows_fit < 1) return (int)cudaErrorInvalidValue;
-
-  // the smallest cluster that holds every T row, else the largest allowed,
-  // in passes of chunks of rows. Float64 sums add by compare-and-swap loops,
-  // slower still into another block: at 2^26 T-S pairs two passes of
-  // clusters of two beat one pass of four and four passes of one block
-  // (1.26 against 1.49 and 1.61 ms; tools/joint2_probe.py, PERF.md §5)
-  const int kind_most = std::is_same<Shared, double>::value ? 2 : kMaxCluster;
-  const int most = max_cluster < kind_most ? max_cluster : kind_most;
-  int log2c = 0;
-  while ((2 << log2c) <= most && (1LL << log2c) * rows_fit < nba) ++log2c;
-  const int cl = 1 << log2c;
-  const long long chunk_most = cl * rows_fit;
-  const int n_chunks = (int)((nba + chunk_most - 1) / chunk_most);
-  const int rows_per_chunk = (nba + n_chunks - 1) / n_chunks;  // balanced
-  const int rows_per_block = (rows_per_chunk + cl - 1) / cl;
-  const size_t smem = hoff + sizeof(Shared) * (size_t)rows_per_block * nbb;
-
-  // one resident wave of clusters: every chunk gets the same share of the
-  // card, and no more blocks than there are element groups to give them
-  static xh::ClusterShape shape;
-  long long resident = 0;  // clusters
-  cudaError_t err = shape.get((const void*)joint2_kernel<T, W>, kThreads, smem,
-                              cl, &resident);
-  if (err != cudaSuccess) return (int)err;
-  const long long groups = (n + (long long)kThreads * kUnroll - 1) /
-                           ((long long)kThreads * kUnroll);
-  long long clusters_x = resident / n_chunks;
-  if (clusters_x > (groups + cl - 1) / cl) clusters_x = (groups + cl - 1) / cl;
-  if (clusters_x < 1) clusters_x = 1;
-  const long long grid_x = clusters_x * cl;
-  // each block's shared counters are 32-bit and every block of a cluster
-  // adds into them: bound the pairs one cluster visits (weighted sums wrap
-  // or round by their own type's rules instead)
-  if (!W::kWeighted &&
-      (groups + grid_x - 1) / grid_x * kThreads * kUnroll * cl > 0xffffffffLL)
-    return (int)cudaErrorInvalidValue;
-
-  err = xh::launch_clustered(
-      joint2_kernel<T, W>, dim3((unsigned int)grid_x, (unsigned int)n_chunks),
-      kThreads, smem, cl, (cudaStream_t)stream, static_cast<const T*>(a),
-      static_cast<const T*>(b), n, static_cast<const T*>(thr_a), nba,
-      static_cast<const T*>(thr_b), nbb, ka, kb, rows_per_chunk, log2c, w, wcode,
-      static_cast<typename W::Out*>(out));
-  xh::last_launch = {cl, n_chunks, 1, {ka, kb}};
-  return (int)err;
-}
-
-}  // namespace
-
-// Adds the joint counts of n pairs (a[e], b[e]) into out[nba * nbb], which
-// the caller zeroes, in clusters of at most max_cluster blocks (1, 2, 4 or
-// 8). Both inputs and their thresholds are of the type the suffix names.
-// Launches on `stream` and returns cudaGetLastError() (or the first failing
-// CUDA call's error); never synchronises.
-#define XH_JOINT2(name, T)                                                     \
-  extern "C" int name(const void* a, const void* b, long long n,              \
-                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
-                      int max_cluster, void* out, void* stream) {             \
-    return launch_joint2<T, xh::Count>(a, b, n, thr_a, nba, thr_b, nbb,       \
-                                       max_cluster, nullptr, 0, out, stream); \
-  }
-
-// Weighted: adds the sums of the n contiguous weights w (of the type
-// `wcode` names within accumulator class A; weights.cuh) into
-// out[nba * nbb], of type A, which the caller zeroes.
-#define XH_JOINT2_WEIGHTED(name, T, A)                                         \
-  extern "C" int name(const void* a, const void* b, long long n,              \
-                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
-                      int max_cluster, const void* w, int wcode, void* out,    \
-                      void* stream) {                                         \
-    return launch_joint2<T, xh::Sum<A>>(a, b, n, thr_a, nba, thr_b, nbb,      \
-                                        max_cluster, w, wcode, out, stream);  \
-  }
-
-XH_JOINT2(xh_joint2_f32, float)
-XH_JOINT2(xh_joint2_f64, double)
-XH_JOINT2(xh_joint2_i32, int)
-XH_JOINT2(xh_joint2_i64, long long)
+XH_JOINT2(xh_joint2_f32, float, float)
+XH_JOINT2(xh_joint2_f64, double, double)
+XH_JOINT2(xh_joint2_i32, int, int)
+XH_JOINT2(xh_joint2_i64, long long, long long)
 
 // The weighted entries xh_joint2_<data>_<cls> of the accumulator
 // class cls (accumulator type A), for the four data types.
 #define XH_JOINT2_WEIGHTED_CLASS(cls, A)                                      \
-  XH_JOINT2_WEIGHTED(xh_joint2_f32_##cls, float, A)                           \
-  XH_JOINT2_WEIGHTED(xh_joint2_f64_##cls, double, A)                          \
-  XH_JOINT2_WEIGHTED(xh_joint2_i32_##cls, int, A)                             \
-  XH_JOINT2_WEIGHTED(xh_joint2_i64_##cls, long long, A)
+  XH_JOINT2_WEIGHTED(xh_joint2_f32_##cls, float, float, A)                    \
+  XH_JOINT2_WEIGHTED(xh_joint2_f64_##cls, double, double, A)                  \
+  XH_JOINT2_WEIGHTED(xh_joint2_i32_##cls, int, int, A)                        \
+  XH_JOINT2_WEIGHTED(xh_joint2_i64_##cls, long long, long long, A)
 
 XH_JOINT2_WEIGHTED_CLASS(wf64, double)
 XH_JOINT2_WEIGHTED_CLASS(wu32, unsigned int)
 XH_JOINT2_WEIGHTED_CLASS(wu64, unsigned long long)
 
-// out[0..4]: what the last joint2 or flat-slot launch of this process chose
-// (xh::LaunchRecord): blocks a cluster, passes, histogram in shared memory
-// (1) or device memory (0), and the cells asked for the first two inputs.
+// out[0..7]: what the last launch of this process chose (xh::LaunchRecord):
+// blocks a cluster, passes, histogram in shared memory (1) or device memory
+// (0), the cells asked for the first two inputs, then 1 for a one_input
+// launch (0 for joint2 and the flat-slot routes) with its counter layout
+// and the histogram's copies in shared memory.
 extern "C" void xh_last_launch(int* out) {
   const xh::LaunchRecord r = xh::last_launch;
   out[0] = r.cluster;
@@ -273,4 +34,7 @@ extern "C" void xh_last_launch(int* out) {
   out[2] = r.shared;
   out[3] = r.cells[0];
   out[4] = r.cells[1];
+  out[5] = r.one_input;
+  out[6] = r.layout;
+  out[7] = r.copies;
 }

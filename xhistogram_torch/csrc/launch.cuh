@@ -10,15 +10,19 @@
 
 namespace xh {
 
-// What the last joint2 or flat-slot launch chose, for tools and tests
-// (xh_last_launch in joint2.cu): blocks a cluster, passes over the data,
-// histogram in shared memory (1) or device memory (0), and the cell-table
-// sizes asked for the first two inputs.
+// What the last launch chose, for tools and tests (xh_last_launch in
+// joint2.cu): blocks a cluster, passes over the data, histogram in shared
+// memory (1) or device memory (0), and the cell-table sizes asked for the
+// first two inputs; a one_input launch sets one_input and its counter
+// layout (one_input.cuh) and copies of the histogram.
 struct LaunchRecord {
   int cluster;
   int passes;
   int shared;
   int cells[2];
+  int one_input;
+  int layout;
+  int copies;
 };
 inline LaunchRecord last_launch = {};
 

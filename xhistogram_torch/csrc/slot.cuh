@@ -46,6 +46,15 @@
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
 //
+// Inputs of one compare type T share an instantiation (data of several
+// types widen to the narrowest that holds each exactly, in the caller).
+// int64 beside a float has no such type, and takes the mixed instantiation
+// (T = Mixed, slot_mixed.cu): each input's stored type is a run-time code,
+// an int64 input compares in int64 and any other in double, to which
+// float32 and int32 convert exactly, each against its own thresholds in
+// that type; its cell map runs in double, as for int64 data. It is rare,
+// so it has no two-input kernel of its own.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, without
 // --use_fast_math (digitize.cuh).
 
@@ -83,16 +92,37 @@ constexpr long long kMinTile = (long long)kThreads * kUnroll;
 // tile, or warp replicas of a full reduction
 constexpr long long kHistBytes = 48 * 1024;
 
+// The compare type of the mixed instantiation: see the header.
+struct Mixed {};
 template <typename T>
-struct Input {
-  const T* data;  // element (r, j) at data[r * sm + j * sc]
-  const T* thr;   // nb + 1 thresholds in device memory
+constexpr bool kMixed = std::is_same<T, Mixed>::value;
+// Each staged threshold slot: T, or 8 bytes (int64 or double) when mixed.
+template <typename T>
+using Stored = typename std::conditional<kMixed<T>, long long, T>::type;
+// Each input's cell map: CellMap<double> when mixed, which has the layout
+// of CellMap<long long>.
+template <typename T>
+using Map = xh::CellMap<typename std::conditional<kMixed<T>, double, T>::type>;
+
+struct InputBase {
+  const void* data;  // element (r, j) at data[r * sm + j * sc]
+  const void* thr;   // nb + 1 thresholds in device memory
   long long sm;
   long long sc;
   int nb;
   int soff;   // slot of its first threshold in shared memory (skewed)
   int toff;   // its first cell in the staged cell tables
   int cells;  // cells asked for its table
+};
+
+template <typename T>
+struct Input : InputBase {};
+
+// Mixed: the stored type, 0 float32, 1 float64, 2 int32 (compared in
+// double), 3 int64 (compared in int64).
+template <>
+struct Input<Mixed> : InputBase {
+  int code;
 };
 
 template <typename T>
@@ -104,7 +134,7 @@ struct Inputs {
 // 227 KB a block, less the kernel's static shared memory (the input table,
 // the cell maps and the windows' widths)
 template <typename T>
-constexpr size_t kSmemMax = 232448 - (sizeof(Input<T>) + sizeof(xh::CellMap<T>) +
+constexpr size_t kSmemMax = 232448 - (sizeof(Input<T>) + sizeof(Map<T>) +
                                       sizeof(int)) * kMaxInputs - 64;
 
 struct Mode {
@@ -116,6 +146,30 @@ struct Mode {
   int whole_rows;  // each tile holds whole rows and stores all their slots
 };
 
+// bin[u]: the bin of input d's value at offset f[u] along the fast and s[u]
+// along the slow dimension from the tile's corner (r0, c0), read as L and
+// compared as C, or -1; against its thresholds staged (skewed) at t with
+// cell map mp, cell table win and widest window widest when `staged`, else
+// searched in device memory.
+template <typename C, typename L, int K>
+__device__ __forceinline__ void input_bins(
+    const InputBase& d, const C* t, const xh::CellMap<C>& mp, const int2* win,
+    int widest, bool staged, long long r0, long long c0, bool row_fast,
+    const unsigned (&f)[K], const unsigned (&s)[K], const bool (&ok)[K],
+    int (&bin)[K]) {
+  const long long fast = row_fast ? d.sm : d.sc;
+  const long long slow = row_fast ? d.sc : d.sm;
+  const L* base = static_cast<const L*>(d.data) + r0 * d.sm + c0 * d.sc;
+  C v[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u)
+    v[u] = ok[u] ? C(base[f[u] * fast + s[u] * slow]) : C(0);
+  if (staged)
+    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), v, bin);
+  else
+    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, v, bin);
+}
+
 // g[u]: the flat slot of element u, at offset f[u] along the fast and s[u]
 // along the slow dimension from the tile's corner (r0, c0), or -1 where
 // ok[u] is false or any input's value is NaN or out of range. t: every
@@ -125,7 +179,7 @@ struct Mode {
 // count n when it is known at compile time (0: read n at run time).
 template <typename T, int K, int kN>
 __device__ __forceinline__ void flat_slots(
-    const Input<T>* in, int n, const T* t, const xh::CellMap<T>* maps,
+    const Input<T>* in, int n, const Stored<T>* t, const Map<T>* maps,
     const int2* win, const int* widest, bool staged, long long r0,
     long long c0, bool row_fast, const unsigned (&f)[K],
     const unsigned (&s)[K], const bool (&ok)[K], long long (&g)[K]) {
@@ -138,19 +192,28 @@ __device__ __forceinline__ void flat_slots(
 #pragma unroll
   for (int i = 0; i < (kN ? kN : n); ++i) {
     const Input<T> d = in[i];
-    const long long fast = row_fast ? d.sm : d.sc;
-    const long long slow = row_fast ? d.sc : d.sm;
-    const T* base = d.data + r0 * d.sm + c0 * d.sc;
-    T v[K];
-#pragma unroll
-    for (int u = 0; u < K; ++u)
-      v[u] = ok[u] ? base[f[u] * fast + s[u] * slow] : T(0);
     int bin[K];
-    if (staged)
-      xh::bins_bucketed<T, K>(t + d.soff, d.nb, maps[i], win + d.toff,
-                              xh::first_step(widest[i]), v, bin);
-    else
-      xh::bins_of<T, K, false>(d.thr, d.nb, v, bin);
+    if constexpr (kMixed<T>) {
+      const Map<T> mp = maps[i];
+      const auto* dt = reinterpret_cast<const double*>(t + d.soff);
+      const int2* w = win + d.toff;
+      if (d.code == 3)
+        input_bins<long long, long long, K>(
+            d, t + d.soff, xh::CellMap<long long>{mp.lo, mp.inv, mp.k}, w,
+            widest[i], staged, r0, c0, row_fast, f, s, ok, bin);
+      else if (d.code == 0)
+        input_bins<double, float, K>(d, dt, mp, w, widest[i], staged, r0, c0,
+                                     row_fast, f, s, ok, bin);
+      else if (d.code == 1)
+        input_bins<double, double, K>(d, dt, mp, w, widest[i], staged, r0, c0,
+                                      row_fast, f, s, ok, bin);
+      else
+        input_bins<double, int, K>(d, dt, mp, w, widest[i], staged, r0, c0,
+                                   row_fast, f, s, ok, bin);
+    } else {
+      input_bins<T, T, K>(d, t + d.soff, maps[i], win + d.toff, widest[i],
+                          staged, r0, c0, row_fast, f, s, ok, bin);
+    }
 #pragma unroll
     for (int u = 0; u < K; ++u) {
       valid[u] = valid[u] && bin[u] >= 0;
@@ -179,7 +242,7 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   using Out = typename W::Out;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Input<T> in[kMaxInputs];
-  __shared__ xh::CellMap<T> maps[kMaxInputs];
+  __shared__ Map<T> maps[kMaxInputs];
   __shared__ int widest[kMaxInputs];
   const int n = p.n;
 #pragma unroll
@@ -189,17 +252,34 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
 
   // t always points into shared memory, so the searches load from it with
   // shared-memory instructions rather than generic ones
-  T* t = reinterpret_cast<T*>(smem);
+  Stored<T>* t = reinterpret_cast<Stored<T>*>(smem);
   int2* win = reinterpret_cast<int2*>(smem + md.thr_bytes);
   const bool staged = md.thr_bytes != 0;
   if (staged) {
     for (int i = 0; i < n; ++i)
-      xh::stage_thresholds(t + in[i].soff, in[i].thr, in[i].nb + 1);
+      xh::stage_thresholds(t + in[i].soff,
+                           static_cast<const Stored<T>*>(in[i].thr), in[i].nb + 1);
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const xh::CellMap<T> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
-      if (threadIdx.x == 0) maps[i] = mp;
-      xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff, &widest[i]);
+      if constexpr (kMixed<T>) {
+        if (in[i].code == 3) {
+          const xh::CellMap<long long> mp =
+              xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
+          if (threadIdx.x == 0) maps[i] = {mp.lo, mp.inv, mp.k};
+          xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
+                          &widest[i]);
+        } else {
+          const double* dt = reinterpret_cast<const double*>(t + in[i].soff);
+          const xh::CellMap<double> mp = xh::cell_map(dt, in[i].nb, in[i].cells);
+          if (threadIdx.x == 0) maps[i] = mp;
+          xh::build_cells(dt, in[i].nb, mp, win + in[i].toff, &widest[i]);
+        }
+      } else {
+        const Map<T> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
+        if (threadIdx.x == 0) maps[i] = mp;
+        xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
+                        &widest[i]);
+      }
     }
   }
 
@@ -441,12 +521,14 @@ inline long long share(long long S, int log2c) {
 // block, or of a cluster of at most max_cluster blocks (1, 2, 4 or 8),
 // where they fit. Launches on `stream` and returns cudaGetLastError() (or
 // the first failing CUDA call's error); never synchronises.
+// codes[k]: input k's stored type (Input<Mixed>), read only when T is
+// Mixed.
 template <typename T, typename W>
-int launch_slot_hist(int n, const void* const* data, const long long* strides,
-                     const void* const* thr, const int* nb, long long m,
-                     long long c, int reduce_all, long long max_shared_slots,
-                     int max_cluster, const xh::Weights& w, void* out,
-                     void* stream) {
+int launch_slot_hist(int n, const int* codes, const void* const* data,
+                     const long long* strides, const void* const* thr,
+                     const int* nb, long long m, long long c, int reduce_all,
+                     long long max_shared_slots, int max_cluster,
+                     const xh::Weights& w, void* out, void* stream) {
   if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || w.sm < 0 || w.sc < 0 ||
       max_cluster < 1)
     return (int)cudaErrorInvalidValue;
@@ -460,8 +542,12 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   int col_cost = 0;
   for (int k = 0; k < n; ++k) {
     Input<T>& d = p.in[k];
-    d.data = static_cast<const T*>(data[k]);
-    d.thr = static_cast<const T*>(thr[k]);
+    d.data = data[k];
+    d.thr = thr[k];
+    if constexpr (kMixed<T>) {
+      if (codes[k] < 0 || codes[k] > 3) return (int)cudaErrorInvalidValue;
+      d.code = codes[k];
+    }
     d.sm = strides[2 * k];
     d.sc = strides[2 * k + 1];
     d.nb = nb[k];
@@ -483,7 +569,7 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   // thresholds and their cell tables where they fit; one cell a table
   // (the plain binary search) where only the thresholds do
   const size_t budget = kSmemMax<T>;
-  const size_t thr_bytes = (thr_slots * sizeof(T) + 15) / 16 * 16;
+  const size_t thr_bytes = (thr_slots * sizeof(Stored<T>) + 15) / 16 * 16;
   if (thr_bytes + xh::cells_bytes((int)cells) > budget) {
     cells = 0;
     for (int k = 0; k < n; ++k) cells += (p.in[k].cells = 1);
@@ -520,25 +606,25 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
     long long most = S > target ? S : target;
     if (most > room) most = room;
     md.s_local = S;
-    if (n == 2)
-      return launch_kernel<T, W, true, 2>(p, w, m, c, S, most, row_fast, md,
-                                          out, st);
+    if (n == 2 && !kMixed<T>)
+      return launch_kernel<T, W, true, (kMixed<T> ? 0 : 2)>(p, w, m, c, S, most,
+                                                          row_fast, md, out, st);
     return launch_kernel<T, W, true, 0>(p, w, m, c, S, most, row_fast, md,
                                         out, st);
   }
   if (log2c > 0) {
     md.log2c = log2c;
     md.s_local = share(S, log2c);
-    if (n == 2)
-      return launch_kernel<T, W, true, 2>(p, w, m, c, S, md.s_local, row_fast,
-                                          md, out, st);
+    if (n == 2 && !kMixed<T>)
+      return launch_kernel<T, W, true, (kMixed<T> ? 0 : 2)>(
+          p, w, m, c, S, md.s_local, row_fast, md, out, st);
     return launch_kernel<T, W, true, 0>(p, w, m, c, S, md.s_local, row_fast, md,
                                         out, st);
   }
   md.s_local = S;
-  if (n == 2)
-    return launch_kernel<T, W, false, 2>(p, w, m, c, S, 0, row_fast, md, out,
-                                         st);
+  if (n == 2 && !kMixed<T>)
+    return launch_kernel<T, W, false, (kMixed<T> ? 0 : 2)>(p, w, m, c, S, 0,
+                                                         row_fast, md, out, st);
   return launch_kernel<T, W, false, 0>(p, w, m, c, S, 0, row_fast, md, out,
                                        st);
 }
@@ -554,8 +640,8 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
-        n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
-        max_cluster, xh::Weights{}, out, stream);                            \
+        n, nullptr, data, strides, thr, nb, m, c, reduce_all,                \
+        max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
   }
 
 // The weighted C entry of one route: sums of the weights w (an (m, c) view
@@ -569,8 +655,9 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
                       const void* w, long long wsm, long long wsc, int wcode, \
                       void* out, void* stream) {                             \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
-        n, data, strides, thr, nb, m, c, reduce_all, max_shared_slots,       \
-        max_cluster, xh::Weights{w, wsm, wsc, wcode}, out, stream);          \
+        n, nullptr, data, strides, thr, nb, m, c, reduce_all,                \
+        max_shared_slots, max_cluster, xh::Weights{w, wsm, wsc, wcode}, out,  \
+        stream);                                                             \
   }
 
 // Every route's weighted entries xh_<route>_<data>_<cls> of the
@@ -592,3 +679,39 @@ int launch_slot_hist(int n, const void* const* data, const long long* strides,
   XH_SLOT_WEIGHTED_ENTRY(xh_direct_f64_##cls, double, A, 0)                   \
   XH_SLOT_WEIGHTED_ENTRY(xh_direct_i32_##cls, int, A, 0)                      \
   XH_SLOT_WEIGHTED_ENTRY(xh_direct_i64_##cls, long long, A, 0)
+
+// The mixed entry of one route (int64 beside a float; slot_mixed.cu): as
+// XH_SLOT_ENTRY, with codes[k] naming input k's stored type (0 float32,
+// 1 float64, 2 int32, 3 int64) and its thresholds in int64 for int64 data,
+// in float64 for the others.
+#define XH_SLOT_MIXED_ENTRY(name, reduce_all)                                 \
+  extern "C" int name(int n, const int* codes, const void* const* data,      \
+                      const long long* strides, const void* const* thr,      \
+                      const int* nb, long long m, long long c,               \
+                      long long max_shared_slots, int max_cluster, void* out, \
+                      void* stream) {                                        \
+    return slot::launch_slot_hist<slot::Mixed, xh::Count>(                   \
+        n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
+        max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
+  }
+
+// The weighted mixed entry of one route, for accumulator type A.
+#define XH_SLOT_MIXED_WEIGHTED_ENTRY(name, A, reduce_all)                     \
+  extern "C" int name(int n, const int* codes, const void* const* data,      \
+                      const long long* strides, const void* const* thr,      \
+                      const int* nb, long long m, long long c,               \
+                      long long max_shared_slots, int max_cluster,           \
+                      const void* w, long long wsm, long long wsc, int wcode, \
+                      void* out, void* stream) {                             \
+    return slot::launch_slot_hist<slot::Mixed, xh::Sum<A>>(                  \
+        n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
+        max_shared_slots, max_cluster, xh::Weights{w, wsm, wsc, wcode}, out,  \
+        stream);                                                             \
+  }
+
+// Every route's weighted mixed entries xh_<route>_mixed_<cls>.
+#define XH_SLOT_MIXED_WEIGHTED_CLASS(cls, A)                                  \
+  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_full_mixed_##cls, A, 1)            \
+  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_per_row_mixed_##cls, A, 0)         \
+  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_packed_mixed_##cls, A, 0)          \
+  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_direct_mixed_##cls, A, 0)

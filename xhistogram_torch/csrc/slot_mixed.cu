@@ -1,0 +1,23 @@
+// Flat-slot histograms of inputs with no exact common compare type: int64
+// beside a float (slot.cuh's mixed instantiation, T = Mixed). Each input
+// compares in its own type against its own thresholds, int64 in int64 and
+// float32, float64 and int32 in double, to which they convert exactly, so
+// the counts equal the plain path's bit for bit.
+//
+// The entries of the routes factored (full, per_row, packed; factored.cu,
+// which replaces xhistogram_tpu/ops/pallas_hist.py::_factored_kernel) and
+// direct (direct.cu, which replaces _direct_kernel) for such inputs,
+// unweighted and per accumulator class, in a source of their own that
+// compiles beside the others. A rare route: it runs the general N-input
+// kernel, with no two-input specialisation.
+
+#include "slot.cuh"
+
+XH_SLOT_MIXED_ENTRY(xh_factored_full_mixed, 1)
+XH_SLOT_MIXED_ENTRY(xh_factored_per_row_mixed, 0)
+XH_SLOT_MIXED_ENTRY(xh_factored_packed_mixed, 0)
+XH_SLOT_MIXED_ENTRY(xh_direct_mixed, 0)
+
+XH_SLOT_MIXED_WEIGHTED_CLASS(wf64, double)
+XH_SLOT_MIXED_WEIGHTED_CLASS(wu32, unsigned int)
+XH_SLOT_MIXED_WEIGHTED_CLASS(wu64, unsigned long long)

@@ -1,5 +1,5 @@
 // Tiles of an (m, c) layout, shared by the kept-row histogram kernels
-// (one_input.cu, slot.cuh).
+// (one_input.cuh, slot.cuh).
 //
 // Work is cut into tiles of R rows by C columns. A block walks its tiles in
 // a grid-stride loop and enumerates each tile's elements in memory order,

@@ -101,4 +101,56 @@ __device__ __forceinline__ void load_weight(const void* p, long long i,
   w = static_cast<const unsigned long long*>(p)[i];
 }
 
+__device__ __forceinline__ float stored_value(__half x) { return __half2float(x); }
+__device__ __forceinline__ float stored_value(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename S>
+__device__ __forceinline__ S stored_value(S x) {
+  return x;
+}
+
+// w[u] = weight i[u] of p stored as S, converted to the accumulator A (0
+// where ok[u] is false); all K loads issued together.
+template <typename S, typename A, int K>
+__device__ __forceinline__ void load_as(const void* p, const long long (&i)[K],
+                                        const bool (&ok)[K], A (&w)[K]) {
+  const S* q = static_cast<const S*>(p);
+#pragma unroll
+  for (int u = 0; u < K; ++u) w[u] = ok[u] ? A(stored_value(q[i[u]])) : A(0);
+}
+
+// load_weight for K weights at once, with one switch on the stored type for
+// all of them (the codes as load_weight's); signed integers convert to
+// unsigned int modulo 2^32, as sign extension does.
+template <int K>
+__device__ __forceinline__ void load_weights(const void* p, const long long (&i)[K],
+                                             const bool (&ok)[K], int code,
+                                             double (&w)[K]) {
+  switch (code) {
+    case 0: load_as<float>(p, i, ok, w); break;
+    case 1: load_as<double>(p, i, ok, w); break;
+    case 2: load_as<__half>(p, i, ok, w); break;
+    default: load_as<__nv_bfloat16>(p, i, ok, w);
+  }
+}
+template <int K>
+__device__ __forceinline__ void load_weights(const void* p, const long long (&i)[K],
+                                             const bool (&ok)[K], int code,
+                                             unsigned int (&w)[K]) {
+  switch (code) {
+    case 0: load_as<unsigned int>(p, i, ok, w); break;
+    case 1: load_as<short>(p, i, ok, w); break;
+    case 2: load_as<unsigned short>(p, i, ok, w); break;
+    case 3: load_as<signed char>(p, i, ok, w); break;
+    default: load_as<unsigned char>(p, i, ok, w);
+  }
+}
+template <int K>
+__device__ __forceinline__ void load_weights(const void* p, const long long (&i)[K],
+                                             const bool (&ok)[K], int,
+                                             unsigned long long (&w)[K]) {
+  load_as<unsigned long long>(p, i, ok, w);
+}
+
 }  // namespace xh

@@ -52,34 +52,57 @@ def _nvcc():
 
 #: suffix of each kernel symbol, by the data type it takes
 DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
+#: one_input's further load types (csrc/one_input_narrow.cu): float16 and
+#: bfloat16 compared in float32, 16- and 8-bit integers (bool as uint8) in
+#: int32
+NARROW_SUFFIXES = ("f16", "bf16", "i16", "u16", "i8", "u8")
+#: joint2's pairs of an int64 input and a float one, each compared in its
+#: own type (csrc/joint2_mixed.cu): symbols ``xh_joint2_<a>_<b>``
+JOINT2_MIXED = ("i64_f32", "f32_i64", "i64_f64", "f64_i64")
 #: the flat-slot routes of csrc/slot.cuh, each its own C symbol
-#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu)
+#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and
+#: ``xh_<route>_mixed`` for int64 beside a float (csrc/slot_mixed.cu)
 SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 #: the weighted kernels' accumulator classes (csrc/weights.cuh): each
 #: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
 WEIGHT_CLASSES = ("wf64", "wu32", "wu64")
 
 
-def _declare(lib):
+def symbols():
+    """(name, argtypes) of every C entry the library defines: each kernel's
+    unweighted entry and one per weight class, per suffix."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    # each kernel's arguments, and the weights' (pointer, strides, type code)
-    # that its weighted entries take before the output
+    slot_args = [i32, p, p, p, p, i64, i64, i64, i32]
+    weight_view = [p, i64, i64, i32]
+    # each kernel's arguments before and after the weights' (pointer,
+    # strides, type code) that its weighted entries take, and its suffixes
     kernels = {
-        "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32]),
-        "one_input": ([p, i64, i64, i64, i64, p, i32, i32], [p, i64, i64, i32]),
-        **{route: ([i32, p, p, p, p, i64, i64, i64, i32], [p, i64, i64, i32])
+        "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32], [p],
+                   DTYPE_SUFFIXES + JOINT2_MIXED),
+        "one_input": ([p, i64, i64, i64, i64, p, i32, i32], weight_view, [p, p],
+                      DTYPE_SUFFIXES + NARROW_SUFFIXES),
+        **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES)
+           for route in SLOT_ROUTES},
+        # the mixed entries take each input's stored type after the count
+        **{f"{route}_mixed": ([i32, p, *slot_args[1:]], weight_view, [p], ("",))
            for route in SLOT_ROUTES},
     }
-    for suffix in DTYPE_SUFFIXES:
-        for kernel, (args, weight_args) in kernels.items():
-            fn = getattr(lib, f"xh_{kernel}_{suffix}")
-            fn.argtypes = [*args, p, p]
-            fn.restype = i32
-            for cls in WEIGHT_CLASSES:
-                fn = getattr(lib, f"xh_{kernel}_{suffix}_{cls}")
-                fn.argtypes = [*args, *weight_args, p, p]
-                fn.restype = i32
-    lib.xh_last_launch.argtypes = [p]
+    out = []
+    for kernel, (args, weight_args, tail, suffixes) in kernels.items():
+        for suffix in suffixes:
+            name = f"xh_{kernel}_{suffix}" if suffix else f"xh_{kernel}"
+            out.append((name, [*args, *tail, p]))
+            out += [(f"{name}_{cls}", [*args, *weight_args, *tail, p])
+                    for cls in WEIGHT_CLASSES]
+    return out
+
+
+def _declare(lib):
+    for name, argtypes in symbols():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.xh_last_launch.argtypes = [ctypes.c_void_p]
     lib.xh_last_launch.restype = None
     return lib
 

@@ -5,7 +5,7 @@ of flat joint-bin indices ``g`` with shape ``(M rows, C cols)``, produce
 per-row int64 counts ``(M, n_slots)`` — the reference's offset-bincount
 trick (reference core.py:73-83). Only the scatter strategy is ported; the
 ``onehot`` and ``sort`` strategies were TPU workarounds for a slow scatter
-and wait (ROADMAP queue 1, item 5).
+and wait (ROADMAP queue 1, item 9).
 
 Weighted: each element adds its weight at its slot with ``index_add_``,
 float weights in float64 and integer weights in int64 (uint64 as its int64
@@ -97,6 +97,6 @@ def bincount2d(g, n_slots, method="scatter", weights=None):
     if method in METHODS:
         raise NotImplementedError(
             f"bincount method {method!r} is not ported yet (ROADMAP queue 1, "
-            "item 5: onehot and sort)"
+            "item 9: onehot and sort)"
         )
     raise ValueError(f"unknown bincount method {method!r}; valid: {METHODS}")

@@ -6,7 +6,7 @@ uniform-spacing certificates: the kernels' bucketed digitize is exact for
 any thresholds and needs none), so both packages name the same kernel
 for the same problem. Every kernel family it names is ported, each a
 hand-written CUDA kernel with its plain PyTorch version beside it:
-``one_input`` (``csrc/one_input.cu``), ``joint2`` (``csrc/joint2.cu``),
+``one_input`` (``csrc/one_input.cuh``), ``joint2`` (``csrc/joint2.cuh``),
 ``factored`` in its three variants (``csrc/factored.cu``) and ``direct``
 (``csrc/direct.cu``); the last two share the flat-slot histogram of
 ``csrc/slot.cuh``. Each ``*_reference`` is the plain version: digitize,
@@ -22,11 +22,16 @@ runs the same kernel. ``validate_public_precision`` keeps the JAX package's
 contract for that argument.
 
 The kernels compare in the data's own type: float32, float64, int32 or
-int64. float16 data and its thresholds widen to float32 first, which is
-exact and keeps every comparison (the JAX package's ``_dispatch`` does the
-same); inputs of several dtypes all widen to the narrowest type that holds
-each exactly. A wrapper takes the plain version only for CPU tensors; for
-a CUDA tensor it launches the kernel or raises.
+int64. float16 data and its thresholds widen to float32, which is exact
+and keeps every comparison (the JAX package's ``_dispatch`` does the same);
+bool, 8- and 16-bit integers and bfloat16 come with thresholds in int32 or
+float32 (``bins.compare_form`` of their compare type). one_input reads all
+of these in place at their own width and widens in registers; joint2,
+factored and direct widen a copy. Inputs of several dtypes widen to the
+narrowest type that holds each exactly, and int64 beside a float, which no
+type holds, runs the kernels' mixed entries, each input compared in its
+own type. A wrapper takes the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -94,9 +99,31 @@ _SUFFIX = dict(zip(
     (torch.float32, torch.float64, torch.int32, torch.int64),
     _build.DTYPE_SUFFIXES,
 ))
-_DATA_DTYPES = (torch.float16, *_SUFFIX)
+#: the compare type of each narrow data dtype: its thresholds' dtype
+#: (``bins.compare_form``), into which every value converts exactly
+_NARROW = {
+    torch.bool: torch.int32, torch.int8: torch.int32, torch.uint8: torch.int32,
+    torch.int16: torch.int32, torch.uint16: torch.int32,
+    torch.bfloat16: torch.float32,
+}
+_DATA_DTYPES = (*_NARROW, torch.float16, *_SUFFIX)
+#: the type one_input loads each data dtype as (the suffix of its C symbols):
+#: every one at its own width, widened to its compare type in registers
+_ONE_INPUT_LOAD = {
+    **{d: s for d, s in _SUFFIX.items()}, torch.float16: "f16",
+    torch.bfloat16: "bf16", torch.int16: "i16", torch.uint16: "u16",
+    torch.int8: "i8", torch.uint8: "u8", torch.bool: "u8",
+}
+#: where one_input compares in another type than the thresholds': float32
+#: for float16 and for 16-bit integers (int32 thresholds round only past
+#: 2^24, beyond every 16-bit value, so every comparison is kept)
+_ONE_INPUT_COMPARE = {torch.float16: torch.float32, torch.int16: torch.float32,
+                      torch.uint16: torch.float32}
+#: the mixed flat-slot entries' code of each input's stored type
+#: (csrc/slot.cuh, Cmp<Mixed>)
+_MIXED_CODE = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
 
-# the dtypes each data dtype converts to exactly, comparisons unchanged
+# the dtypes each compare dtype converts to exactly, comparisons unchanged
 _EXACT_WIDENINGS = {
     torch.float16: (torch.float32, torch.float64),
     torch.float32: (torch.float32, torch.float64),
@@ -226,8 +253,9 @@ def plan(n_inputs, nbins, m, c=None, weights_dtype=None, wmode=None):
 
 
 def _compare_dtype(dtypes):
-    """The narrowest kernel compare type every one of ``dtypes`` converts
-    to exactly, or None."""
+    """The narrowest kernel compare type every one of ``dtypes`` (compare
+    dtypes: the thresholds') converts to exactly, or None: int64 beside a
+    float, which the kernels' mixed entries compare each in its own type."""
     for t in _SUFFIX:
         if all(t in _EXACT_WIDENINGS[d] for d in dtypes):
             return t
@@ -246,10 +274,16 @@ def _check_operands(name, data, thresholds, nbins):
             raise TypeError(
                 f"{name} takes {[str(d) for d in _DATA_DTYPES]} data, got {x.dtype}"
             )
-        if thr.dtype != x.dtype:
+        want = _NARROW.get(x.dtype, x.dtype)
+        if thr.dtype != want:
+            if want == x.dtype:
+                raise TypeError(
+                    f"{name} thresholds must be in the data's dtype {x.dtype}, "
+                    f"got {thr.dtype}"
+                )
             raise TypeError(
-                f"{name} thresholds must be in the data's dtype {x.dtype}, got "
-                f"{thr.dtype}"
+                f"{name} thresholds of {x.dtype} data must be in its compare "
+                f"dtype {want}, got {thr.dtype}"
             )
         if thr.shape != (nb + 1,):
             raise ValueError(
@@ -264,17 +298,38 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: one_input's counter layouts, by their code in the launch record
+#: (csrc/one_input.cuh): per-lane private counters, warp replicas added with
+#: 32-bit shared atomics, warp-owned copies added by __match_any_sync leaders
+ONE_INPUT_LAYOUTS = {1: "lane-private", 2: "warp replicas", 3: "aggregated"}
+_LAST_ONE_INPUT_LOAD = [None]  # the dtype the last one_input launch read
+_WIDEST = {}  # per device: one int32 the one_input kernel writes L into
+
+
 def last_launch():
-    """What the last joint2, factored or direct launch of this process chose
-    (``xh_last_launch``): ``cluster`` (blocks whose shared memory held the
-    histogram, 1 to 8), ``passes`` over the data (joint2's chunks of T
-    rows), ``shared`` (False: the histogram was in device memory) and
+    """What the last launch of this process chose (``xh_last_launch``).
+
+    joint2, factored and direct: ``cluster`` (blocks whose shared memory
+    held the histogram, 1 to 8), ``passes`` over the data (joint2's chunks
+    of T rows), ``shared`` (False: the histogram was in device memory) and
     ``cells`` (the cell-table sizes asked for the first two inputs;
-    ``ops.digitize.bucket_table`` gives the table the kernel built)."""
-    out = (ctypes.c_int * 5)()
+    ``ops.digitize.bucket_table`` gives the table the kernel built).
+    ``kernel`` names which. one_input adds its counter ``layout`` (one of
+    ``ONE_INPUT_LAYOUTS``' names), ``copies`` (the histogram's copies in
+    shared memory: one per lane, per warp, or replicas), ``load`` (the
+    dtype it read) and ``widest``, the widest window L of the cell table
+    its first block built (K is ``cells[0]``); reading ``widest``
+    synchronises with the card."""
+    out = (ctypes.c_int * 8)()
     _build.load().xh_last_launch(out)
-    return {"cluster": out[0], "passes": out[1], "shared": bool(out[2]),
-            "cells": (out[3], out[4])}
+    rec = {"kernel": "one_input" if out[5] else "joint2/slot",
+           "cluster": out[0], "passes": out[1], "shared": bool(out[2]),
+           "cells": (out[3], out[4])}
+    if out[5]:
+        load, device = _LAST_ONE_INPUT_LOAD[0]
+        rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], load=load,
+                   widest=int(_WIDEST[device].item()))
+    return rec
 
 
 #: each weight dtype's accumulator class (csrc/weights.cuh), and the code of
@@ -363,16 +418,19 @@ def one_input(a2d, thr, nb, reduce_all, weights=None):
     """Histogram of one input's ``(m, c)`` layout, per row or over all rows.
 
     ``thr`` is the compare-form thresholds
-    (``bins.compare_form(edges, a2d.dtype).edges`` with ``n_hi_clip == 0``)
-    as a tensor in ``a2d``'s dtype on its device; ``nb`` (at most 1024) is
-    the bin count, one fewer than the thresholds. ``a2d`` may have any
-    strides: the kernel reads the view in place. Returns
+    (``bins.compare_form(edges, dtype).edges`` with ``n_hi_clip == 0``)
+    as a tensor on ``a2d``'s device, in ``a2d``'s dtype, or in its compare
+    dtype for narrow data (int32 for bool and 8- and 16-bit integers,
+    float32 for bfloat16); ``nb`` (at most 1024) is the bin count, one
+    fewer than the thresholds. ``a2d`` may have any strides: the kernel
+    reads the view in place, narrow data at its own width. Returns
     ``(1 if reduce_all else m, nb + 1)`` int64 counts with a zero trailing
     trash slot; with ``weights`` (shaped like ``a2d``, any strides, read in
     place), the sums of the weights in their ``weighted_dtype`` instead.
 
-    A CUDA tensor launches the CUDA kernel, and any failure raises. A CPU
-    tensor runs ``one_input_reference``.
+    A CUDA tensor launches the CUDA kernel, and any failure raises (a
+    narrow input never widens and retries). A CPU tensor runs
+    ``one_input_reference``.
     """
     global ONE_INPUT_LAUNCHES
     if a2d.ndim != 2:
@@ -387,20 +445,24 @@ def one_input(a2d, thr, nb, reduce_all, weights=None):
     if a2d.device.type == "cpu":
         return one_input_reference(a2d, thr, nb, reduce_all, weights)
 
-    dtype = _compare_dtype((a2d.dtype,))  # float16 widens to float32
-    a2d, thr = a2d.to(dtype), thr.to(dtype).contiguous()
+    thr = thr.to(_ONE_INPUT_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
     m, c = a2d.shape
     out = torch.zeros(1 if reduce_all else m, nb + 1, dtype=_out_dtype(weights),
                       device=a2d.device)
     if a2d.numel() == 0:
         return _finish(out, weights)
     suffix, w_args = _weight_args(weights)
-    fn = getattr(_build.load(), f"xh_one_input_{_SUFFIX[dtype]}{suffix}")
+    widest = _WIDEST.get(a2d.device)
+    if widest is None:
+        widest = _WIDEST[a2d.device] = torch.zeros(1, dtype=torch.int32,
+                                                   device=a2d.device)
+    fn = getattr(_build.load(), f"xh_one_input_{_ONE_INPUT_LOAD[a2d.dtype]}{suffix}")
+    _LAST_ONE_INPUT_LOAD[0] = (a2d.dtype, a2d.device)
     with torch.cuda.device(a2d.device):
         rc = fn(
             a2d.data_ptr(), m, c, a2d.stride(0), a2d.stride(1),
             thr.data_ptr(), nb, int(bool(reduce_all)), *w_args, out.data_ptr(),
-            _stream(a2d.device),
+            widest.data_ptr(), _stream(a2d.device),
         )
     if rc != 0:
         raise RuntimeError(f"one_input CUDA kernel failed to launch: cudaError {rc}")
@@ -429,11 +491,12 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     broadcast weight is copied first), the sums of the weights in their
     ``weighted_dtype`` instead.
 
-    A CUDA tensor launches the CUDA kernel, and any failure raises. Inputs
-    of two dtypes both widen to the narrowest compare type that holds each
-    exactly (float32 with int32 compares in float64); a pair with no such
-    type (int64 with a float) raises ``NotImplementedError``. A CPU tensor
-    runs ``joint2_reference``.
+    A CUDA tensor launches the CUDA kernel, and any failure raises. Narrow
+    data widens to its compare dtype first; inputs of two dtypes both widen
+    to the narrowest compare type that holds each exactly (float32 with
+    int32 compares in float64), and int64 beside a float runs the kernel's
+    mixed entries, each input compared in its own type (float16 as
+    float32). A CPU tensor runs ``joint2_reference``.
     """
     global JOINT2_LAUNCHES
     if a.numel() != b.numel():
@@ -446,17 +509,17 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     if a.device.type == "cpu":
         return joint2_reference(a, b, thr_a, thr_b, nba, nbb, weights)
 
-    dtype = _compare_dtype((a.dtype, b.dtype))
-    if dtype is None:
-        raise NotImplementedError(
-            f"joint2 has no exact common compare type for {a.dtype} and "
-            f"{b.dtype} data (ROADMAP queue 2, item 1)"
-        )
+    dtype = _compare_dtype((thr_a.dtype, thr_b.dtype))
+    if dtype is None:  # int64 beside a float: (int64, float32 or float64)
+        types = [torch.float32 if t.dtype == torch.float16 else t.dtype
+                 for t in (thr_a, thr_b)]
+        name = "_".join(_SUFFIX[t] for t in types)
+    else:
+        types, name = (dtype, dtype), _SUFFIX[dtype]
     # .contiguous() copies only a non-contiguous input, at the cost of a full
     # pass over it; the main path's views are contiguous and pass through
-    a, b, thr_a, thr_b = (
-        x.to(dtype).contiguous() for x in (a, b, thr_a, thr_b)
-    )
+    a, thr_a = (x.to(types[0]).contiguous() for x in (a, thr_a))
+    b, thr_b = (x.to(types[1]).contiguous() for x in (b, thr_b))
     out = torch.zeros(1, nba * nbb + 1, dtype=_out_dtype(weights), device=a.device)
     n = a.numel()
     if n == 0:
@@ -464,7 +527,7 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     if weights is not None:
         weights = weights.contiguous()
     suffix, w_args = _weight_args(weights, strides=False)
-    fn = getattr(_build.load(), f"xh_joint2_{_SUFFIX[dtype]}{suffix}")
+    fn = getattr(_build.load(), f"xh_joint2_{name}{suffix}")
     with torch.cuda.device(a.device):
         rc = fn(
             a.data_ptr(), b.data_ptr(), n,
@@ -514,20 +577,32 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
 def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
                     weights):
     """(counts or weighted sums, launches) of the flat-slot kernel of
-    ``route`` (``csrc/slot.cuh``) on CUDA tensors; any failure raises."""
-    dtype = _compare_dtype([a.dtype for a in arrays_2d])
-    if dtype is None:
-        raise NotImplementedError(
-            f"{name} has no exact common compare type for "
-            f"{[str(a.dtype) for a in arrays_2d]} data (int64 with a float)"
-        )
+    ``route`` (``csrc/slot.cuh``) on CUDA tensors; any failure raises.
+
+    Inputs whose compare types share an exact common type widen to it (a
+    broadcast stays one); int64 beside a float takes the route's mixed
+    entry instead, which reads float32, float64, int32 and int64 inputs in
+    place and compares each in int64 or float64 (narrow data, float16 and
+    bfloat16 widen to int32 or float32 first, their thresholds to float64)."""
     if len(arrays_2d) > _MAX_SLOT_INPUTS:
         raise NotImplementedError(
             f"the {name} CUDA kernel takes at most {_MAX_SLOT_INPUTS} inputs, "
             f"got {len(arrays_2d)}"
         )
-    arrays = [_widen(a, dtype) for a in arrays_2d]
-    thr = [t.to(dtype).contiguous() for t in thresholds]
+    dtype = _compare_dtype([t.dtype for t in thresholds])
+    n = len(arrays_2d)
+    if dtype is None:
+        stored = [torch.float32 if t.dtype == torch.float16 else t.dtype
+                  for t in thresholds]
+        arrays = [_widen(a, t) for a, t in zip(arrays_2d, stored)]
+        thr = [t.to(torch.int64 if t.dtype == torch.int64 else torch.float64)
+               .contiguous() for t in thresholds]
+        codes = [(ctypes.c_int * n)(*(_MIXED_CODE[a.dtype] for a in arrays))]
+        kind = "mixed"
+    else:
+        arrays = [_widen(a, dtype) for a in arrays_2d]
+        thr = [t.to(dtype).contiguous() for t in thresholds]
+        codes, kind = [], _SUFFIX[dtype]
     device = arrays[0].device
     m, c = arrays[0].shape
     shape = (1 if reduce_all else m, math.prod(nbins) + 1)
@@ -537,12 +612,11 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     # every slot of the output is written by the kernel or zeroed by its
     # launcher
     out = torch.empty(shape, dtype=_out_dtype(weights), device=device)
-    n = len(arrays)
     suffix, w_args = _weight_args(weights)
-    fn = getattr(_build.load(), f"xh_{route}_{_SUFFIX[dtype]}{suffix}")
+    fn = getattr(_build.load(), f"xh_{route}_{kind}{suffix}")
     with torch.cuda.device(device):
         rc = fn(
-            n,
+            n, *codes,
             (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays)),
             (ctypes.c_int64 * (2 * n))(*(s for a in arrays for s in a.stride())),
             (ctypes.c_void_p * n)(*(t.data_ptr() for t in thr)),
@@ -579,8 +653,9 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None):
 
     A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
     failure raises; inputs of several dtypes widen to the narrowest compare
-    type that holds each exactly, and int64 with a float raises
-    ``NotImplementedError``. A CPU tensor runs ``factored_reference``.
+    type that holds each exactly, and int64 beside a float runs the mixed
+    entry (``csrc/slot_mixed.cu``), each input compared in its own type. A
+    CPU tensor runs ``factored_reference``.
     """
     if variant not in _FACTORED_VARIANTS:
         raise ValueError(

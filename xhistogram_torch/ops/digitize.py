@@ -39,14 +39,19 @@ __all__ = [
 def digitize_edges(a, edges, n_hi_clip=0):
     """searchsorted-right of ``a`` against sorted half-open comparison edges.
 
-    ``edges`` is a 1-D tensor in ``a``'s dtype and on its device. Returns
-    int64 indices in ``[0, len(edges)]``, shaped like ``a``.
+    ``edges`` is a 1-D tensor on ``a``'s device, in ``a``'s dtype or, for
+    narrow data, the dtype it is compared in (int32 for bool and 8- and
+    16-bit integers, float32 for bfloat16 or float16), to which a copy of
+    ``a`` is widened first. Returns int64 indices in ``[0, len(edges)]``,
+    shaped like ``a``.
 
     ``n_hi_clip`` (from ``bins.compare_form``): number of thresholds whose
     true value lies above the dtype's top value (int max / +inf) and were
     clamped to it; elements equal to the top value subtract the count.
     """
     n_edges = edges.shape[0]
+    if a.dtype != edges.dtype:
+        a = a.to(edges.dtype)
     idx = torch.searchsorted(edges, a.contiguous(), right=True)
     if n_hi_clip:
         if a.is_floating_point():
