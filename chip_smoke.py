@@ -44,7 +44,20 @@ just after:
   over time (factored per row); three inputs of 5e7 in 60x60x60 bins
   (factored, full); 40x40 direct with float32 weights at (1000, 64) and
   int32 weights at (64800, 64), where float weights run the scatter
-  strategy, as in the JAX package.
+  strategy, as in the JAX package;
+- the API above core: ``precision='f64'`` (exact float64 sums by int64
+  limb passes through the int64-weighted kernels) on the T–S diagram at
+  2^26 pairs with float64 U(0,1) weights (joint2; bit-identical over two
+  runs, bit-equal to its plain decomposition, <= 1 ulp of a per-slot
+  math.fsum on the first 2^20 pairs), the README call weighted by a
+  float64 (50, 64800) cell volume (factored per row), config 2 (one_input)
+  and 40x40 at (64800, 64) (direct) with float64 weights;
+  ``StreamingHistogram`` over the main path's 2^30 pairs from host memory
+  in 16 chunks (joint2) and over config 4 in kept-offset tiles (one_input),
+  both bit-equal to one call, and the 'f64' cross-chunk case; the README
+  call through the labeled API (factored per row); public calls at configs
+  1 and 4 with the threshold cache cold and warm; ``compat.histogram2d``
+  on 2^22 pairs against numpy (joint2).
 
 First, joint2, factored (full, per row, packed) and direct are held bit for
 bit against their plain versions on the adversarial threshold sets of the
@@ -1283,6 +1296,335 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
     }
 
 
+
+def kernel_spans(core, name):
+    """A context that wraps ``core.<name>`` (the kernel wrapper the public
+    call reaches) with CUDA events; yields the list of (start, stop)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def wrapped():
+        launch = getattr(core, name)
+        spans = []
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launch(*args, **kwargs)
+            stop.record()
+            spans.append((start, stop))
+            return out
+
+        setattr(core, name, timed)
+        try:
+            yield spans
+        finally:
+            setattr(core, name, launch)
+
+    return wrapped()
+
+
+def api_phase(dev, card, reset_counts, counts_now):
+    """The public API above core on the card, each path driven with the
+    launch counts set to 0 just before it and read just after, and held
+    against a plain version or an oracle: the exact float64 tier
+    (``precision='f64'``: the T–S diagram at 2^26 pairs with float64 U(0,1)
+    weights, bit-equal to its plain decomposition, bit-identical over two
+    runs, <= 1 ulp of a per-slot math.fsum on the first 2^20 pairs; the
+    README call weighted by a float64 cell volume; config 2 and 40x40 at
+    (64800, 64) with float64 weights), StreamingHistogram (the main path's
+    2^30 pairs from host memory in 16 chunks; config 4 in kept-offset tiles;
+    the 'f64' cross-chunk case), the labeled README call and the public-call
+    times at configs 1 and 4 with the threshold cache cold and warm, and
+    compat.histogram2d against numpy. Returns (launches by kernel, the f64
+    tier's numbers for the kernels line)."""
+    import math
+
+    from ts_cases import S_EDGES, T_EDGES, reference_numpy
+    import xhistogram_torch
+    from xhistogram_torch import compat, core
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.labeled import NamedArray
+    from xhistogram_torch.labeled import histogram as labeled_histogram
+    from xhistogram_torch.ops.digitize import digitize_edges, joint_bin_index
+    from xhistogram_torch.utils.profiling import measure
+
+    launches = dict.fromkeys(("joint2", "one_input", "factored", "direct"), 0)
+    ts_bins = [T_EDGES, S_EDGES]
+    hist = xhistogram_torch.histogram
+
+    def drive(label, fn, kernel):
+        """fn() between a reset and a read of the launch counts; the
+        kernel must have launched. Returns (fn's result, its launches)."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        now = counts_now()
+        n = sum(v for k, v in now.items() if k.split()[0] == kernel)
+        if n < 1:
+            raise AssertionError(f"{label}: the {kernel} kernel did not launch: {now}")
+        for k, v in now.items():
+            launches[k.split()[0]] += v
+        return out, n
+
+    def bits_equal(label, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        if not torch.equal(got, want):
+            err = float((got.double() - want.double()).abs().max())
+            raise AssertionError(f"{label}: not bit-equal (max abs err {err:.3g})")
+
+    def ms_of(fn, reps=3):
+        med, _ = measure(fn, reps=reps)
+        return med * 1e3
+
+    f64 = {}
+    # === the exact float64 tier ===============================================
+    gen = torch.Generator(device=dev).manual_seed(26)
+    t = 14.0 + 8.0 * torch.randn(N_CMP, device=dev, generator=gen)
+    s = 35.0 + 1.5 * torch.randn(N_CMP, device=dev, generator=gen)
+    w = torch.rand(N_CMP, device=dev, generator=gen, dtype=torch.float64)
+
+    def ts_call(**kw):
+        return lambda: hist(t, s, bins=ts_bins, weights=w, **kw)[0]
+
+    h1, passes = drive("f64 T-S 2^26", ts_call(precision="f64"), "joint2")
+    h2 = ts_call(precision="f64")()
+    plain = ts_call(precision="f64", method="scatter")()
+    bits_equal("f64 T-S 2^26, two runs", h1, h2)
+    bits_equal("f64 T-S 2^26 against its plain decomposition", h1, plain)
+    # <= 1 ulp of a correctly rounded per-slot math.fsum on the first 2^20 pairs
+    n_or = 1 << 20
+    part = hist(t[:n_or], s[:n_or], bins=ts_bins, weights=w[:n_or],
+                precision="f64")[0].reshape(-1).cpu().numpy()
+    thr = [torch.from_numpy(compare_form(e, np.float32).edges) for e in ts_bins]
+    idx = [digitize_edges(x[:n_or].cpu().reshape(1, -1), th) for x, th in zip((t, s), thr)]
+    g, n_slots = joint_bin_index(idx, (280, 340))
+    g = g.reshape(-1).numpy()
+    order = np.argsort(g, kind="stable")
+    ws = w[:n_or].cpu().numpy()[order]
+    cuts = np.searchsorted(g[order], np.arange(n_slots))
+    want = np.array([math.fsum(ws[cuts[i]:cuts[i + 1]]) for i in range(n_slots - 1)])
+    ulps = np.where(part == want, 0.0, np.abs(part - want) / np.spacing(np.abs(want)))
+    if ulps.max() > 1.0:
+        raise AssertionError(f"f64 T-S 2^20: {ulps.max()} ulps from math.fsum")
+    f64_ms = ms_of(ts_call(precision="f64"))
+    highest_ms = ms_of(ts_call(precision="highest"))
+    f64["T-S 2^26"] = {"passes": passes, "groups": passes // 2, "limbs": 2,
+                       "ms": f64_ms, "highest_ms": highest_ms,
+                       "fsum_max_ulps": float(ulps.max())}
+    print(f"# f64 T-S 2^26 pairs, float64 U(0,1) weights: JOINT2_LAUNCHES={passes} "
+          f"({passes // 2} groups x 2 limbs, int64 class), bit-identical over two runs "
+          f"and bit-equal to the plain decomposition, first 2^20 pairs within "
+          f"{ulps.max():.0f} ulp of math.fsum; public call {f64_ms:.3f} ms, 'highest' "
+          f"(float64 atomics) {highest_ms:.3f} ms [{card}]")
+    del t, s, w, h1, h2, plain
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(73)
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)
+    vol = 1e9 * (0.5 + torch.rand(README_TS[1:], device=dev, generator=gen,
+                                  dtype=torch.float64))
+
+    def readme_call(**kw):
+        return lambda: hist(T, S, bins=ts_bins, axis=(0, 2), weights=vol, **kw)[0]
+
+    h, passes = drive("f64 README by cell volume", readme_call(precision="f64"),
+                      "factored")
+    plain = readme_call(precision="f64", method="scatter")()
+    for level in (0, README_TS[1] - 1):
+        bits_equal(f"f64 README level {level}", h[level], plain[level])
+    bits_equal("f64 README, every level", h, plain)
+    del plain
+    ms = ms_of(readme_call(precision="f64"))
+    f64["README by cell volume"] = {"passes": passes, "ms": ms}
+    print(f"# f64 README per-level T-S by a float64 (50, 64800) cell volume: "
+          f"FACTORED_LAUNCHES={passes} (per row, int64 class), levels 0 and 49 and "
+          f"every other bit-equal to the plain decomposition; public call {ms:.3f} ms "
+          f"[{card}]")
+    labeled_T = NamedArray(T, ("time", "depth", "cell"), name="T",
+                           coords={"depth": np.arange(README_TS[1]) * 100.0 + 50},
+                           attrs={"units": "degC"})
+    labeled_S = NamedArray(S, ("time", "depth", "cell"), name="S")
+    del h
+    torch.cuda.empty_cache()
+
+    # === labeled: the README call as NamedArrays ================================
+    out, n = drive("labeled README", lambda: labeled_histogram(
+        labeled_T, labeled_S, bins=ts_bins, dim=("time", "cell")), "factored")
+    want = hist(T, S, bins=ts_bins, axis=(0, 2))[0]
+    if out.dims != ("depth", "T_bin", "S_bin") or out.name != "histogram_T_S":
+        raise AssertionError(f"labeled README: dims {out.dims}, name {out.name}")
+    bits_equal("labeled README against core.histogram", out.data, want)
+    if out.coords["T_bin"].attrs != {"units": "degC"} or "depth" not in out.coords:
+        raise AssertionError("labeled README: coordinates or attrs lost")
+    def labeled_call():
+        return labeled_histogram(labeled_T, labeled_S, bins=ts_bins, dim=("time", "cell"))
+
+    def core_call():
+        return hist(T, S, bins=ts_bins, axis=(0, 2))
+
+    # in turns: labeled, core, core, labeled
+    turns = [ms_of(f, reps=5) for f in (labeled_call, core_call, core_call, labeled_call)]
+    labeled_ms, core_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"# labeled README call, dims (time, depth, cell), dim=(time, cell): "
+          f"FACTORED_LAUNCHES={n}, dims {out.dims} == core.histogram bit for bit; "
+          f"labeled {labeled_ms:.3f} ms, core {core_ms:.3f} ms a call [{card}]")
+    del T, S, vol, out, want, labeled_T, labeled_S
+    torch.cuda.empty_cache()
+
+    # === f64 at config 2 and at 40x40 direct ===================================
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x1 = torch.randn(CONFIG1, device=dev, generator=gen)
+    w1 = torch.rand(CONFIG1, device=dev, generator=gen, dtype=torch.float64)
+    h, passes = drive("f64 config 2", lambda: hist(x1, bins=[EDGES1], axis=1, weights=w1,
+                                                  precision="f64")[0], "one_input")
+    bits_equal("f64 config 2", h, hist(x1, bins=[EDGES1], axis=1, weights=w1,
+                                       precision="f64", method="scatter")[0])
+    ms = ms_of(lambda: hist(x1, bins=[EDGES1], axis=1, weights=w1, precision="f64"))
+    f64["config 2"] = {"passes": passes, "ms": ms}
+    print(f"# f64 config 2, float64 U(0,1) weights: ONE_INPUT_LAUNCHES={passes}, "
+          f"bit-equal to the plain decomposition; public call {ms:.3f} ms [{card}]")
+    del x1, w1, h
+    a, b = (torch.randn(DIRECT[0], device=dev, generator=gen) for _ in range(2))
+    wd = torch.rand(DIRECT[0], device=dev, generator=gen, dtype=torch.float64)
+    e40 = [linspace_edges(40)] * 2
+    h, passes = drive("f64 40x40 direct", lambda: hist(a, b, bins=e40, axis=1, weights=wd,
+                                                      precision="f64")[0], "direct")
+    bits_equal("f64 40x40 direct", h, hist(a, b, bins=e40, axis=1, weights=wd,
+                                           precision="f64", method="scatter")[0])
+    ms = ms_of(lambda: hist(a, b, bins=e40, axis=1, weights=wd, precision="f64"))
+    f64["40x40 direct (64800, 64)"] = {"passes": passes, "ms": ms}
+    print(f"# f64 40x40 at (64800, 64), float64 U(0,1) weights: DIRECT_LAUNCHES="
+          f"{passes}, bit-equal to the plain decomposition; public call {ms:.3f} ms "
+          f"[{card}]")
+    del a, b, wd, h
+    torch.cuda.empty_cache()
+
+    # === streaming ==============================================================
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = 14.0 + 8.0 * torch.randn(N_MAIN, device=dev, generator=gen)  # the main path's
+    S = 35.0 + 1.5 * torch.randn(N_MAIN, device=dev, generator=gen)
+    one_shot = hist(T, S, bins=ts_bins)[0]
+    T_host, S_host = T.cpu(), S.cpu()  # 8.59 GB in host memory, copied back once
+    del T, S
+    torch.cuda.empty_cache()
+    rows = N_MAIN[0] // 16  # 16 chunks of 2^26 pairs
+
+    def stream():
+        acc = xhistogram_torch.StreamingHistogram(bins=ts_bins)
+        for k in range(16):
+            acc.update(T_host[k * rows:(k + 1) * rows], S_host[k * rows:(k + 1) * rows])
+        return acc.result()[0]
+
+    stream()  # a first stream allocates the pinned staging buffers, kept for reuse
+    with kernel_spans(core, "joint2") as spans:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (h, n) = drive("streamed T-S 2^30", stream, "joint2")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
+    bits_equal("streamed T-S 2^30 against the one-shot device call", h, one_shot)
+    pinned = [torch.empty((rows,) + N_MAIN[1:], pin_memory=True) for _ in range(2)]
+    on_card = torch.empty((rows,) + N_MAIN[1:], device=dev)
+
+    def copies():
+        for _ in range(16):
+            for buf in pinned:
+                on_card.copy_(buf, non_blocking=True)
+
+    copy_ms = event_ms(copies, reps=1)
+    copy_ms = event_ms(copies, reps=2)
+    n_bytes = 8 * T_host.numel()
+    stream_report = {"wall_ms": wall_ms, "gb_s": n_bytes / wall_ms / 1e6,
+                     "pinned_copy_ms": copy_ms, "kernel_ms": kernel_ms,
+                     "idle_share": 1 - kernel_ms / wall_ms}
+    print(f"# streamed T-S, the main path's 2^30 pairs from host memory in 16 chunks of "
+          f"2^26: JOINT2_LAUNCHES={n}, counts bit-equal to the one-shot device call; "
+          f"wall {wall_ms:.1f} ms ({stream_report['gb_s']:.2f} GB/s), the pinned "
+          f"host-to-device copy of the same {n_bytes / 1e9:.2f} GB alone {copy_ms:.1f} ms "
+          f"({n_bytes / copy_ms / 1e6:.2f} GB/s), joint2 kernels {kernel_ms:.2f} ms, card "
+          f"idle {stream_report['idle_share']:.4f} of the wall [{card}]")
+    del T_host, S_host, pinned, on_card, one_shot, h
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sst = 20.0 + 5.0 * torch.randn(SST, device=dev, generator=gen)
+    want = hist(sst, bins=[EDGES_SST], axis=0)[0]
+    sst_host = sst.cpu().numpy()
+    del sst
+
+    def stream_sst():
+        acc = xhistogram_torch.StreamingHistogram(bins=[EDGES_SST], axis=0)
+        for lat0 in range(0, SST[1], 30):  # kept-offset tiles of 30 latitudes
+            for t0_ in range(0, SST[0], 73):  # chunks of 73 days
+                acc.update(sst_host[t0_:t0_ + 73, lat0:lat0 + 30], kept_offset=(lat0, 0))
+        return acc.result()[0]
+
+    t0 = time.perf_counter()
+    h, n = drive("streamed config 4", stream_sst, "one_input")
+    sst_wall = (time.perf_counter() - t0) * 1e3
+    bits_equal("streamed config 4 against one call", h, want)
+    print(f"# streamed config 4, (365, 180, 360) numpy in 6 kept-offset tiles of 30 "
+          f"latitudes x 5 chunks of 73 days: ONE_INPUT_LAUNCHES={n}, bit-equal to one "
+          f"call; wall {sst_wall:.1f} ms [{card}]")
+    acc = xhistogram_torch.StreamingHistogram(bins=[np.linspace(0, 1, 3)], precision="f64")
+    for v in (1e16, -1e16, 1.0):
+        acc.update(np.array([0.25], np.float32), weights=np.array([v]))
+    h = acc.result()[0]
+    if h.tolist() != [1.0, 0.0] or h.device != dev:
+        raise AssertionError(f"streamed f64 1e16, -1e16, 1.0 gave {h.tolist()}")
+    print("# streamed f64: 1e16, -1e16 and 1.0 in three chunks give exactly 1.0")
+    del want, sst_host, h, acc
+
+    # === public-call ms at configs 1 and 4, threshold cache cold and warm ======
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x1 = torch.randn(CONFIG1, device=dev, generator=gen)
+    sst = 20.0 + 5.0 * torch.randn(SST, device=dev, generator=gen)
+    public = {}
+    for name, call in (("config 1", lambda: hist(x1, bins=[EDGES1])),
+                       ("config 4", lambda: hist(sst, bins=[EDGES_SST], axis=0))):
+        core._THRESHOLD_CACHE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        med, times = measure(call, reps=5)
+        with kernel_spans(core, "one_input") as spans:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            b2b_ms = (time.perf_counter() - t0) * 1e3 / 20
+        k_ms = sum(a.elapsed_time(b) for a, b in spans) / 20
+        public[name] = {"first_ms": first_ms, "cached_ms": med * 1e3,
+                        "back_to_back_ms": b2b_ms, "idle_share": 1 - k_ms / b2b_ms}
+        print(f"# public call, {name}: first (cache cold) {first_ms:.3f} ms, repeated "
+              f"(cache warm) median {med * 1e3:.3f} ms of {[round(v * 1e3, 3) for v in times]}; "
+              f"20 back to back {b2b_ms:.4f} ms a call, kernel {k_ms:.4f} ms, card idle "
+              f"{1 - k_ms / b2b_ms:.4f} [{card}]")
+    del x1, sst
+
+    # === compat ==================================================================
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = (14.0 + 8.0 * torch.randn(1 << 22, device=dev, generator=gen)).cpu().numpy()
+    y = (35.0 + 1.5 * torch.randn(1 << 22, device=dev, generator=gen)).cpu().numpy()
+    (h, ex, ey), n = drive("compat.histogram2d", lambda: compat.histogram2d(
+        x, y, bins=ts_bins), "joint2")
+    he, exe, eye = np.histogram2d(x, y, bins=ts_bins)
+    if h.dtype != he.dtype or not np.array_equal(h, he):
+        raise AssertionError(f"compat.histogram2d != numpy ({h.dtype}, {he.dtype})")
+    np.testing.assert_array_equal(ex, exe)
+    np.testing.assert_array_equal(ey, eye)
+    print(f"# compat.histogram2d, 2^22 numpy pairs on the card: JOINT2_LAUNCHES={n}, "
+          f"== numpy.histogram2d in value and dtype ({h.dtype})")
+    return launches, {"f64": f64, "streaming": stream_report, "public": public}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -1703,6 +2045,7 @@ def main():
                                max_abs_err)
     mixed = mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err)
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
+    api_launches, api = api_phase(dev, card, reset_counts, counts_now)
 
     kernels = [
         {
@@ -1737,9 +2080,14 @@ def main():
         },
         *slot,
     ]
-    for entry in kernels:  # the weighted and mixed paths' launches join the counts
+    for entry in kernels:  # the weighted, mixed and API paths' launches join the counts
         entry.update(weighted[entry["name"]])
-        entry["launches"] += entry["weighted_launches"] + mixed[entry["name"]]
+        entry["api_launches"] = api_launches[entry["name"]]
+        entry["launches"] += (entry["weighted_launches"] + mixed[entry["name"]]
+                              + entry["api_launches"])
+    kernels[0]["f64"] = api["f64"]["T-S 2^26"]
+    kernels[0]["streamed_2^30"] = api["streaming"]
+    kernels[1]["public_cache"] = api["public"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1068,3 +1068,199 @@ def test_one_input_reads_narrow_data_in_place(cuda, dtype):
         assert extra < out_bytes + x.numel() * x.element_size() / 2, (axis, extra)
         h_cpu, _ = xhistogram_torch.histogram(x.cpu(), bins=[edges], axis=axis)
         assert torch.equal(h.cpu(), h_cpu)
+
+
+# --- the public API above core: the f64 tier, streaming, labeled, compat ------
+
+_ROUTE_COUNTER = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 3,
+                  "factored_packed": 4, "direct": 5}
+
+
+def _f64_weights(shape, device, seed, spread=12):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(shape, device=device, generator=gen, dtype=torch.float64)
+    return w * 10.0 ** (spread * (2 * torch.rand(shape, device=device, generator=gen,
+                                                 dtype=torch.float64) - 1))
+
+
+@pytest.mark.parametrize(
+    "shape,nbins,axis,kernel",
+    [((1 << 18,), (50,), None, "one_input"),
+     ((8, 5000), (50,), (1,), "one_input"),
+     ((1 << 18,), (280, 340), None, "joint2"),
+     ((6, 4, 500), (280, 340), (0, 2), "factored_per_row"),
+     ((1 << 16,), (60, 60, 60), None, "factored"),
+     ((2000, 64), (40, 40), (1,), "direct")],
+    ids=str,
+)
+def test_f64_runs_the_int64_kernels_bit_identically(cuda, shape, nbins, axis, kernel):
+    """precision='f64' on the card: every limb pass launches the route's
+    int64-weighted kernel, two runs give the same bits, and so does the
+    plain decomposition (index_add_ on the card) and the CPU."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    args = [torch.randn(shape, device=cuda, generator=gen) * 1.5 for _ in nbins]
+    w = _f64_weights(shape, cuda, seed=32)
+    bins = [_edges(nb) for nb in nbins]
+    before = _launch_counts()
+    h1, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                       precision="f64")
+    launched = [a - b for a, b in zip(_launch_counts(), before)]
+    assert launched[_ROUTE_COUNTER[kernel]] >= 2  # groups x limbs passes
+    assert sum(launched) == launched[_ROUTE_COUNTER[kernel]]
+    h2, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                       precision="f64")
+    plain, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
+                                          precision="f64", method="scatter")
+    assert h1.dtype == torch.float64
+    assert torch.equal(h1, h2) and torch.equal(h1, plain)
+    h_cpu, _ = xhistogram_torch.histogram(*(a.cpu() for a in args), bins=bins, axis=axis,
+                                          weights=w.cpu(), precision="f64")
+    assert torch.equal(h1.cpu(), h_cpu)
+
+
+def test_f64_nonfinite_and_broadcast_weights_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    t = torch.randn(8, 50, 600, device=cuda, generator=gen)
+    s = torch.randn(8, 50, 600, device=cuda, generator=gen)
+    vol = _f64_weights((50, 600), cuda, seed=34)
+    vol[3, :5] = float("inf")
+    vol[7, 9] = float("nan")
+    bins = [_edges(28), _edges(34)]
+    h, _ = xhistogram_torch.histogram(t, s, bins=bins, axis=(0, 2), weights=vol,
+                                      precision="f64")
+    plain, _ = xhistogram_torch.histogram(t, s, bins=bins, axis=(0, 2), weights=vol,
+                                          precision="f64", method="scatter")
+    assert h.isposinf().any() and h.isnan().any()
+    assert torch.equal(h.isnan(), plain.isnan())
+    fin = ~plain.isnan()
+    assert torch.equal(h[fin], plain[fin])
+
+
+def _no_sync(fn):
+    """Run ``fn`` with synchronising CUDA calls turned into errors."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("kind", ["device", "numpy", "cpu-tensor"])
+@pytest.mark.parametrize("wdtype", [None, torch.float32, torch.int64, torch.uint64],
+                         ids=str)
+def test_streaming_updates_do_not_synchronise(cuda, kind, wdtype):
+    """No update() waits for the card: device chunks pass through, host
+    chunks are staged through pinned memory on a side stream; the sum over
+    chunks equals the one-shot call bit for bit (float32 sums: each chunk's
+    rounding, within two float32 ulps)."""
+    t_np, s_np = ts_data((8, 1 << 16), seed=35)
+    rng = np.random.default_rng(36)
+    w_np = None
+    if wdtype is not None:
+        w_np = {torch.float32: rng.random((8, 1 << 16)).astype(np.float32),
+                torch.int64: rng.integers(-(2**40), 2**40, (8, 1 << 16)),
+                torch.uint64: rng.integers(0, 2**62, (8, 1 << 16)).astype(np.uint64)
+                }[wdtype]
+
+    def chunk(x, k):
+        part = np.ascontiguousarray(x[:, k * 8192:(k + 1) * 8192])
+        if kind == "numpy":
+            return part
+        t = torch.from_numpy(part)
+        return t if kind == "cpu-tensor" else t.to(cuda)
+
+    acc = xhistogram_torch.StreamingHistogram(bins=[T_EDGES, S_EDGES])
+    chunks = [(chunk(t_np, k), chunk(s_np, k), None if w_np is None else chunk(w_np, k))
+              for k in range(8)]
+    acc.update(*chunks[0][:2], weights=chunks[0][2])  # thresholds cached, buffers warm
+    for a, b, w in chunks[1:]:
+        _no_sync(lambda: acc.update(a, b, weights=w))
+    h, _ = acc.result()
+    assert h.device.type == "cuda"
+    want, _ = xhistogram_torch.histogram(t_np, s_np, bins=[T_EDGES, S_EDGES],
+                                         weights=w_np, device=cuda)
+    if wdtype == torch.float32:
+        assert h.dtype == torch.float64
+        torch.testing.assert_close(h, want.double(), rtol=2.4e-7, atol=1e-6)
+    else:
+        assert h.dtype == want.dtype
+        assert torch.equal(h, want)
+
+
+def test_streaming_kept_offset_tiles_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    sst = (20 + 5 * torch.randn(40, 18, 36, device=cuda, generator=gen)).cpu().numpy()
+    edges = np.linspace(0, 40, 81)
+    acc = xhistogram_torch.StreamingHistogram(bins=[edges], axis=0)
+    for lat0 in range(0, 18, 6):
+        for t0 in range(0, 40, 10):
+            acc.update(sst[t0:t0 + 10, lat0:lat0 + 6], kept_offset=(lat0, 0))
+    h, _ = acc.result()
+    want, _ = xhistogram_torch.histogram(sst, bins=[edges], axis=0, device=cuda)
+    assert torch.equal(h, want)
+    blocks = acc.blocks
+    assert set(blocks) == {(0, 0), (6, 0), (12, 0)}
+    assert all(b.device.type == "cuda" for b in blocks.values())
+
+
+def test_streaming_f64_across_chunks_on_the_card(cuda):
+    acc = xhistogram_torch.StreamingHistogram(bins=[np.linspace(0, 1, 3)],
+                                              precision="f64")
+    for v in (1e16, -1e16, 1.0):
+        acc.update(np.array([0.25], np.float32), weights=np.array([v]))
+    h, _ = acc.result()
+    assert h.device.type == "cuda" and h.tolist() == [1.0, 0.0]
+
+
+def test_threshold_cache_per_device_and_no_copy_on_a_hit(cuda):
+    from xhistogram_torch import core
+
+    core._THRESHOLD_CACHE.clear()
+    x = torch.randn(1 << 16, device=cuda)
+    edges = np.linspace(-4, 4, 51)
+    h, _ = xhistogram_torch.histogram(x, bins=[edges])
+    h_cpu, _ = xhistogram_torch.histogram(x.cpu(), bins=[edges])
+    assert torch.equal(h.cpu(), h_cpu)
+    devices = sorted(str(k[4]) for k in core._THRESHOLD_CACHE)
+    assert devices == ["cpu", str(x.device)]
+    again = _no_sync(lambda: xhistogram_torch.histogram(x, bins=[edges.copy()])[0])
+    assert torch.equal(again, h) and len(core._THRESHOLD_CACHE) == 2
+
+
+@pytest.mark.parametrize("method", ["onehot", "sort"])
+def test_strategies_run_no_kernel_on_the_card(cuda, method):
+    t_np, s_np = ts_data((4, 4096), seed=38)
+    t, s = torch.from_numpy(t_np).to(cuda), torch.from_numpy(s_np).to(cuda)
+    w = torch.randint(-1000, 1000, t.shape, device=cuda, dtype=torch.int32)
+    bins = [T_EDGES, S_EDGES]
+    for axis in (None, 1):
+        for weights in (None, w):
+            before = _launch_counts()
+            h, _ = xhistogram_torch.histogram(t, s, bins=bins, axis=axis, weights=weights,
+                                              method=method)
+            assert _launch_counts() == before
+            want, _ = xhistogram_torch.histogram(t, s, bins=bins, axis=axis,
+                                                 weights=weights, method="scatter")
+            assert torch.equal(h, want)
+
+
+def test_labeled_and_compat_on_the_card(cuda):
+    from xhistogram_torch import compat
+    from xhistogram_torch.labeled import NamedArray
+    from xhistogram_torch.labeled import histogram as lhist
+
+    t_np, s_np = ts_data((6, 5, 900), seed=39)
+    T = NamedArray(torch.from_numpy(t_np).to(cuda), ("time", "depth", "cell"), name="T",
+                   attrs={"units": "degC"})
+    S = NamedArray(s_np, ("time", "depth", "cell"), name="S",
+                   coords={"depth": np.arange(5.0)})
+    out = lhist(T, S, bins=[T_EDGES, S_EDGES], dim=("time", "cell"))
+    want, _ = xhistogram_torch.histogram(T.data, torch.from_numpy(s_np).to(cuda),
+                                         bins=[T_EDGES, S_EDGES], axis=(0, 2))
+    assert out.dims == ("depth", "T_bin", "S_bin") and out.data.device.type == "cuda"
+    assert torch.equal(out.data, want)
+    assert out.coords["T_bin"].attrs == {"units": "degC"}
+    h, _, _ = compat.histogram2d(t_np.ravel(), s_np.ravel(), bins=[T_EDGES, S_EDGES])
+    he, _, _ = np.histogram2d(t_np.ravel(), s_np.ravel(), bins=[T_EDGES, S_EDGES])
+    assert h.dtype == he.dtype
+    np.testing.assert_array_equal(h, he)

@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -16,6 +18,27 @@ def test_import_leaves_jax_and_triton_out():
         "xhistogram_torch.ops._build; "
         "print(sorted(m for m in ('jax', 'triton', 'xhistogram_tpu') "
         "if m in sys.modules))"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["xhistogram_torch.streaming", "xhistogram_torch.labeled",
+                                    "xhistogram_torch.labeled.api", "xhistogram_torch.compat",
+                                    "xhistogram_torch.ops.bincount"])
+def test_new_modules_leave_jax_out(module):
+    """Each module of the public API above core imports alone without JAX
+    or the JAX package, and the package exports them as the JAX one does."""
+    code = (
+        f"import sys, importlib; importlib.import_module({module!r}); "
+        "import xhistogram_torch as x; "
+        "assert all(hasattr(x, n) for n in ('core', 'ops', 'labeled', 'streaming', "
+        "'compat', 'histogram', 'StreamingHistogram')); "
+        "print(sorted(m for m in ('jax', 'xhistogram_tpu') if m in sys.modules))"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,

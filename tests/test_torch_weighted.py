@@ -310,10 +310,17 @@ def test_precision_errors_match_jax(precision, weighted):
 
 
 def test_precision_f64_not_ported_for_float_weights():
+    """precision='f64' with float weights gives the JAX package's exact
+    float64 sums (within 1 ulp; tests/test_torch_f64.py holds the tier to
+    exact oracles), no longer a refusal."""
     x = np.linspace(0, 1.9, 16)
     e = [np.array([0.0, 1.0, 2.0])]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        histogram_cpu(x, bins=e, weights=np.ones(16), precision="f64")
+    w = np.random.default_rng(22).normal(size=16) * 10.0 ** np.arange(-8, 8)
+    for wf in (w, w.astype(np.float32)):
+        h, _ = histogram_cpu(x, bins=e, weights=wf, precision="f64")
+        jh, _ = xhistogram_tpu.histogram(x, bins=e, weights=wf, precision="f64")
+        assert h.dtype == torch.float64 and np.asarray(jh).dtype == np.float64
+        np.testing.assert_array_max_ulp(h.numpy(), np.asarray(jh), maxulp=1)
     # exact in every mode already: the request normalizes away, as in JAX
     for w in (None, np.arange(16, dtype=np.int32), np.arange(16, dtype=np.int64)):
         h, _ = histogram_cpu(x, bins=e, weights=w, precision="f64")
