@@ -57,7 +57,18 @@ just after:
   both bit-equal to one call, and the 'f64' cross-chunk case; the README
   call through the labeled API (factored per row); public calls at configs
   1 and 4 with the threshold cache cold and warm; ``compat.histogram2d``
-  on 2^22 pairs against numpy (joint2).
+  on 2^22 pairs against numpy (joint2);
+- the sharded path (``parallel.histogram_sharded``) on the one card: one
+  rank over NCCL (the T–S diagram at 2^26 pairs: joint2 and a real NCCL
+  all-reduce), then two ranks spawned on the card over gloo, each case
+  bit-equal to one unsharded call (float32 sums within two ulps): the T–S
+  diagram at 2^26 pairs sharded on a reduced axis (joint2), config 4
+  sharded on latitude, a kept axis (one_input; the output stays sharded),
+  the README call at 8 times by cell volume sharded on cells (factored per
+  row), 40x40 direct at (64800, 64) sharded on rows, and ``precision='f64'``
+  on the T–S diagram at 2^24 pairs and on rows of 2^23 + 2^21 elements
+  (past the JAX package's per-digit guard), with each rank's launches, the
+  all-reduces and the sharded call's wall time beside the one-card call's.
 
 First, joint2, factored (full, per row, packed) and direct are held bit for
 bit against their plain versions on the adversarial threshold sets of the
@@ -93,6 +104,7 @@ of JAX.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1625,6 +1637,235 @@ def api_phase(dev, card, reset_counts, counts_now):
     return launches, {"f64": f64, "streaming": stream_report, "public": public}
 
 
+def sharded_cases(full=True):
+    """The sharded phase's cases: (name, kernel, in_spec, input shapes, bins,
+    histogram keywords, weights shape and dtype or None, exact). ``full``
+    gives the card's sizes; else tiny ones, for a rehearsal on the CPU."""
+    from ts_cases import S_EDGES, T_EDGES
+
+    ts, ts_f64, sst, readme, direct, row = (
+        ((64, 1 << 20), (16, 1 << 20), SST, (8,) + README_TS[1:], DIRECT[0],
+         (2, (1 << 23) + (1 << 21))) if full else
+        ((4, 64), (4, 32), (6, 4, 5), (2, 3, 16), (8, 16), (2, 96)))
+    return [
+        ("T-S 2^26", "joint2", ("x", None), [ts, ts], [T_EDGES, S_EDGES], {}, None, True),
+        ("config 4, sharded on latitude", "one_input", (None, "x", None), [sst],
+         [EDGES_SST], {"axis": 0}, None, True),
+        ("README per-level T-S, 8 times, by cell volume", "factored", (None, None, "x"),
+         [readme, readme], [T_EDGES, S_EDGES], {"axis": (0, 2)},
+         (readme[1:], torch.float32), False),
+        ("40x40 direct on rows", "direct", ("x", None), [direct, direct],
+         [linspace_edges(40), linspace_edges(40)], {"axis": 1}, None, True),
+        ("f64 T-S 2^24, float64 weights", "joint2", ("x", None), [ts_f64, ts_f64],
+         [T_EDGES, S_EDGES], {"precision": "f64"}, (ts_f64, torch.float64), True),
+        ("f64 rows of 2^23 + 2^21", "one_input", (None, "x"), [row], [EDGES_ROW],
+         {"axis": 1, "precision": "f64"}, (row, torch.float64), True),
+    ]
+
+
+def _sharded_inputs(shapes, weights, bins, device, seed):
+    """The case's inputs, made alike on every rank from ``seed``: T-S-like
+    data for T-S edges, N(0,1) otherwise (config 4: its SST field); weights
+    0.5 + U(0,1) (a cell volume)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape, edges in zip(shapes, bins):
+        x = torch.randn(shape, device=device, generator=gen)
+        if len(edges) == 281:
+            x = 14.0 + 8.0 * x
+        elif len(edges) == 341:
+            x = 35.0 + 1.5 * x
+        elif len(edges) == 81:
+            x = 20.0 + 5.0 * x
+        out.append(x)
+    w = None
+    if weights is not None:
+        shape, dtype = weights
+        w = 0.5 + torch.rand(shape, device=device, generator=gen, dtype=dtype)
+    return out, w
+
+
+def _sharded_rank(rank, world, init, out_dir, device_type, full):
+    """One rank of the sharded phase (``torch.multiprocessing.spawn``): a
+    gloo group of ``world`` ranks on one device, each case's sharded call
+    held against one unsharded call on the same inputs, its launches, its
+    all-reduces and its wall time beside the one-card call's, written to
+    ``out_dir/rank<r>.json``. Any exception fails the rank."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import xhistogram_torch
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.parallel import histogram_sharded, sharded
+    from xhistogram_torch.utils.profiling import measure
+
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh(device_type, (world,), mesh_dim_names=("x",))
+        device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+        results = {}
+        for i, (name, kernel, spec, shapes, bins, kw, weights, exact) in enumerate(
+                sharded_cases(full)):
+            args, w = _sharded_inputs(shapes, weights, bins, device, seed=100 + i)
+            want, _ = xhistogram_torch.histogram(*args, bins=bins, weights=w, **kw)
+            cuda_hist.JOINT2_LAUNCHES = cuda_hist.ONE_INPUT_LAUNCHES = 0
+            cuda_hist.DIRECT_LAUNCHES = 0
+            cuda_hist.FACTORED_LAUNCHES.update(dict.fromkeys(cuda_hist.FACTORED_LAUNCHES, 0))
+            before = sharded.ALL_REDUCES
+            h, _ = histogram_sharded(*args, mesh=mesh, in_spec=spec, bins=bins, weights=w,
+                                     **kw)
+            if device_type == "cuda":
+                torch.cuda.synchronize()
+            launches = {"joint2": cuda_hist.JOINT2_LAUNCHES,
+                        "one_input": cuda_hist.ONE_INPUT_LAUNCHES,
+                        "factored": sum(cuda_hist.FACTORED_LAUNCHES.values()),
+                        "direct": cuda_hist.DIRECT_LAUNCHES}
+            all_reduces = sharded.ALL_REDUCES - before
+            got = h.to_local()
+            placements = [str(p) for p in h.placements]
+            if placements == ["S(0)"]:
+                n = got.shape[0]
+                want = want.narrow(0, rank * n, n)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
+                                     f"{want.dtype} {tuple(want.shape)}")
+            if exact:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name}: rank {rank} != one call")
+                err = 0.0
+            else:  # float32 sums: within two float32 ulps of one call
+                ulp = (torch.nextafter(want, torch.full_like(want, math.inf)) - want).abs()
+                err = float(((got - want).abs() / ulp).max())
+                if err > 2:
+                    raise AssertionError(f"{name}: rank {rank} {err} ulps from one call")
+            if device_type == "cuda" and launches[kernel] < 1:
+                raise AssertionError(f"{name}: rank {rank} launched no {kernel}: {launches}")
+
+            def timed(fn):
+                def run():
+                    dist.barrier()
+                    fn()
+                return measure(run, reps=3)[0] * 1e3
+
+            results[name] = {
+                "kernel": kernel, "launches": launches, "all_reduces": all_reduces,
+                "placements": placements, "max_ulps": err,
+                "sharded_ms": timed(lambda: histogram_sharded(
+                    *args, mesh=mesh, in_spec=spec, bins=bins, weights=w, **kw)),
+                "one_card_ms": timed(lambda: xhistogram_torch.histogram(
+                    *args, bins=bins, weights=w, **kw)),
+            }
+            del args, w, want, h, got
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(results, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_ranks(world, device_type, full, timeout):
+    """``world`` ranks of ``_sharded_rank`` spawned on this machine; each
+    rank's results. A rank that raises or outlasts ``timeout`` seconds fails
+    the run, and every rank is stopped before this returns."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _sharded_rank, args=(world, os.path.join(tmp, "rendezvous"), tmp, device_type,
+                                 full),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the sharded ranks did not finish in {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+
+def sharded_phase(dev, card, reset_counts, counts_now):
+    """``parallel.histogram_sharded`` on the one card: (a) one rank over
+    NCCL (a one-rank DeviceMesh on cuda: the kernel and a real NCCL
+    all-reduce), then (b) two ranks spawned on the same card over gloo (NCCL
+    takes one rank a device), each case held against one unsharded call on
+    the same inputs. Prints each case's launches per rank, all-reduces and
+    the sharded call's wall ms beside the one-card call's. Returns the
+    launches by kernel, as rank 0 saw them with (a)'s."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ts_cases import S_EDGES, T_EDGES
+    import xhistogram_torch
+    from xhistogram_torch.parallel import histogram_sharded, sharded
+    from xhistogram_torch.utils.profiling import measure
+
+    launches = dict.fromkeys(("joint2", "one_input", "factored", "direct"), 0)
+    # --- (a) one rank over NCCL -----------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+            args, _ = _sharded_inputs([(64, 1 << 20)] * 2, None, [T_EDGES, S_EDGES], dev, 7)
+            want, _ = xhistogram_torch.histogram(*args, bins=[T_EDGES, S_EDGES])
+            reset_counts()
+            before = sharded.ALL_REDUCES
+            h, _ = histogram_sharded(*args, mesh=mesh, in_spec=("x", None),
+                                     bins=[T_EDGES, S_EDGES])
+            torch.cuda.synchronize()
+            now, n_reduce = counts_now(), sharded.ALL_REDUCES - before
+            if now["joint2"] != 1 or n_reduce != 1 or not torch.equal(h.to_local(), want):
+                raise AssertionError(f"one NCCL rank, T-S 2^26: launches {now}, "
+                                     f"all-reduces {n_reduce}, equal to one call: "
+                                     f"{torch.equal(h.to_local(), want)}")
+            launches["joint2"] += now["joint2"]
+            nccl_ms = measure(lambda: histogram_sharded(
+                *args, mesh=mesh, in_spec=("x", None), bins=[T_EDGES, S_EDGES]), reps=3)[0]
+            one_ms = measure(lambda: xhistogram_torch.histogram(
+                *args, bins=[T_EDGES, S_EDGES]), reps=3)[0]
+            print(f"# sharded, one NCCL rank, T-S 2^26 pairs: JOINT2_LAUNCHES=1, "
+                  f"all-reduces {n_reduce} (NCCL), bit-equal to one call; sharded "
+                  f"{nccl_ms * 1e3:.3f} ms, one-card call {one_ms * 1e3:.3f} ms [{card}]")
+            del args, want, h
+        finally:
+            dist.destroy_process_group()
+    # --- (b) two ranks on the one card over gloo -------------------------------
+    ranks = run_sharded_ranks(2, "cuda", True, timeout=300)
+    for name, r0 in ranks[0].items():
+        r1 = ranks[1][name]
+        for k in launches:
+            launches[k] += r0["launches"][k]
+        per_rank = "; ".join(
+            f"rank {i}: {r['launches'][r['kernel']]} {r['kernel']} launch(es), "
+            f"{r['all_reduces']} all-reduce(s), sharded {r['sharded_ms']:.3f} ms, "
+            f"one-card {r['one_card_ms']:.3f} ms" for i, r in enumerate((r0, r1)))
+        match = ("bit-equal to one call" if r0["max_ulps"] == 0 and r1["max_ulps"] == 0
+                 else f"within {max(r0['max_ulps'], r1['max_ulps']):.2f} float32 ulps "
+                      "of one call")
+        print(f"# sharded, two gloo ranks on one card, {name}: output {r0['placements']}, "
+              f"{match}; {per_rank} [{card}]")
+    print(f"# sharded phase: {time.perf_counter() - t0:.1f} s with the spawns [{card}]")
+    return launches, {"nccl_one_rank_ms": nccl_ms * 1e3, "one_card_ms": one_ms * 1e3,
+                      "two_gloo_ranks": ranks[0]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -2046,6 +2287,7 @@ def main():
     mixed = mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err)
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
     api_launches, api = api_phase(dev, card, reset_counts, counts_now)
+    sharded_launches, sharded = sharded_phase(dev, card, reset_counts, counts_now)
 
     kernels = [
         {
@@ -2083,11 +2325,13 @@ def main():
     for entry in kernels:  # the weighted, mixed and API paths' launches join the counts
         entry.update(weighted[entry["name"]])
         entry["api_launches"] = api_launches[entry["name"]]
+        entry["sharded_launches"] = sharded_launches[entry["name"]]
         entry["launches"] += (entry["weighted_launches"] + mixed[entry["name"]]
-                              + entry["api_launches"])
+                              + entry["api_launches"] + entry["sharded_launches"])
     kernels[0]["f64"] = api["f64"]["T-S 2^26"]
     kernels[0]["streamed_2^30"] = api["streaming"]
     kernels[1]["public_cache"] = api["public"]
+    kernels[0]["sharded"] = sharded
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

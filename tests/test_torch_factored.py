@@ -76,13 +76,13 @@ def _spy(monkeypatch):
         ran["jax"].append("direct")
         return run_direct(*args, **kwargs)
 
-    def port_factored(arrays_2d, thresholds, nbins, variant, weights=None):
+    def port_factored(arrays_2d, thresholds, nbins, variant, weights=None, **kwargs):
         ran["port"].append(ROUTE[variant])
-        return cuda_hist.factored(arrays_2d, thresholds, nbins, variant, weights)
+        return cuda_hist.factored(arrays_2d, thresholds, nbins, variant, weights, **kwargs)
 
-    def port_direct(arrays_2d, thresholds, nbins, weights=None):
+    def port_direct(arrays_2d, thresholds, nbins, weights=None, **kwargs):
         ran["port"].append("direct")
-        return cuda_hist.direct(arrays_2d, thresholds, nbins, weights)
+        return cuda_hist.direct(arrays_2d, thresholds, nbins, weights, **kwargs)
 
     monkeypatch.setattr(pallas_hist, "_run_factored", jax_factored)
     monkeypatch.setattr(pallas_hist, "_run_direct", jax_direct)

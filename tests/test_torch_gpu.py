@@ -1264,3 +1264,38 @@ def test_labeled_and_compat_on_the_card(cuda):
     he, _, _ = np.histogram2d(t_np.ravel(), s_np.ravel(), bins=[T_EDGES, S_EDGES])
     assert h.dtype == he.dtype
     np.testing.assert_array_equal(h, he)
+
+
+def _op_cases(device, weights):
+    """(op, arguments) of each kernel op and variant on the card."""
+    ops = torch.ops.xhistogram
+    gen = torch.Generator(device=device).manual_seed(40)
+    a, b = (torch.rand(64, 4096, device=device, generator=gen) for _ in range(2))
+    w = None if weights is None else (torch.rand(64, 4096, device=device, generator=gen)
+                                      * 100).to(weights)
+    thr = torch.linspace(0.0, 1.0, 41, device=device)
+    return [
+        (ops.one_input, (a, thr, w, 40, False)), (ops.one_input, (a, thr, w, 40, True)),
+        (ops.joint2, (a, b, thr, thr, w, 40, 40)),
+        *((ops.factored, ([a, b], [thr, thr], w, [40, 40], v))
+          for v in ("full", "per_row", "packed")),
+        (ops.direct, ([a, b], [thr, thr], w, [40, 40])),
+    ]
+
+
+@pytest.mark.parametrize("weights", [None, torch.float32, torch.int32, torch.int64], ids=str)
+def test_opcheck_on_cuda(cuda, weights):
+    """Each kernel op passes torch.library.opcheck on CUDA tensors (its
+    fake implementation against the kernel's output), launches its kernel,
+    and equals the op on the same data on the CPU (the plain version)."""
+    before = _launch_counts()
+    for op, args in _op_cases(cuda, weights):
+        torch.library.opcheck(op, args)
+        got = op(*args)
+        want = op(*torch.utils._pytree.tree_map_only(torch.Tensor, lambda t: t.cpu(), args))
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        if got.is_floating_point():
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(got.cpu(), want)
+    assert _launch_counts() != before

@@ -1,7 +1,10 @@
-"""The PyTorch port imports without JAX and without Triton, and neither it,
+"""The PyTorch port imports without JAX and without Triton, and neither it
+(its sharded layer ``parallel/`` and ``ops/partitioning.py`` included),
 ``chip_smoke.py`` (with the numpy references it takes from
-``tests/ts_cases.py``) nor the probes under ``tools/`` import anything of
-the JAX package or its bench; every kernel symbol it binds has a source."""
+``tests/ts_cases.py``), the gloo rank helpers of the sharded tests nor the
+probes under ``tools/`` import anything of the JAX package or its bench;
+importing it starts no process group; every kernel symbol it binds has a
+source."""
 
 import pathlib
 import subprocess
@@ -29,7 +32,10 @@ def test_import_leaves_jax_and_triton_out():
 
 @pytest.mark.parametrize("module", ["xhistogram_torch.streaming", "xhistogram_torch.labeled",
                                     "xhistogram_torch.labeled.api", "xhistogram_torch.compat",
-                                    "xhistogram_torch.ops.bincount"])
+                                    "xhistogram_torch.ops.bincount",
+                                    "xhistogram_torch.parallel",
+                                    "xhistogram_torch.parallel.sharded",
+                                    "xhistogram_torch.ops.partitioning"])
 def test_new_modules_leave_jax_out(module):
     """Each module of the public API above core imports alone without JAX
     or the JAX package, and the package exports them as the JAX one does."""
@@ -48,10 +54,32 @@ def test_new_modules_leave_jax_out(module):
     assert res.stdout.strip() == "[]"
 
 
+def test_import_initialises_no_process_group():
+    """Importing the port, its sharded layer and the ops' sharding rules
+    starts no torch.distributed process group and leaves JAX out."""
+    code = (
+        "import sys, torch, xhistogram_torch, xhistogram_torch.parallel, "
+        "xhistogram_torch.ops.partitioning; "
+        "assert xhistogram_torch.parallel.histogram_sharded; "
+        "assert not torch.distributed.is_initialized(); "
+        "print(sorted(m for m in ('jax', 'triton', 'xhistogram_tpu') if m in sys.modules))"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
 def test_no_port_file_imports_jax():
     sources = sorted((REPO / "xhistogram_torch").rglob("*.py"))
     assert sources
+    assert {"parallel/sharded.py", "ops/partitioning.py"} <= {
+        str(p.relative_to(REPO / "xhistogram_torch")) for p in sources}
     scripts = [REPO / "chip_smoke.py", REPO / "tests" / "ts_cases.py",
+               *(REPO / "tests" / f for f in ("torch_dist.py", "torch_sharded_cases.py",
+                                              "torch_ops_cases.py")),
                *sorted((REPO / "tools").glob("*.py"))]
     for path in sources + scripts:
         text = path.read_text()

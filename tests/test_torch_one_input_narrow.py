@@ -113,9 +113,9 @@ def test_one_input_takes_narrow_data_unwidened(name, monkeypatch):
     seen = []
     real = cuda_hist.one_input
 
-    def spy(a2d, thr, nb, reduce_all, weights=None):
+    def spy(a2d, thr, nb, reduce_all, weights=None, **kwargs):
         seen.append((a2d.dtype, thr.dtype))
-        return real(a2d, thr, nb, reduce_all, weights=weights)
+        return real(a2d, thr, nb, reduce_all, weights=weights, **kwargs)
 
     monkeypatch.setattr(core, "one_input", spy)
     for axis in (None, (1,)):

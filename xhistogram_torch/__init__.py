@@ -10,6 +10,8 @@ JAX package so each counterpart is easy to find:
   - ``xhistogram_torch.streaming``          — ``StreamingHistogram``, chunks
     accumulated on the card
   - ``xhistogram_torch.compat``             — numpy-signature wrappers
+  - ``xhistogram_torch.parallel``           — ``histogram_sharded`` over a
+    ``torch.distributed`` ``DeviceMesh`` (every rank makes the call)
   - ``xhistogram_torch.bins``               — host-side bin-edge handling
   - ``xhistogram_torch.ops``                — digitize, bincount strategies,
     and the CUDA kernels with their plain PyTorch versions
@@ -26,6 +28,7 @@ from . import ops  # noqa: F401
 from . import labeled  # noqa: F401
 from . import streaming  # noqa: F401
 from . import compat  # noqa: F401
+from . import parallel  # noqa: F401
 from .core import histogram  # noqa: F401
 from .streaming import StreamingHistogram  # noqa: F401
 
@@ -35,6 +38,7 @@ __all__ = [
     "labeled",
     "streaming",
     "compat",
+    "parallel",
     "histogram",
     "StreamingHistogram",
     "__version__",

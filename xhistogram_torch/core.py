@@ -42,12 +42,13 @@ computed in the same order as the JAX package.
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
 
 from . import bins as _bins
-from .ops.bincount import bincount2d
+from .ops.bincount import finish_sums, slot_sums
 from .ops.cuda_hist import (
     direct, factored, joint2, one_input, plan, validate_public_precision,
 )
@@ -230,9 +231,9 @@ def _place(args, device):
 
 def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
                  reduce_all, w2d=None):
-    """Counts (or sums of the weights ``w2d``) ``(rows, prod(nbins) + 1)``
-    from ``kernel``, the kernel the JAX package would run here
-    (``pallas_hist._dispatch``)."""
+    """Counts (or sums of the weights ``w2d``, in their accumulator class)
+    ``(rows, prod(nbins) + 1)`` from ``kernel``, the kernel the JAX package
+    would run here (``pallas_hist._dispatch``)."""
     if any(n_hi_clip):
         raise NotImplementedError(
             f"method={method!r} cannot represent bin edges at/beyond the data "
@@ -242,17 +243,15 @@ def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
     with scope("cuda_kernel"):
         if kernel == "one_input":
             return one_input(arrays_2d[0], thresholds[0], nbins[0], reduce_all,
-                             weights=w2d)
+                             weights=w2d, finish=False)
         if kernel == "joint2":
             a, b = arrays_2d  # joint2 runs only for a full reduction
             return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1],
-                          weights=w2d)
+                          weights=w2d, finish=False)
         if kernel == "direct":
-            return direct(arrays_2d, thresholds, nbins, weights=w2d)
+            return direct(arrays_2d, thresholds, nbins, weights=w2d, finish=False)
         return factored(arrays_2d, thresholds, nbins, _FACTORED_VARIANT[kernel],
-                        weights=w2d)
-
-
+                        weights=w2d, finish=False)
 
 
 #: explicit edge arrays' compare-form thresholds, already on their device:
@@ -267,6 +266,7 @@ _THRESHOLD_CACHE = {}
 _THRESHOLD_CACHE_CAP = 128
 
 
+@torch.compiler.disable  # host work on numpy edges: run it, do not trace it
 def _device_thresholds(edges, compare_dtype, device, cache=True):
     """``(thresholds, n_hi_clip)``: ``bins.compare_form(edges,
     compare_dtype)`` as a tensor on ``device`` (uint64 thresholds flipped
@@ -359,7 +359,12 @@ def _scaled(t, x):
     return t * math.ldexp(1.0, x1) * math.ldexp(1.0, x - x1)
 
 
-def _f64_groups(wf, amax):
+def _same(t, op):
+    """The one-card ``agree``: a value every rank holds already."""
+    return t
+
+
+def _f64_groups(wf, amax, agree=_same):
     """``[(s, K)]``: finite float64 weights ``wf`` (zeros where the weights
     are not finite) as int64 integers ``K`` (|K| < 2**62) with
     ``sum ldexp(K, s) == wf`` exactly, elementwise.
@@ -375,14 +380,18 @@ def _f64_groups(wf, amax):
     ``K = ±M * 2**(u - s)``. Over ``_F64_MAX_GROUPS`` groups raises the JAX
     package's ``ValueError``. The host reads a few scalars (the largest
     weight, whether one group holds all, and otherwise which groups are
-    present), which choose the passes. ``amax`` is the largest |weight|."""
+    present), which choose the passes. ``amax`` is the largest |weight|.
+
+    ``agree(t, op)`` makes each of those scalars global when ``wf`` is one
+    rank's block of sharded weights (an all-reduce "min", "max" or "sum"
+    over the mesh), so every rank runs the same passes."""
     if amax == 0.0:
         return []
     s = max(math.frexp(amax)[1] - 62, -1074)  # the top bit of amax is s + 61
     y = _scaled(wf, -s)  # exact, but where a weight far below 2**s underflows
     one_group = torch.stack([(y == torch.trunc(y)).all(),
                              torch.count_nonzero(y) == torch.count_nonzero(wf)])
-    if bool(one_group.all()):
+    if bool(agree(one_group.to(torch.int32), "min").all()):
         return [(s, y.to(torch.int64))]
 
     bits = wf.view(torch.int64)
@@ -394,12 +403,13 @@ def _f64_groups(wf, amax):
     low = mant & -mant  # M's lowest set bit: a power of two
     low_exp = (low.to(torch.float64).view(torch.int64) >> 52) - 1023  # exact
     lowest = torch.where(nonzero, unit + low_exp, _F64_NO_GROUP)
-    lmin = lowest.amin()
+    lmin = agree(lowest.amin(), "min")
     gid = torch.where(nonzero, (lowest - lmin) // _F64_GROUP_STRIDE, _F64_GROUP_IDS)
     # members per group: bincount's shared-memory histogram (an index_add_
     # serialises on the one or two groups that hold nearly every weight)
     per_group = torch.bincount(gid.reshape(-1), minlength=_F64_GROUP_IDS + 1)
-    stats = torch.cat([lmin.reshape(1), per_group[:_F64_GROUP_IDS]]).cpu()
+    per_group = agree(per_group[:_F64_GROUP_IDS], "sum")
+    stats = torch.cat([lmin.reshape(1), per_group]).cpu()
     lmin = int(stats[0])
     present = torch.nonzero(stats[1:]).reshape(-1).tolist()
     if len(present) > _F64_MAX_GROUPS:
@@ -421,7 +431,8 @@ def _f64_groups(wf, amax):
     return groups
 
 
-def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float):
+def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
+              agree=_same):
     """Correctly rounded float64 sums of float weights (``precision='f64'``;
     the JAX package's ``_f64_weight_histogram``), ``out_shape`` ``(rows,
     slots)`` on the weights' device, trash slot included.
@@ -441,18 +452,27 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float):
     (``count_float``, zeros elsewhere), whose per-slot result adds at the
     end with ``np.bincount``'s semantics. Integer sums do not depend on the
     order of the adds, so the result is bit-identical from run to run.
+
+    Sharded (``parallel.histogram_sharded``), ``weights`` is one rank's
+    block, ``count_int`` and ``count_float`` all-reduce each pass's sums
+    before the combine, ``n_cols`` is the global row length (each limb's
+    sum over every rank stays below 2**63), and ``agree`` makes each
+    choice of passes global (``_f64_groups``).
     """
     w64 = weights.to(torch.float64)
-    amax = float(w64.abs().amax()) if w64.numel() else 0.0
-    nonfinite = not math.isfinite(amax)
+    # (any weight not finite, the largest |weight| where all are finite)
+    top = w64.abs().amax() if w64.numel() else w64.new_zeros(())
+    nonfinite, amax = agree(torch.stack([(~torch.isfinite(top)).to(torch.float64),
+                                         torch.where(torch.isfinite(top), top, 0.0)]),
+                            "max").tolist()
     wf = w64
     if nonfinite:
         finite = torch.isfinite(w64)
         wf = torch.where(finite, w64, 0.0)
-        amax = float(wf.abs().amax())
+        amax = float(agree(wf.abs().amax(), "max"))
     width, n_limbs = _f64_limbs(n_cols)
     hi = lo = None
-    for s, k in _f64_groups(wf, amax):
+    for s, k in _f64_groups(wf, amax, agree):
         for j, limb in enumerate(_split_limbs(k, width, n_limbs)):
             sums = count_int(to_2d(limb))  # |sums| < 2**63 - 2**32
             # the sum as two doubles, exactly: itself rounded, and the rest
@@ -470,6 +490,203 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float):
         h = torch.where(torch.isinf(hi), hi, hi + lo)
     if nonfinite:
         h = h + count_float(to_2d(torch.where(finite, 0.0, w64)))
+    return h
+
+
+def _dtensor_type():
+    """``DTensor``, or None while ``torch.distributed.tensor`` is not
+    imported (then no operand can be one, and nothing is imported here)."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return None if module is None else module.DTensor
+
+
+def _mesh_layout(operands):
+    """``(mesh, in_spec)`` when a call should run sharded: some operand of
+    the highest rank is a ``DTensor`` over a mesh of more than one rank,
+    with no ``Partial`` placement, that is not fully replicated (the
+    counterpart of the JAX package's ``_infer_mesh_sharding``). ``in_spec``
+    names, for each data axis, the mesh dims (by name, else by index, in
+    mesh order) that shard it. Lower-rank sharded operands do not qualify:
+    their layout does not describe the broadcast shape."""
+    dtensor = _dtensor_type()
+    if dtensor is None:
+        return None
+    ndim_max = max(np.ndim(a) for a in operands)
+    for a in operands:
+        if not isinstance(a, dtensor) or a.ndim != ndim_max:
+            continue
+        mesh, placements = a.device_mesh, a.placements
+        if (mesh.size() > 1 and not any(p.is_partial() for p in placements)
+                and not all(p.is_replicate() for p in placements)):
+            names = mesh.mesh_dim_names or tuple(_builtin_range(mesh.ndim))
+            spec = []
+            for i in _builtin_range(a.ndim):
+                on = tuple(n for n, p in zip(names, placements) if p.is_shard(i))
+                spec.append(on[0] if len(on) == 1 else (on or None))
+            return mesh, tuple(spec)
+    return None
+
+
+def _local_value(x):
+    """A ``DTensor`` that does not run sharded as the full tensor it holds
+    (its local tensor where it is replicated or on one rank; a ``Partial``
+    one reduced), anything else as it is."""
+    dtensor = _dtensor_type()
+    return x.full_tensor() if dtensor is not None and isinstance(x, dtensor) else x
+
+
+#: ``bins.resolve_bin_edges``, which ``torch.compile`` runs and does not
+#: trace: host work on numpy edges (and on the data for int/str bins)
+_resolve_bin_edges = torch.compiler.disable(_bins.resolve_bin_edges)
+
+
+def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
+                    precision, host_weights=None, mesh=None):
+    """The raw slot sums of one device's inputs: the counterpart of the JAX
+    package's ``_histogram_impl``, before the sums take their dtype.
+
+    ``args`` and ``weights`` are tensors on one device (``_place``),
+    ``edges_np`` the edges resolved from ``bins`` (explicit edge arrays'
+    thresholds are cached). Returns ``(sums, kept,
+    w_dtype)``: ``(rows, prod(nbins) + 1)`` int64 counts or weighted sums in
+    their accumulator (float64 for float weights, int32 or int64 for
+    integers; 'f64' sums in float64), trash slot included; the kept shape;
+    and the weights' dtype where ``bincount.finish_sums`` still gives the
+    sums their dtype, else None.
+
+    ``mesh`` (``parallel.sharded``) makes the inputs one rank's block of a
+    sharded call: ``mesh.sum(t)`` adds each pass's sums over the ranks
+    (inside ``_WeightedSums``, whose backward then gathers the replicated
+    gradient at this rank's elements), ``mesh.agree(t, op)`` makes the
+    exact tier's choices global, and ``mesh.n_cols`` is the global row
+    length.
+    """
+    n_inputs = len(args)
+    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+    if min(nbins) < 1:
+        raise ValueError("each bins spec must define at least one bin")
+    cache = [isinstance(b, np.ndarray) for b in _bins.normalize_bins(bins, n_inputs)]
+    device = args[0].device
+    exact_f64 = False
+    if precision == "f64":
+        # unweighted counts and integer sums are exact in every mode
+        exact_f64 = weights is not None and weights.is_floating_point()
+        if exact_f64 and weights.requires_grad:
+            raise ValueError(
+                "precision='f64' runs an exact integer decomposition of the "
+                "weights, which carries no gradient. Detach the weights, or "
+                "use precision='highest' for gradients."
+            )
+        precision = None
+    thresholds, n_hi_clip = [], []
+    for i, (a, e, cached) in enumerate(zip(args, edges_np, cache)):
+        thr, nh = _device_thresholds(e, _compare_dtype(a), device, cache=cached)
+        thresholds.append(thr)
+        n_hi_clip.append(nh)
+        if a.dtype == torch.uint64:  # searched as int64, in the same order
+            args[i] = _bins.flip_uint64(a)
+
+    operands = args if weights is None else [*args, weights]
+    try:
+        shape = torch.broadcast_shapes(*(a.shape for a in operands))
+    except RuntimeError:
+        raise ValueError(
+            "Incompatible shapes for broadcasting: shapes="
+            f"{[tuple(a.shape) for a in operands]}"
+        ) from None
+    arrays = [a.expand(shape) for a in args]
+    axis_t = normalize_axis(axis, len(shape))
+    kshape = kept_shape(shape, axis_t)
+    full_reduce = kshape == ()
+    if precision is not None:
+        validate_public_precision(precision)
+
+    def to_2d(w):
+        return canonicalize_2d(w.expand(shape), axis_t)
+
+    with scope("canonicalize"):
+        arrays_2d = [canonicalize_2d(a, axis_t) for a in arrays]
+        w2d = None if weights is None or exact_f64 else to_2d(weights)
+
+    # pallas_hist._dispatch's view: a layout with one row is a full reduction
+    m, c = arrays_2d[0].shape
+    reduce_all = full_reduce or m == 1
+    n_slots = math.prod(nbins) + 1
+
+    def route(weights_dtype, wmode):
+        """The kernel that runs for these weights, or None for a strategy."""
+        kernel = plan(n_inputs, nbins, 1 if reduce_all else m,
+                      None if reduce_all else c, weights_dtype=weights_dtype,
+                      wmode=wmode)
+        if method in ("cuda", "pallas"):
+            # forced outside the efficient envelopes: the general kernel
+            return kernel or ("factored" if reduce_all else "direct")
+        if (method == "auto" and device.type == "cuda" and kernel is not None
+                and not any(n_hi_clip)):  # the JAX package's auto gate
+            return kernel
+        return None
+
+    def count(w2d, kernel):
+        """Counts, or sums of ``w2d``, ``(rows, prod(nbins) + 1)``, over
+        every rank of a sharded call."""
+        if kernel is not None:
+            sums = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
+                                n_hi_clip, reduce_all, w2d)
+        else:
+            with scope("digitize"):
+                indices = [
+                    digitize_edges(a, t, n_hi_clip=nh)
+                    for a, t, nh in zip(arrays_2d, thresholds, n_hi_clip)
+                ]
+                g, _ = joint_bin_index(indices, nbins)
+            with scope("bincount"):
+                sums = slot_sums(
+                    g, n_slots, method="scatter" if method == "auto" else method,
+                    weights=w2d, block_size=block_size,
+                )
+        return sums if mesh is None else mesh.sum(sums)
+
+    if exact_f64:
+        int_kernel = route(torch.int64, None)
+        float_kernel = route(torch.float64, None)
+        sums = _f64_sums(
+            weights, to_2d, c if mesh is None else mesh.n_cols,
+            (1 if reduce_all else m, n_slots),
+            lambda w: count(w, int_kernel), lambda w: count(w, float_kernel),
+            _same if mesh is None else mesh.agree,
+        )
+        return sums, kshape, None
+    if w2d is None:
+        return count(None, route(None, precision)), kshape, None
+    wmode = precision  # every mode runs the same kernels; plan() reads it
+    if not weights.is_floating_point():
+        wmode = _int_weight_mode(host_weights)
+    kernel = route(weights.dtype, wmode)
+    sums = _WeightedSums.apply(w2d, lambda w: count(w, kernel), arrays_2d,
+                               thresholds, nbins, n_hi_clip)
+    return sums, kshape, weights.dtype
+
+
+def _finish_histogram(sums, w_dtype, kshape, edges_np, density):
+    """The histogram from ``_histogram_impl``'s sums (over every rank, for a
+    sharded call): the sums in their dtype, the trash slot dropped, the
+    kept shape and bin axes, and density."""
+    if w_dtype is not None:
+        sums = finish_sums(sums, w_dtype)
+    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+    h = sums[..., :-1].reshape(kshape + nbins)  # drop the trash slot
+    if density:
+        # per-kept-row totals, areas from the original edges, in the JAX
+        # package's order: counts / area / totals, in float32 (float64 for
+        # float64 sums)
+        if h.dtype == torch.uint64:
+            h = h.to(torch.float32)  # torch sums and divides no uint64
+        area_dtype = torch.float64 if h.dtype == torch.float64 else torch.float32
+        bin_area = torch.as_tensor(
+            _bins.bin_areas(edges_np), dtype=area_dtype, device=h.device
+        )
+        totals = h.sum(dim=tuple(_builtin_range(-len(nbins), 0)), keepdim=True)
+        h = h / bin_area / totals
     return h
 
 
@@ -550,11 +767,25 @@ def histogram(
     """
     if not args:
         raise ValueError("histogram() requires at least one input array")
-    n_inputs = len(args)
-    args = [_coerce_host(a) for a in args]
+    sharded = _mesh_layout([*args, *([] if weights is None else [weights])])
+    if sharded is not None:
+        from .parallel import histogram_sharded
+
+        mesh, in_spec = sharded
+        if device is not None and torch.device(device).type != mesh.device_type:
+            raise ValueError(
+                f"device={str(device)!r} conflicts with a DTensor input on a "
+                f"{mesh.device_type!r} mesh; histogram() moves no tensor"
+            )
+        return histogram_sharded(
+            *args, mesh=mesh, in_spec=in_spec, bins=bins, range=range, axis=axis,
+            weights=weights, density=density, block_size=block_size,
+            method=method, precision=precision,
+        )
+    args = [_coerce_host(_local_value(a)) for a in args]
     host_weights = None  # numpy weights' values set the integer weight mode
     if weights is not None:
-        weights = host_weights = _coerce_weights(weights)
+        weights = host_weights = _coerce_weights(_local_value(weights))
         args.append(weights)
     args = _place(args, device)
     device = args[0].device
@@ -565,117 +796,9 @@ def histogram(
     if weights is not None:
         *args, weights = args
 
-    edges_np = _bins.resolve_bin_edges(args, bins, range, weights)
-    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
-    for nb in nbins:
-        if nb < 1:
-            raise ValueError("each bins spec must define at least one bin")
-    exact_f64 = False
-    if precision == "f64":
-        # unweighted counts and integer sums are exact in every mode
-        exact_f64 = weights is not None and weights.is_floating_point()
-        if exact_f64 and weights.requires_grad:
-            raise ValueError(
-                "precision='f64' runs an exact integer decomposition of the "
-                "weights, which carries no gradient. Detach the weights, or "
-                "use precision='highest' for gradients."
-            )
-        precision = None
-    explicit = [isinstance(b, np.ndarray) for b in _bins.normalize_bins(bins, n_inputs)]
-    thresholds, n_hi_clip = [], []
-    for i, (a, e, cache) in enumerate(zip(args, edges_np, explicit)):
-        thr, nh = _device_thresholds(e, _compare_dtype(a), device, cache=cache)
-        thresholds.append(thr)
-        n_hi_clip.append(nh)
-        if a.dtype == torch.uint64:  # searched as int64, in the same order
-            args[i] = _bins.flip_uint64(a)
-
-    operands = args if weights is None else [*args, weights]
-    try:
-        shape = torch.broadcast_shapes(*(a.shape for a in operands))
-    except RuntimeError:
-        raise ValueError(
-            "Incompatible shapes for broadcasting: shapes="
-            f"{[tuple(a.shape) for a in operands]}"
-        ) from None
-    arrays = [a.expand(shape) for a in args]
-    axis_t = normalize_axis(axis, len(shape))
-    kshape = kept_shape(shape, axis_t)
-    full_reduce = kshape == ()
-    if precision is not None:
-        validate_public_precision(precision)
-
-    def to_2d(w):
-        return canonicalize_2d(w.expand(shape), axis_t)
-
-    with scope("canonicalize"):
-        arrays_2d = [canonicalize_2d(a, axis_t) for a in arrays]
-        w2d = None if weights is None or exact_f64 else to_2d(weights)
-
-    # pallas_hist._dispatch's view: a layout with one row is a full reduction
-    m, c = arrays_2d[0].shape
-    reduce_all = full_reduce or m == 1
-    n_slots = math.prod(nbins) + 1
-
-    def route(weights_dtype, wmode):
-        """The kernel that runs for these weights, or None for a strategy."""
-        kernel = plan(n_inputs, nbins, 1 if reduce_all else m,
-                      None if reduce_all else c, weights_dtype=weights_dtype,
-                      wmode=wmode)
-        if method in ("cuda", "pallas"):
-            # forced outside the efficient envelopes: the general kernel
-            return kernel or ("factored" if reduce_all else "direct")
-        if (method == "auto" and device.type == "cuda" and kernel is not None
-                and not any(n_hi_clip)):  # the JAX package's auto gate
-            return kernel
-        return None
-
-    def count(w2d, kernel):
-        """Counts, or sums of ``w2d``, ``(rows, prod(nbins) + 1)``."""
-        if kernel is not None:
-            return _count_fused(method, kernel, arrays_2d, thresholds, nbins,
-                                n_hi_clip, reduce_all, w2d)
-        with scope("digitize"):
-            indices = [
-                digitize_edges(a, t, n_hi_clip=nh)
-                for a, t, nh in zip(arrays_2d, thresholds, n_hi_clip)
-            ]
-            g, _ = joint_bin_index(indices, nbins)
-        with scope("bincount"):
-            return bincount2d(
-                g, n_slots, method="scatter" if method == "auto" else method,
-                weights=w2d, block_size=block_size,
-            )
-
-    if exact_f64:
-        int_kernel = route(torch.int64, None)
-        float_kernel = route(torch.float64, None)
-        counts = _f64_sums(
-            weights, to_2d, c, (1 if reduce_all else m, n_slots),
-            lambda w: count(w, int_kernel), lambda w: count(w, float_kernel),
-        )
-    elif w2d is None:
-        counts = count(None, route(None, precision))
-    else:
-        wmode = precision  # every mode runs the same kernels; plan() reads it
-        if not weights.is_floating_point():
-            wmode = _int_weight_mode(host_weights)
-        kernel = route(weights.dtype, wmode)
-        counts = _WeightedSums.apply(w2d, lambda w: count(w, kernel), arrays_2d,
-                                     thresholds, nbins, n_hi_clip)
-    counts = counts[..., :-1]  # drop the trash slot (== reference's [1:-1])
-    h = counts.reshape(kshape + nbins)
-
-    if density:
-        # per-kept-row totals, areas from the original edges, in the JAX
-        # package's order: counts / area / totals, in float32 (float64 for
-        # float64 sums)
-        if h.dtype == torch.uint64:
-            h = h.to(torch.float32)  # torch sums and divides no uint64
-        area_dtype = torch.float64 if h.dtype == torch.float64 else torch.float32
-        bin_area = torch.as_tensor(
-            _bins.bin_areas(edges_np), dtype=area_dtype, device=device
-        )
-        totals = h.sum(dim=tuple(_builtin_range(-n_inputs, 0)), keepdim=True)
-        h = h / bin_area / totals
-    return h, edges_np
+    edges_np = _resolve_bin_edges(args, bins, range, weights)
+    sums, kshape, w_dtype = _histogram_impl(
+        args, weights, edges_np, bins, axis, method=method, block_size=block_size,
+        precision=precision, host_weights=host_weights,
+    )
+    return _finish_histogram(sums, w_dtype, kshape, edges_np, density), edges_np

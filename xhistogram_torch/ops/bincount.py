@@ -41,6 +41,7 @@ __all__ = [
     "bincount2d_scatter",
     "bincount2d_onehot",
     "bincount2d_sort",
+    "slot_sums",
     "weight_sums",
     "finish_sums",
     "weighted_dtype",
@@ -107,15 +108,24 @@ def finish_sums(sums, w_dtype):
     return sums.to(out)
 
 
+def _finished(sums, weights):
+    """Counts as they are, or sums in their ``weighted_dtype``."""
+    return sums if weights is None else finish_sums(sums, weights.dtype)
+
+
+def _scatter_sums(g, n_slots, weights=None):
+    if weights is not None:
+        return weight_sums(g, n_slots, weights)
+    m = g.shape[0]
+    return torch.bincount(_row_offset(g, n_slots).reshape(-1),
+                          minlength=m * n_slots).reshape(m, n_slots)
+
+
 def bincount2d_scatter(g, n_slots, weights=None):
     """Per-row counts through one flat bincount over row-offset indices, or
     per-row sums of ``weights`` (shaped like ``g``) in their
     ``weighted_dtype``."""
-    if weights is not None:
-        return finish_sums(weight_sums(g, n_slots, weights), weights.dtype)
-    m = g.shape[0]
-    return torch.bincount(_row_offset(g, n_slots).reshape(-1),
-                          minlength=m * n_slots).reshape(m, n_slots)
+    return _finished(_scatter_sums(g, n_slots, weights), weights)
 
 
 def _auto_block(m, c, n_slots, block_size):
@@ -126,11 +136,7 @@ def _auto_block(m, c, n_slots, block_size):
     return max(1, min(c, _ONEHOT_BUDGET // max(1, m * n_slots)))
 
 
-def bincount2d_onehot(g, n_slots, weights=None, block_size="auto"):
-    """One-hot strategy: for each block of columns, ``(g[m, b] == n)``
-    summed over b (weighted: the weights it selects), added into the
-    ``(M, n_slots)`` totals. Returns int64 counts, or sums in the weights'
-    ``weighted_dtype``."""
+def _onehot_sums(g, n_slots, weights=None, block_size="auto"):
     m, c = g.shape
     block = _auto_block(m, c, n_slots, block_size)
     slots = torch.arange(n_slots, dtype=g.dtype, device=g.device)
@@ -143,16 +149,18 @@ def bincount2d_onehot(g, n_slots, weights=None, block_size="auto"):
             acc += hot.sum(dim=1)
         else:
             acc += torch.where(hot, w[:, start:start + block, None], 0).sum(dim=1)
-    return acc if weights is None else finish_sums(acc, weights.dtype)
+    return acc
 
 
-def bincount2d_sort(g, n_slots, weights=None):
-    """Sort strategy: a stable sort of each row, the slot boundaries by
-    ``searchsorted`` (counts are their differences), and the sums of the
-    sorted weights over each slot's run: ``segment_reduce`` for float
-    weights (each run on its own, so a NaN or infinity stays in its slot),
-    prefix-sum differences for integer weights (exact mod 2^64). Returns
-    int64 counts, or sums in the weights' ``weighted_dtype``."""
+def bincount2d_onehot(g, n_slots, weights=None, block_size="auto"):
+    """One-hot strategy: for each block of columns, ``(g[m, b] == n)``
+    summed over b (weighted: the weights it selects), added into the
+    ``(M, n_slots)`` totals. Returns int64 counts, or sums in the weights'
+    ``weighted_dtype``."""
+    return _finished(_onehot_sums(g, n_slots, weights, block_size), weights)
+
+
+def _sort_sums(g, n_slots, weights=None):
     m, c = g.shape
     gs, order = torch.sort(g, dim=1, stable=True)
     slots = torch.arange(n_slots + 1, dtype=g.dtype, device=g.device)
@@ -162,22 +170,39 @@ def bincount2d_sort(g, n_slots, weights=None):
         return lengths
     ws = _accumulable(weights).gather(1, order)
     if ws.is_floating_point():
-        sums = torch.segment_reduce(ws.reshape(-1), "sum",
+        return torch.segment_reduce(ws.reshape(-1), "sum",
                                     lengths=lengths.reshape(-1)).reshape(m, n_slots)
-    else:
-        prefix = torch.cat([torch.zeros(m, 1, dtype=ws.dtype, device=ws.device),
-                            ws.cumsum(dim=1)], dim=1)
-        sums = prefix.gather(1, pos).diff(dim=1)
-    return finish_sums(sums, weights.dtype)
+    prefix = torch.cat([torch.zeros(m, 1, dtype=ws.dtype, device=ws.device),
+                        ws.cumsum(dim=1)], dim=1)
+    return prefix.gather(1, pos).diff(dim=1)
+
+
+def bincount2d_sort(g, n_slots, weights=None):
+    """Sort strategy: a stable sort of each row, the slot boundaries by
+    ``searchsorted`` (counts are their differences), and the sums of the
+    sorted weights over each slot's run: ``segment_reduce`` for float
+    weights (each run on its own, so a NaN or infinity stays in its slot),
+    prefix-sum differences for integer weights (exact mod 2^64). Returns
+    int64 counts, or sums in the weights' ``weighted_dtype``."""
+    return _finished(_sort_sums(g, n_slots, weights), weights)
+
+
+def slot_sums(g, n_slots, method="scatter", weights=None, block_size="auto"):
+    """``bincount2d`` before the sums take their dtype: int64 counts, or
+    the weights' sums in their accumulator (float64 for float weights,
+    int64 for integers, uint64 as its bits), which a caller may add up
+    across devices before ``finish_sums``. ``block_size`` is read by
+    ``onehot`` only."""
+    if method == "scatter":
+        return _scatter_sums(g, n_slots, weights)
+    if method == "onehot":
+        return _onehot_sums(g, n_slots, weights, block_size)
+    if method == "sort":
+        return _sort_sums(g, n_slots, weights)
+    raise ValueError(f"unknown bincount method {method!r}; valid: {METHODS}")
 
 
 def bincount2d(g, n_slots, method="scatter", weights=None, block_size="auto"):
     """Dispatch over bincount strategies (same names as the JAX package);
     ``block_size`` is read by ``onehot`` only."""
-    if method == "scatter":
-        return bincount2d_scatter(g, n_slots, weights)
-    if method == "onehot":
-        return bincount2d_onehot(g, n_slots, weights, block_size)
-    if method == "sort":
-        return bincount2d_sort(g, n_slots, weights)
-    raise ValueError(f"unknown bincount method {method!r}; valid: {METHODS}")
+    return _finished(slot_sums(g, n_slots, method, weights, block_size), weights)

@@ -32,6 +32,18 @@ narrowest type that holds each exactly, and int64 beside a float, which no
 type holds, runs the kernels' mixed entries, each input compared in its
 own type. A wrapper takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises.
+
+Each kernel is a registered torch op, ``torch.ops.xhistogram.one_input``,
+``.joint2``, ``.factored`` (the variant a ``str``) and ``.direct``
+(``torch.library.custom_op``): the op runs the kernel on CUDA tensors and
+the plain version on CPU tensors, counts the kernel's launches, and returns
+the output in the weights' accumulator class (int64 counts; float64, int32
+or int64 sums), which its fake implementation gives for ``torch.compile``.
+The wrappers check their operands, call the op, and give the sums their
+``weighted_dtype`` (``finish=False`` keeps the accumulators, which a
+sharded call adds up across ranks before that one rounding). The op
+carries no autograd rule: ``core._WeightedSums`` is the gradient, and
+``ops/partitioning.py`` gives each op its DTensor sharding rule.
 """
 
 from __future__ import annotations
@@ -388,13 +400,12 @@ def _finish(out, weights):
     return out if weights is None else finish_sums(out, weights.dtype)
 
 
-def _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all,
-                           weights=None):
+def _slot_sums_reference(arrays_2d, thresholds, nbins, reduce_all, weights=None):
     """The plain version of every kernel: digitize each input, flat slot,
     bincount. ``(1 if reduce_all else m, prod(nbins) + 1)`` int64 counts,
-    or sums of ``weights`` (shaped like the data) in their
-    ``weighted_dtype``, whose trailing trash slot is zero, as the JAX
-    kernels return."""
+    or sums of ``weights`` (shaped like the data) in their accumulator
+    class's dtype (``_out_dtype``), as a kernel writes them; the trailing
+    trash slot is zero, as the JAX kernels return."""
     indices = [digitize_edges(a, t) for a, t in zip(arrays_2d, thresholds)]
     g, n_slots = joint_bin_index(indices, nbins)
     if reduce_all:
@@ -405,7 +416,14 @@ def _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all,
         return counts
     sums = weight_sums(g, n_slots, weights.reshape(g.shape))
     sums[:, -1] = 0
-    return finish_sums(sums, weights.dtype)
+    return sums.to(_out_dtype(weights))
+
+
+def _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all,
+                           weights=None):
+    """``_slot_sums_reference`` with the sums in their ``weighted_dtype``."""
+    return _finish(_slot_sums_reference(arrays_2d, thresholds, nbins, reduce_all,
+                                        weights), weights)
 
 
 def one_input_reference(a2d, thr, nb, reduce_all, weights=None):
@@ -414,7 +432,7 @@ def one_input_reference(a2d, thr, nb, reduce_all, weights=None):
     return _slot_counts_reference([a2d], [thr], [nb], reduce_all, weights)
 
 
-def one_input(a2d, thr, nb, reduce_all, weights=None):
+def one_input(a2d, thr, nb, reduce_all, weights=None, finish=True):
     """Histogram of one input's ``(m, c)`` layout, per row or over all rows.
 
     ``thr`` is the compare-form thresholds
@@ -426,13 +444,14 @@ def one_input(a2d, thr, nb, reduce_all, weights=None):
     reads the view in place, narrow data at its own width. Returns
     ``(1 if reduce_all else m, nb + 1)`` int64 counts with a zero trailing
     trash slot; with ``weights`` (shaped like ``a2d``, any strides, read in
-    place), the sums of the weights in their ``weighted_dtype`` instead.
+    place), the sums of the weights in their ``weighted_dtype`` instead
+    (``finish=False``: in their accumulator class, as the op
+    ``xhistogram::one_input`` returns them).
 
     A CUDA tensor launches the CUDA kernel, and any failure raises (a
     narrow input never widens and retries). A CPU tensor runs
     ``one_input_reference``.
     """
-    global ONE_INPUT_LAUNCHES
     if a2d.ndim != 2:
         raise ValueError(f"one_input takes a 2-D layout, got shape {tuple(a2d.shape)}")
     if not 1 <= nb <= _MAX_ONE_INPUT_BINS:
@@ -442,15 +461,26 @@ def one_input(a2d, thr, nb, reduce_all, weights=None):
     _check_operands("one_input", [a2d], [thr], [nb])
     if weights is not None:
         _check_weights("one_input", weights, a2d)
-    if a2d.device.type == "cpu":
-        return one_input_reference(a2d, thr, nb, reduce_all, weights)
+    out = torch.ops.xhistogram.one_input(a2d, thr, weights, nb, bool(reduce_all))
+    return _finish(out, weights) if finish else out
 
+
+@torch.library.custom_op(
+    "xhistogram::one_input", mutates_args=(),
+    schema="(Tensor a2d, Tensor thr, Tensor? weights, int nb, bool reduce_all) -> Tensor",
+)
+def _one_input_op(a2d, thr, weights, nb, reduce_all):
+    """The one_input kernel (its plain version on CPU tensors), with its
+    output in the weights' accumulator class."""
+    global ONE_INPUT_LAUNCHES
+    if a2d.device.type == "cpu":
+        return _slot_sums_reference([a2d], [thr], [nb], reduce_all, weights)
     thr = thr.to(_ONE_INPUT_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
     m, c = a2d.shape
     out = torch.zeros(1 if reduce_all else m, nb + 1, dtype=_out_dtype(weights),
                       device=a2d.device)
     if a2d.numel() == 0:
-        return _finish(out, weights)
+        return out
     suffix, w_args = _weight_args(weights)
     widest = _WIDEST.get(a2d.device)
     if widest is None:
@@ -461,13 +491,19 @@ def one_input(a2d, thr, nb, reduce_all, weights=None):
     with torch.cuda.device(a2d.device):
         rc = fn(
             a2d.data_ptr(), m, c, a2d.stride(0), a2d.stride(1),
-            thr.data_ptr(), nb, int(bool(reduce_all)), *w_args, out.data_ptr(),
+            thr.data_ptr(), nb, int(reduce_all), *w_args, out.data_ptr(),
             widest.data_ptr(), _stream(a2d.device),
         )
     if rc != 0:
         raise RuntimeError(f"one_input CUDA kernel failed to launch: cudaError {rc}")
     ONE_INPUT_LAUNCHES += 1
-    return _finish(out, weights)
+    return out
+
+
+@_one_input_op.register_fake
+def _(a2d, thr, weights, nb, reduce_all):
+    return a2d.new_empty((1 if reduce_all else a2d.shape[0], nb + 1),
+                         dtype=_out_dtype(weights))
 
 
 def joint2_reference(a, b, thr_a, thr_b, nba, nbb, weights=None):
@@ -479,7 +515,7 @@ def joint2_reference(a, b, thr_a, thr_b, nba, nbb, weights=None):
     )
 
 
-def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
+def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None, finish=True):
     """Joint histogram of the pairs ``(a[e], b[e])`` over all elements.
 
     ``thr_a``/``thr_b`` are the compare-form thresholds
@@ -489,7 +525,8 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     ``(1, nba * nbb + 1)`` int64 counts with a zero trailing trash slot;
     with ``weights`` (shaped like ``a``; read contiguously, so a strided or
     broadcast weight is copied first), the sums of the weights in their
-    ``weighted_dtype`` instead.
+    ``weighted_dtype`` instead (``finish=False``: in their accumulator
+    class, as the op ``xhistogram::joint2`` returns them).
 
     A CUDA tensor launches the CUDA kernel, and any failure raises. Narrow
     data widens to its compare dtype first; inputs of two dtypes both widen
@@ -498,7 +535,6 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     mixed entries, each input compared in its own type (float16 as
     float32). A CPU tensor runs ``joint2_reference``.
     """
-    global JOINT2_LAUNCHES
     if a.numel() != b.numel():
         raise ValueError(
             f"joint2 needs equally many elements, got {a.numel()} and {b.numel()}"
@@ -506,9 +542,24 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     _check_operands("joint2", [a, b], [thr_a, thr_b], [nba, nbb])
     if weights is not None:
         _check_weights("joint2", weights, a)
-    if a.device.type == "cpu":
-        return joint2_reference(a, b, thr_a, thr_b, nba, nbb, weights)
+    out = torch.ops.xhistogram.joint2(a, b, thr_a, thr_b, weights, nba, nbb)
+    return _finish(out, weights) if finish else out
 
+
+@torch.library.custom_op(
+    "xhistogram::joint2", mutates_args=(),
+    schema="(Tensor a, Tensor b, Tensor thr_a, Tensor thr_b, Tensor? weights, "
+           "int nba, int nbb) -> Tensor",
+)
+def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
+    """The joint2 kernel (its plain version on CPU tensors), with its output
+    in the weights' accumulator class."""
+    global JOINT2_LAUNCHES
+    if a.device.type == "cpu":
+        return _slot_sums_reference(
+            [a.reshape(1, -1), b.reshape(1, -1)], [thr_a, thr_b], [nba, nbb], True,
+            None if weights is None else weights.reshape(1, -1),
+        )
     dtype = _compare_dtype((thr_a.dtype, thr_b.dtype))
     if dtype is None:  # int64 beside a float: (int64, float32 or float64)
         types = [torch.float32 if t.dtype == torch.float16 else t.dtype
@@ -523,7 +574,7 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     out = torch.zeros(1, nba * nbb + 1, dtype=_out_dtype(weights), device=a.device)
     n = a.numel()
     if n == 0:
-        return _finish(out, weights)
+        return out
     if weights is not None:
         weights = weights.contiguous()
     suffix, w_args = _weight_args(weights, strides=False)
@@ -537,7 +588,12 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None):
     if rc != 0:
         raise RuntimeError(f"joint2 CUDA kernel failed to launch: cudaError {rc}")
     JOINT2_LAUNCHES += 1
-    return _finish(out, weights)
+    return out
+
+
+@_joint2_op.register_fake
+def _(a, b, thr_a, thr_b, weights, nba, nbb):
+    return a.new_empty((1, nba * nbb + 1), dtype=_out_dtype(weights))
 
 
 _FACTORED_VARIANTS = tuple(FACTORED_LAUNCHES)
@@ -576,7 +632,8 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
 
 def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
                     weights):
-    """(counts or weighted sums, launches) of the flat-slot kernel of
+    """(counts or weighted sums in their accumulator class, launches) of the
+    flat-slot kernel of
     ``route`` (``csrc/slot.cuh``) on CUDA tensors; any failure raises.
 
     Inputs whose compare types share an exact common type widen to it (a
@@ -607,8 +664,7 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     m, c = arrays[0].shape
     shape = (1 if reduce_all else m, math.prod(nbins) + 1)
     if m == 0 or c == 0:
-        out = torch.zeros(shape, dtype=_out_dtype(weights), device=device)
-        return _finish(out, weights), 0
+        return torch.zeros(shape, dtype=_out_dtype(weights), device=device), 0
     # every slot of the output is written by the kernel or zeroed by its
     # launcher
     out = torch.empty(shape, dtype=_out_dtype(weights), device=device)
@@ -626,7 +682,7 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
         )
     if rc != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
-    return _finish(out, weights), 1
+    return out, 1
 
 
 def factored_reference(arrays_2d, thresholds, nbins, variant, weights=None):
@@ -636,7 +692,7 @@ def factored_reference(arrays_2d, thresholds, nbins, variant, weights=None):
                                   weights)
 
 
-def factored(arrays_2d, thresholds, nbins, variant, weights=None):
+def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     """Joint histogram of N inputs over all elements or per kept row: the
     routes ``factored`` (``variant="full"``), ``factored_per_row``
     (``"per_row"``) and ``factored_packed`` (``"packed"``) of ``plan``.
@@ -649,7 +705,8 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None):
     ``(1 if variant == "full" else m, prod(nbins) + 1)`` int64 counts with
     a zero trailing trash slot; with ``weights`` (an ``(m, c)`` view with
     any strides, read in place like the data), the sums of the weights in
-    their ``weighted_dtype`` instead.
+    their ``weighted_dtype`` instead (``finish=False``: in their
+    accumulator class, as the op ``xhistogram::factored`` returns them).
 
     A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
     failure raises; inputs of several dtypes widen to the narrowest compare
@@ -662,12 +719,32 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None):
             f"factored variant must be one of {_FACTORED_VARIANTS}, got {variant!r}"
         )
     _check_slot_operands("factored", arrays_2d, thresholds, nbins, weights)
-    if arrays_2d[0].device.type == "cpu":
-        return factored_reference(arrays_2d, thresholds, nbins, variant, weights)
-    out, launched = _slot_hist_cuda("factored", f"factored_{variant}", arrays_2d,
+    out = torch.ops.xhistogram.factored(list(arrays_2d), list(thresholds), weights,
+                                        [int(nb) for nb in nbins], variant)
+    return _finish(out, weights) if finish else out
+
+
+@torch.library.custom_op(
+    "xhistogram::factored", mutates_args=(),
+    schema="(Tensor[] arrays, Tensor[] thresholds, Tensor? weights, int[] nbins, "
+           "str variant) -> Tensor",
+)
+def _factored_op(arrays, thresholds, weights, nbins, variant):
+    """The factored kernel in ``variant`` (its plain version on CPU
+    tensors), with its output in the weights' accumulator class."""
+    if arrays[0].device.type == "cpu":
+        return _slot_sums_reference(arrays, thresholds, nbins, variant == "full",
+                                    weights)
+    out, launched = _slot_hist_cuda("factored", f"factored_{variant}", arrays,
                                     thresholds, nbins, variant == "full", weights)
     FACTORED_LAUNCHES[variant] += launched
     return out
+
+
+@_factored_op.register_fake
+def _(arrays, thresholds, weights, nbins, variant):
+    rows = 1 if variant == "full" else arrays[0].shape[0]
+    return arrays[0].new_empty((rows, math.prod(nbins) + 1), dtype=_out_dtype(weights))
 
 
 def direct_reference(arrays_2d, thresholds, nbins, weights=None):
@@ -676,7 +753,7 @@ def direct_reference(arrays_2d, thresholds, nbins, weights=None):
     return _slot_counts_reference(arrays_2d, thresholds, nbins, False, weights)
 
 
-def direct(arrays_2d, thresholds, nbins, weights=None):
+def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
     """Joint histogram of N inputs per kept row: the route ``direct`` of
     ``plan`` (narrow rows, few slots) and every kept-row call forced onto
     the kernels outside ``plan``'s envelopes.
@@ -686,11 +763,30 @@ def direct(arrays_2d, thresholds, nbins, weights=None):
     tensor launches the CUDA kernel (``csrc/direct.cu``), and any failure
     raises. A CPU tensor runs ``direct_reference``.
     """
-    global DIRECT_LAUNCHES
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
-    if arrays_2d[0].device.type == "cpu":
-        return direct_reference(arrays_2d, thresholds, nbins, weights)
-    out, launched = _slot_hist_cuda("direct", "direct", arrays_2d, thresholds,
-                                    nbins, False, weights)
+    out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
+                                      [int(nb) for nb in nbins])
+    return _finish(out, weights) if finish else out
+
+
+@torch.library.custom_op(
+    "xhistogram::direct", mutates_args=(),
+    schema="(Tensor[] arrays, Tensor[] thresholds, Tensor? weights, int[] nbins) "
+           "-> Tensor",
+)
+def _direct_op(arrays, thresholds, weights, nbins):
+    """The direct kernel (its plain version on CPU tensors), with its output
+    in the weights' accumulator class."""
+    global DIRECT_LAUNCHES
+    if arrays[0].device.type == "cpu":
+        return _slot_sums_reference(arrays, thresholds, nbins, False, weights)
+    out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
+                                    False, weights)
     DIRECT_LAUNCHES += launched
     return out
+
+
+@_direct_op.register_fake
+def _(arrays, thresholds, weights, nbins):
+    return arrays[0].new_empty((arrays[0].shape[0], math.prod(nbins) + 1),
+                               dtype=_out_dtype(weights))

@@ -1,0 +1,82 @@
+"""DTensor sharding rules for the kernel ops.
+
+Counterpart of ``xhistogram_tpu.ops.partitioning``, which wraps the Pallas
+dispatch in a ``custom_partitioning`` node so that a caller's ``jit`` over
+sharded inputs runs the kernel per shard with one ``psum`` instead of
+gathering the operands. Here each registered op of ``ops.cuda_hist``
+(``xhistogram::one_input``, ``::joint2``, ``::factored``, ``::direct``)
+gets a ``register_sharding`` rule, so a ``DTensor`` that reaches an op runs
+the op on each rank's local block and DTensor adds the partials where it
+needs them; no operand is gathered. Per mesh dim, the rules allow:
+
+  - data and weights sharded on the reduced (column) dim: each rank's slot
+    sums are a ``Partial()`` (sum) of the result;
+  - data and weights sharded on the kept-row dim: the result is
+    ``Shard(0)``, or ``Partial()`` where the op reduces all rows
+    (joint2; one_input with ``reduce_all``; factored "full"), which
+    reduces both dims;
+  - everything replicated.
+
+Thresholds are always ``Replicate()``. The outputs are the ops' accumulator
+sums (int64 counts; float64, int32 or int64 sums), which add exactly, or
+wrap as their dtype does, in any order of ranks.
+
+The JAX node's bypasses have no counterpart: ``XHIST_CUSTOM_PARTITION``,
+the ``custom_vmap`` rule (vmap becomes a batch axis, ``axis=``), and the
+gates for shard_map's manual axes and the TPU interpreter's effects.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["rules"]
+
+
+def _rules(n_data, weighted, reduce_all, ndim=2):
+    """Acceptable (output, inputs) placements for one mesh dim: the inputs
+    are the op's tensors in order, ``n_data`` data tensors, as many
+    thresholds, then the weights."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def inputs(p):
+        return [p] * n_data + [Replicate()] * n_data + ([p] if weighted else [])
+
+    rules = [([Replicate()], inputs(Replicate()))]
+    for dim in range(ndim):
+        kept = dim == 0 and not reduce_all and ndim == 2
+        rules.append(([Shard(0) if kept else Partial()], inputs(Shard(dim))))
+    return rules
+
+
+def rules():
+    """Register the rule of each kernel op with DTensor (once per process;
+    ``xhistogram_torch.parallel`` calls it on import)."""
+    from torch.distributed.tensor.experimental import register_sharding
+
+    ops = torch.ops.xhistogram
+
+    @register_sharding(ops.one_input.default)
+    def one_input(a2d, thr, weights, nb, reduce_all):
+        return _rules(1, weights is not None, reduce_all)
+
+    @register_sharding(ops.joint2.default)
+    def joint2(a, b, thr_a, thr_b, weights, nba, nbb):
+        return _rules(2, weights is not None, True, ndim=a.ndim)
+
+    @register_sharding(ops.factored.default)
+    def factored(arrays, thresholds, weights, nbins, variant):
+        return _rules(len(arrays), weights is not None, variant == "full")
+
+    # DTensor caches a rule's choice by the arguments from the op's first
+    # int on (register_sharding's RuntimeSchemaInfo), and factored has no
+    # int: without this, "full" and "per_row" would share one choice
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+
+    DTensor._op_dispatcher.sharding_propagator.op_to_schema_info[
+        ops.factored.default] = RuntimeSchemaInfo(static_argnum=3, needs_pytree=True)
+
+    @register_sharding(ops.direct.default)
+    def direct(arrays, thresholds, weights, nbins):
+        return _rules(len(arrays), weights is not None, False)
