@@ -7,9 +7,11 @@ the CUDA toolkit:
 
 It builds the port's CUDA kernels (``csrc/joint2.cu`` with
 ``csrc/joint2_mixed.cu``, ``csrc/one_input.cu`` with
-``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, ``csrc/direct.cu``, the
-weighted flat-slot entries ``csrc/slot_w*.cu`` and the mixed ones
-``csrc/slot_mixed.cu``) from the sources in this checkout, holds each
+``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, the direct route's
+kernel ``csrc/direct.cuh`` with its entries ``csrc/direct_rows*.cu`` and,
+outside its envelope, ``csrc/direct.cu``, the weighted flat-slot entries
+``csrc/slot_w*.cu`` and the mixed ones ``csrc/slot_mixed.cu``) from the
+sources in this checkout, holds each
 bit-exact against its plain PyTorch version on the card (weighted float
 sums within a stated tolerance), and
 drives the ported paths through the public ``xhistogram_torch.histogram``,
@@ -43,8 +45,9 @@ just after:
   (joint2); the README call weighted by a (50, 64800) cell volume broadcast
   over time (factored per row); three inputs of 5e7 in 60x60x60 bins
   (factored, full); 40x40 direct with float32 weights at (1000, 64) and
-  int32 weights at (64800, 64), where float weights run the scatter
-  strategy, as in the JAX package;
+  int32 weights at (64800, 64), and with float32 weights at (64800, 64),
+  where the JAX package runs its scatter strategy and the port, by its own
+  limits, the direct kernel, which stores float32 rows;
 - the API above core: ``precision='f64'`` (exact float64 sums by int64
   limb passes through the int64-weighted kernels) on the T–S diagram at
   2^26 pairs with float64 U(0,1) weights (joint2; bit-identical over two
@@ -85,6 +88,16 @@ each input's table (``ops.digitize.bucket_table``); the T–S path must run
 one pass in clusters of two, and the README call keep its histogram in a
 cluster. joint2 with float64 and uint64 sums is timed at its default
 cluster against chunk passes of one block.
+
+The direct-row kernel (``csrc/direct.cuh``) is held against its plain
+version at the shapes of the card-only tests (every data dtype and weight
+class, finished float32 and raw rows, rows of 1 to 255 elements, strided
+and stride-0 inputs and weights, slot counts either side of where a block's
+warps drop, NaN and infinite weights, empty rows, 1, 3 and 12 inputs), each
+case run twice bit-identical, then timed in turns with the flat-slot
+template's direct entry at (64800, 64) (counts, int32 and float32 weights)
+and (1000, 64), each with its bound, its device time from torch.profiler
+and its launch shape (warps a row and a block, blocks, rows a warp).
 
 Before the paths, factored and direct are held against their plain versions
 on edge cases, ragged sizes, three inputs, one input in 5000 bins, slot
@@ -559,7 +572,7 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         {
             "name": "direct",
             "route": "cuda",
-            "source": "xhistogram_torch/csrc/direct.cu",
+            "source": "xhistogram_torch/csrc/direct.cuh",
             "replaces": "xhistogram_tpu/ops/pallas_hist.py:2149",
             "launches": sum(p["launches"] for p in direct_paths),
             "max_abs_err": max_abs_err["direct"],
@@ -739,6 +752,302 @@ def one_input_phase(dev, card, reset_counts, counts_now, max_abs_err):
     del xr
     torch.cuda.empty_cache()
     return launches, times
+
+
+def profiled_ms(fn, name, reps=20):
+    """Mean device milliseconds of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn()``, from torch.profiler (the kernel alone, where
+    CUDA events over back-to-back calls also see the host's launch work);
+    None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [ev for ev in prof.key_averages() if name in ev.key]
+    count = sum(ev.count for ev in hits)
+    return sum(ev.self_device_time_total for ev in hits) / count / 1e3 if count else None
+
+
+def direct_rows_phase(dev, card, reset_counts, counts_now, max_abs_err):
+    """The direct-row kernel (csrc/direct.cuh): held against its plain version
+    (``direct_reference``) at the shapes of the card-only tests, counts and
+    integer sums bit for bit, float32 rows within two float32 ulps (float64
+    rows within 1e-12), NaN and infinities in the same bins; its finished
+    float32 rows bit-equal to its float64 rows rounded once, and every rerun
+    bit-identical. Then, in turns with the flat-slot template's direct entry
+    (template, row kernel, row kernel, template) below the wrappers, the four
+    shapes of PERF.md §6, each beside its bound and with the kernels' device
+    time from torch.profiler, and float-weighted 40x40 at 64,800 rows
+    through the public API, which now launches the kernel. Returns the
+    timings by shape."""
+    from xhistogram_torch import bins as tbins
+    import xhistogram_torch
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.ops.bincount import finish_sums
+    from xhistogram_torch.utils.profiling import measure
+
+    def operands(layouts, edges):
+        thr = [torch.from_numpy(tbins.compare_form(np.asarray(e), _compare_dtype(x)).edges)
+               .to(dev) for x, e in zip(layouts, edges)]
+        return thr, [len(e) - 1 for e in edges]
+
+    def same(label, got, want):
+        """got against want: bit for bit for integers, else within two float32
+        ulps (1e-12 for float64), with NaN and infinities in the same bins."""
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        if not got.is_floating_point():
+            a, b = (x.view(torch.int64) if x.dtype == torch.uint64 else x
+                    for x in (got, want))
+            err = float((a - b).abs().max()) if a.numel() else 0.0
+            ok = torch.equal(a, b)
+        else:
+            for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(cls(got), cls(want)):
+                    raise AssertionError(f"{label}: NaN/inf bins differ from plain")
+            fin = torch.isfinite(want)
+            diff = (got.double() - want.double()).abs()[fin]
+            err = float(diff.max()) if diff.numel() else 0.0
+            rtol = 1e-12 if got.dtype == torch.float64 else 2.4e-7
+            ok = bool((diff <= rtol * want.double().abs()[fin]).all())
+        max_abs_err["direct"] = max(max_abs_err["direct"], err)
+        if not ok:
+            raise AssertionError(f"{label}: direct-row kernel != plain (max abs err {err})")
+
+    checked = [0]
+
+    def check(label, layouts, edges, weights=None, finish=True, rows=True):
+        thr, nb = operands(layouts, edges)
+        got = cuda_hist.direct(layouts, thr, nb, weights=weights, finish=finish)
+        torch.cuda.synchronize()
+        if layouts[0].numel():
+            ran = cuda_hist.last_launch()["kernel"]
+            if (ran == "direct_rows") != rows:
+                raise AssertionError(f"{label}: ran {ran}")
+        same(label, got, cuda_hist.direct_reference(layouts, thr, nb, weights=weights,
+                                                    finish=finish))
+        again = cuda_hist.direct(layouts, thr, nb, weights=weights, finish=finish)
+        if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+            raise AssertionError(f"{label}: a rerun gave other bits")
+        checked[0] += 1
+        return got
+
+    def data(dtype, shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if dtype == torch.bool:
+            return torch.rand(shape, device=dev, generator=g) < 0.3, np.array([0, 0.5, 1])
+        if dtype.is_floating_point:
+            x = (1.5 * torch.randn(shape, device=dev, generator=g)).to(dtype)
+            x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+            return x, np.linspace(-3.0, 3.0, 41)
+        if dtype in (torch.int32, torch.int64):
+            scale = 2.0**40 if dtype == torch.int64 else 1000.0
+            x = (1.5 * scale * torch.randn(shape, device=dev, generator=g)).to(dtype)
+            return x, np.linspace(-3 * scale - 0.5, 3 * scale + 0.5, 41)
+        info = torch.iinfo(dtype)
+        x = torch.randint(info.min, info.max + 1, shape, device=dev, generator=g,
+                          dtype=torch.int32).to(dtype)
+        return x, np.linspace(info.min - 0.5, info.max + 0.5, 41)
+
+    def weights(dtype, shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if dtype.is_floating_point:
+            return (torch.rand(shape, device=dev, generator=g) * 4 - 1).to(dtype)
+        if dtype == torch.bool:
+            return torch.rand(shape, device=dev, generator=g) < 0.5
+        if dtype in (torch.int64, torch.uint64):
+            return torch.randint(-(2**62), 2**62, shape, device=dev,
+                                 generator=g).view(dtype)
+        lo, hi = {torch.int32: (-(2**30), 2**30), torch.uint32: (0, 2**32),
+                  torch.int16: (-(2**15), 2**15), torch.uint16: (0, 2**16),
+                  torch.int8: (-128, 128), torch.uint8: (0, 256)}[dtype]
+        return torch.randint(lo, hi, shape, device=dev, generator=g).to(dtype)
+
+    def pair(m, c, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [1.5 * torch.randn(m, c, device=dev, generator=g) for _ in range(2)]
+
+    e40 = [np.linspace(-3.0, 3.0, 41)] * 2
+    # === the row kernel against its plain version ===============================
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.int64, torch.bool,
+                  torch.int8, torch.uint8, torch.int16, torch.uint16, torch.float16,
+                  torch.bfloat16):
+        (x, e), (y, f) = data(dtype, (300, 64), 1), data(dtype, (300, 64), 2)
+        check(f"{dtype} data", [x, y], [e, f])
+        check(f"{dtype} data, one input", [x], [e])
+    layouts = pair(500, 64, 3)
+    layouts[0][::5, ::7] = float("nan")
+    for dtype in (torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int32,
+                  torch.uint32, torch.int16, torch.uint16, torch.int8, torch.uint8,
+                  torch.bool, torch.int64, torch.uint64):
+        w = weights(dtype, (500, 64), 4)
+        got = check(f"{dtype} weights", layouts, e40, w)
+        raw = check(f"{dtype} weights, raw", layouts, e40, w, finish=False)
+        if not torch.equal(got, finish_sums(raw, dtype)):
+            raise AssertionError(f"{dtype} weights: finished rows != raw rows rounded")
+    for c in (1, 2, 31, 32, 33, 63, 64, 65, 96, 127, 128, 200, 255):
+        layouts = pair(257, c, c)
+        check(f"rows of {c}", layouts, e40)
+        for dtype in (torch.float32, torch.int32, torch.int64):
+            check(f"rows of {c}, {dtype} weights", layouts, e40, weights(dtype, (257, c), c))
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(300, 200, device=dev, generator=g)
+    row = torch.randn(1, 100, device=dev, generator=g).expand(300, 100)
+    col = torch.randn(300, 1, device=dev, generator=g).double().expand(300, 100)
+    w = weights(torch.float32, (300, 100), 6)
+    w_row = weights(torch.int32, (1, 100), 7).expand(300, 100)
+    e_views = [np.linspace(-3.0, 3.0, nb + 1) for nb in (20, 30, 10)]
+    for label, views in (("every other column, stride-0 row", [a[:, ::2], row]),
+                         ("column-major, stride-0 column", [a[:, :100].t().contiguous().t(),
+                                                            col]),
+                         ("three views", [row, col, a[:, 100:]]),
+                         ("every third row", [a[::3, 1::2][:, :100], row[:100]])):
+        m = min(x.shape[0] for x in views)
+        views = [x[:m] for x in views]
+        check(label, views, e_views[: len(views)])
+        for wv in (w[:m], w[:m].t().contiguous().t(), w_row[:m], w[:m, :1].expand(m, 100)):
+            check(f"{label}, weights strides {wv.stride()}", views, e_views[: len(views)], wv)
+    layouts = pair(700, 64, 8)
+    warps = {}
+    for nbins in ((1,), (40, 40), (75, 80), (80, 80), (64, 64), (90, 91), (128, 64),
+                  (4, 8, 16, 16), (129, 64)):
+        views = [layouts[0].roll(i, 1) for i in range(len(nbins))]
+        edges = [np.linspace(-3.0, 3.0, nb + 1) for nb in nbins]
+        rows = int(np.prod(nbins)) <= 8192
+        check(f"{nbins} bins", views, edges, rows=rows)
+        if rows:
+            warps[nbins] = cuda_hist.last_launch()["warps_per_block"]
+        for dtype in (torch.float32, torch.float64, torch.int32, torch.uint64):
+            for finish in (True, False):
+                check(f"{nbins} bins, {dtype} weights", views, edges,
+                      weights(dtype, (700, 64), 9), finish=finish, rows=rows)
+    layouts = pair(64, 64, 13)
+    layouts[0][:, ::11] = float("nan")
+    w = weights(torch.float32, (64, 64), 14)
+    w[:, ::11] = float("nan")
+    layouts[0][0, 1:6] = torch.tensor([-2.625, -1.875, -1.125, -0.375, -0.375])
+    layouts[1][0, 1:6] = 0.25
+    w[0, 1:6] = torch.tensor([float("nan"), float("inf"), -float("inf"), float("inf"),
+                              -float("inf")])
+    e86 = [np.linspace(-3.0, 3.0, 9), np.linspace(-3.0, 3.0, 7)]
+    for wv in (w, w.double()):
+        for finish in (True, False):
+            got = check("NaN, +inf, -inf weights", layouts, e86, wv, finish=finish)
+            if not (got.isnan().any() and got.isposinf().any() and got.isneginf().any()):
+                raise AssertionError("NaN, +inf, -inf weights: no such bins")
+    for m, c in ((0, 64), (64, 0)):
+        got = check(f"empty ({m}, {c})", pair(m, c, 15), e40, weights(torch.float32, (m, c), 16))
+        if got.any():
+            raise AssertionError("empty rows: nonzero sums")
+    layouts = pair(40, 64, 17)
+    layouts[0][::2] = float("nan")
+    layouts[1][1::2] = 100.0
+    for wv in (None, weights(torch.float32, (40, 64), 18)):
+        if check("rows with nothing in range", layouts, e40, wv).any():
+            raise AssertionError("rows with nothing in range: nonzero sums")
+    x = pair(333, 100, 19)[0]
+    for nbins in ((2000,), (10, 12, 8), (2,) * 12):
+        views = [x.roll(i, 1) for i in range(len(nbins))]
+        edges = [np.linspace(-3.0, 3.0, nb + 1) for nb in nbins]
+        for wv in (None, weights(torch.float32, (333, 100), 20)):
+            check(f"{len(nbins)} inputs", views, edges, wv)
+    big = pair(50, 256, 21)
+    check("rows of 256: the template", big, e40, rows=False)
+    check("rows of 256, float32 weights: the template", big, e40,
+          weights(torch.float32, (50, 256), 22), rows=False)
+    check("int64 beside float32: the template",
+          [(big[0][:, :64] * 2.0**40).long(), big[1][:, :64]],
+          [np.linspace(-(2.0**42), 2.0**42, 41), e40[1]], rows=False)
+    print(f"# direct-row kernel == plain: {checked[0]} cases, each run twice bit-identical "
+          f"(11 data dtypes; 13 weight dtypes, finished and raw, finished == raw rounded; "
+          f"rows of 1 to 255; strided and stride-0 inputs and weights; {len(warps)} slot "
+          f"counts, warps a block {sorted(set(warps.values()))}, 8256 slots on the "
+          f"template; NaN/inf weights; empty rows; 1, 3 and 12 inputs)")
+
+    # === in turns with the template, at PERF.md §6's four shapes ================
+    def row_kernel(layouts, thr, nb, w, rounds):
+        return cuda_hist._direct_rows_cuda(layouts, thr, nb, w, rounds)[0]
+
+    def template(layouts, thr, nb, w, rounds):
+        out, _ = cuda_hist._slot_hist_cuda("direct", "direct", layouts, thr, nb, False, w)
+        return out.to(torch.float32) if rounds else out
+
+    timings = {}
+    for label, shape, wdtype in (("(64800, 64) counts", DIRECT[0], None),
+                                 ("(64800, 64) int32 weights", DIRECT[0], torch.int32),
+                                 ("(64800, 64) float32 weights", DIRECT[0], torch.float32),
+                                 ("(1000, 64) counts", DIRECT[1], None)):
+        layouts = pair(*shape, seed=shape[0] + 7)
+        if wdtype == torch.int32:
+            w = torch.randint(-(2**30), 2**30, shape, device=dev, dtype=torch.int32)
+        else:
+            w = None if wdtype is None else torch.rand(shape, device=dev)
+        thr, nb = operands(layouts, e40)
+        rounds = wdtype == torch.float32
+        args = (layouts, thr, nb, w, rounds)
+        got = row_kernel(*args)
+        launch = cuda_hist.last_launch()
+        same(f"timed {label}", got, cuda_hist.direct_reference(layouts, thr, nb, weights=w))
+        template(*args), row_kernel(*args)
+        t_a, r_a, r_b, t_b = (event_ms(lambda f=f: f(*args), 20)
+                              for f in (template, row_kernel, row_kernel, template))
+        rows_dev = profiled_ms(lambda: row_kernel(*args), "direct_rows_kernel")
+        tmpl_dev = profiled_ms(lambda: template(*args), "slot_hist_kernel")
+        n = shape[0] * shape[1]
+        in_bytes = 8 * n + (4 * n if w is not None else 0)
+        out_bytes = got.element_size() * got.numel()
+        bound_ms, bound_by = bound(in_bytes + out_bytes, 2 * n * search_steps(40))
+        timings[label] = {
+            "ms": (r_a + r_b) / 2, "template_ms": (t_a + t_b) / 2, "device_ms": rows_dev,
+            "template_device_ms": tmpl_dev, "bound_ms": bound_ms, "bound_by": bound_by,
+            "warps_per_row": launch["warps_per_row"],
+            "warps_per_block": launch["warps_per_block"], "blocks": launch["blocks"],
+            "rows_per_warp": launch["rows_per_warp"]}
+        print(f"# direct {label}, 40x40 bins: row kernel {(r_a + r_b) / 2:.4f} ms (device "
+              f"{rows_dev}), template {(t_a + t_b) / 2:.4f} ms (device {tmpl_dev}"
+              f"{', its float64 rows and their rounding pass' if rounds else ''}), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({in_bytes / 1e6:.1f} MB read, "
+              f"{out_bytes / 1e6:.1f} MB written); warps a row "
+              f"{launch['warps_per_row']}, {launch['warps_per_block']} warps a block, "
+              f"{launch['blocks']} blocks, {launch['rows_per_warp']} rows a warp [{card}]")
+        del layouts, w, got
+        torch.cuda.empty_cache()
+
+    # === float-weighted 40x40 at 64,800 rows: the public call's auto route =======
+    a, b = pair(*DIRECT[0], seed=64801)
+    w = torch.rand(DIRECT[0], device=dev)
+    if cuda_hist.plan(2, (40, 40), DIRECT[0][0], DIRECT[0][1]) != "direct":
+        raise AssertionError("float-weighted 40x40 at 64,800 rows: plan() is not direct")
+    reset_counts()
+    h, _ = xhistogram_torch.histogram(a, b, bins=e40, axis=1, weights=w)
+    torch.cuda.synchronize()
+    launched = counts_now()
+    launch = cuda_hist.last_launch()
+    if launched["direct"] != 1 or sum(launched.values()) != 1 or \
+            launch["kernel"] != "direct_rows":
+        raise AssertionError(f"float-weighted 40x40 at 64,800 rows: launches {launched}, "
+                             f"{launch['kernel']}")
+    thr, nb = operands([a, b], e40)
+    same("float-weighted 40x40 public", h.reshape(DIRECT[0][0], -1),
+         cuda_hist.direct_reference([a, b], thr, nb, weights=w)[:, :-1])
+    public = measure(lambda: xhistogram_torch.histogram(a, b, bins=e40, axis=1, weights=w),
+                     reps=5)[0]
+    scatter = measure(lambda: xhistogram_torch.histogram(a, b, bins=e40, axis=1, weights=w,
+                                                         method="scatter"), reps=5)[0]
+    timings["public float-weighted 40x40 (64800, 64)"] = {
+        "direct_launches": launched["direct"], "public_ms": public * 1e3,
+        "scatter_public_ms": scatter * 1e3}
+    print(f"# float-weighted 40x40 at (64800, 64) through the public API: DIRECT_LAUNCHES "
+          f"{launched['direct']} (scatter before, as in the JAX package), float32 == plain, "
+          f"public call median {public * 1e3:.3f} ms, the scatter strategy "
+          f"{scatter * 1e3:.3f} ms [{card}]")
+    return timings, checked[0]
 
 
 def mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err):
@@ -1063,10 +1372,8 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
         w2d = canonicalize_2d(weights.expand(shape), axis_t)
         m, c = layouts[0].shape
         nbins = tuple(len(e) - 1 for e in bins)
-        wmode = None if weights.is_floating_point() else "int4"
         planned = cuda_hist.plan(len(args), nbins, 1 if axis is None else m,
-                                 None if axis is None else c,
-                                 weights_dtype=weights.dtype, wmode=wmode)
+                                 None if axis is None else c)
         if planned != kernel:
             raise AssertionError(f"{label}: plan() names {planned}, not {kernel}")
         key = {"factored": "factored full", "factored_per_row": "factored per_row",
@@ -1288,15 +1595,6 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
                   f"{plain_ms:.4f} ms, unweighted kernel {unw_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms [{card}]")
             out["direct"] = (ms, plain_ms, bound_ms, unw_ms)
-            # float weights at this shape: the JAX package runs scatter here
-            # (its four per-slot outputs pass the 2^28 gate), and so does the port
-            reset_counts()
-            xhistogram_torch.histogram(a, b, bins=e40, axis=1, weights=w.float())
-            torch.cuda.synchronize()
-            if any(counts_now().values()):
-                raise AssertionError(f"float-weighted 40x40 at {shape}: {counts_now()}")
-            print(f"# float-weighted 40x40 at {shape}: no kernel launched (scatter, as "
-                  "in the JAX package)")
         del a, b, w, h, layouts, w2d
         torch.cuda.empty_cache()
 
@@ -2284,6 +2582,12 @@ def main():
 
     slot = factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
                                max_abs_err)
+    rows, rows_cases = direct_rows_phase(dev, card, reset_counts, counts_now, max_abs_err)
+    direct = slot[1]
+    direct["launches"] += rows["public float-weighted 40x40 (64800, 64)"]["direct_launches"]
+    direct["template_ms"] = rows["(64800, 64) counts"]["template_ms"]
+    direct["device_ms"] = rows["(64800, 64) counts"]["device_ms"]
+    direct["rows_kernel"] = {"cases_held_to_plain": rows_cases, **rows}
     mixed = mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err)
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
     api_launches, api = api_phase(dev, card, reset_counts, counts_now)

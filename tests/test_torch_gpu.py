@@ -15,7 +15,7 @@ import xhistogram_torch
 from xhistogram_torch import bins as tbins
 from xhistogram_torch.core import _compare_dtype
 from xhistogram_torch.ops import cuda_hist
-from xhistogram_torch.ops.bincount import weighted_dtype
+from xhistogram_torch.ops.bincount import finish_sums, weighted_dtype
 from ts_cases import (
     BUCKET_EDGE_SETS, EDGE_SETS, S_EDGES, T_EDGES, bucket_case_values, edge_case_data,
     edge_case_values, numpy_hist2d, reference_numpy, ts_data,
@@ -769,14 +769,21 @@ def test_auto_runs_the_weighted_kernels(cuda, shape, nbins, axis, wdtype, kernel
                                           device="cpu")
     _assert_sums_equal(h.cpu(), h_cpu)
     # where the JAX package runs scatter (float weights, 64,800 rows of
-    # 40x40), the port does too
+    # 40x40), the port runs the direct kernel, by its own limits
     if kernel == "direct" and wdtype == torch.int32:
         big = [rng.normal(0, 1.5, (64800, 8)).astype(np.float32) for _ in range(2)]
+        w_big = torch.rand(64800, 8, device=cuda)
         before = _launch_counts()
-        xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in big),
-                                   bins=bins, axis=(1,),
-                                   weights=torch.ones(64800, 8, device=cuda))
-        assert _launch_counts() == before
+        h_big, _ = xhistogram_torch.histogram(
+            *(torch.from_numpy(a).to(cuda) for a in big), bins=bins, axis=(1,),
+            weights=w_big)
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert launched == [int(i == counters["direct"]) for i in range(len(launched))]
+        assert cuda_hist.last_launch()["kernel"] == "direct_rows"
+        h_cpu, _ = xhistogram_torch.histogram(*big, bins=bins, axis=(1,),
+                                              weights=w_big.cpu(), device="cpu")
+        assert h_big.dtype == torch.float32
+        _assert_sums_equal(h_big.cpu(), h_cpu)
 
 
 def test_weighted_autograd_on_the_card(cuda):
@@ -1274,12 +1281,16 @@ def _op_cases(device, weights):
     w = None if weights is None else (torch.rand(64, 4096, device=device, generator=gen)
                                       * 100).to(weights)
     thr = torch.linspace(0.0, 1.0, 41, device=device)
+    w_rows = None if w is None else w[:, :64]
     return [
         (ops.one_input, (a, thr, w, 40, False)), (ops.one_input, (a, thr, w, 40, True)),
         (ops.joint2, (a, b, thr, thr, w, 40, 40)),
         *((ops.factored, ([a, b], [thr, thr], w, [40, 40], v))
           for v in ("full", "per_row", "packed")),
         (ops.direct, ([a, b], [thr, thr], w, [40, 40])),
+        # rows of 64: the direct-row kernel (csrc/direct.cuh), raw and finished
+        (ops.direct, ([a[:, :64], b[:, :64]], [thr, thr], w_rows, [40, 40])),
+        (ops.direct, ([a[:, :64], b[:, :64]], [thr, thr], w_rows, [40, 40], True)),
     ]
 
 
@@ -1299,3 +1310,195 @@ def test_opcheck_on_cuda(cuda, weights):
         else:
             assert torch.equal(got.cpu(), want)
     assert _launch_counts() != before
+
+
+# --- the direct-row kernel (csrc/direct.cuh) --------------------------------------
+
+ALL_DATA_DTYPES = [torch.float32, torch.float64, torch.int32, torch.int64, *NARROW_DTYPES]
+
+
+def _row_data(dtype, shape, device, seed):
+    """(data, edges) of ``dtype`` for the direct-row kernel: N(0, 1.5) floats
+    with NaN and infinities, integers over a span that straddles the edges."""
+    if dtype in NARROW_DTYPES:
+        return _narrow_data(dtype, shape, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype.is_floating_point:
+        x = (1.5 * torch.randn(shape, device=device, generator=gen)).to(dtype)
+        x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        return x, _edges(40)
+    scale = 2.0**40 if dtype == torch.int64 else 1000.0
+    x = (1.5 * scale * torch.randn(shape, device=device, generator=gen)).to(dtype)
+    return x, np.linspace(-3 * scale - 0.5, 3 * scale + 0.5, 41)
+
+
+def _row_pair(layouts, edges, weights=None, finish=True, rows_kernel=True):
+    """(kernel, plain) on the card for the direct route: checks one launch,
+    and which kernel ran (the direct-row kernel, or the template outside
+    its envelope)."""
+    thr = []
+    for x, e in zip(layouts, edges):
+        ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
+        assert ce.n_hi_clip == 0
+        thr.append(torch.from_numpy(ce.edges).to(x.device))
+    nbins = [len(e) - 1 for e in edges]
+    before = cuda_hist.DIRECT_LAUNCHES
+    got = cuda_hist.direct(layouts, thr, nbins, weights=weights, finish=finish)
+    torch.cuda.synchronize()
+    nonempty = layouts[0].numel() > 0
+    assert cuda_hist.DIRECT_LAUNCHES == before + nonempty
+    if nonempty:
+        ran = cuda_hist.last_launch()["kernel"]
+        assert ran == ("direct_rows" if rows_kernel else "joint2/slot"), ran
+    want = cuda_hist.direct_reference(layouts, thr, nbins, weights=weights,
+                                      finish=finish)
+    assert got.shape == (layouts[0].shape[0], int(np.prod(nbins)) + 1)
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", ALL_DATA_DTYPES, ids=str)
+def test_direct_rows_data_dtypes(cuda, dtype):
+    x, e = _row_data(dtype, (300, 64), cuda, seed=1)
+    y, f = _row_data(dtype, (300, 64), cuda, seed=2)
+    for layouts, edges in (([x, y], [e, f]), ([x], [e])):
+        got, want = _row_pair(layouts, edges)
+        assert got.dtype == torch.int64 and torch.equal(got, want), dtype
+
+
+@pytest.mark.parametrize("finish", [True, False], ids=["finished", "raw"])
+@pytest.mark.parametrize("dtype", WEIGHT_DTYPES, ids=str)
+def test_direct_rows_weight_classes(cuda, dtype, finish):
+    """Every weight dtype, its rows stored in their finished dtype (float32
+    for float weights narrower than float64) or in their accumulator class;
+    the finished rows are the raw rows rounded once, bit for bit (the
+    kernel adds in lane order, the same in both)."""
+    layouts = _layouts("direct", 500, 64, cuda, seed=3)
+    layouts[0][::5, ::7] = float("nan")
+    w = _weights((500, 64), dtype, cuda, seed=4)
+    got, want = _row_pair(layouts, [_edges(40), _edges(30)], w, finish=finish)
+    assert got.dtype == want.dtype
+    _assert_sums_equal(got, want)
+    if finish:
+        raw, _ = _row_pair(layouts, [_edges(40), _edges(30)], w, finish=False)
+        assert torch.equal(got, finish_sums(raw, dtype))
+
+
+@pytest.mark.parametrize("c", [1, 2, 31, 32, 33, 63, 64, 65, 96, 127, 128, 200, 255])
+def test_direct_rows_row_lengths(cuda, c):
+    layouts = _layouts("direct", 257, c, cuda, seed=c)
+    edges = [_edges(40), _edges(40)]
+    got, want = _row_pair(layouts, edges)
+    assert torch.equal(got, want)
+    for dtype in (torch.float32, torch.int32, torch.int64):
+        got, want = _row_pair(layouts, edges, _weights((257, c), dtype, cuda, seed=c))
+        _assert_sums_equal(got, want)
+
+
+def test_direct_rows_strided_and_broadcast_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(300, 200, device=cuda, generator=gen)
+    row = torch.randn(1, 100, device=cuda, generator=gen).expand(300, 100)  # stride 0
+    col = torch.randn(300, 1, device=cuda, generator=gen).double().expand(300, 100)
+    w = _weights((300, 100), torch.float32, cuda, seed=6)
+    w_row = _weights((1, 100), torch.int32, cuda, seed=7).expand(300, 100)
+    edges = [_edges(20), _edges(30), _edges(10)]
+    for layouts in ([a[:, ::2], row], [a[:, :100].t().contiguous().t(), col],
+                    [row, col, a[:, 100:]], [a[::3, 1::2][:, :100], row]):
+        m = min(x.shape[0] for x in layouts)
+        layouts = [x[:m] for x in layouts]
+        got, want = _row_pair(layouts, edges[: len(layouts)])
+        assert torch.equal(got, want)
+        for weights in (w[:m], w[:m].t().contiguous().t(), w_row[:m], w[:m, :1].expand(m, 100)):
+            got, want = _row_pair(layouts, edges[: len(layouts)], weights)
+            _assert_sums_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "nbins",
+    # 16 warps a block at 1600 int64 slots, fewer from 6,000 on, one at 8,192
+    # float64 sums; past 8,192 slots the template runs
+    [(1,), (40, 40), (75, 80), (80, 80), (64, 64), (90, 91), (128, 64), (4, 8, 16, 16),
+     (129, 64)],
+    ids=str,
+)
+def test_direct_rows_slots_either_side_of_the_warp_limits(cuda, nbins):
+    layouts = _layouts("direct", 700, 64, cuda, seed=len(nbins))[:1] * len(nbins)
+    layouts = [x.roll(i, 1) for i, x in enumerate(layouts)]
+    edges = [_edges(nb) for nb in nbins]
+    rows_kernel = int(np.prod(nbins)) <= 8192
+    got, want = _row_pair(layouts, edges, rows_kernel=rows_kernel)
+    assert torch.equal(got, want)
+    if rows_kernel:
+        warps = cuda_hist.last_launch()["warps_per_block"]
+        assert 1 <= warps <= 16
+    for dtype in (torch.float32, torch.float64, torch.int32, torch.uint64):
+        for finish in (True, False):
+            got, want = _row_pair(layouts, edges, _weights((700, 64), dtype, cuda, seed=9),
+                                  finish=finish, rows_kernel=rows_kernel)
+            _assert_sums_equal(got, want)
+
+
+def test_direct_rows_nonfinite_weights(cuda):
+    """NaN makes its own bin NaN, +inf and -inf together make it NaN, one
+    infinity makes it that infinity, in float32 and float64 rows."""
+    layouts = _layouts("direct", 64, 64, cuda, seed=13)
+    layouts[0][:, ::11] = float("nan")
+    w = _weights((64, 64), torch.float32, cuda, seed=14)
+    w[:, ::11] = float("nan")  # on NaN data: never added
+    layouts[0][0, 1:6] = torch.tensor([-2.625, -1.875, -1.125, -0.375, -0.375])
+    layouts[1][0, 1:6] = 0.25
+    inf = float("inf")
+    w[0, 1:6] = torch.tensor([float("nan"), inf, -inf, inf, -inf])
+    for weights in (w, w.double()):
+        for finish in (True, False):
+            got, want = _row_pair(layouts, [_edges(8), _edges(6)], weights, finish=finish)
+            assert got.isnan().any() and got.isposinf().any() and got.isneginf().any()
+            _assert_sums_equal(got, want)
+
+
+def test_direct_rows_empty_rows(cuda):
+    """No rows or no columns launch nothing; rows whose every element is NaN
+    or out of range come back zero, the trash slot too."""
+    for m, c in ((0, 64), (64, 0)):
+        layouts = _layouts("direct", m, c, cuda, seed=15)
+        got, want = _row_pair(layouts, [_edges(40), _edges(40)],
+                              _weights((m, c), torch.float32, cuda, seed=16))
+        assert got.dtype == torch.float32 and torch.equal(got, want) and not got.any()
+    layouts = _layouts("direct", 40, 64, cuda, seed=17)
+    layouts[0][::2] = float("nan")
+    layouts[1][1::2] = 100.0
+    for weights in (None, _weights((40, 64), torch.float32, cuda, seed=18)):
+        got, want = _row_pair(layouts, [_edges(40), _edges(40)], weights)
+        assert not got.any() and torch.equal(got, want)
+
+
+def test_direct_rows_many_inputs_and_reruns(cuda):
+    """One input, three (the run-time input count) and twelve of two bins;
+    each kernel run twice gives the same bits (no atomics: lane order)."""
+    x = _layouts("direct", 333, 100, cuda, seed=19)[0]
+    w = _weights((333, 100), torch.float32, cuda, seed=20)
+    for nbins in ((2000,), (10, 12, 8), (2,) * 12):
+        layouts = [x.roll(i, 1) for i in range(len(nbins))]
+        edges = [_edges(nb) for nb in nbins]
+        for weights in (None, w):
+            got, want = _row_pair(layouts, edges, weights)
+            _assert_sums_equal(got, want, exact=weights is None)
+            again, _ = _row_pair(layouts, edges, weights)
+            assert torch.equal(got, again)
+
+
+def test_direct_outside_the_rows_envelope_runs_the_template(cuda):
+    """Rows of 256 elements or more, and int64 beside a float, run the
+    flat-slot template's direct entries, with the same results."""
+    layouts = _layouts("direct", 50, 256, cuda, seed=21)
+    got, want = _row_pair(layouts, [_edges(40)] * 2, rows_kernel=False)
+    assert torch.equal(got, want)
+    w = _weights((50, 256), torch.float32, cuda, seed=22)
+    got, want = _row_pair(layouts, [_edges(40)] * 2, w, rows_kernel=False)
+    assert got.dtype == torch.float32
+    _assert_sums_equal(got, want)
+    big = (layouts[0][:, :64] * 2.0**40).long()
+    got, want = _row_pair([big, layouts[1][:, :64]],
+                          [np.linspace(-(2.0**42), 2.0**42, 41), _edges(40)],
+                          rows_kernel=False)
+    assert torch.equal(got, want)

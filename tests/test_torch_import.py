@@ -35,7 +35,8 @@ def test_import_leaves_jax_and_triton_out():
                                     "xhistogram_torch.ops.bincount",
                                     "xhistogram_torch.parallel",
                                     "xhistogram_torch.parallel.sharded",
-                                    "xhistogram_torch.ops.partitioning"])
+                                    "xhistogram_torch.ops.partitioning",
+                                    "xhistogram_torch.utils.profiling"])
 def test_new_modules_leave_jax_out(module):
     """Each module of the public API above core imports alone without JAX
     or the JAX package, and the package exports them as the JAX one does."""
@@ -90,10 +91,11 @@ def test_no_port_file_imports_jax():
 
 def test_every_declared_kernel_symbol_is_defined():
     """The C symbols ``ops/_build.py`` binds (joint2 with its mixed pairs,
-    one_input with its narrow loads, and the four flat-slot routes of
-    csrc/factored.cu and csrc/direct.cu with their mixed entries, per data
-    type, unweighted and per weight class) are each defined once by a
-    ``csrc/*.cu`` entry macro, the weighted ones through a macro that
+    one_input with its narrow loads, the four flat-slot routes of
+    csrc/factored.cu and csrc/direct.cu with their mixed entries, and the
+    direct-row kernel of csrc/direct.cuh, per data type, unweighted and per
+    weight class, its rounded float32 class included) are each defined once
+    by a ``csrc/*.cu`` entry macro, the weighted ones through a macro that
     names a class's entries ``xh_<kernel>_<data>_##cls``."""
     import re
 
@@ -112,5 +114,6 @@ def test_every_declared_kernel_symbol_is_defined():
         for macro, cls in re.findall(r"^(XH_\w+_CLASS)\((\w+),", text, re.M):
             defined += [f"{name}_{cls}" for name in per_class[macro]]
     declared = [name for name, _ in _build.symbols()]
-    assert len(declared) == 4 * (8 + 10 + 4 * 4 + 4)  # each unweighted and in 3 classes
+    # each unweighted and in 3 classes; the direct-row kernel in 4
+    assert len(declared) == 4 * (8 + 10 + 4 * 4 + 4) + 5 * 4
     assert sorted(defined) == sorted(declared)

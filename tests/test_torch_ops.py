@@ -111,6 +111,32 @@ def test_wrappers_give_the_op_its_dtype(name):
     assert got.dtype == torch.float32 and torch.equal(got, raw.to(torch.float32))
 
 
+@pytest.mark.parametrize("weights", WEIGHTS + [torch.float16, torch.bfloat16], ids=str)
+def test_direct_finished_fake_and_opcheck(weights):
+    """With ``finish=True`` the direct op gives float weights narrower than
+    float64 float32 sums (its kernel rounds each row as it stores it), and
+    the accumulator class otherwise; its fake implementation gives the same
+    dtype, and opcheck passes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from xhistogram_torch.ops.bincount import finish_sums
+
+    op, args = _op_args("direct", weights)
+    args = (*args, True)
+    real = op(*args)
+    rounded = weights in (torch.float16, torch.bfloat16, torch.float32)
+    want = torch.float32 if rounded else CLASS.get(weights, torch.float64)
+    assert real.dtype == want
+    raw = op(*args[:-1])
+    assert torch.equal(real, finish_sums(raw, weights) if rounded else raw)
+    with FakeTensorMode() as mode:
+        fake_args = torch.utils._pytree.tree_map_only(torch.Tensor, mode.from_tensor, args)
+        fake = op(*fake_args)
+    assert fake.shape == real.shape and fake.dtype == real.dtype
+    if weights in (None, torch.float32, torch.int32, torch.int64):
+        torch.library.opcheck(op, args)
+
+
 class _Graphs:
     """A torch.compile backend that records each graph, then runs it under
     aot_eager."""
@@ -184,3 +210,41 @@ def test_dtensor_op_runs_per_rank_without_gathering(ranks, name):
         assert got["full"].dtype == want.dtype
         assert torch.equal(got["full"], want) if not want.is_floating_point() else \
             torch.allclose(got["full"], want, rtol=1e-15, atol=0)
+
+
+def run(rank, world):
+    """One rank of test_direct_finished_rows_under_dtensor: the direct op on
+    DTensors sharded on rows and on columns, raw and finished, against the
+    op on the full tensors, with the output's placements."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    import xhistogram_torch.parallel  # noqa: F401  (registers the rules)
+
+    mesh = init_device_mesh("cpu", (world,))
+    a, b, w, thr = _operands(torch.float32)
+    out = {}
+    for dim in (0, 1):
+        da, db, dw = (distribute_tensor(x, mesh, [Shard(dim)]) for x in (a, b, w))
+        dt = distribute_tensor(thr, mesh, [Replicate()])
+        for finish in (False, True):
+            got = OPS.direct([da, db], [dt, dt], dw, [7, 7], finish)
+            want = OPS.direct([a, b], [thr, thr], w, [7, 7], finish)
+            out[(dim, finish)] = (type(got.placements[0]).__name__, got.dtype,
+                                  torch.equal(got.full_tensor(), want))
+    return out
+
+
+def test_direct_finished_rows_under_dtensor(tmp_path):
+    """Rows the direct op rounds to float32 (finish=True) do not add up as
+    partial sums, so columns sharded there are gathered first (the result
+    replicated), while raw float64 sums stay a Partial; rows sharded on
+    the kept dim stay Shard(0) either way; every result equals the op on
+    the full tensors."""
+    for result in run_ranks("test_torch_ops", tmp_path, world=2, timeout=180):
+        assert result == {
+            (0, False): ("Shard", torch.float64, True),
+            (0, True): ("Shard", torch.float32, True),
+            (1, False): ("Partial", torch.float64, True),
+            (1, True): ("Replicate", torch.float32, True),
+        }

@@ -65,7 +65,8 @@ def _case(route_id, seed=0):
 
 
 def _route_of(args, bins, axis, weights_dtype, wmode=None):
-    """The port's and the JAX package's weighted route for this call."""
+    """The port's route for this call (its own limits: weighted calls take
+    the unweighted caps) and the JAX package's weighted route."""
     shape = args[0].shape
     if axis is None:
         m, c = 1, None
@@ -73,8 +74,7 @@ def _route_of(args, bins, axis, weights_dtype, wmode=None):
         m = int(np.prod([n for i, n in enumerate(shape) if i not in axis]))
         c = int(np.prod([shape[i] for i in axis]))
     nbins = tuple(len(e) - 1 for e in bins)
-    ours = cuda_hist.plan(len(args), nbins, m, c, weights_dtype=weights_dtype,
-                          wmode=wmode)
+    ours = cuda_hist.plan(len(args), nbins, m, c)
     jdt = jnp.float32 if weights_dtype.is_floating_point else jnp.int32
     theirs = pallas_hist.planned_kernel(len(args), nbins, m, c, weighted=True,
                                         weights_dtype=jdt, wmode=wmode)
@@ -373,46 +373,101 @@ def test_weights_bad_shape_raises_like_jax():
 
 
 @pytest.mark.parametrize(
-    "n_inputs,nbins,m,c,kinds",
+    "n_inputs,nbins,m,c,route,jax_routes",
     [
         # BASELINE config 2: one input, 50 bins, 1000 kept rows
-        (1, (50,), 1000, 100_000, {"f": "one_input", "i": "one_input"}),
+        (1, (50,), 1000, 100_000, "one_input", {"f": "one_input", "i": "one_input"}),
         # the T–S diagram, full
-        (2, (280, 340), 1, None, {"f": "joint2", "i": "joint2"}),
+        (2, (280, 340), 1, None, "joint2", {"f": "joint2", "i": "joint2"}),
         # the README per-level T–S call
-        (2, (280, 340), 50, 73 * 64800, {"f": "factored_per_row", "i": "factored_per_row"}),
+        (2, (280, 340), 50, 73 * 64800, "factored_per_row",
+         {"f": "factored_per_row", "i": "factored_per_row"}),
         # three inputs in 60^3 bins, full
-        (3, (60, 60, 60), 1, None, {"f": "factored", "i": "factored"}),
+        (3, (60, 60, 60), 1, None, "factored", {"f": "factored", "i": "factored"}),
         # 40x40 per row at m = 1000 and at config 4's grid
-        (2, (40, 40), 1000, 64, {"f": "direct", "i": "direct"}),
-        (2, (40, 40), 64800, 64, {"f": None, "i": "direct"}),
-        # past the weighted full-reduction cap
-        (2, (1000, 1000), 1, None, {"f": None, "i": None}),
+        (2, (40, 40), 1000, 64, "direct", {"f": "direct", "i": "direct"}),
+        (2, (40, 40), 64800, 64, "direct", {"f": None, "i": "direct"}),
+        # past the JAX package's weighted full-reduction caps
+        (2, (1000, 1000), 1, None, "factored", {"f": None, "i": None}),
         # 120x90 per row over 64 members
-        (2, (120, 90), 16384, 64, {"f": None, "i": "factored_packed"}),
+        (2, (120, 90), 16384, 64, "factored_packed", {"f": None, "i": "factored_packed"}),
     ],
     ids=["config2", "ts", "readme", "3in-60", "direct-1000", "direct-64800",
          "1000x1000", "packed"],
 )
-def test_weighted_plan_of_the_path_shapes(n_inputs, nbins, m, c, kinds):
-    for kind, want in kinds.items():
-        dtype = torch.float32 if kind == "f" else torch.int32
-        ours = cuda_hist.plan(n_inputs, nbins, m, c, weights_dtype=dtype)
+def test_weighted_plan_of_the_path_shapes(n_inputs, nbins, m, c, route, jax_routes):
+    """The port routes weighted calls by its own limits, the unweighted caps,
+    where the JAX package's weighted gates (its TPU kernels' channel and
+    Kahan outputs, per-mode caps and integer digit modes) send float
+    weights to scatter at three of these shapes."""
+    assert cuda_hist.plan(n_inputs, nbins, m, c) == route
+    assert pallas_hist.plan(n_inputs, nbins, m, c=c, weighted=False, uniform=None) == route
+    for kind, want in jax_routes.items():
         theirs = pallas_hist.planned_kernel(
             n_inputs, nbins, m, c, weighted=True,
             weights_dtype=jnp.float32 if kind == "f" else jnp.int32)
-        assert ours == theirs == want, kind
+        assert theirs == want, kind
 
 
 def test_float_weighted_scatter_where_jax_runs_scatter():
-    """40x40 bins at 64,800 rows: float weights take the scatter strategy in
-    both packages (the JAX kernels' four per-slot outputs pass its 2^28
-    gate); forced, the port runs direct's plain version with the same sums."""
+    """40x40 bins at 64,800 rows: the JAX package runs float weights through
+    its scatter strategy (its kernels' four per-slot outputs pass its 2^28
+    gate); the port runs the direct route, whose sums agree with the JAX
+    scatter's within the 'highest' bound, and with numpy's."""
     args = _data((640, 8), 2, seed=20)
     bins = [_edges(40)] * 2
     w = np.random.default_rng(21).random((640, 8)).astype(np.float32)
-    assert cuda_hist.plan(2, (40, 40), 64800, 64, weights_dtype=torch.float32) is None
+    assert cuda_hist.plan(2, (40, 40), 64800, 64) == "direct"
+    assert pallas_hist.planned_kernel(2, (40, 40), 64800, 64, weighted=True,
+                                      weights_dtype=jnp.float32) is None
+    jh, _ = xhistogram_tpu.histogram(*args, bins=bins, axis=1, weights=w,
+                                     precision="highest", method="scatter")
     want = reference_numpy_weighted(args, bins, w, (1,))
     for method in ("auto", "cuda"):
         h, _ = histogram_cpu(*args, bins=bins, axis=1, weights=w, method=method)
+        assert h.dtype == torch.float32
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(h.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("wdtype", [np.float32, np.float64, np.int32],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("c", [1, 63, 255])
+@pytest.mark.parametrize("nbins", [(40, 40), (8191,)], ids=["40x40", "8191"])
+def test_direct_finished_rows_equal_finish_sums(nbins, c, wdtype):
+    """The direct route's finished rows (float32 for float32 weights, as its
+    kernel stores them) are ``finish_sums`` of its float64 rows bit for bit,
+    the op gives them with ``finish=True``, and they match the JAX
+    package's ``_direct_kernel`` under the interpreter within the 'highest'
+    bound (integer sums bit for bit)."""
+    from xhistogram_torch import bins as tbins
+    from xhistogram_torch.ops.bincount import finish_sums, weighted_dtype
+
+    m = 6
+    args = _data((m, c), len(nbins), seed=c)
+    bins = [_edges(nb) for nb in nbins]
+    rng = np.random.default_rng(c + len(nbins))
+    if wdtype == np.int32:
+        w = rng.integers(-(2**30), 2**30, (m, c)).astype(np.int32)
+    else:
+        w = (rng.random((m, c)) * 4 - 1).astype(wdtype)
+    layouts = [torch.from_numpy(a) for a in args]
+    thr = [torch.from_numpy(tbins.compare_form(e, np.float32).edges) for e in bins]
+    wt = torch.from_numpy(w)
+    raw = cuda_hist.direct_reference(layouts, thr, list(nbins), weights=wt, finish=False)
+    fin = cuda_hist.direct_reference(layouts, thr, list(nbins), weights=wt)
+    assert raw.dtype == (torch.float64 if w.dtype.kind == "f" else torch.int32)
+    assert fin.dtype == weighted_dtype(wt.dtype)
+    assert torch.equal(fin, finish_sums(raw, wt.dtype))
+    op = torch.ops.xhistogram.direct(layouts, thr, wt, list(nbins), True)
+    assert op.dtype == fin.dtype and torch.equal(op, fin)
+    assert torch.equal(torch.ops.xhistogram.direct(layouts, thr, wt, list(nbins)), raw)
+    assert pallas_hist.plan(len(nbins), nbins, m, c=c, weighted=False,
+                            uniform=None) == "direct"
+    jh, _ = xhistogram_tpu.histogram(*args, bins=bins, axis=1, weights=w,
+                                     precision="highest", method="pallas")
+    got = fin[:, :-1].reshape(m, *nbins).numpy()
+    if wdtype == np.int32:
+        np.testing.assert_array_equal(got, np.asarray(jh))
+    else:
+        np.testing.assert_allclose(got, np.asarray(jh), rtol=RTOL, atol=ATOL)

@@ -7,9 +7,9 @@ since putting it there was the caller's choice, and nothing moves it. numpy
 and Python inputs are copied to ``device=``, which defaults to the CUDA
 card; without a card they need ``device="cpu"``. The counts come back on
 the inputs' device. On a CUDA tensor each call runs the hand-written
-kernel that the JAX package's ``plan()`` names (one_input, joint2,
-factored or direct; ``ops/cuda_hist``), or the plain scatter strategy where
-the JAX package runs its scatter strategy too.
+kernel that ``plan()`` names (one_input, joint2, factored or direct;
+``ops/cuda_hist``), the JAX package's unweighted routing table, for
+weighted calls too, or the plain scatter strategy outside it.
 
 dtype rules: unweighted counts are int64, the reference's dtype (the JAX
 package's int32 is a TPU word-size artifact). Weighted sums take a dtype
@@ -27,9 +27,11 @@ CPU's included:
     package gives the same for values beyond int32, but int32, wrapped, for
     values that each fit int32.
 
-Float sums are added with atomics in an order that varies between runs on
-the card, in float64, so they are reproducible in practice but not
-guaranteed bit for bit; integer sums are exact. ``precision='f64'`` gives
+Float sums are added in float64 in an order that varies between runs on
+the card, so they are reproducible in practice but not guaranteed bit for
+bit; integer sums are exact. The direct kernel rounds its rows' float sums
+to float32 as it stores them, the same single rounding.
+``precision='f64'`` gives
 float weights float64 sums that are exact until one final rounding, and
 bit-identical from run to run: the weights become int64 limbs on their
 device and run through the int64-weighted kernels (``_f64_sums``). A NaN weight makes its own
@@ -142,20 +144,6 @@ def _coerce_weights(w):
     return w
 
 
-def _int_weight_mode(w):
-    """The JAX package's internal mode for integer weights, "int1".."int4":
-    the fewest signed base-256 digits that span the values of numpy
-    weights, and 4 for tensors (``intweights.device_digits``). Only
-    ``plan()``'s full-reduction cap reads it."""
-    if isinstance(w, np.ndarray) and w.size:
-        lo, hi = int(w.min()), int(w.max())
-        for n in (1, 2, 3):
-            span = (256**n - 1) // 255
-            if -128 * span <= lo and hi <= 127 * span:
-                return f"int{n}"
-    return "int4"
-
-
 class _WeightedSums(torch.autograd.Function):
     """Weighted sums with their gradient with respect to the weights: the
     counterpart of the JAX package's custom VJP around its weighted kernels
@@ -230,10 +218,11 @@ def _place(args, device):
 
 
 def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
-                 reduce_all, w2d=None):
-    """Counts (or sums of the weights ``w2d``, in their accumulator class)
-    ``(rows, prod(nbins) + 1)`` from ``kernel``, the kernel the JAX package
-    would run here (``pallas_hist._dispatch``)."""
+                 reduce_all, w2d=None, finish=False):
+    """Counts (or sums of the weights ``w2d``, in their accumulator class,
+    or with ``finish`` in their ``weighted_dtype``) ``(rows, prod(nbins) +
+    1)`` from ``kernel``, the kernel the JAX package would run here
+    (``pallas_hist._dispatch``)."""
     if any(n_hi_clip):
         raise NotImplementedError(
             f"method={method!r} cannot represent bin edges at/beyond the data "
@@ -243,15 +232,15 @@ def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
     with scope("cuda_kernel"):
         if kernel == "one_input":
             return one_input(arrays_2d[0], thresholds[0], nbins[0], reduce_all,
-                             weights=w2d, finish=False)
+                             weights=w2d, finish=finish)
         if kernel == "joint2":
             a, b = arrays_2d  # joint2 runs only for a full reduction
             return joint2(a, b, thresholds[0], thresholds[1], nbins[0], nbins[1],
-                          weights=w2d, finish=False)
+                          weights=w2d, finish=finish)
         if kernel == "direct":
-            return direct(arrays_2d, thresholds, nbins, weights=w2d, finish=False)
+            return direct(arrays_2d, thresholds, nbins, weights=w2d, finish=finish)
         return factored(arrays_2d, thresholds, nbins, _FACTORED_VARIANT[kernel],
-                        weights=w2d, finish=False)
+                        weights=w2d, finish=finish)
 
 
 #: explicit edge arrays' compare-form thresholds, already on their device:
@@ -431,8 +420,7 @@ def _f64_groups(wf, amax, agree=_same):
     return groups
 
 
-def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
-              agree=_same):
+def _f64_sums(weights, to_2d, n_cols, out_shape, count, agree=_same):
     """Correctly rounded float64 sums of float weights (``precision='f64'``;
     the JAX package's ``_f64_weight_histogram``), ``out_shape`` ``(rows,
     slots)`` on the weights' device, trash slot included.
@@ -441,7 +429,7 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
     weights' own shape (``_f64_groups``); ``to_2d`` broadcasts each limb
     into the canonical layout only as it is counted. Each K splits into the
     signed limbs of ``_f64_limbs``/``_split_limbs``, which add back to K
-    exactly and whose per-slot sums ``count_int`` adds exactly in int64
+    exactly and whose per-slot sums ``count`` adds exactly in int64
     (the int64-weighted kernels, or ``index_add_``): groups x limbs passes,
     two for weights in one group. Each int64 sum enters a double-double
     accumulator exactly, as two doubles (the sum rounded and the int64
@@ -449,12 +437,12 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
     ``hi + lo``: correctly rounded to <= 1 ulp, ±inf
     where the exact sum overflows (the TwoSum term is NaN there and is
     masked, as in the JAX package). Nonfinite weights take one float64 pass of their own
-    (``count_float``, zeros elsewhere), whose per-slot result adds at the
+    (``count`` again, zeros elsewhere), whose per-slot result adds at the
     end with ``np.bincount``'s semantics. Integer sums do not depend on the
     order of the adds, so the result is bit-identical from run to run.
 
     Sharded (``parallel.histogram_sharded``), ``weights`` is one rank's
-    block, ``count_int`` and ``count_float`` all-reduce each pass's sums
+    block, ``count`` all-reduces each pass's sums
     before the combine, ``n_cols`` is the global row length (each limb's
     sum over every rank stays below 2**63), and ``agree`` makes each
     choice of passes global (``_f64_groups``).
@@ -474,7 +462,7 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
     hi = lo = None
     for s, k in _f64_groups(wf, amax, agree):
         for j, limb in enumerate(_split_limbs(k, width, n_limbs)):
-            sums = count_int(to_2d(limb))  # |sums| < 2**63 - 2**32
+            sums = count(to_2d(limb))  # |sums| < 2**63 - 2**32
             # the sum as two doubles, exactly: itself rounded, and the rest
             top = sums.to(torch.float64)
             rest = (sums - top.to(torch.int64)).to(torch.float64)
@@ -489,7 +477,7 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count_int, count_float,
     else:
         h = torch.where(torch.isinf(hi), hi, hi + lo)
     if nonfinite:
-        h = h + count_float(to_2d(torch.where(finite, 0.0, w64)))
+        h = h + count(to_2d(torch.where(finite, 0.0, w64)))
     return h
 
 
@@ -541,7 +529,7 @@ _resolve_bin_edges = torch.compiler.disable(_bins.resolve_bin_edges)
 
 
 def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
-                    precision, host_weights=None, mesh=None):
+                    precision, mesh=None):
     """The raw slot sums of one device's inputs: the counterpart of the JAX
     package's ``_histogram_impl``, before the sums take their dtype.
 
@@ -550,9 +538,11 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
     thresholds are cached). Returns ``(sums, kept,
     w_dtype)``: ``(rows, prod(nbins) + 1)`` int64 counts or weighted sums in
     their accumulator (float64 for float weights, int32 or int64 for
-    integers; 'f64' sums in float64), trash slot included; the kept shape;
-    and the weights' dtype where ``bincount.finish_sums`` still gives the
-    sums their dtype, else None.
+    integers; 'f64' sums in float64), trash slot included, or, on one
+    device, the kernels' sums in their dtype already (the direct kernel
+    rounds float sums as it stores them); the kept shape; and the weights'
+    dtype where ``bincount.finish_sums`` still gives the sums their dtype,
+    else None.
 
     ``mesh`` (``parallel.sharded``) makes the inputs one rank's block of a
     sharded call: ``mesh.sum(t)`` adds each pass's sums over the ranks
@@ -613,25 +603,20 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
     reduce_all = full_reduce or m == 1
     n_slots = math.prod(nbins) + 1
 
-    def route(weights_dtype, wmode):
-        """The kernel that runs for these weights, or None for a strategy."""
-        kernel = plan(n_inputs, nbins, 1 if reduce_all else m,
-                      None if reduce_all else c, weights_dtype=weights_dtype,
-                      wmode=wmode)
-        if method in ("cuda", "pallas"):
-            # forced outside the efficient envelopes: the general kernel
-            return kernel or ("factored" if reduce_all else "direct")
-        if (method == "auto" and device.type == "cuda" and kernel is not None
-                and not any(n_hi_clip)):  # the JAX package's auto gate
-            return kernel
-        return None
+    kernel = plan(n_inputs, nbins, 1 if reduce_all else m, None if reduce_all else c)
+    if method in ("cuda", "pallas"):
+        # forced outside the efficient envelopes: the general kernel
+        kernel = kernel or ("factored" if reduce_all else "direct")
+    elif method != "auto" or device.type != "cuda" or any(n_hi_clip):
+        kernel = None  # a strategy (the JAX package's auto gate)
 
-    def count(w2d, kernel):
+    def count(w2d, finish=False):
         """Counts, or sums of ``w2d``, ``(rows, prod(nbins) + 1)``, over
-        every rank of a sharded call."""
+        every rank of a sharded call; with ``finish``, a kernel's sums in
+        their ``weighted_dtype``."""
         if kernel is not None:
             sums = _count_fused(method, kernel, arrays_2d, thresholds, nbins,
-                                n_hi_clip, reduce_all, w2d)
+                                n_hi_clip, reduce_all, w2d, finish)
         else:
             with scope("digitize"):
                 indices = [
@@ -647,23 +632,18 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
         return sums if mesh is None else mesh.sum(sums)
 
     if exact_f64:
-        int_kernel = route(torch.int64, None)
-        float_kernel = route(torch.float64, None)
         sums = _f64_sums(
             weights, to_2d, c if mesh is None else mesh.n_cols,
-            (1 if reduce_all else m, n_slots),
-            lambda w: count(w, int_kernel), lambda w: count(w, float_kernel),
+            (1 if reduce_all else m, n_slots), count,
             _same if mesh is None else mesh.agree,
         )
         return sums, kshape, None
     if w2d is None:
-        return count(None, route(None, precision)), kshape, None
-    wmode = precision  # every mode runs the same kernels; plan() reads it
-    if not weights.is_floating_point():
-        wmode = _int_weight_mode(host_weights)
-    kernel = route(weights.dtype, wmode)
-    sums = _WeightedSums.apply(w2d, lambda w: count(w, kernel), arrays_2d,
-                               thresholds, nbins, n_hi_clip)
+        return count(None), kshape, None
+    # one device's sums are final: the kernels may round them (a sharded
+    # call's partials round once, after the all-reduce)
+    sums = _WeightedSums.apply(w2d, lambda w: count(w, finish=mesh is None),
+                               arrays_2d, thresholds, nbins, n_hi_clip)
     return sums, kshape, weights.dtype
 
 
@@ -672,7 +652,7 @@ def _finish_histogram(sums, w_dtype, kshape, edges_np, density):
     sharded call): the sums in their dtype, the trash slot dropped, the
     kept shape and bin axes, and density."""
     if w_dtype is not None:
-        sums = finish_sums(sums, w_dtype)
+        sums = finish_sums(sums, w_dtype)  # sums already in it pass as they are
     nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
     h = sums[..., :-1].reshape(kshape + nbins)  # drop the trash slot
     if density:
@@ -742,10 +722,9 @@ def histogram(
         (``ops.bincount``) and no kernel, as in the JAX package.
     precision : None | 'split' | 'highest' | 'i8' | 'i8x3' | 'f64'
         The JAX package's weighted-sum precision modes, validated with its
-        messages. 'split' to 'i8x3' run the same float64 accumulation here,
-        which meets the tightest of their bounds ('highest'), so they
-        differ only in the JAX ``plan()``'s routing gates, which the port
-        keeps. 'f64' gives float weights float64 sums that are exact, then
+        messages. 'split' to 'i8x3' run the same float64 accumulation and
+        the same kernels here, which meets the tightest of their bounds
+        ('highest'). 'f64' gives float weights float64 sums that are exact, then
         rounded once (<= 1 ulp, bit-identical from run to run; see
         ``_f64_sums``): the weights decompose into int64 limbs on their
         device, each pass runs the int64-weighted kernel ``plan()`` names,
@@ -783,9 +762,8 @@ def histogram(
             method=method, precision=precision,
         )
     args = [_coerce_host(_local_value(a)) for a in args]
-    host_weights = None  # numpy weights' values set the integer weight mode
     if weights is not None:
-        weights = host_weights = _coerce_weights(_local_value(weights))
+        weights = _coerce_weights(_local_value(weights))
         args.append(weights)
     args = _place(args, device)
     device = args[0].device
@@ -799,6 +777,6 @@ def histogram(
     edges_np = _resolve_bin_edges(args, bins, range, weights)
     sums, kshape, w_dtype = _histogram_impl(
         args, weights, edges_np, bins, axis, method=method, block_size=block_size,
-        precision=precision, host_weights=host_weights,
+        precision=precision,
     )
     return _finish_histogram(sums, w_dtype, kshape, edges_np, density), edges_np

@@ -14,7 +14,9 @@ namespace xh {
 // joint2.cu): blocks a cluster, passes over the data, histogram in shared
 // memory (1) or device memory (0), and the cell-table sizes asked for the
 // first two inputs; a one_input launch sets one_input and its counter
-// layout (one_input.cuh) and copies of the histogram.
+// layout (one_input.cuh) and copies of the histogram; a direct-row launch
+// (direct.cuh) its warps a block (one row each at a time), blocks and the
+// most rows a warp walks.
 struct LaunchRecord {
   int cluster;
   int passes;
@@ -23,6 +25,9 @@ struct LaunchRecord {
   int one_input;
   int layout;
   int copies;
+  int warps;
+  int blocks;
+  int rows_per_warp;
 };
 inline LaunchRecord last_launch = {};
 
@@ -30,8 +35,8 @@ inline LaunchRecord last_launch = {};
 // and `smem` bytes of dynamic shared memory, after raising that kernel's
 // shared-memory limit to `smem`. Each kernel instantiation keeps its own
 // LaunchShape (a static in its launcher), which remembers per device the
-// answer for the last `smem` asked, so repeated calls of one problem shape
-// make no attribute or occupancy query.
+// answer for the last (`threads`, `smem`) asked, so repeated calls of one
+// problem shape make no attribute or occupancy query.
 class LaunchShape {
  public:
   cudaError_t get(const void* kernel, int threads, size_t smem, int* sms,
@@ -42,8 +47,8 @@ class LaunchShape {
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
     std::lock_guard<std::mutex> lock(mu_);
     Entry& c = cache_[device];
-    if (c.sms == 0 || c.smem != smem) {
-      Entry fresh = {smem, 0, 0};
+    if (c.sms == 0 || c.smem != smem || c.threads != threads) {
+      Entry fresh = {smem, threads, 0, 0};
       if ((err = cudaFuncSetAttribute(
                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                (int)smem)) != cudaSuccess ||
@@ -65,6 +70,7 @@ class LaunchShape {
  private:
   struct Entry {
     size_t smem;
+    int threads;
     int sms;
     int per_sm;
   };

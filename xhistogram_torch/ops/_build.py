@@ -61,11 +61,15 @@ NARROW_SUFFIXES = ("f16", "bf16", "i16", "u16", "i8", "u8")
 JOINT2_MIXED = ("i64_f32", "f32_i64", "i64_f64", "f64_i64")
 #: the flat-slot routes of csrc/slot.cuh, each its own C symbol
 #: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and
-#: ``xh_<route>_mixed`` for int64 beside a float (csrc/slot_mixed.cu)
+#: ``xh_<route>_mixed`` for int64 beside a float (csrc/slot_mixed.cu); the
+#: direct route's own kernel (csrc/direct.cuh) is ``xh_direct_rows_<suffix>``
 SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 #: the weighted kernels' accumulator classes (csrc/weights.cuh): each
 #: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
 WEIGHT_CLASSES = ("wf64", "wu32", "wu64")
+#: the direct-row kernel's further class (csrc/direct.cuh): float weights
+#: summed in float64, rows stored as float32
+ROUNDED_CLASS = "wf32"
 
 
 def symbols():
@@ -75,25 +79,29 @@ def symbols():
     slot_args = [i32, p, p, p, p, i64, i64, i64, i32]
     weight_view = [p, i64, i64, i32]
     # each kernel's arguments before and after the weights' (pointer,
-    # strides, type code) that its weighted entries take, and its suffixes
+    # strides, type code) that its weighted entries take, its suffixes and
+    # its weight classes
     kernels = {
         "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32], [p],
-                   DTYPE_SUFFIXES + JOINT2_MIXED),
+                   DTYPE_SUFFIXES + JOINT2_MIXED, WEIGHT_CLASSES),
         "one_input": ([p, i64, i64, i64, i64, p, i32, i32], weight_view, [p, p],
-                      DTYPE_SUFFIXES + NARROW_SUFFIXES),
-        **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES)
+                      DTYPE_SUFFIXES + NARROW_SUFFIXES, WEIGHT_CLASSES),
+        **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
            for route in SLOT_ROUTES},
         # the mixed entries take each input's stored type after the count
-        **{f"{route}_mixed": ([i32, p, *slot_args[1:]], weight_view, [p], ("",))
+        **{f"{route}_mixed": ([i32, p, *slot_args[1:]], weight_view, [p], ("",),
+                              WEIGHT_CLASSES)
            for route in SLOT_ROUTES},
+        "direct_rows": (slot_args[:7], weight_view, [p], DTYPE_SUFFIXES,
+                        (*WEIGHT_CLASSES, ROUNDED_CLASS)),
     }
     out = []
-    for kernel, (args, weight_args, tail, suffixes) in kernels.items():
+    for kernel, (args, weight_args, tail, suffixes, classes) in kernels.items():
         for suffix in suffixes:
             name = f"xh_{kernel}_{suffix}" if suffix else f"xh_{kernel}"
             out.append((name, [*args, *tail, p]))
             out += [(f"{name}_{cls}", [*args, *weight_args, *tail, p])
-                    for cls in WEIGHT_CLASSES]
+                    for cls in classes]
     return out
 
 

@@ -1,16 +1,19 @@
 """Fused histogram kernels for the GPU, and the routing table between them.
 
 Counterpart of ``xhistogram_tpu.ops.pallas_hist``. ``plan`` is that
-module's routing table copied as host code (unweighted and weighted, no
-uniform-spacing certificates: the kernels' bucketed digitize is exact for
-any thresholds and needs none), so both packages name the same kernel
-for the same problem. Every kernel family it names is ported, each a
+module's unweighted routing table copied as host code (no uniform-spacing
+certificates: the kernels' bucketed digitize is exact for any thresholds
+and needs none), so both packages name the same kernel for the same
+unweighted problem; weighted calls take the same caps, the port's own
+limits, where the JAX package's weighted gates count its TPU kernels'
+extra outputs. Every kernel family it names is ported, each a
 hand-written CUDA kernel with its plain PyTorch version beside it:
 ``one_input`` (``csrc/one_input.cuh``), ``joint2`` (``csrc/joint2.cuh``),
 ``factored`` in its three variants (``csrc/factored.cu``) and ``direct``
-(``csrc/direct.cu``); the last two share the flat-slot histogram of
-``csrc/slot.cuh``. Each ``*_reference`` is the plain version: digitize,
-flat slot, bincount.
+(``csrc/direct.cuh``: a warp per kept row; outside its envelope the
+direct entries of ``csrc/direct.cu``). ``factored`` and those entries
+share the flat-slot histogram of ``csrc/slot.cuh``. Each ``*_reference``
+is the plain version: digitize, flat slot, bincount.
 
 Every wrapper takes ``weights=``, an ``(m, c)`` view shaped like the data,
 and then returns the weighted sums in ``bincount.weighted_dtype`` of the
@@ -19,7 +22,8 @@ weights' dtype instead of int64 counts. The weighted kernels
 weights) or in 32- or 64-bit integers, in place of the TPU kernels' weight
 limbs, Kahan outputs and NaN/inf channels, so every public ``precision=``
 runs the same kernel. ``validate_public_precision`` keeps the JAX package's
-contract for that argument.
+contract for that argument. The direct kernel can also store float sums
+finished, as float32 rounded once from float64 (``finish=True``).
 
 The kernels compare in the data's own type: float32, float64, int32 or
 int64. float16 data and its thresholds widen to float32, which is exact
@@ -41,7 +45,8 @@ the output in the weights' accumulator class (int64 counts; float64, int32
 or int64 sums), which its fake implementation gives for ``torch.compile``.
 The wrappers check their operands, call the op, and give the sums their
 ``weighted_dtype`` (``finish=False`` keeps the accumulators, which a
-sharded call adds up across ranks before that one rounding). The op
+sharded call adds up across ranks before that one rounding; the direct
+op rounds in its kernel when asked). The op
 carries no autograd rule: ``core._WeightedSums`` is the gradient, and
 ``ops/partitioning.py`` gives each op its DTensor sharding rule.
 """
@@ -102,7 +107,15 @@ MAX_SHARED_SLOTS = 8 * 232448 // 4
 #: joint2, none in factored and direct). tools and the card-only tests set
 #: 1, 2 and 4 to time and check each cluster size
 MAX_CLUSTER_CTAS = 8
-_MAX_SLOT_INPUTS = 32  # csrc/slot.cuh kMaxInputs
+_MAX_SLOT_INPUTS = 32  # csrc/slot.cuh and csrc/direct.cuh kMaxInputs
+#: the direct-row kernel's envelope (csrc/direct.cuh): rows of at most 255
+#: elements, at most 8192 slots, one compare type. The direct route runs
+#: the flat-slot template's entries (csrc/direct.cu) outside it
+_DIRECT_ROWS_MAX_COLS = 255
+_DIRECT_ROWS_MAX_SLOTS = 8192
+#: the weight dtypes whose finished sums are float32, rounded once from
+#: their float64 sums (``bincount.weighted_dtype``)
+_ROUNDED = (torch.float16, torch.bfloat16, torch.float32)
 
 _MAX_ONE_INPUT_BINS = 1024  # plan()'s one_input gate, and the kernel's limit
 
@@ -171,10 +184,6 @@ def _fold_factor(m, c):
 #: the public ``precision=`` modes (the JAX package's weighted-sum modes);
 #: every one runs the same float64-accumulating kernels here
 WEIGHTED_MODES = ("split", "highest", "i8", "i8x3")
-# the JAX package's weighted full-reduction slot caps by mode
-# (pallas_hist._weighted_full_cap), kept so plan() agrees with it
-_WEIGHTED_FULL_CAP = {"split": 1 << 18, "highest": 1 << 18, "i8": 1 << 19,
-                      "i8x3": 1 << 19}
 
 
 def _digit_mode(wmode, prefix):
@@ -203,35 +212,18 @@ def validate_public_precision(precision):
         )
 
 
-def _weighted_gates(weights_dtype, wmode):
-    """(full-reduction slot cap, per-slot outputs) that the JAX package's
-    weighted kernels have for these weights: float weights carry three
-    NaN/inf channel outputs and, in 'highest', a Kahan one
-    (``_weighted_extra_outputs``), and their cap is per mode; integer
-    weights ride the "intN" digit modes, N (1-4) set by their span
-    (``intweights.device_digits``, 4 when unknown), with one output."""
-    if weights_dtype.is_floating_point:
-        mode = "split" if wmode is None else wmode
-        return _WEIGHTED_FULL_CAP[mode], 1 + (mode == "highest") + 3
-    n = _digit_mode(wmode, "int") or 4
-    return 1 << max(18, min(20, 21 - n)), 1
+def plan(n_inputs, nbins, m, c=None):
+    """The kernel for this problem, or ``None`` where the scatter strategy
+    runs instead.
 
-
-def plan(n_inputs, nbins, m, c=None, weights_dtype=None, wmode=None):
-    """The kernel the JAX package runs for this problem, or ``None`` where
-    it runs its scatter strategy instead.
-
-    ``m == 1`` means a full reduction. ``weights_dtype`` (a torch dtype)
-    makes it a weighted problem, with ``wmode`` the public ``precision=``
-    for float weights (None: 'split') or "int1".."int4" for integer
-    weights. Mirrors ``pallas_hist.planned_kernel`` with no uniform-spacing
-    certificates and faithful NaN/inf handling (the JAX package's default).
+    ``m == 1`` means a full reduction. Mirrors the JAX package's unweighted
+    ``pallas_hist.planned_kernel`` with no uniform-spacing certificates and
+    faithful NaN/inf handling (its default). Weighted problems take the
+    same caps: the port's kernels write one output whatever the weights,
+    where the JAX package's weighted gates count its TPU kernels' NaN/inf
+    channels, Kahan output and integer digit modes (removed in the port).
     """
-    weighted = weights_dtype is not None
-    full_cap, n_outs = (
-        _weighted_gates(weights_dtype, wmode) if weighted else (1 << 21, 1)
-    )
-    kept_cap = (1 << 24) if weighted else (1 << 25)
+    full_cap, kept_cap = 1 << 21, 1 << 25
     n_slots = math.prod(int(b) for b in nbins) + 1
     edges_ok = sum(nb + 1 for nb in nbins) <= _MAX_EDGES
     if m == 1:
@@ -250,7 +242,7 @@ def plan(n_inputs, nbins, m, c=None, weights_dtype=None, wmode=None):
 
     n1, log2_n2 = _pick_factorization(n_slots)
     padded_slots = max(n1 << log2_n2, _round_up(n_slots, 1024))
-    if m * padded_slots * n_outs > (1 << 28):
+    if m * padded_slots > (1 << 28):
         return None
     if n_inputs == 1 and nbins[0] <= 1024:
         return "one_input"
@@ -326,17 +318,23 @@ def last_launch():
     of T rows), ``shared`` (False: the histogram was in device memory) and
     ``cells`` (the cell-table sizes asked for the first two inputs;
     ``ops.digitize.bucket_table`` gives the table the kernel built).
-    ``kernel`` names which. one_input adds its counter ``layout`` (one of
-    ``ONE_INPUT_LAYOUTS``' names), ``copies`` (the histogram's copies in
-    shared memory: one per lane, per warp, or replicas), ``load`` (the
-    dtype it read) and ``widest``, the widest window L of the cell table
-    its first block built (K is ``cells[0]``); reading ``widest``
-    synchronises with the card."""
-    out = (ctypes.c_int * 8)()
+    ``kernel`` names which: "direct_rows" (``csrc/direct.cuh``) adds
+    ``warps_per_row`` (1: a warp owns its row), ``warps_per_block``,
+    ``blocks`` and ``rows_per_warp`` (the most rows a warp walked).
+    one_input adds its counter ``layout`` (one of ``ONE_INPUT_LAYOUTS``'
+    names), ``copies`` (the histogram's copies in shared memory: one per
+    lane, per warp, or replicas), ``load`` (the dtype it read) and
+    ``widest``, the widest window L of the cell table its first block
+    built (K is ``cells[0]``); reading ``widest`` synchronises with the
+    card."""
+    out = (ctypes.c_int * 11)()
     _build.load().xh_last_launch(out)
-    rec = {"kernel": "one_input" if out[5] else "joint2/slot",
-           "cluster": out[0], "passes": out[1], "shared": bool(out[2]),
-           "cells": (out[3], out[4])}
+    kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
+    rec = {"kernel": kernel, "cluster": out[0], "passes": out[1],
+           "shared": bool(out[2]), "cells": (out[3], out[4])}
+    if out[8]:
+        rec.update(warps_per_row=1, warps_per_block=out[8], blocks=out[9],
+                   rows_per_warp=out[10])
     if out[5]:
         load, device = _LAST_ONE_INPUT_LOAD[0]
         rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], load=load,
@@ -630,16 +628,14 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
         _check_weights(name, weights, arrays_2d[0])
 
 
-def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
-                    weights):
-    """(counts or weighted sums in their accumulator class, launches) of the
-    flat-slot kernel of
-    ``route`` (``csrc/slot.cuh``) on CUDA tensors; any failure raises.
+def _slot_operands(name, arrays_2d, thresholds):
+    """(kind, arrays, thresholds) as a flat-slot kernel reads them: ``kind``
+    is the suffix of its C entries, or "mixed".
 
     Inputs whose compare types share an exact common type widen to it (a
-    broadcast stays one); int64 beside a float takes the route's mixed
-    entry instead, which reads float32, float64, int32 and int64 inputs in
-    place and compares each in int64 or float64 (narrow data, float16 and
+    broadcast stays one); int64 beside a float takes the mixed entries
+    instead, which read float32, float64, int32 and int64 inputs in place
+    and compare each in int64 or float64 (narrow data, float16 and
     bfloat16 widen to int32 or float32 first, their thresholds to float64)."""
     if len(arrays_2d) > _MAX_SLOT_INPUTS:
         raise NotImplementedError(
@@ -647,41 +643,56 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
             f"got {len(arrays_2d)}"
         )
     dtype = _compare_dtype([t.dtype for t in thresholds])
-    n = len(arrays_2d)
     if dtype is None:
         stored = [torch.float32 if t.dtype == torch.float16 else t.dtype
                   for t in thresholds]
         arrays = [_widen(a, t) for a, t in zip(arrays_2d, stored)]
         thr = [t.to(torch.int64 if t.dtype == torch.int64 else torch.float64)
                .contiguous() for t in thresholds]
-        codes = [(ctypes.c_int * n)(*(_MIXED_CODE[a.dtype] for a in arrays))]
-        kind = "mixed"
-    else:
-        arrays = [_widen(a, dtype) for a in arrays_2d]
-        thr = [t.to(dtype).contiguous() for t in thresholds]
-        codes, kind = [], _SUFFIX[dtype]
-    device = arrays[0].device
+        return "mixed", arrays, thr
+    arrays = [_widen(a, dtype) for a in arrays_2d]
+    return _SUFFIX[dtype], arrays, [t.to(dtype).contiguous() for t in thresholds]
+
+
+def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, tail, out):
+    """Calls a flat-slot C entry: ``lead`` arguments, the inputs' pointers,
+    strides, thresholds and bin counts, (m, c), then ``tail`` and the
+    output and stream. Raises on a failed launch."""
+    n = len(arrays)
     m, c = arrays[0].shape
-    shape = (1 if reduce_all else m, math.prod(nbins) + 1)
-    if m == 0 or c == 0:
-        return torch.zeros(shape, dtype=_out_dtype(weights), device=device), 0
-    # every slot of the output is written by the kernel or zeroed by its
-    # launcher
-    out = torch.empty(shape, dtype=_out_dtype(weights), device=device)
-    suffix, w_args = _weight_args(weights)
-    fn = getattr(_build.load(), f"xh_{route}_{kind}{suffix}")
-    with torch.cuda.device(device):
+    with torch.cuda.device(out.device):
         rc = fn(
-            n, *codes,
+            *lead,
             (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays)),
             (ctypes.c_int64 * (2 * n))(*(s for a in arrays for s in a.stride())),
             (ctypes.c_void_p * n)(*(t.data_ptr() for t in thr)),
             (ctypes.c_int * n)(*nbins),
-            m, c, MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args, out.data_ptr(),
-            _stream(device),
+            m, c, *tail, out.data_ptr(), _stream(out.device),
         )
     if rc != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
+
+
+def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
+                    weights):
+    """(counts or weighted sums in their accumulator class, launches) of the
+    flat-slot kernel of ``route`` (``csrc/slot.cuh``) on CUDA tensors, with
+    the operands of ``_slot_operands``; any failure raises."""
+    kind, arrays, thr = _slot_operands(name, arrays_2d, thresholds)
+    n = len(arrays)
+    m, c = arrays[0].shape
+    shape = (1 if reduce_all else m, math.prod(nbins) + 1)
+    if m == 0 or c == 0:
+        return torch.zeros(shape, dtype=_out_dtype(weights), device=arrays[0].device), 0
+    # every slot of the output is written by the kernel or zeroed by its
+    # launcher
+    out = torch.empty(shape, dtype=_out_dtype(weights), device=arrays[0].device)
+    suffix, w_args = _weight_args(weights)
+    codes = [(ctypes.c_int * n)(*(_MIXED_CODE[a.dtype] for a in arrays))] \
+        if kind == "mixed" else []
+    _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{kind}{suffix}"),
+                       [n, *codes], arrays, thr, nbins,
+                       [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args], out)
     return out, 1
 
 
@@ -747,10 +758,18 @@ def _(arrays, thresholds, weights, nbins, variant):
     return arrays[0].new_empty((rows, math.prod(nbins) + 1), dtype=_out_dtype(weights))
 
 
-def direct_reference(arrays_2d, thresholds, nbins, weights=None):
+def _rounds(weights, finish):
+    """Whether the direct op stores finished sums of ``weights`` as float32
+    rounded from float64 (float weights narrower than float64)."""
+    return finish and weights is not None and weights.dtype in _ROUNDED
+
+
+def direct_reference(arrays_2d, thresholds, nbins, weights=None, finish=True):
     """Plain PyTorch direct, with ``direct``'s contract
-    (``pallas_hist._run_direct``'s counts)."""
-    return _slot_counts_reference(arrays_2d, thresholds, nbins, False, weights)
+    (``pallas_hist._run_direct``'s counts): float64 sums of float weights,
+    then, with ``finish``, ``finish_sums`` (float32 rounded once)."""
+    sums = _slot_sums_reference(arrays_2d, thresholds, nbins, False, weights)
+    return _finish(sums, weights) if finish else sums
 
 
 def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
@@ -760,33 +779,66 @@ def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
 
     Arguments as for ``factored``. Returns ``(m, prod(nbins) + 1)`` int64
     counts (or weighted sums) with a zero trailing trash slot. A CUDA
-    tensor launches the CUDA kernel (``csrc/direct.cu``), and any failure
-    raises. A CPU tensor runs ``direct_reference``.
+    tensor launches a CUDA kernel, and any failure raises: rows of at most
+    255 elements over at most 8192 slots, of inputs with one compare type,
+    run ``csrc/direct.cuh`` (a warp per row; float sums are rounded to
+    float32 as each row is stored, unless ``finish=False``); the rest the
+    flat-slot template's direct entries (``csrc/direct.cu``). A CPU tensor
+    runs ``direct_reference``.
     """
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
-                                      [int(nb) for nb in nbins])
+                                      [int(nb) for nb in nbins], bool(finish))
     return _finish(out, weights) if finish else out
+
+
+def _direct_rows_cuda(arrays_2d, thresholds, nbins, weights, rounds):
+    """(counts or weighted sums, launches) of the direct-row kernel
+    (``csrc/direct.cuh``) on CUDA tensors, in the weights' accumulator
+    class or, where ``rounds``, float32; any failure raises."""
+    kind, arrays, thr = _slot_operands("direct", arrays_2d, thresholds)
+    m, c = arrays[0].shape
+    dtype = torch.float32 if rounds else _out_dtype(weights)
+    shape = (m, math.prod(nbins) + 1)
+    if m == 0 or c == 0:
+        return torch.zeros(shape, dtype=dtype, device=arrays[0].device), 0
+    out = torch.empty(shape, dtype=dtype, device=arrays[0].device)  # every slot written
+    suffix, w_args = _weight_args(weights)
+    if rounds:
+        suffix = f"_{_build.ROUNDED_CLASS}"
+    _launch_slot_entry("direct", getattr(_build.load(), f"xh_direct_rows_{kind}{suffix}"),
+                       [len(arrays)], arrays, thr, nbins, w_args, out)
+    return out, 1
 
 
 @torch.library.custom_op(
     "xhistogram::direct", mutates_args=(),
-    schema="(Tensor[] arrays, Tensor[] thresholds, Tensor? weights, int[] nbins) "
-           "-> Tensor",
+    schema="(Tensor[] arrays, Tensor[] thresholds, Tensor? weights, int[] nbins, "
+           "bool finish=False) -> Tensor",
 )
-def _direct_op(arrays, thresholds, weights, nbins):
+def _direct_op(arrays, thresholds, weights, nbins, finish=False):
     """The direct kernel (its plain version on CPU tensors), with its output
-    in the weights' accumulator class."""
+    in the weights' accumulator class, or, with ``finish``, the float32
+    sums of float weights narrower than float64."""
     global DIRECT_LAUNCHES
+    rounds = _rounds(weights, finish)
     if arrays[0].device.type == "cpu":
-        return _slot_sums_reference(arrays, thresholds, nbins, False, weights)
-    out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
-                                    False, weights)
+        out = _slot_sums_reference(arrays, thresholds, nbins, False, weights)
+        return out.to(torch.float32) if rounds else out
+    if (arrays[0].shape[1] <= _DIRECT_ROWS_MAX_COLS
+            and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS
+            and _compare_dtype([t.dtype for t in thresholds]) is not None):
+        out, launched = _direct_rows_cuda(arrays, thresholds, nbins, weights, rounds)
+    else:
+        out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
+                                        False, weights)
+        if rounds:
+            out = out.to(torch.float32)
     DIRECT_LAUNCHES += launched
     return out
 
 
 @_direct_op.register_fake
-def _(arrays, thresholds, weights, nbins):
-    return arrays[0].new_empty((arrays[0].shape[0], math.prod(nbins) + 1),
-                               dtype=_out_dtype(weights))
+def _(arrays, thresholds, weights, nbins, finish=False):
+    dtype = torch.float32 if _rounds(weights, finish) else _out_dtype(weights)
+    return arrays[0].new_empty((arrays[0].shape[0], math.prod(nbins) + 1), dtype=dtype)

@@ -19,7 +19,10 @@ needs them; no operand is gathered. Per mesh dim, the rules allow:
 
 Thresholds are always ``Replicate()``. The outputs are the ops' accumulator
 sums (int64 counts; float64, int32 or int64 sums), which add exactly, or
-wrap as their dtype does, in any order of ranks.
+wrap as their dtype does, in any order of ranks. The direct op's float32
+rows (``finish=True`` with float weights narrower than float64) are
+rounded already, so they are never a ``Partial()``: columns sharded there
+are gathered first.
 
 The JAX node's bypasses have no counterpart: ``XHIST_CUSTOM_PARTITION``,
 the ``custom_vmap`` rule (vmap becomes a batch axis, ``axis=``), and the
@@ -33,10 +36,11 @@ import torch
 __all__ = ["rules"]
 
 
-def _rules(n_data, weighted, reduce_all, ndim=2):
+def _rules(n_data, weighted, reduce_all, ndim=2, partial=True):
     """Acceptable (output, inputs) placements for one mesh dim: the inputs
     are the op's tensors in order, ``n_data`` data tensors, as many
-    thresholds, then the weights."""
+    thresholds, then the weights. ``partial=False`` leaves out the
+    placements whose output is a ``Partial()``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     def inputs(p):
@@ -45,7 +49,8 @@ def _rules(n_data, weighted, reduce_all, ndim=2):
     rules = [([Replicate()], inputs(Replicate()))]
     for dim in range(ndim):
         kept = dim == 0 and not reduce_all and ndim == 2
-        rules.append(([Shard(0) if kept else Partial()], inputs(Shard(dim))))
+        if kept or partial:
+            rules.append(([Shard(0) if kept else Partial()], inputs(Shard(dim))))
     return rules
 
 
@@ -77,6 +82,10 @@ def rules():
     DTensor._op_dispatcher.sharding_propagator.op_to_schema_info[
         ops.factored.default] = RuntimeSchemaInfo(static_argnum=3, needs_pytree=True)
 
+    from .cuda_hist import _ROUNDED
+
     @register_sharding(ops.direct.default)
-    def direct(arrays, thresholds, weights, nbins):
-        return _rules(len(arrays), weights is not None, False)
+    def direct(arrays, thresholds, weights, nbins, finish=False):
+        rounded = (finish and weights is not None
+                   and weights.tensor_meta.dtype in _ROUNDED)
+        return _rules(len(arrays), weights is not None, False, partial=not rounded)

@@ -352,11 +352,8 @@ def histogram_sharded(
         return (_coerce_weights if weights else _coerce_host)(x)
 
     args = [coerce(a) for a in args]
-    host_weights = None
     if weights is not None:
         weights = coerce(weights, weights=True)
-        if isinstance(weights, np.ndarray):
-            host_weights = weights  # their values set the integer weight mode
     operands = args if weights is None else [*args, weights]
     try:
         shape = tuple(np.broadcast_shapes(*(tuple(a.shape) for a in operands)))
@@ -373,8 +370,7 @@ def histogram_sharded(
     edges_np = _resolve_edges(args, blocks, weights, bins, range, layout, DTensor)
     sums, kshape, w_dtype = _histogram_impl(
         blocks, w_block, edges_np, bins, axis_t, method=method,
-        block_size=block_size, precision=precision, host_weights=host_weights,
-        mesh=layout,
+        block_size=block_size, precision=precision, mesh=layout,
     )
     h = _finish_histogram(sums, w_dtype, kshape, edges_np, density)
     nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
