@@ -6,12 +6,13 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``csrc/joint2.cu`` with
-``csrc/joint2_mixed.cu``, ``csrc/one_input.cu`` with
-``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, the direct route's
+``csrc/joint2_mixed.cu`` and ``csrc/joint2_narrow.cu``, ``csrc/one_input.cu``
+with ``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, the direct route's
 kernel ``csrc/direct.cuh`` with its entries ``csrc/direct_rows*.cu`` and,
 outside its envelope, ``csrc/direct.cu``, the weighted flat-slot entries
-``csrc/slot_w*.cu`` and the mixed ones ``csrc/slot_mixed.cu``) from the
-sources in this checkout, holds each
+``csrc/slot_w*.cu``, the mixed ones ``csrc/slot_mixed.cu`` and the narrow
+ones ``csrc/slot_narrow.cu``) from the sources in this checkout, printing
+each source's nvcc seconds, holds each
 bit-exact against its plain PyTorch version on the card (weighted float
 sums within a stated tolerance), and
 drives the ported paths through the public ``xhistogram_torch.histogram``,
@@ -33,6 +34,17 @@ just after:
   2^21 slots (factored) and kept rows over 8192 slots (direct);
 - one_input on narrow data read in place: 2^30 values in 64 bins as
   bfloat16 and as int8, each beside a widening copy and the kernel on it;
+- joint2, factored and direct on narrow data read in place, each call with
+  the dtypes its kernel read (``last_launch()["loads"]``), its peak memory
+  (below one widened copy of the inputs) and its kernel timed in turns
+  with a widening copy and the kernel on it, beside its bound: the T–S
+  diagram over 2^30 pairs stored as bfloat16 and as CF-packed int16 (T as
+  round(100 T), S as round(1000 (S - 35)), edges in the same units;
+  joint2), 2^30 int8 pairs of 30 N(0,1) rounded in 64x64 bins (joint2's
+  8-bit tables), the README's per-depth call as packed int16, unweighted
+  and by a (50, 64800) float32 cell volume (factored per row), and 40x40
+  direct at (64800, 64) with bfloat16 members, counts and int32 weights
+  (the direct-row kernel);
 - int64 beside float data, each input compared in its own type:
   ``histogram(x.long(), x)`` over ``linspace(0, 2, 1000)`` (joint2), T in
   int64 millidegrees beside float32 S at 2^26 pairs (joint2), 5e7 pairs in
@@ -87,7 +99,13 @@ histogram place of its launch, and the cell count K and widest window L of
 each input's table (``ops.digitize.bucket_table``); the T–S path must run
 one pass in clusters of two, and the README call keep its histogram in a
 cluster. joint2 with float64 and uint64 sums is timed at its default
-cluster against chunk passes of one block.
+cluster against chunk passes of one block. joint2, factored (full, per
+row, packed) and direct are held on bool, int8, uint8, int16, uint16,
+float16 and bfloat16 data read in place against their plain versions on a
+widened copy: every accumulator class, beside float32 and int32 data,
+views at odd offsets and strides, every value of the 8-bit types through
+their tables, and the bucketed search's adversarial edge sets as
+bfloat16 and int16 data (``ts_cases.BUCKET_EDGE_SETS``).
 
 The direct-row kernel (``csrc/direct.cuh``) is held against its plain
 version at the shapes of the card-only tests (every data dtype and weight
@@ -752,6 +770,470 @@ def one_input_phase(dev, card, reset_counts, counts_now, max_abs_err):
     del xr
     torch.cuda.empty_cache()
     return launches, times
+
+
+NARROW_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+                 torch.float16, torch.bfloat16)
+N_NARROW_CMP = (64, 4096)  # kernel vs plain per narrow dtype and route
+
+
+def narrow_data(dtype, shape, dev, seed):
+    """(values of ``dtype`` on the card, edges): for the integers, uniform
+    over the type with its extremes and both sides of every edge first
+    (edges at fractions, at info.min and at info.max); for the floats,
+    N(0, 1.5) with NaN and infinities first; for bool, 30% True."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand(shape, device=dev, generator=gen) < 0.3, np.array([0.0, 0.5, 1.0])
+    if dtype.is_floating_point:
+        x = (1.5 * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+        x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        return x, np.linspace(-4.0, 4.0, 41)
+    info = torch.iinfo(dtype)
+    edges = np.linspace(info.min - 0.5, info.max + 3.0, 41)
+    edges[1], edges[-2] = info.min, info.max
+    x = torch.randint(info.min, info.max + 1, shape, device=dev, generator=gen,
+                      dtype=torch.int32)
+    specials = np.concatenate([np.floor(edges), np.ceil(edges), np.floor(edges) - 1])
+    specials = torch.from_numpy(specials.clip(info.min, info.max).astype(np.int32))
+    x.view(-1)[:specials.numel()] = specials.to(dev)
+    return x.to(dtype), edges
+
+
+def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
+    """joint2, factored (full, per row, packed) and direct on bool, int8,
+    uint8, int16, uint16, float16 and bfloat16 data read in place: each
+    launch's ``loads`` name the narrow dtype, and each result is bit-equal to
+    the plain version on a widened copy (float sums within two float32
+    ulps), for counts and float32, int32 and int64 weights; then narrow
+    beside float32 and int32 data (the factored and direct routes' narrow
+    and mixed entries, joint2's widened pairs), views at odd offsets (joint2
+    reads 4 elements a load where both inputs allow it) and the 8-bit table
+    at every value of int8, uint8 and bool. Returns the cases held."""
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+
+    def thr_of(edges, x):
+        ce = compare_form(np.asarray(edges), _compare_dtype(x))
+        if ce.n_hi_clip:
+            raise ValueError("the kernels take thresholds with n_hi_clip == 0")
+        return torch.from_numpy(ce.edges).to(dev)
+
+    def wide(x):
+        if x.dtype in (torch.float32, torch.float64, torch.int32, torch.int64):
+            return x
+        return x.to(torch.float32 if x.dtype.is_floating_point else torch.int32)
+
+    def run(route, layouts, thr, nbins, w, plain=False):
+        if route == "joint2":
+            fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+            return fn(*layouts, *thr, *nbins, weights=w)
+        if route == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(layouts, thr, nbins, weights=w)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(layouts, thr, nbins, route, weights=w)
+
+    def weights_of(shape, dtype, seed):
+        if dtype is None:
+            return None
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if dtype.is_floating_point:
+            return torch.rand(shape, device=dev, generator=g).to(dtype)
+        return torch.randint(-(2**30), 2**30, shape, device=dev, generator=g).to(dtype)
+
+    cases = 0
+
+    def hold(label, route, layouts, edges, w=None):
+        nonlocal cases
+        thr = [thr_of(e, x) for e, x in zip(edges, layouts)]
+        nbins = [len(e) - 1 for e in edges]
+        got = run(route, layouts, thr, nbins, w)
+        torch.cuda.synchronize()
+        rec = cuda_hist.last_launch()
+        want_loads = cuda_hist.operand_plan(
+            "joint2" if route == "joint2" else "slot", [x.dtype for x in layouts]).loads
+        if rec["loads"] != want_loads:
+            raise AssertionError(f"{label}, {route}: read {rec['loads']}, planned {want_loads}")
+        widened = [wide(x) for x in layouts]
+        want = run(route, widened, [t.to(x.dtype) for t, x in zip(thr, widened)], nbins, w,
+                   plain=True)
+        if w is None or not got.is_floating_point():
+            err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+            ok = torch.equal(got, want)
+        else:  # float64 adds in another order, rounded once
+            diff = (got.double() - want.double()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= 2.4e-7 * want.double().abs() + 1e-6).all())
+        if w is None:
+            key = {"joint2": "joint2", "direct": "direct"}.get(route, "factored")
+            max_abs_err[key] = max(max_abs_err[key], err)
+        if not ok:
+            raise AssertionError(f"{label}, {route}: kernel != plain on a widened copy "
+                                 f"(max abs err {err}; {rec})")
+        cases += 1
+        return rec
+
+    routes = ("joint2", "full", "per_row", "packed", "direct")
+    for dtype in NARROW_DTYPES:
+        x, ex = narrow_data(dtype, shape, dev, seed=1)
+        y, ey = narrow_data(dtype, shape, dev, seed=2)
+        f = 1.5 * torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        i32 = (f * 1000).int()
+        name = str(dtype).replace("torch.", "")
+        for route in routes:
+            # direct and packed: rows of 64 elements; per row: 4096
+            lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+                (lambda t: t.reshape(-1, 64)) if route in ("direct", "packed") else \
+                (lambda t: t)
+            for wdtype in (None, torch.float32, torch.int32, torch.int64):
+                w = weights_of(tuple(lay(x).shape), wdtype, seed=4)
+                hold(f"{name} pair, weights {wdtype}", route, [lay(x), lay(y)], [ex, ey], w)
+            hold(f"{name} beside float32", route, [lay(x), lay(f)], [ex, np.linspace(-4, 4, 31)])
+            hold(f"{name} beside int32", route, [lay(i32), lay(x)],
+                 [np.linspace(-3000.5, 3000.5, 31), ex])
+        # views at odd element offsets: joint2's grouped loads fall back
+        xf, yf = x.reshape(-1), y.reshape(-1)
+        for a, b in ((xf[1:], yf[1:]), (xf[4:], yf[1:-3]), (xf[2:-1], yf[2:-1])):
+            hold(f"{name} pair at offsets", "joint2", [a, b], [ex, ey])
+        hold(f"{name} strided view", "per_row", [x[:, 1:], y[:, :-1]], [ex, ey])
+        hold(f"{name} strided rows", "direct", [x.t()[:255], y.t()[1:256]], [ex, ey])
+        if dtype in (torch.int8, torch.uint8, torch.bool):
+            # every value of the type, against edges between and on them
+            if dtype == torch.bool:
+                v = torch.tensor([False, True], device=dev).repeat(64 * 128)
+                e = np.array([0.0, 0.5, 1.0])
+            else:
+                lo = -128 if dtype == torch.int8 else 0
+                v = torch.arange(lo, lo + 256, device=dev).to(dtype).repeat(64)
+                e = np.concatenate([[lo - 0.5], np.linspace(lo, lo + 255, 23)[1:-1] + 0.5,
+                                    np.arange(lo + 2, lo + 256, 17), [lo + 255.0]])
+                e = np.unique(e)
+            w = v.flip(0)
+            for route in routes:
+                lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+                    (lambda t: t.reshape(-1, 64))
+                hold(f"{name} every value", route, [lay(v), lay(w)], [e, e])
+        print(f"# narrow kernels == plain on a widened copy: {name} read in place "
+              f"({shape}; joint2, factored full, per row, packed, direct; counts and "
+              f"float32, int32, int64 weights; beside float32 and int32; odd offsets, "
+              f"strided views{'; every value through the table' if dtype.itemsize == 1 else ''})")
+    return cases
+
+
+def narrow_bucket_sets(dev, max_abs_err):
+    """joint2, factored (full, per row, packed) and direct on bfloat16 and
+    int16 data read in place, held bit for bit against their plain
+    versions on a widened copy on the adversarial threshold sets of the
+    bucketed digitize (``ts_cases.BUCKET_EDGE_SETS``): bfloat16 data near
+    every float set's float32 thresholds (and one bfloat16 step either
+    side of each), int16 data near every set's thresholds scaled to the
+    int16 range (the int32 sets as they are: thresholds past 2^24, which
+    round in float32), each beside a partner of the same dtype. Returns the
+    cases held."""
+    from ts_cases import BUCKET_EDGE_SETS, bucket_case_values
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.ops import cuda_hist
+
+    cases = 0
+    rng = np.random.default_rng(10)
+    for name, (edges, dtype) in BUCKET_EDGE_SETS.items():
+        for nd in (torch.bfloat16, torch.int16):
+            if nd == torch.bfloat16:
+                if not np.issubdtype(dtype, np.floating):
+                    continue
+                e = edges
+                thr = compare_form(e, np.float32).edges
+                near = torch.from_numpy(bucket_case_values(thr, np.float32, 100_000,
+                                                           seed=len(name)))
+                tb = torch.from_numpy(thr).bfloat16().view(torch.int16)
+                steps = torch.cat([tb - 1, tb + 1]).view(torch.bfloat16)
+                x = torch.cat([near.bfloat16(), steps, torch.from_numpy(thr).bfloat16()])
+                cmp_dtype = np.float32
+            else:
+                if np.issubdtype(dtype, np.floating):
+                    finite = float(np.abs(edges[np.isfinite(edges)]).max())
+                    e = np.asarray(edges, np.float64) * (30000.0 / finite)
+                else:
+                    e = np.asarray(edges, np.float64)
+                thr = compare_form(e, np.int32).edges.astype(np.int64)
+                near = np.concatenate([thr, thr - 1, thr + 1, [-32768, 32767, 0],
+                                       rng.integers(-32768, 32768, 100_000)])
+                x = torch.from_numpy(near.clip(-32768, 32767).astype(np.int16))
+                cmp_dtype = np.int32
+            x = x[: x.numel() // 64 * 64].to(dev)
+            nb = len(e) - 1
+            nba = int(np.clip(160_000 // nb, 8, 3000))
+            if nd == torch.bfloat16:
+                pe = np.linspace(-4, 4, nba + 1)
+                partner = (2 * torch.randn(x.numel(), device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(nba)
+                                           )).bfloat16()
+            else:
+                pe = np.linspace(-3000.5, 3000.5, nba + 1)
+                partner = torch.randint(-3500, 3500, (x.numel(),), device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(nba)
+                                        ).to(torch.int16)
+            all_edges = [e, pe]
+            thr_t = [torch.from_numpy(compare_form(v, cmp_dtype).edges).to(dev)
+                     for v in all_edges]
+            nbins = [nb, nba]
+            wide = torch.float32 if nd == torch.bfloat16 else torch.int32
+            for route in ("joint2", "full", "per_row", "packed", "direct"):
+                rows = {"joint2": 1, "full": 1, "per_row": 4, "packed": 16,
+                        "direct": x.numel() // 64}[route]
+                layouts = [v.reshape(rows, -1) for v in (x, partner)]
+                wl = [v.to(wide) for v in layouts]
+                wt = [t.to(wide) for t in thr_t]
+                if route == "joint2":
+                    got = cuda_hist.joint2(*layouts, *thr_t, *nbins)
+                    want = cuda_hist.joint2_reference(*wl, *wt, *nbins)
+                elif route == "direct":
+                    got = cuda_hist.direct(layouts, thr_t, nbins)
+                    want = cuda_hist.direct_reference(wl, wt, nbins)
+                else:
+                    got = cuda_hist.factored(layouts, thr_t, nbins, route)
+                    want = cuda_hist.factored_reference(wl, wt, nbins, route)
+                torch.cuda.synchronize()
+                rec = cuda_hist.last_launch()
+                if rec["loads"] != (nd, nd):
+                    raise AssertionError(f"bucket set {name} as {nd}: {route} read "
+                                         f"{rec['loads']}")
+                key = {"joint2": "joint2", "direct": "direct"}.get(route, "factored")
+                err = int((got - want).abs().max())
+                max_abs_err[key] = max(max_abs_err[key], err)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"bucket set {name} as {nd}: {route} != plain on a "
+                                         f"widened copy (max abs err {err}; {rec})")
+                cases += 1
+        print(f"# bucket set {name} on bfloat16 and int16 data read in place: joint2, "
+              "factored full, per row, packed, direct == plain on a widened copy")
+    return cases
+
+
+def narrow_paths(dev, card, reset_counts, counts_now, max_abs_err):
+    """The narrow cells through the public ``histogram``, each with its launch
+    count, the dtypes its kernel read, the peak memory the call allocated
+    beside its inputs (below one widened copy of them), its counts against
+    the plain version on a widened copy and numpy, and its kernel timed in
+    turns with a widening copy and the kernel on it, beside its bound:
+    the T-S diagram over 2^30 pairs stored as bfloat16 and as CF-packed
+    int16 (T as round(100 T), S as round(1000 (S - 35)), edges in the same
+    units), 2^30 int8 pairs (30 N(0,1) rounded, 64x64 bins over the type),
+    the README per-level call as packed int16 (unweighted, and weighted by a
+    (50, 64800) float32 cell volume), and 40x40 direct at (64800, 64) with
+    bfloat16 members (counts and int32 weights). Returns ({label: launches},
+    {label: record})."""
+    from ts_cases import S_EDGES, T_EDGES, reference_numpy_joint, reference_numpy_ts
+    import xhistogram_torch
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
+    from xhistogram_torch.utils.profiling import measure
+
+    def thr_of(edges, x):
+        return torch.from_numpy(compare_form(np.asarray(edges), _compare_dtype(x)).edges
+                                ).to(dev)
+
+    launches, records = {}, {}
+
+    def path(label, args, bins, axis, key, kernel, weights=None, plain_blocks=1,
+             numpy_check=None, reps=5):
+        axis_t = normalize_axis(axis, args[0].ndim)
+        shape = torch.broadcast_shapes(*(a.shape for a in args))
+        # the kernel's operands, as the public call hands them on
+        layouts = [canonicalize_2d(a.expand(shape), axis_t) for a in args]
+        w2d = None if weights is None else canonicalize_2d(weights.expand(shape), axis_t)
+        thr = [thr_of(e, a) for e, a in zip(bins, args)]
+        nbins = [len(e) - 1 for e in bins]
+        reduce_all = axis is None
+        if reduce_all:
+            layouts = [v.reshape(1, -1) for v in layouts]
+            w2d = None if w2d is None else w2d.reshape(1, -1)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=weights)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base_mem
+        launched = counts_now()
+        if launched[key] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"{label}: launches {launched}")
+        rec = cuda_hist.last_launch()
+        dtypes = tuple(a.dtype for a in args)
+        if rec["loads"] != dtypes:
+            raise AssertionError(f"{label}: the kernel read {rec['loads']}, not {dtypes}")
+        widened_bytes = sum(4 * a.expand(shape).numel() for a in args)
+        # beside the output (the kernel's, trash slot included, and the
+        # trimmed result, at most 8 bytes a slot each) and the weights' own
+        # layout copy, where a broadcast weight takes one
+        out_bytes = 2 * 8 * layouts[0].shape[0] * (math.prod(nbins) + 1)
+        w_copy = 0 if w2d is None or w2d.numel() == weights.numel() else \
+            w2d.numel() * w2d.element_size()
+        if extra - out_bytes - w_copy >= widened_bytes:
+            raise AssertionError(f"{label}: {extra} bytes allocated ({w_copy} of them the "
+                                 f"weights' layout, at most {out_bytes} the output), one "
+                                 f"widened copy takes {widened_bytes}")
+        wide = [v.to(torch.float32 if v.dtype.is_floating_point else torch.int32)
+                for v in layouts]
+        wthr = [t.to(v.dtype) for t, v in zip(thr, wide)]
+
+        def call(ls, ts, plain=False):
+            if kernel == "joint2":
+                fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+                return fn(*ls, *ts, *nbins, weights=w2d)
+            if kernel == "direct":
+                fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+                return fn(ls, ts, nbins, weights=w2d)
+            fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+            return fn(ls, ts, nbins, kernel, weights=w2d)
+
+        # the plain version on a widened copy, over blocks of rows where the
+        # call is a full reduction of many pairs
+        if plain_blocks > 1:
+            plain = sum(call([v.reshape(plain_blocks, -1)[k:k + 1] for v in wide], wthr,
+                             plain=True) for k in range(plain_blocks))
+        else:
+            plain = call(wide, wthr, plain=True)
+        kernel_out = call(layouts, thr)
+        if w2d is None or not kernel_out.is_floating_point():
+            ok = torch.equal(kernel_out, plain)
+            err = int((kernel_out.long() - plain.long()).abs().max())
+            max_abs_err[key.split()[0]] = max(max_abs_err[key.split()[0]], err)
+        else:
+            diff = (kernel_out.double() - plain.double()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= 2.4e-7 * plain.double().abs() + 1e-6).all())
+        if not ok:
+            raise AssertionError(f"{label}: kernel != plain on a widened copy (max abs "
+                                 f"err {err})")
+        if not torch.equal(h.reshape(kernel_out.shape[0], -1), kernel_out[:, :-1]):
+            raise AssertionError(f"{label}: public call != its kernel")
+        del plain, kernel_out
+        if numpy_check is not None:
+            numpy_check(h)
+        # in turns: read in place, widening copy then the kernel, twice
+        wide_dtypes = [v.dtype for v in wide]
+        del wide
+
+        def narrow_fn():
+            return call(layouts, thr)
+
+        def widened_fn():
+            return call([v.to(d) for v, d in zip(layouts, wide_dtypes)], wthr)
+        torch.cuda.empty_cache()
+        narrow_fn(), widened_fn()
+        t = [event_ms(fn, reps) for fn in (narrow_fn, widened_fn, widened_fn, narrow_fn)]
+        ms, wide_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + \
+            (0 if weights is None else weights.numel() * weights.element_size()) + \
+            h.numel() * h.element_size()
+        bound_ms, bound_by = bound(n_bytes, 0)
+        med, times = measure(lambda: xhistogram_torch.histogram(*args, bins=bins, axis=axis,
+                                                                weights=weights), reps=3)
+        launches[label] = launched[key]
+        records[label] = {"kernel": kernel, "loads": [str(d).replace("torch.", "")
+                                                      for d in rec["loads"]],
+                          "ms": ms, "widened_copy_and_kernel_ms": wide_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "public_ms": med * 1e3, "peak_extra_bytes": int(extra),
+                          "weights_layout_bytes": int(w_copy),
+                          "widened_copy_bytes": int(widened_bytes)}
+        print(f"# narrow path {label}: {key} launched once, read as "
+              f"{records[label]['loads']}, {extra} bytes allocated beside the inputs "
+              f"({w_copy} the weights' layout, at most {out_bytes} the output; one "
+              f"widened copy: {widened_bytes}), == plain "
+              f"on a widened copy; kernel "
+              f"{ms:.4f} ms, widening copy then kernel {wide_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms; public call median {med * 1e3:.3f} ms of "
+              f"{[round(x * 1e3, 3) for x in times]} [{card}]")
+        return h
+
+    # --- the T-S diagram over 2^30 pairs as bfloat16 ---------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = (14.0 + 8.0 * torch.randn(N_MAIN, device=dev, generator=gen)).bfloat16()
+    S = (35.0 + 1.5 * torch.randn(N_MAIN, device=dev, generator=gen)).bfloat16()
+
+    def ts_numpy(h, te=T_EDGES, se=S_EDGES, tt=None, ss=None):
+        tt = T if tt is None else tt
+        ss = S if ss is None else ss
+        t_np = tt[:, :SLICE_COLS].float().cpu().numpy()
+        s_np = ss[:, :SLICE_COLS].float().cpu().numpy()
+        got, _ = xhistogram_torch.histogram(tt[:, :SLICE_COLS], ss[:, :SLICE_COLS],
+                                            bins=[te, se])
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      reference_numpy_ts(t_np, s_np, te, se))
+
+    path("T-S 2^30 pairs bfloat16", [T, S], [T_EDGES, S_EDGES], None, "joint2", "joint2",
+         plain_blocks=16, numpy_check=ts_numpy)
+    if cuda_hist.last_launch()["cluster"] != 2:
+        raise AssertionError("bfloat16 T-S: not in clusters of two")
+    # --- the same diagram packed as int16, CF style ----------------------------
+    T16 = (T.float() * 100).round().to(torch.int16)
+    S16 = ((S.float() - 35.0) * 1000).round().to(torch.int16)
+    del T, S
+    te16 = T_EDGES.astype(np.float64) * 100
+    se16 = (S_EDGES.astype(np.float64) - 35.0) * 1000
+    path("T-S 2^30 pairs int16 packed", [T16, S16], [te16, se16], None, "joint2", "joint2",
+         plain_blocks=16,
+         numpy_check=lambda h: ts_numpy(h, te16, se16, T16, S16))
+    del T16, S16
+    torch.cuda.empty_cache()
+    # --- 2^30 int8 pairs in 64x64 bins -----------------------------------------
+    a8 = (30 * torch.randn(N_MAIN, device=dev, generator=gen)).round().clamp(-128, 127) \
+        .to(torch.int8)
+    b8 = (30 * torch.randn(N_MAIN, device=dev, generator=gen)).round().clamp(-128, 127) \
+        .to(torch.int8)
+    e8 = np.linspace(-128, 128, 65)
+    path("int8 pairs 2^30, 64x64 bins", [a8, b8], [e8, e8], None, "joint2", "joint2",
+         plain_blocks=16,
+         numpy_check=lambda h: ts_numpy(h, e8, e8, a8, b8))
+    del a8, b8
+    torch.cuda.empty_cache()
+    # --- the README per-level call as packed int16 -----------------------------
+    gen = torch.Generator(device=dev).manual_seed(73)
+    T16 = (100 * (14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen))).round() \
+        .to(torch.int16)
+    S16 = (1000 * (1.5 * torch.randn(README_TS, device=dev, generator=gen))).round() \
+        .to(torch.int16)
+    vol = 1e9 * (0.5 + torch.rand(README_TS[1:], device=dev, generator=gen))
+
+    def readme_numpy(h):
+        for level in (0, README_TS[1] - 1):
+            want = reference_numpy_joint([T16[:, level].cpu().numpy(),
+                                          S16[:, level].cpu().numpy()], [te16, se16], None)
+            np.testing.assert_array_equal(h[level].cpu().numpy(), want,
+                                          err_msg=f"README int16, level {level}")
+
+    path("README per-level T-S int16 packed", [T16, S16], [te16, se16], (0, 2),
+         "factored per_row", "per_row", numpy_check=readme_numpy, reps=3)
+    path("README per-level T-S int16 packed, float32 cell volume", [T16, S16],
+         [te16, se16], (0, 2), "factored per_row", "per_row", weights=vol, reps=3)
+    del T16, S16, vol
+    torch.cuda.empty_cache()
+    # --- 40x40 direct at (64800, 64) with bfloat16 members ----------------------
+    gen = torch.Generator(device=dev).manual_seed(57)
+    a = torch.randn(DIRECT[0], device=dev, generator=gen).bfloat16()
+    b = torch.randn(DIRECT[0], device=dev, generator=gen).bfloat16()
+    w = torch.randint(-(2**30), 2**30, DIRECT[0], device=dev, generator=gen,
+                      dtype=torch.int32)
+    e40 = linspace_edges(40)
+    path("40x40 direct (64800, 64) bfloat16", [a, b], [e40, e40], (1,), "direct", "direct",
+         numpy_check=lambda h: np.testing.assert_array_equal(
+             h[:64].cpu().numpy(), reference_numpy_joint(
+                 [a[:64].float().cpu().numpy(), b[:64].float().cpu().numpy()],
+                 [e40, e40], (1,))))
+    if cuda_hist.last_launch()["kernel"] != "direct_rows":
+        raise AssertionError("bfloat16 direct: not the direct-row kernel")
+    path("40x40 direct (64800, 64) bfloat16, int32 weights", [a, b], [e40, e40], (1,),
+         "direct", "direct", weights=w)
+    del a, b, w
+    torch.cuda.empty_cache()
+    return launches, records
 
 
 def profiled_ms(fn, name, reps=20):
@@ -2219,7 +2701,9 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     print(f"# build: {time.perf_counter() - t0:.2f} s (one nvcc per source, in "
-          "parallel, sm_90a)")
+          "parallel, sm_90a); each source's nvcc: "
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in
+                      sorted(_build.BUILD_SECONDS.items(), key=lambda kv: kv[1])))
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"#   ptxas: {line.strip()}")
@@ -2576,6 +3060,14 @@ def main():
     oi_launches, oi_narrow = one_input_phase(dev, card, reset_counts, counts_now,
                                              max_abs_err)
     launches.update(oi_launches)
+    # --- joint2, factored and direct on narrow data read in place --------------
+    t_narrow = time.perf_counter()
+    narrow_cases = narrow_kernels(dev, max_abs_err)
+    narrow_cases += narrow_bucket_sets(dev, max_abs_err)
+    narrow_launches, narrow_rows = narrow_paths(dev, card, reset_counts, counts_now,
+                                                max_abs_err)
+    print(f"# narrow phase: {narrow_cases} kernel cases == plain on a widened copy, "
+          f"{len(narrow_rows)} public paths, {time.perf_counter() - t_narrow:.1f} s")
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the one_input path ({name}) did not launch one_input")
@@ -2626,6 +3118,17 @@ def main():
         },
         *slot,
     ]
+    family = {"joint2": "joint2", "per_row": "factored", "direct": "direct"}
+    for entry in kernels:  # the narrow paths: launches, loads, times in turns
+        rows = {label: rec for label, rec in narrow_rows.items()
+                if family[rec["kernel"]] == entry["name"]}
+        if rows:
+            entry["launches"] += sum(narrow_launches[label] for label in rows)
+            entry["narrow_rows"] = rows
+        entry["loads"] = sorted({d for rec in rows.values() for d in rec["loads"]}
+                                | ({"float32"} if entry["name"] != "one_input" else
+                                   {"float32", "bfloat16", "int8"}))
+    kernels[0]["narrow_kernel_cases"] = narrow_cases
     for entry in kernels:  # the weighted, mixed and API paths' launches join the counts
         entry.update(weighted[entry["name"]])
         entry["api_launches"] = api_launches[entry["name"]]

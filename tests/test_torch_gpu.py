@@ -1077,6 +1077,121 @@ def test_one_input_reads_narrow_data_in_place(cuda, dtype):
         assert torch.equal(h.cpu(), h_cpu)
 
 
+NARROW_ROUTES = ("joint2", "full", "per_row", "packed", "direct")
+
+
+def _narrow_route_run(route, layouts, edges, weights=None):
+    """(kernel result, launch record) of a joint2, factored or direct call on
+    the card, held bit for bit against the plain version on a copy widened
+    to float32 or int32 (float sums within two float32 ulps)."""
+    thr = [torch.from_numpy(tbins.compare_form(np.asarray(e), _compare_dtype(x)).edges)
+           .to(x.device) for e, x in zip(edges, layouts)]
+    nbins = [len(e) - 1 for e in edges]
+    wide = [x if not (x.dtype.itemsize < 4 or x.dtype == torch.bool) else
+            x.to(torch.float32 if x.dtype.is_floating_point else torch.int32)
+            for x in layouts]
+    wthr = [t.to(x.dtype) for t, x in zip(thr, wide)]
+
+    def run(ls, ts, plain):
+        if route == "joint2":
+            fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+            return fn(*ls, *ts, *nbins, weights=weights)
+        if route == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(ls, ts, nbins, weights=weights)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(ls, ts, nbins, route, weights=weights)
+
+    got = run(layouts, thr, False)
+    torch.cuda.synchronize()
+    launch = cuda_hist.last_launch()
+    want = run(wide, wthr, True)
+    if weights is None or not got.is_floating_point():
+        assert torch.equal(got, want), launch
+    else:
+        _assert_sums_equal(got, want)
+    return got, launch
+
+
+@pytest.mark.parametrize("route", NARROW_ROUTES)
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+def test_narrow_kernels_read_in_place(cuda, dtype, route):
+    # joint2, factored and direct read two narrow inputs at their own width
+    # (the launch record's loads), bit-equal to the plain version on a
+    # widened copy, for counts and every accumulator class, contiguous and
+    # at odd offsets and strides
+    x, edges = _narrow_data(dtype, (64, 4096), cuda, seed=11)
+    y, _ = _narrow_data(dtype, (64, 4096), cuda, seed=12)
+    lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+        (lambda t: t.reshape(-1, 64)) if route in ("packed", "direct") else (lambda t: t)
+    for wdtype in (None, torch.float32, torch.int32, torch.int64):
+        w = None if wdtype is None else _weights(tuple(lay(x).shape), wdtype, cuda, seed=5)
+        _, launch = _narrow_route_run(route, [lay(x), lay(y)], [edges, edges], w)
+        assert launch["loads"] == (dtype, dtype)
+    if route == "joint2":
+        xf, yf = x.reshape(-1), y.reshape(-1)
+        for a, b in ((xf[1:], yf[1:]), (xf[4:], yf[1:-3]), (xf[3:-2], yf[3:-2])):
+            _, launch = _narrow_route_run(route, [a, b], [edges, edges])
+            assert launch["loads"] == (dtype, dtype)
+    else:
+        _, launch = _narrow_route_run(route, [lay(x.t()[1:].t()), lay(y[:, :-1])],
+                                      [edges, edges])
+        assert launch["loads"] == (dtype, dtype)
+    if route == "direct":
+        assert launch["kernel"] == "direct_rows"
+
+
+@pytest.mark.parametrize("route", NARROW_ROUTES)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.bool], ids=str)
+def test_narrow_table_at_every_value(cuda, dtype, route):
+    # the 8-bit table holds every value's bin: each value of the type, against
+    # edges on values and between them, in every route, beside a float32
+    # input (factored, direct) and beside itself
+    if dtype == torch.bool:
+        v = torch.tensor([False, True], device=cuda).repeat(64 * 64)
+        edge_sets = [np.array([0.0, 0.5, 1.0]), np.array([-1.0, 1.0]), np.array([0.0, 1.0])]
+    else:
+        lo = -128 if dtype == torch.int8 else 0
+        v = torch.arange(lo, lo + 256, device=cuda).to(dtype).repeat(32)
+        edge_sets = [np.arange(lo, lo + 257, 7.0), np.arange(lo - 0.5, lo + 256, 3.0),
+                     np.array([lo + 0.0, lo + 255.0]), np.array([lo - 3.0, lo + 300.0])]
+    lay = (lambda t: t.reshape(-1)) if route == "joint2" else (lambda t: t.reshape(-1, 64))
+    f = torch.linspace(-1, 1, v.numel(), device=cuda)
+    for edges in edge_sets:
+        _, launch = _narrow_route_run(route, [lay(v), lay(v.flip(0))], [edges, edges])
+        assert launch["loads"] == (dtype, dtype)
+        if route != "joint2":
+            _, launch = _narrow_route_run(route, [lay(v), lay(f)], [edges, _edges(10)])
+            assert launch["loads"] == (dtype, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", NARROW_DTYPES, ids=str)
+def test_narrow_public_calls_allocate_no_widened_copy(cuda, dtype):
+    # the public call hands joint2, factored and direct the data as it lies:
+    # its peak allocation stays below one widened copy of the inputs (beside
+    # the output), and it equals the call on the CPU
+    x, edges = _narrow_data(dtype, (64, 1 << 16), cuda, seed=21)
+    y, _ = _narrow_data(dtype, (64, 1 << 16), cuda, seed=22)
+    for args, axis, counter in (((x, y), None, "joint2"),
+                                ((x, y), (1,), "factored"),
+                                ((x.reshape(-1, 64), y.reshape(-1, 64)), (1,), "direct")):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launch_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=[edges, edges], axis=axis)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert sum(launched) == 1, launched
+        assert cuda_hist.last_launch()["loads"] == (dtype, dtype)
+        out_bytes = 8 * h.numel() * 2  # the kernel's output and the trimmed result
+        assert extra < out_bytes + 4 * x.numel(), (counter, extra)
+        h_cpu, _ = xhistogram_torch.histogram(*(a.cpu() for a in args), bins=[edges, edges],
+                                              axis=axis)
+        assert torch.equal(h.cpu(), h_cpu)
+
+
 # --- the public API above core: the f64 tier, streaming, labeled, compat ------
 
 _ROUTE_COUNTER = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 3,

@@ -90,13 +90,14 @@ def test_no_port_file_imports_jax():
 
 
 def test_every_declared_kernel_symbol_is_defined():
-    """The C symbols ``ops/_build.py`` binds (joint2 with its mixed pairs,
-    one_input with its narrow loads, the four flat-slot routes of
-    csrc/factored.cu and csrc/direct.cu with their mixed entries, and the
-    direct-row kernel of csrc/direct.cuh, per data type, unweighted and per
-    weight class, its rounded float32 class included) are each defined once
-    by a ``csrc/*.cu`` entry macro, the weighted ones through a macro that
-    names a class's entries ``xh_<kernel>_<data>_##cls``."""
+    """The C symbols ``ops/_build.py`` binds (joint2 with its narrow and
+    mixed pairs, one_input with its narrow loads, the four flat-slot routes
+    of csrc/factored.cu and csrc/direct.cu with their mixed and narrow
+    entries, and the direct-row kernel of csrc/direct.cuh with its narrow
+    entry, per data type, unweighted and per weight class, its rounded
+    float32 class included) are each defined once by a ``csrc/*.cu`` entry
+    macro, the weighted ones through a macro that names a class's entries
+    ``xh_<kernel>_<data>_##cls``."""
     import re
 
     from xhistogram_torch.ops import _build
@@ -114,6 +115,8 @@ def test_every_declared_kernel_symbol_is_defined():
         for macro, cls in re.findall(r"^(XH_\w+_CLASS)\((\w+),", text, re.M):
             defined += [f"{name}_{cls}" for name in per_class[macro]]
     declared = [name for name, _ in _build.symbols()]
-    # each unweighted and in 3 classes; the direct-row kernel in 4
-    assert len(declared) == 4 * (8 + 10 + 4 * 4 + 4) + 5 * 4
+    # each unweighted and in 3 classes (joint2 14 suffixes, one_input 10,
+    # four routes of 4 types, mixed and narrow); the direct-row kernel in 4,
+    # for its 4 types and narrow
+    assert len(declared) == 4 * (14 + 10 + 4 * 4 + 4 + 4) + 5 * 5
     assert sorted(defined) == sorted(declared)

@@ -201,6 +201,7 @@ def test_mixed_dtypes_bit_equal_to_jax_kernel():
         ((torch.float32, torch.float32), torch.float32),
         ((torch.float32, torch.float64), torch.float64),
         ((torch.int32, torch.float32), torch.float64),
+        ((torch.int32, torch.int32), torch.int32),
         ((torch.int32, torch.int64), torch.int64),
         ((torch.int64, torch.int64), torch.int64),
         ((torch.int64, torch.float64), None),

@@ -4,7 +4,9 @@ bfloat16) against the JAX package.
 The port keeps narrow data narrow up to the one_input kernel, which reads it
 at its own width and compares it in its compare type (int32 for the
 integers, float32 for the floats) against ``bins.compare_form``'s
-thresholds of that type; the JAX package widens it on the host first. On
+thresholds of that type. The JAX package's kernel reads bfloat16 and the 8-
+and 16-bit integers narrow too and widens each tile in registers
+(``pallas_hist._widen``); only float16 is cast first, on the device. On
 the CPU the wrapper runs ``one_input_reference``, the plain version the
 kernel is held to on the card (tests/test_torch_gpu.py). Here the public
 ``histogram`` (``method="auto"`` and ``method="cuda"``, the kernel's

@@ -8,8 +8,9 @@ checkout, as ``tools/weighted_probe.py --root`` does):
 
 For every kernel whose name contains ``--match`` and that both libraries
 define (matched by their template arguments, so a kernel of one type for
-both inputs, ``joint2_kernel<T, W>`` before and ``joint2_kernel<T, T, W>``
-now, pairs with its counterpart), it prints whether the two compile to the
+both inputs, ``joint2_kernel<T, W>``, ``joint2_kernel<T, T, W>`` and
+``joint2_kernel<T, T, T, T, W>`` (load types beside compare types), pairs
+with its counterpart), it prints whether the two compile to the
 same instructions (addresses, encodings and branch targets left out), or
 how many instructions each has. It imports nothing of JAX.
 """
@@ -37,8 +38,10 @@ def kernel_bodies(root, match):
         if not m:
             continue
         args = m.group(1)
-        # one type for both inputs of joint2: <T, W> and <T, T, W> pair up
-        args = re.sub(r"^([fdix])\1(?=N2xh)", r"\1", args)
+        # joint2: <T, W>, <T, T, W> and <T, T, T, T, W> (one type for both
+        # inputs, read as itself) pair up, as do <A, B, W> and <A, B, A, B, W>
+        args = re.sub(r"^([fdix])\1+(?=N2xh)", r"\1", args)
+        args = re.sub(r"^([fdix][fdix])\1(?=N2xh)", r"\1", args)
         body = []
         for line in block.splitlines()[1:]:
             if not re.search(r"/\*[0-9a-f]{4}\*/", line):

@@ -77,11 +77,11 @@ _COMPLEX_MSG = (
 
 #: the dtype each data dtype is compared in, where it is not its own: the
 #: dtype of its compare-form thresholds (``bins.compare_form``). The data
-#: itself stays narrow: the one_input kernel reads it at its own width and
-#: widens it in registers; the plain path and the other kernels widen a
-#: copy (``ops.digitize.digitize_edges``, ``ops.cuda_hist``). int32
-#: thresholds never saturate at a narrow type's bounds, and every bfloat16
-#: value is exact in float32
+#: itself stays narrow: every kernel reads it at its own width and widens
+#: it in registers (``ops.cuda_hist.operand_plan`` names joint2's pairs of
+#: two different dtypes, which widen a copy); the plain path widens a copy
+#: (``ops.digitize.digitize_edges``). int32 thresholds never saturate at a
+#: narrow type's bounds, and every bfloat16 value is exact in float32
 _COMPARE_AS = {
     torch.bool: np.int32, torch.int8: np.int32, torch.uint8: np.int32,
     torch.int16: np.int32, torch.uint16: np.int32, torch.bfloat16: np.float32,

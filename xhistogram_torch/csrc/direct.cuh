@@ -56,15 +56,26 @@
 //   beside one warp, each input searches one cell (the plain binary
 //   search).
 //
+// - Narrow data (T = Narrow, direct_rows_narrow.cu): float32 and the
+//   narrow types (bool, int8, uint8, int16, uint16, float16, bfloat16), in
+//   any mix, each input read in place at its own width by its run-time
+//   load code (narrow.cuh, the same in every lane) and widened in registers
+//   to float32, against float32 thresholds (int32 ones converted for the
+//   integers, exact for every 8- and 16-bit value); 8-bit data through a
+//   table of its 256 values' bins built in the prologue. The row stores,
+//   which set the pace, are the same.
+//
 // Outside this envelope (rows of 256 elements or more, over 8192 slots,
-// int64 beside a float) the direct route runs the flat-slot template's
-// entries of direct.cu (slot.cuh).
+// inputs with no common compare type: int64 beside a float, narrow data
+// beside int32, int64 or float64) the direct route runs the flat-slot
+// template's entries of direct.cu (slot.cuh).
 //
 // Entries: xh_direct_rows_<data> (counts; direct_rows.cu) and
 // xh_direct_rows_<data>_<class>, per accumulator class of weights.cuh
 // (direct_rows_wf64.cu, direct_rows_wu32.cu, direct_rows_wu64.cu), and the
 // class wf32 (direct_rows_wf32.cu): float weights summed in float64, rows
-// stored as float32.
+// stored as float32; xh_direct_rows_narrow and its classes
+// (direct_rows_narrow.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, without
 // --use_fast_math (digitize.cuh).
@@ -77,6 +88,7 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 #include "tile.cuh"
 #include "weights.cuh"
 
@@ -103,15 +115,33 @@ struct Input {
   int cells;  // cells of its table
 };
 
+// The instantiation of narrow data: see the header.
+struct Narrow {};
+template <typename T>
+constexpr bool kNarrow = std::is_same<T, Narrow>::value;
+// The compare type (and that of the thresholds): T, or float for Narrow.
+template <typename T>
+using Cmp = typename std::conditional<kNarrow<T>, float, T>::type;
+
+// Narrow: the stored type (narrow.cuh's load codes), and, for 8-bit data,
+// the first int of its table of 256 bins in shared memory (else -1).
+struct Coded : Input {
+  int code;
+  int lut;
+};
+template <typename T>
+using InputOf = typename std::conditional<kNarrow<T>, Coded, Input>::type;
+
+template <typename T>
 struct Inputs {
-  Input in[kMaxInputs];
+  InputOf<T> in[kMaxInputs];
   int n;
 };
 
 // 227 KB a block, less the kernel's static shared memory (the input table,
 // the cell maps and the windows' widths)
 template <typename T>
-constexpr size_t kSmemMax = 232448 - (sizeof(Input) + sizeof(xh::CellMap<T>) +
+constexpr size_t kSmemMax = 232448 - (sizeof(InputOf<T>) + sizeof(xh::CellMap<Cmp<T>>) +
                                       sizeof(int)) * kMaxInputs - 64;
 
 // Bytes of the dynamic shared memory: the staged thresholds and cell tables,
@@ -135,26 +165,40 @@ struct AccOf<xh::Count> {
   using type = unsigned long long;
 };
 
+// v[q] for q in [Q0, Q1): input d's elements of row r at columns
+// lane + 32 q, widened to its compare type (Narrow: by its load code);
+// zeros where !ok[q].
+template <int Q0, int Q1, int K, typename T, typename In>
+__device__ __forceinline__ void load_input(const In& d, long long r, int lane,
+                                           const bool (&ok)[K], Cmp<T> (&v)[K]) {
+  if constexpr (kNarrow<T>) {
+    long long at[K];
+#pragma unroll
+    for (int q = Q0; q < Q1; ++q) at[q] = r * d.sm + (long long)(lane + 32 * q) * d.sc;
+    xh::gather_coded<float, K, Q0, Q1>(d.data, at, ok, d.code, v);
+  } else {
+    const T* base = static_cast<const T*>(d.data) + r * d.sm;
+    const long long sc = d.sc;
+#pragma unroll
+    for (int q = Q0; q < Q1; ++q)
+      v[q] = ok[q] ? base[(long long)(lane + 32 * q) * sc] : T(0);
+  }
+}
+
 // v[i][q] and wv[q] for q in [Q0, Q1): a lane's elements of row r (columns
 // lane + 32 q) of the first kH inputs (none when !kLoad), and their weights
 // (zeros unweighted); zeros past the row's c columns, or where !live.
 template <int Q0, int Q1, bool kLoad, int kH, typename T, typename W, typename Acc>
-__device__ __forceinline__ void load_columns(const Input* in, const xh::Weights& w,
+__device__ __forceinline__ void load_columns(const InputOf<T>* in, const xh::Weights& w,
                                              long long r, bool live, int c,
-                                             int lane, T (&v)[kH][kPer],
+                                             int lane, Cmp<T> (&v)[kH][kPer],
                                              Acc (&wv)[kPer]) {
   bool ok[kPer];
 #pragma unroll
   for (int q = Q0; q < Q1; ++q) ok[q] = live && lane + 32 * q < c;
   if constexpr (kLoad) {
 #pragma unroll
-    for (int i = 0; i < kH; ++i) {
-      const T* base = static_cast<const T*>(in[i].data) + r * in[i].sm;
-      const long long sc = in[i].sc;
-#pragma unroll
-      for (int q = Q0; q < Q1; ++q)
-        v[i][q] = ok[q] ? base[(long long)(lane + 32 * q) * sc] : T(0);
-    }
+    for (int i = 0; i < kH; ++i) load_input<Q0, Q1, kPer, T>(in[i], r, lane, ok, v[i]);
   }
 #pragma unroll
   for (int q = Q0; q < Q1; ++q) {
@@ -171,13 +215,14 @@ __device__ __forceinline__ void load_columns(const Input* in, const xh::Weights&
 // input count when it is known at compile time (0: read p.n).
 template <typename T, typename W, typename Out, int kN>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-direct_rows_kernel(const Inputs p, const xh::Weights w, long long m, int c,
+direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
                    int S, Layout ly, Out* __restrict__ out) {
   using Acc = typename AccOf<W>::type;
+  using C = Cmp<T>;
   constexpr bool kRound = !std::is_same<Acc, Out>::value;  // float64 -> float32
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Input in[kMaxInputs];
-  __shared__ xh::CellMap<T> maps[kMaxInputs];
+  __shared__ InputOf<T> in[kMaxInputs];
+  __shared__ xh::CellMap<C> maps[kMaxInputs];
   __shared__ int widest[kMaxInputs];
   const int n = kN ? kN : p.n;
 #pragma unroll
@@ -186,17 +231,24 @@ direct_rows_kernel(const Inputs p, const xh::Weights w, long long m, int c,
   __syncthreads();
 
   // the prologue: every input's thresholds and cell table, once a block
-  T* t = reinterpret_cast<T*>(smem);
+  C* t = reinterpret_cast<C*>(smem);
   int2* win = reinterpret_cast<int2*>(smem + ly.thr_bytes);
   for (int i = 0; i < n; ++i)
-    xh::stage_thresholds(t + in[i].soff, static_cast<const T*>(in[i].thr),
+    xh::stage_thresholds(t + in[i].soff, static_cast<const C*>(in[i].thr),
                          in[i].nb + 1);
   __syncthreads();
   for (int i = 0; i < n; ++i) {
-    const xh::CellMap<T> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
+    const xh::CellMap<C> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
     if (threadIdx.x == 0) maps[i] = mp;
     xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff, &widest[i]);
+    if constexpr (kNarrow<T>) {  // 8-bit data: its 256 values' bins
+      if (in[i].lut >= 0)
+        xh::build_byte_table(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
+                             xh::first_step(widest[i]), in[i].code,
+                             reinterpret_cast<int*>(smem) + in[i].lut);
+    }
   }
+  if constexpr (kNarrow<T>) __syncthreads();  // the tables, before a read
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -215,13 +267,13 @@ direct_rows_kernel(const Inputs p, const xh::Weights w, long long m, int c,
   // kUnroll of each (and of their weights) loaded a row ahead
   constexpr int kHeld = kN > 0 ? kN : 1;
   long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  T v[kHeld][kPer];
+  C v[kHeld][kPer];
   Acc wv[kPer];
   load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, r, r < m, c, lane, v, wv);
   for (; r < m; r += n_warps) {
     if (per > kUnroll)
       load_columns<kUnroll, kPer, (kN > 0), kHeld, T, W>(in, w, r, true, c, lane, v, wv);
-    T v_next[kHeld][kPer];
+    C v_next[kHeld][kPer];
     Acc wv_next[kPer];
     load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, r + n_warps, r + n_warps < m,
                                                     c, lane, v_next, wv_next);
@@ -244,20 +296,25 @@ direct_rows_kernel(const Inputs p, const xh::Weights w, long long m, int c,
       }
 #pragma unroll
       for (int i = 0; i < (kN ? kN : n); ++i) {
-        const Input d = in[i];
-        T x[kUnroll];
+        const InputOf<T> d = in[i];
+        C x[kUnroll];
+        if constexpr (kN > 0) {
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if constexpr (kN > 0) {
-            x[u] = v[i][q0 + u];
-          } else {
-            const T* base = static_cast<const T*>(d.data) + r * d.sm;
-            x[u] = valid[u] ? base[(long long)(lane + 32 * (q0 + u)) * d.sc] : T(0);
-          }
+          for (int u = 0; u < kUnroll; ++u) x[u] = v[i][q0 + u];
+        } else {
+          load_input<0, kUnroll, kUnroll, T>(d, r, lane + 32 * q0, valid, x);
         }
         int bin[kUnroll];
-        xh::bins_bucketed<T, kUnroll>(t + d.soff, d.nb, maps[i], win + d.toff,
-                                      xh::first_step(widest[i]), x, bin);
+        int lut = -1;  // 8-bit data: its table's first int
+        if constexpr (kNarrow<T>) lut = d.lut;
+        if (lut >= 0) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            bin[u] = reinterpret_cast<const int*>(smem)[lut + xh::byte_of(x[u])];
+        } else {
+          xh::bins_bucketed<C, kUnroll>(t + d.soff, d.nb, maps[i], win + d.toff,
+                                        xh::first_step(widest[i]), x, bin);
+        }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           valid[u] = valid[u] && bin[u] >= 0;
@@ -335,7 +392,7 @@ direct_rows_kernel(const Inputs p, const xh::Weights w, long long m, int c,
 }
 
 template <typename T, typename W, typename Out, int kN>
-int launch_kernel(const Inputs& p, const xh::Weights& w, long long m, long long c,
+int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m, long long c,
                   long long S, const Layout& ly, int warps, void* out,
                   cudaStream_t stream) {
   static xh::LaunchShape shape;
@@ -367,27 +424,39 @@ int launch_kernel(const Inputs& p, const xh::Weights& w, long long m, long long 
 // The C entries' common body: counts (W = xh::Count, Out = int64's bits) or
 // weighted sums (W = xh::Sum<A>, weights w; Out = A, or float for rounded
 // float sums) of the n inputs' (m, c) layouts into out, (m, S + 1) of Out,
-// which needs no zeroing. data[k], thr[k]: device pointers of type T;
-// strides[2k], strides[2k + 1]: input k's (sm, sc) in elements; nb[k] its
-// bin count. Takes 1 <= c <= 255 and S <= 8192 (the caller sends the rest
-// to slot.cuh); launches on `stream` and returns cudaGetLastError() or the
-// first failing CUDA call's error; never synchronises.
+// which needs no zeroing. data[k], thr[k]: device pointers of type T
+// (Narrow: data of the type codes[k] names, narrow.cuh, and float
+// thresholds); strides[2k], strides[2k + 1]: input k's (sm, sc) in
+// elements; nb[k] its bin count. Takes 1 <= c <= 255 and S <= 8192 (the
+// caller sends the rest to slot.cuh); launches on `stream` and returns
+// cudaGetLastError() or the first failing CUDA call's error; never
+// synchronises.
 template <typename T, typename W, typename Out>
-int launch_direct_rows(int n, const void* const* data, const long long* strides,
-                       const void* const* thr, const int* nb, long long m,
-                       long long c, const xh::Weights& w, void* out,
-                       void* stream) {
+int launch_direct_rows(int n, const int* codes, const void* const* data,
+                       const long long* strides, const void* const* thr,
+                       const int* nb, long long m, long long c,
+                       const xh::Weights& w, void* out, void* stream) {
   using Acc = typename AccOf<W>::type;
   if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || c > kMaxCols || w.sm < 0 ||
       w.sc < 0)
     return (int)cudaErrorInvalidValue;
-  Inputs p = {};
+  Inputs<T> p = {};
   p.n = n;
   long long S = 1;
   size_t thr_slots = 0;
   size_t cells = 0;
+  int tables = 0;  // 8-bit inputs (Narrow)
   for (int k = 0; k < n; ++k) {
-    Input& d = p.in[k];
+    InputOf<T>& d = p.in[k];
+    if constexpr (kNarrow<T>) {
+      const int code = codes[k];
+      if (code < 0 || code >= xh::kLoadCodes || code == xh::kF64 || code == xh::kI32 ||
+          code == xh::kI64)
+        return (int)cudaErrorInvalidValue;
+      d.code = code;
+      d.lut = -1;
+      tables += xh::is_byte(code);
+    }
     d.data = data[k];
     d.thr = thr[k];
     d.sm = strides[2 * k];
@@ -404,18 +473,28 @@ int launch_direct_rows(int n, const void* const* data, const long long* strides,
   const auto round16 = [](size_t b) { return (b + 15) / 16 * 16; };
   const size_t row_len = (size_t)S + 1;
   Layout ly = {};
-  ly.thr_bytes = (unsigned)round16(thr_slots * sizeof(T));
+  ly.thr_bytes = (unsigned)round16(thr_slots * sizeof(Cmp<T>));
   ly.buf_bytes = (unsigned)round16(row_len * sizeof(Acc)) + 16;
   ly.warp_bytes = ly.buf_bytes + (W::kWeighted ? (unsigned)round16(32 * sizeof(Acc)) : 0);
   const size_t budget = kSmemMax<T>;
+  const size_t lut_bytes = sizeof(int) * 256 * (size_t)tables;
   // one cell a table (the plain binary search) where the tables do not fit
   // beside one warp's share
-  if (ly.thr_bytes + xh::cells_bytes((int)cells) + ly.warp_bytes > budget) {
+  if (ly.thr_bytes + xh::cells_bytes((int)cells) + lut_bytes + ly.warp_bytes > budget) {
     cells = 0;
     for (int k = 0; k < n; ++k) cells += (p.in[k].cells = 1);
   }
   for (int k = 0, toff = 0; k < n; toff += p.in[k++].cells) p.in[k].toff = toff;
-  ly.stage_bytes = (unsigned)round16(ly.thr_bytes + xh::cells_bytes((int)cells));
+  const size_t lut_at = ly.thr_bytes + xh::cells_bytes((int)cells);
+  if constexpr (kNarrow<T>) {
+    int lut = (int)(lut_at / sizeof(int));
+    for (int k = 0; k < n; ++k)
+      if (xh::is_byte(p.in[k].code)) {
+        p.in[k].lut = lut;
+        lut += 256;
+      }
+  }
+  ly.stage_bytes = (unsigned)round16(lut_at + lut_bytes);
   if (ly.stage_bytes + ly.warp_bytes > budget) return (int)cudaErrorInvalidValue;
   long long warps = (long long)((budget - ly.stage_bytes) / ly.warp_bytes);
   if (warps > kMaxWarps) warps = kMaxWarps;
@@ -437,7 +516,7 @@ int launch_direct_rows(int n, const void* const* data, const long long* strides,
                       const int* nb, long long m, long long c, void* out,    \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Count, unsigned long long>(       \
-        n, data, strides, thr, nb, m, c, xh::Weights{}, out, stream);        \
+        n, nullptr, data, strides, thr, nb, m, c, xh::Weights{}, out, stream); \
   }
 
 // The weighted C entry: sums of the weights w (an (m, c) view with strides
@@ -450,8 +529,8 @@ int launch_direct_rows(int n, const void* const* data, const long long* strides,
                       long long wsm, long long wsc, int wcode, void* out,    \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Sum<A>, Out>(                     \
-        n, data, strides, thr, nb, m, c, xh::Weights{w, wsm, wsc, wcode}, out, \
-        stream);                                                             \
+        n, nullptr, data, strides, thr, nb, m, c,                            \
+        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
   }
 
 // The weighted entries xh_direct_rows_<data>_<cls> of accumulator class cls
@@ -468,3 +547,36 @@ int launch_direct_rows(int n, const void* const* data, const long long* strides,
   XH_DIRECT_ROWS_WEIGHTED_ENTRY(xh_direct_rows_f64_##cls, double, double, A)  \
   XH_DIRECT_ROWS_WEIGHTED_ENTRY(xh_direct_rows_i32_##cls, int, double, A)     \
   XH_DIRECT_ROWS_WEIGHTED_ENTRY(xh_direct_rows_i64_##cls, long long, double, A)
+
+// The entry of counts of inputs with run-time stored types (T =
+// drow::Narrow; direct_rows_narrow.cu): as XH_DIRECT_ROWS_ENTRY, with
+// codes[k] naming input k's stored type (narrow.cuh's load codes: float32
+// and the narrow types) and float32 thresholds.
+#define XH_DIRECT_ROWS_CODED_ENTRY(name, T)                                   \
+  extern "C" int name(int n, const int* codes, const void* const* data,      \
+                      const long long* strides, const void* const* thr,      \
+                      const int* nb, long long m, long long c, void* out,    \
+                      void* stream) {                                        \
+    return drow::launch_direct_rows<T, xh::Count, unsigned long long>(       \
+        n, codes, data, strides, thr, nb, m, c, xh::Weights{}, out, stream); \
+  }
+
+// The weighted narrow entry, added in A and stored as Out.
+#define XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(name, A, Out)                    \
+  extern "C" int name(int n, const int* codes, const void* const* data,      \
+                      const long long* strides, const void* const* thr,      \
+                      const int* nb, long long m, long long c, const void* w, \
+                      long long wsm, long long wsc, int wcode, void* out,    \
+                      void* stream) {                                        \
+    return drow::launch_direct_rows<drow::Narrow, xh::Sum<A>, Out>(          \
+        n, codes, data, strides, thr, nb, m, c,                              \
+        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
+  }
+
+// The narrow entry xh_direct_rows_narrow_<cls> of accumulator class cls
+// (accumulator and output type A), and of float weights summed in float64
+// and stored as float (the rounded class).
+#define XH_DIRECT_ROWS_NARROW_CLASS(cls, A) \
+  XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(xh_direct_rows_narrow_##cls, A, A)
+#define XH_DIRECT_ROWS_NARROW_ROUNDED_CLASS(cls, A) \
+  XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(xh_direct_rows_narrow_##cls, double, A)

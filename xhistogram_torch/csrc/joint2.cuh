@@ -7,21 +7,31 @@
 // block clusters, so this kernel is a shared-memory histogram spread over
 // the blocks of a cluster instead.
 //
-// What it computes, per element pair (a_e, b_e) of data types Ta and Tb
-// (float, double, int32 or int64; one type for both, or int64 beside a
-// float, each input compared in its own type), against the compare-form
-// thresholds of xhistogram_torch.bins.compare_form in Ta and Tb
-// (digitize.cuh):
+// What it computes, per element pair (a_e, b_e) read as La and Lb and
+// compared as Ta and Tb (float, double, int32 or int64 read as themselves;
+// one type for both, or int64 beside a float, each input compared in its
+// own type; or two inputs of one narrow type read in place at its own width
+// and widened in registers, narrow.cuh: float16, bfloat16, int16 and uint16
+// compared as float32, int8 and uint8 (bool as bytes) as int32), against
+// the compare-form thresholds of xhistogram_torch.bins.compare_form in Ta
+// and Tb (digitize.cuh):
 //   i = #{t in thr_a : t <= a_e},  j = #{t in thr_b : t <= b_e}
 //   the pair counts iff neither value is NaN, 1 <= i <= nba, 1 <= j <= nbb,
 //   and then adds one to slot (i-1)*nbb + (j-1) of the int64 output.
 //
-// What bounds it on an H100: each pair reads 2 sizeof(T) bytes from device
-// memory. What its design does about the rest:
+// What bounds it on an H100: each pair reads sizeof(La) + sizeof(Lb) bytes
+// from device memory. What its design does about the rest:
 // - The digitize is the bucketed search of digitize.cuh: one cell-table
 //   load and one or two threshold compares for the T-S edges, where a binary
 //   search over 281 or 341 thresholds made about nine dependent
-//   shared-memory loads and set the kernel's pace.
+//   shared-memory loads and set the kernel's pace. 8-bit data has 256
+//   values: each block finds their bins once, by the same search, so a
+//   pair costs two shared-memory loads and no search.
+// - Narrow pairs read kUnroll neighbouring elements of each input by one
+//   load (8 bytes of 16-bit data, 4 of 8-bit) where both inputs start on
+//   such a boundary, the few past the last whole group one by one; else,
+//   and for 4- and 8-byte data, each element by itself, neighbouring
+//   threads on neighbouring elements.
 // - The full 280x340 grid (381 KB of int32) does not fit one block's 227 KB
 //   of shared memory, so it is spread over a cluster of C blocks (the
 //   smallest of 1, 2, 4 and 8 that holds it; C = 2 for counts, C = 4 for
@@ -41,8 +51,8 @@
 // sums at most two blocks a cluster, in passes past that.
 //
 // The kernel and its launcher, included by joint2.cu (one type for both
-// inputs) and joint2_mixed.cu (int64 beside a float), which compile side by
-// side.
+// inputs), joint2_mixed.cu (int64 beside a float) and joint2_narrow.cu (one
+// narrow type for both), which compile side by side.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, without --use_fast_math: subnormal data must compare
@@ -57,6 +67,7 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 #include "weights.cuh"
 
 namespace cg = cooperative_groups;
@@ -66,8 +77,10 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
 constexpr int kMaxCluster = 8;
-// 227 KB a block, less the kernel's static shared memory
-constexpr size_t kSmemMax = 232448 - 64;
+// 227 KB a block, less the kernel's static shared memory (and, for 8-bit
+// data, its two tables of 256 bins)
+template <typename La>
+constexpr size_t kSmemMax = 232448 - 64 - (sizeof(La) == 1 ? 2 * 256 * sizeof(int) : 0);
 
 __host__ __device__ inline size_t align8(size_t x) { return (x + 7) / 8 * 8; }
 
@@ -94,17 +107,22 @@ __host__ __device__ inline size_t hist_offset(int nba, int nbb, int ka, int kb) 
   return tables_offset<Ta, Tb>(nba, nbb) + xh::cells_bytes(ka) + xh::cells_bytes(kb);
 }
 
-// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]).
-template <typename Ta, typename Tb, typename W>
+// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]). La, Lb: the
+// types the inputs are read as; Ta, Tb: their compare types. A narrow pair
+// has one type for both inputs.
+template <typename La, typename Lb, typename Ta, typename Tb, typename W>
 __global__ void __launch_bounds__(kThreads)
-joint2_kernel(const Ta* __restrict__ a, const Tb* __restrict__ b, long long n,
+joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
               const Ta* __restrict__ thr_a, int nba,
               const Tb* __restrict__ thr_b, int nbb, int ka, int kb,
               int rows_per_chunk, int log2c, const void* __restrict__ w,
               int wcode, typename W::Out* __restrict__ out) {
   using Shared = typename W::Shared;
+  constexpr bool kTables = sizeof(La) == 1;  // 8-bit data: bins by table
+  constexpr bool kVec = sizeof(La) < 4;      // narrow: kUnroll elements a load
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int widest[2];
+  __shared__ int lut[kTables ? 2 : 1][kTables ? 256 : 1];
   Ta* ta = reinterpret_cast<Ta*>(smem);
   Tb* tb;
   if constexpr (std::is_same<Ta, Tb>::value)
@@ -134,40 +152,72 @@ joint2_kernel(const Ta* __restrict__ a, const Tb* __restrict__ b, long long n,
   xh::build_cells(tb, nbb, mb, win_b, &widest[1]);
   const int step_a = xh::first_step(widest[0]);
   const int step_b = xh::first_step(widest[1]);
+  if constexpr (kTables) {
+    xh::build_byte_table<Ta, La>(ta, nba, ma, win_a, step_a, lut[0]);
+    xh::build_byte_table<Tb, Lb>(tb, nbb, mb, win_b, step_b, lut[1]);
+    __syncthreads();
+  }
   if (cl > 1) cluster.sync();  // every block's histogram zeroed before an add
 
-  const long long step = (long long)blockDim.x * kUnroll;
-  const long long stride = step * gridDim.x;
-  for (long long base = (long long)blockIdx.x * step + threadIdx.x; base < n;
-       base += stride) {
-    Ta av[kUnroll];
-    Tb bv[kUnroll];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long e = base + (long long)u * blockDim.x;
-      ok[u] = e < n;
-      av[u] = ok[u] ? a[e] : Ta(0);
-      bv[u] = ok[u] ? b[e] : Tb(0);
-    }
+  // counts the pairs (av[u], bv[u]), valid where ok[u], at elements
+  // e0 + u * de
+  auto count = [&](const La (&av)[kUnroll], const Lb (&bv)[kUnroll],
+                   const bool (&ok)[kUnroll], long long e0, long long de) {
     int i[kUnroll];  // -1: NaN or out of range
     int j[kUnroll];
-    xh::bins_bucketed(ta, nba, ma, win_a, step_a, av, i);
-    xh::bins_bucketed(tb, nbb, mb, win_b, step_b, bv, j);
+    xh::bins_loaded(ta, nba, ma, win_a, step_a, lut[0], av, i);
+    xh::bins_loaded(tb, nbb, mb, win_b, step_b, lut[kTables ? 1 : 0], bv, j);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       // in this chunk's rows; r: the row within the chunk
       const int r = i[u] - row0;
       if (!(ok[u] && r >= 0 && r < rows && j[u] >= 0)) continue;
       Shared v = Shared(1);
-      if constexpr (W::kWeighted)
-        xh::load_weight(w, base + (long long)u * blockDim.x, wcode, v);
+      if constexpr (W::kWeighted) xh::load_weight(w, e0 + u * de, wcode, v);
       const int slot = (r >> log2c) * nbb + j[u];
       if (cl == 1)
         atomicAdd(&hist[slot], v);
       else
         atomicAdd(cluster.map_shared_rank(hist, r & (cl - 1)) + slot, v);
     }
+  };
+
+  long long done = 0;  // the elements the group loads below counted
+  if constexpr (kVec) {
+    // kUnroll neighbours of each input a load, where both inputs start on
+    // a boundary of that many bytes (a view at another offset is read
+    // element by element below)
+    using PackA = xh::Pack<La, kUnroll>;
+    using PackB = xh::Pack<Lb, kUnroll>;
+    const bool aligned =
+        reinterpret_cast<unsigned long long>(a) % sizeof(PackA) == 0 &&
+        reinterpret_cast<unsigned long long>(b) % sizeof(PackB) == 0;
+    const long long groups = aligned ? n / kUnroll : 0;
+    const bool ok[kUnroll] = {true, true, true, true};
+    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
+         g += (long long)blockDim.x * gridDim.x) {
+      const PackA pa = reinterpret_cast<const PackA*>(a)[g];
+      const PackB pb = reinterpret_cast<const PackB*>(b)[g];
+      count(pa.v, pb.v, ok, g * kUnroll, 1);
+    }
+    done = groups * kUnroll;
+  }
+
+  const long long step = (long long)blockDim.x * kUnroll;
+  const long long stride = step * gridDim.x;
+  for (long long base = done + (long long)blockIdx.x * step + threadIdx.x; base < n;
+       base += stride) {
+    La av[kUnroll];
+    Lb bv[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long e = base + (long long)u * blockDim.x;
+      ok[u] = e < n;
+      av[u] = ok[u] ? a[e] : La{};
+      bv[u] = ok[u] ? b[e] : Lb{};
+    }
+    count(av, bv, ok, base, blockDim.x);
   }
   if (cl > 1)
     cluster.sync();  // every add of the cluster landed
@@ -183,7 +233,7 @@ joint2_kernel(const Ta* __restrict__ a, const Tb* __restrict__ b, long long n,
   }
 }
 
-template <typename Ta, typename Tb, typename W>
+template <typename La, typename Lb, typename Ta, typename Tb, typename W>
 int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
                   int nba, const void* thr_b, int nbb, int max_cluster,
                   const void* w, int wcode, void* out, void* stream) {
@@ -194,7 +244,7 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   const int kb = nbb < xh::kMaxCells / 2 ? 2 * nbb : xh::kMaxCells;
   const size_t hoff = hist_offset<Ta, Tb>(nba, nbb, ka, kb);
   const long long rows_fit =
-      hoff < kSmemMax ? (long long)((kSmemMax - hoff) / sizeof(Shared)) / nbb : 0;
+      hoff < kSmemMax<La> ? (long long)((kSmemMax<La> - hoff) / sizeof(Shared)) / nbb : 0;
   if (rows_fit < 1) return (int)cudaErrorInvalidValue;
 
   // the smallest cluster that holds every T row, else the largest allowed,
@@ -217,7 +267,7 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   // card, and no more blocks than there are element groups to give them
   static xh::ClusterShape shape;
   long long resident = 0;  // clusters
-  cudaError_t err = shape.get((const void*)joint2_kernel<Ta, Tb, W>, kThreads,
+  cudaError_t err = shape.get((const void*)joint2_kernel<La, Lb, Ta, Tb, W>, kThreads,
                               smem, cl, &resident);
   if (err != cudaSuccess) return (int)err;
   const long long groups = (n + (long long)kThreads * kUnroll - 1) /
@@ -234,9 +284,9 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
     return (int)cudaErrorInvalidValue;
 
   err = xh::launch_clustered(
-      joint2_kernel<Ta, Tb, W>, dim3((unsigned int)grid_x, (unsigned int)n_chunks),
-      kThreads, smem, cl, (cudaStream_t)stream, static_cast<const Ta*>(a),
-      static_cast<const Tb*>(b), n, static_cast<const Ta*>(thr_a), nba,
+      joint2_kernel<La, Lb, Ta, Tb, W>,
+      dim3((unsigned int)grid_x, (unsigned int)n_chunks), kThreads, smem, cl,
+      (cudaStream_t)stream, static_cast<const La*>(a), static_cast<const Lb*>(b), n, static_cast<const Ta*>(thr_a), nba,
       static_cast<const Tb*>(thr_b), nbb, ka, kb, rows_per_chunk, log2c, w, wcode,
       static_cast<typename W::Out*>(out));
   xh::last_launch = {cl, n_chunks, 1, {ka, kb}};
@@ -254,9 +304,9 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   extern "C" int name(const void* a, const void* b, long long n,              \
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, void* out, void* stream) {             \
-    return launch_joint2<Ta, Tb, xh::Count>(a, b, n, thr_a, nba, thr_b, nbb,  \
-                                            max_cluster, nullptr, 0, out,     \
-                                            stream);                          \
+    return launch_joint2<Ta, Tb, Ta, Tb, xh::Count>(                          \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,        \
+        stream);                                                              \
   }
 
 // Weighted: adds the sums of the n contiguous weights w (of the type
@@ -267,7 +317,27 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, const void* w, int wcode, void* out,    \
                       void* stream) {                                         \
-    return launch_joint2<Ta, Tb, xh::Sum<A>>(a, b, n, thr_a, nba, thr_b, nbb, \
-                                             max_cluster, w, wcode, out,      \
-                                             stream);                         \
+    return launch_joint2<Ta, Tb, Ta, Tb, xh::Sum<A>>(                         \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream); \
+  }
+
+// As XH_JOINT2 for two inputs of the narrow type L (joint2_narrow.cu), read
+// in place and compared as C against thresholds of type C.
+#define XH_JOINT2_NARROW(name, L, C)                                           \
+  extern "C" int name(const void* a, const void* b, long long n,              \
+                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
+                      int max_cluster, void* out, void* stream) {             \
+    return launch_joint2<L, L, C, C, xh::Count>(                              \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,        \
+        stream);                                                              \
+  }
+
+// The weighted entry of the narrow type L, for accumulator type A.
+#define XH_JOINT2_NARROW_WEIGHTED(name, L, C, A)                               \
+  extern "C" int name(const void* a, const void* b, long long n,              \
+                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
+                      int max_cluster, const void* w, int wcode, void* out,    \
+                      void* stream) {                                         \
+    return launch_joint2<L, L, C, C, xh::Sum<A>>(                             \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream); \
   }

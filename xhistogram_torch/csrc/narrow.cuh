@@ -1,0 +1,167 @@
+// Data read at its own width and widened in registers, shared by the
+// histogram kernels.
+//
+// The TPU kernels widen bfloat16 and 8- and 16-bit integer tiles after the
+// load (xhistogram_tpu/ops/pallas_hist.py::_widen), so device memory keeps
+// the narrow width; float16 is cast before the call. Here every kernel reads
+// bool, int8, uint8, int16, uint16, float16 and bfloat16 data in place and
+// widens each value in registers to its compare type, exactly: float32 for
+// the 16-bit types (float16, bfloat16, int16, uint16) and, in the kernels
+// whose inputs carry a run-time stored type, for float32 data and the 8-bit
+// types too; double beside int64 (slot.cuh's mixed instantiation). Integer
+// thresholds (bins.compare_form in int32) converted to float32 round only
+// past 2^24, beyond every 8- and 16-bit value, so every comparison is kept.
+// 8-bit data (int8, uint8, bool as the bytes 0 and 1) has 256 values: a
+// block finds their bins once, by the same search, and each element then
+// costs one shared-memory load.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
+
+#include "digitize.cuh"
+
+namespace xh {
+
+// An input's stored type, as cuda_hist._LOAD_CODE names it on the host.
+enum LoadCode : int {
+  kF32 = 0,
+  kF64 = 1,
+  kI32 = 2,
+  kI64 = 3,
+  kF16 = 4,
+  kBF16 = 5,
+  kI16 = 6,
+  kU16 = 7,
+  kI8 = 8,
+  kU8 = 9,  // and bool
+};
+constexpr int kLoadCodes = 10;
+
+// 8-bit data, digitized through a table of its 256 values' bins.
+__host__ __device__ constexpr bool is_byte(int code) { return code == kI8 || code == kU8; }
+
+// x converted to the compare type C, exactly.
+template <typename C, typename L>
+__device__ __forceinline__ C widen(L x) {
+  return C(x);
+}
+template <>
+__device__ __forceinline__ float widen<float, __half>(__half x) {
+  return __half2float(x);
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ double widen<double, __half>(__half x) {
+  return (double)__half2float(x);
+}
+template <>
+__device__ __forceinline__ double widen<double, __nv_bfloat16>(__nv_bfloat16 x) {
+  return (double)__bfloat162float(x);
+}
+
+// K neighbouring elements of type L, read by one load of K sizeof(L) bytes
+// from an address aligned to that many.
+template <typename L, int K>
+struct alignas(sizeof(L) * K) Pack {
+  L v[K];
+};
+
+// v[q] for q in [Q0, Q1): element at[q] of p, stored as L, widened to C;
+// C(0) where !ok[q]. All the loads are issued before any conversion.
+template <typename L, typename C, int K, int Q0, int Q1>
+__device__ __forceinline__ void gather(const void* p, const long long (&at)[K],
+                                       const bool (&ok)[K], C (&v)[K]) {
+  const L* q = static_cast<const L*>(p);
+  L raw[K];
+#pragma unroll
+  for (int u = Q0; u < Q1; ++u) raw[u] = q[ok[u] ? at[u] : 0];
+#pragma unroll
+  for (int u = Q0; u < Q1; ++u) v[u] = ok[u] ? widen<C>(raw[u]) : C(0);
+}
+
+// gather for the stored type `code` names, with one switch for all the
+// elements: the code is the same in every lane, so it never diverges. C is
+// float (float32 and the narrow types) or double (every type but int64,
+// which compares as itself).
+template <typename C, int K, int Q0 = 0, int Q1 = K>
+__device__ __forceinline__ void gather_coded(const void* p, const long long (&at)[K],
+                                             const bool (&ok)[K], int code,
+                                             C (&v)[K]) {
+  constexpr bool kDouble = std::is_same<C, double>::value;
+  switch (code) {
+    case kF16: gather<__half, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kBF16: gather<__nv_bfloat16, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kI16: gather<short, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kU16: gather<unsigned short, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kI8: gather<signed char, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kU8: gather<unsigned char, C, K, Q0, Q1>(p, at, ok, v); break;
+    case kF64:
+      if constexpr (kDouble) gather<double, C, K, Q0, Q1>(p, at, ok, v);
+      break;
+    case kI32:
+      if constexpr (kDouble) gather<int, C, K, Q0, Q1>(p, at, ok, v);
+      break;
+    default: gather<float, C, K, Q0, Q1>(p, at, ok, v);
+  }
+}
+
+// The byte of 8-bit data widened to C: its index in the table.
+template <typename C>
+__device__ __forceinline__ unsigned byte_of(C v) {
+  return (unsigned)(int)v & 255u;
+}
+
+// lut[b]: the bin (-1 out of range) of the 8-bit value of type L whose
+// byte is b, by the bucketed search of the thresholds t (skewed, staged),
+// with the threads of the block; the caller synchronises before a read.
+template <typename C, typename L>
+__device__ void build_byte_table(const C* t, int nb, const CellMap<C>& m,
+                                 const int2* win, int step0, int* lut) {
+  static_assert(sizeof(L) == 1, "a table of 256 values");
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
+    const C x[1] = {widen<C>(static_cast<L>(b))};
+    int bin[1];
+    bins_bucketed<C, 1>(t, nb, m, win, step0, x, bin);
+    lut[b] = bin[0];
+  }
+}
+
+// The same for the 8-bit type `code` names (int8, else uint8 or bool).
+template <typename C>
+__device__ void build_byte_table(const C* t, int nb, const CellMap<C>& m,
+                                 const int2* win, int step0, int code, int* lut) {
+  if (code == kI8)
+    build_byte_table<C, signed char>(t, nb, m, win, step0, lut);
+  else
+    build_byte_table<C, unsigned char>(t, nb, m, win, step0, lut);
+}
+
+// bin[u]: the bin of raw[u], read as L and compared as C against the
+// staged thresholds t with cell map m and table win: through the 8-bit
+// table lut for 8-bit L, else by the bucketed search of the value widened.
+template <typename C, typename L, int U>
+__device__ __forceinline__ void bins_loaded(const C* t, int nb, const CellMap<C>& m,
+                                            const int2* win, int step0,
+                                            const int* lut, const L (&raw)[U],
+                                            int (&bin)[U]) {
+  if constexpr (sizeof(L) == 1) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) bin[u] = lut[(unsigned char)raw[u]];
+  } else if constexpr (std::is_same<C, L>::value) {
+    bins_bucketed<C, U>(t, nb, m, win, step0, raw, bin);
+  } else {
+    C v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = widen<C>(raw[u]);
+    bins_bucketed<C, U>(t, nb, m, win, step0, v, bin);
+  }
+}
+
+}  // namespace xh

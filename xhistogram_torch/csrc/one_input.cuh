@@ -4,8 +4,9 @@
 // Replaces the TPU kernel xhistogram_tpu/ops/pallas_hist.py::_one_input_kernel
 // (driven by _run_one_input). That kernel compares every element with every
 // edge and sums the compare rows against a row one-hot on the TPU's matrix
-// unit, because the TPU has no fast scatter; narrow data is widened first,
-// since Mosaic compares nothing below 32 bits. Here each element is
+// unit, because the TPU has no fast scatter; narrow tiles are widened in
+// registers after the load, since Mosaic compares nothing below 32 bits
+// (float16 is cast before the call). Here each element is
 // digitized once and counted once, in shared memory.
 //
 // Input: an (m, c) layout of load type L with any non-negative strides
@@ -75,6 +76,7 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 #include "tile.cuh"
 #include "weights.cuh"
 
@@ -102,18 +104,7 @@ enum Layout : int { kLanePrivate = 1, kReplicas = 2, kAggregated = 3 };
 
 using xh::Tiling;
 
-template <typename C, typename L>
-__device__ __forceinline__ C widen(L x) {
-  return C(x);
-}
-template <>
-__device__ __forceinline__ float widen<float, __half>(__half x) {
-  return __half2float(x);
-}
-template <>
-__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using xh::widen;
 
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 

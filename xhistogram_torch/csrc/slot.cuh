@@ -46,14 +46,27 @@
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
 //
-// Inputs of one compare type T share an instantiation (data of several
-// types widen to the narrowest that holds each exactly, in the caller).
-// int64 beside a float has no such type, and takes the mixed instantiation
-// (T = Mixed, slot_mixed.cu): each input's stored type is a run-time code,
-// an int64 input compares in int64 and any other in double, to which
-// float32 and int32 convert exactly, each against its own thresholds in
-// that type; its cell map runs in double, as for int64 data. It is rare,
-// so it has no two-input kernel of its own.
+// Inputs of one wide compare type T (float, double, int32, int64) share an
+// instantiation (wide data of several types widen to the narrowest that
+// holds each exactly, in the caller). Two instantiations read each input's
+// stored type as a run-time code (narrow.cuh's load codes, the same in
+// every lane) and widen it in registers, so narrow data is read in place
+// at its own width:
+// - T = Narrow (slot_narrow.cu): float32 data and the narrow types (bool,
+//   int8, uint8, int16, uint16, float16, bfloat16), in any mix, all
+//   compared in float32 against float32 thresholds (int32 ones converted
+//   for the integers: a threshold past 2^24 rounds, but stays past every 8-
+//   and 16-bit value). It has the two-input kernel too.
+// - T = Mixed (slot_mixed.cu): every other mix with no exact common compare
+//   type, int64 beside a float, or narrow data beside int32, int64 or
+//   float64: an int64 input compares in int64 and any other in double, to
+//   which all the rest convert exactly, each against its own thresholds in
+//   that type; its cell map runs in double, as for int64 data. It is rare,
+//   so it has no two-input kernel of its own.
+// In both, 8-bit data (int8, uint8, bool as bytes) whose thresholds are
+// staged is digitized through a table of its 256 values' bins, built in
+// each block's prologue by the same search: one shared-memory load an
+// element and input.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, without
 // --use_fast_math (digitize.cuh).
@@ -67,6 +80,7 @@
 
 #include "digitize.cuh"
 #include "launch.cuh"
+#include "narrow.cuh"
 #include "tile.cuh"
 #include "weights.cuh"
 
@@ -92,17 +106,28 @@ constexpr long long kMinTile = (long long)kThreads * kUnroll;
 // tile, or warp replicas of a full reduction
 constexpr long long kHistBytes = 48 * 1024;
 
-// The compare type of the mixed instantiation: see the header.
+// The instantiations of inputs with run-time stored types: see the header.
 struct Mixed {};
+struct Narrow {};
 template <typename T>
 constexpr bool kMixed = std::is_same<T, Mixed>::value;
-// Each staged threshold slot: T, or 8 bytes (int64 or double) when mixed.
 template <typename T>
-using Stored = typename std::conditional<kMixed<T>, long long, T>::type;
+constexpr bool kNarrow = std::is_same<T, Narrow>::value;
+template <typename T>
+constexpr bool kCoded = kMixed<T> || kNarrow<T>;
+// The compare type: T, double when mixed (int64 inputs aside), float for
+// Narrow.
+template <typename T>
+using Cmp = typename std::conditional<
+    kMixed<T>, double, typename std::conditional<kNarrow<T>, float, T>::type>::type;
+// Each staged threshold slot: the compare type, or 8 bytes (int64 or
+// double) when mixed.
+template <typename T>
+using Stored = typename std::conditional<kMixed<T>, long long, Cmp<T>>::type;
 // Each input's cell map: CellMap<double> when mixed, which has the layout
 // of CellMap<long long>.
 template <typename T>
-using Map = xh::CellMap<typename std::conditional<kMixed<T>, double, T>::type>;
+using Map = xh::CellMap<Cmp<T>>;
 
 struct InputBase {
   const void* data;  // element (r, j) at data[r * sm + j * sc]
@@ -115,15 +140,21 @@ struct InputBase {
   int cells;  // cells asked for its table
 };
 
+// Mixed and Narrow: the stored type (narrow.cuh's load codes; when mixed,
+// int64 compares in int64, the rest in double), and, for 8-bit data whose
+// thresholds are staged, the first int of its table of 256 bins in shared
+// memory (else -1).
+struct Coded : InputBase {
+  int code;
+  int lut;
+};
+
 template <typename T>
 struct Input : InputBase {};
-
-// Mixed: the stored type, 0 float32, 1 float64, 2 int32 (compared in
-// double), 3 int64 (compared in int64).
 template <>
-struct Input<Mixed> : InputBase {
-  int code;
-};
+struct Input<Mixed> : Coded {};
+template <>
+struct Input<Narrow> : Coded {};
 
 template <typename T>
 struct Inputs {
@@ -147,11 +178,11 @@ struct Mode {
 };
 
 // bin[u]: the bin of input d's value at offset f[u] along the fast and s[u]
-// along the slow dimension from the tile's corner (r0, c0), read as L and
+// along the slow dimension from the tile's corner (r0, c0), read and
 // compared as C, or -1; against its thresholds staged (skewed) at t with
 // cell map mp, cell table win and widest window widest when `staged`, else
 // searched in device memory.
-template <typename C, typename L, int K>
+template <typename C, int K>
 __device__ __forceinline__ void input_bins(
     const InputBase& d, const C* t, const xh::CellMap<C>& mp, const int2* win,
     int widest, bool staged, long long r0, long long c0, bool row_fast,
@@ -159,7 +190,7 @@ __device__ __forceinline__ void input_bins(
     int (&bin)[K]) {
   const long long fast = row_fast ? d.sm : d.sc;
   const long long slow = row_fast ? d.sc : d.sm;
-  const L* base = static_cast<const L*>(d.data) + r0 * d.sm + c0 * d.sc;
+  const C* base = static_cast<const C*>(d.data) + r0 * d.sm + c0 * d.sc;
   C v[K];
 #pragma unroll
   for (int u = 0; u < K; ++u)
@@ -168,6 +199,33 @@ __device__ __forceinline__ void input_bins(
     xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), v, bin);
   else
     xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, v, bin);
+}
+
+// bin[u]: as input_bins, for an input whose stored type is its run-time
+// code, widened to C: through its 8-bit table in luts where it has one.
+template <typename C, int K>
+__device__ __forceinline__ void coded_bins(
+    const Coded& d, const C* t, const xh::CellMap<C>& mp, const int2* win,
+    int widest, bool staged, const int* luts, long long r0, long long c0,
+    bool row_fast, const unsigned (&f)[K], const unsigned (&s)[K],
+    const bool (&ok)[K], int (&bin)[K]) {
+  const long long fast = row_fast ? d.sm : d.sc;
+  const long long slow = row_fast ? d.sc : d.sm;
+  const long long origin = r0 * d.sm + c0 * d.sc;
+  long long at[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) at[u] = origin + f[u] * fast + s[u] * slow;
+  C v[K];
+  xh::gather_coded<C, K>(d.data, at, ok, d.code, v);
+  if (d.lut >= 0) {
+    const int* lut = luts + d.lut;
+#pragma unroll
+    for (int u = 0; u < K; ++u) bin[u] = lut[xh::byte_of(v[u])];
+  } else if (staged) {
+    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), v, bin);
+  } else {
+    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, v, bin);
+  }
 }
 
 // g[u]: the flat slot of element u, at offset f[u] along the fast and s[u]
@@ -180,7 +238,7 @@ __device__ __forceinline__ void input_bins(
 template <typename T, int K, int kN>
 __device__ __forceinline__ void flat_slots(
     const Input<T>* in, int n, const Stored<T>* t, const Map<T>* maps,
-    const int2* win, const int* widest, bool staged, long long r0,
+    const int2* win, const int* widest, bool staged, const int* luts, long long r0,
     long long c0, bool row_fast, const unsigned (&f)[K],
     const unsigned (&s)[K], const bool (&ok)[K], long long (&g)[K]) {
   bool valid[K];
@@ -193,25 +251,20 @@ __device__ __forceinline__ void flat_slots(
   for (int i = 0; i < (kN ? kN : n); ++i) {
     const Input<T> d = in[i];
     int bin[K];
-    if constexpr (kMixed<T>) {
+    if constexpr (kCoded<T>) {
       const Map<T> mp = maps[i];
-      const auto* dt = reinterpret_cast<const double*>(t + d.soff);
       const int2* w = win + d.toff;
-      if (d.code == 3)
-        input_bins<long long, long long, K>(
-            d, t + d.soff, xh::CellMap<long long>{mp.lo, mp.inv, mp.k}, w,
-            widest[i], staged, r0, c0, row_fast, f, s, ok, bin);
-      else if (d.code == 0)
-        input_bins<double, float, K>(d, dt, mp, w, widest[i], staged, r0, c0,
-                                     row_fast, f, s, ok, bin);
-      else if (d.code == 1)
-        input_bins<double, double, K>(d, dt, mp, w, widest[i], staged, r0, c0,
-                                      row_fast, f, s, ok, bin);
+      if (kMixed<T> && d.code == xh::kI64)
+        input_bins<long long, K>(
+            d, reinterpret_cast<const long long*>(t + d.soff),
+            xh::CellMap<long long>{mp.lo, mp.inv, mp.k}, w, widest[i], staged, r0,
+            c0, row_fast, f, s, ok, bin);
       else
-        input_bins<double, int, K>(d, dt, mp, w, widest[i], staged, r0, c0,
-                                   row_fast, f, s, ok, bin);
+        coded_bins<Cmp<T>, K>(d, reinterpret_cast<const Cmp<T>*>(t + d.soff), mp, w,
+                              widest[i], staged, luts, r0, c0, row_fast, f, s, ok,
+                              bin);
     } else {
-      input_bins<T, T, K>(d, t + d.soff, maps[i], win + d.toff, widest[i],
+      input_bins<T, K>(d, t + d.soff, maps[i], win + d.toff, widest[i],
                           staged, r0, c0, row_fast, f, s, ok, bin);
     }
 #pragma unroll
@@ -262,7 +315,7 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
     __syncthreads();
     for (int i = 0; i < n; ++i) {
       if constexpr (kMixed<T>) {
-        if (in[i].code == 3) {
+        if (in[i].code == xh::kI64) {
           const xh::CellMap<long long> mp =
               xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
           if (threadIdx.x == 0) maps[i] = {mp.lo, mp.inv, mp.k};
@@ -279,6 +332,15 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
         if (threadIdx.x == 0) maps[i] = mp;
         xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
                         &widest[i]);
+      }
+      if constexpr (kCoded<T>) {
+        // 8-bit data: its 256 values' bins, by the search just built (maps[i]
+        // and widest[i] were written before build_cells' last barrier)
+        if (in[i].lut >= 0)
+          xh::build_byte_table(reinterpret_cast<const Cmp<T>*>(t + in[i].soff),
+                               in[i].nb, maps[i], win + in[i].toff,
+                               xh::first_step(widest[i]), in[i].code,
+                               reinterpret_cast<int*>(smem) + in[i].lut);
       }
     }
   }
@@ -335,7 +397,8 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
         }
       }
       long long g[kUnroll];
-      flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged, r0, c0,
+      flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged,
+                                 reinterpret_cast<const int*>(smem), r0, c0,
                                  tl.row_fast, fs, ss, ok, g);
       Shared wt[kUnroll];  // each counted element's weight
       if constexpr (W::kWeighted) {
@@ -538,15 +601,22 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
   long long S = 1;
   size_t thr_slots = 0;
   size_t cells = 0;
+  int tables = 0;    // 8-bit inputs of a coded instantiation
   int row_cost = 0;  // inputs a rows-first walk reads with a stride > 1
   int col_cost = 0;
   for (int k = 0; k < n; ++k) {
     Input<T>& d = p.in[k];
     d.data = data[k];
     d.thr = thr[k];
-    if constexpr (kMixed<T>) {
-      if (codes[k] < 0 || codes[k] > 3) return (int)cudaErrorInvalidValue;
-      d.code = codes[k];
+    if constexpr (kCoded<T>) {
+      // Narrow reads float32 and the narrow types; Mixed every type
+      const int code = codes[k];
+      if (code < 0 || code >= xh::kLoadCodes ||
+          (kNarrow<T> && (code == xh::kF64 || code == xh::kI32 || code == xh::kI64)))
+        return (int)cudaErrorInvalidValue;
+      d.code = code;
+      d.lut = -1;
+      tables += xh::is_byte(code);
     }
     d.sm = strides[2 * k];
     d.sc = strides[2 * k + 1];
@@ -566,20 +636,31 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
   col_cost += w.sc > 1;
   const bool row_fast = m > 1 && (c == 1 || row_cost < col_cost);
 
-  // thresholds and their cell tables where they fit; one cell a table
-  // (the plain binary search) where only the thresholds do
+  // thresholds and their cell tables (and the 8-bit tables) where they
+  // fit; one cell a table (the plain binary search) where only the
+  // thresholds do
   const size_t budget = kSmemMax<T>;
   const size_t thr_bytes = (thr_slots * sizeof(Stored<T>) + 15) / 16 * 16;
-  if (thr_bytes + xh::cells_bytes((int)cells) > budget) {
+  const size_t lut_bytes = sizeof(int) * 256 * (size_t)tables;
+  if (thr_bytes + xh::cells_bytes((int)cells) + lut_bytes > budget) {
     cells = 0;
     for (int k = 0; k < n; ++k) cells += (p.in[k].cells = 1);
   }
   Mode md = {};
   md.reduce_all = reduce_all != 0;
-  if (thr_bytes + xh::cells_bytes((int)cells) <= budget) {
+  if (thr_bytes + xh::cells_bytes((int)cells) + lut_bytes <= budget) {
     md.thr_bytes = thr_bytes;
-    md.stage_bytes = (thr_bytes + xh::cells_bytes((int)cells) + 15) / 16 * 16;
+    const size_t lut_at = thr_bytes + xh::cells_bytes((int)cells);
+    md.stage_bytes = (lut_at + lut_bytes + 15) / 16 * 16;
     for (int k = 0, toff = 0; k < n; toff += p.in[k++].cells) p.in[k].toff = toff;
+    if constexpr (kCoded<T>) {
+      int lut = (int)(lut_at / sizeof(int));
+      for (int k = 0; k < n; ++k)
+        if (xh::is_byte(p.in[k].code)) {
+          p.in[k].lut = lut;
+          lut += 256;
+        }
+    }
   } else {
     for (int k = 0; k < n; ++k) p.in[k].cells = 0;
   }
@@ -680,38 +761,54 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
   XH_SLOT_WEIGHTED_ENTRY(xh_direct_i32_##cls, int, A, 0)                      \
   XH_SLOT_WEIGHTED_ENTRY(xh_direct_i64_##cls, long long, A, 0)
 
-// The mixed entry of one route (int64 beside a float; slot_mixed.cu): as
-// XH_SLOT_ENTRY, with codes[k] naming input k's stored type (0 float32,
-// 1 float64, 2 int32, 3 int64) and its thresholds in int64 for int64 data,
-// in float64 for the others.
-#define XH_SLOT_MIXED_ENTRY(name, reduce_all)                                 \
+// The entry of one route for inputs with run-time stored types (T =
+// slot::Mixed or slot::Narrow): as XH_SLOT_ENTRY, with codes[k] naming input
+// k's stored type (narrow.cuh's load codes) and its thresholds in the
+// instantiation's compare type (when mixed: int64 for int64 data, float64
+// for the others; Narrow: float32).
+#define XH_SLOT_CODED_ENTRY(name, T, reduce_all)                              \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c,               \
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
-    return slot::launch_slot_hist<slot::Mixed, xh::Count>(                   \
+    return slot::launch_slot_hist<T, xh::Count>(                             \
         n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
         max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
   }
 
-// The weighted mixed entry of one route, for accumulator type A.
-#define XH_SLOT_MIXED_WEIGHTED_ENTRY(name, A, reduce_all)                     \
+// The weighted coded entry of one route, for accumulator type A.
+#define XH_SLOT_CODED_WEIGHTED_ENTRY(name, T, A, reduce_all)                  \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c,               \
                       long long max_shared_slots, int max_cluster,           \
                       const void* w, long long wsm, long long wsc, int wcode, \
                       void* out, void* stream) {                             \
-    return slot::launch_slot_hist<slot::Mixed, xh::Sum<A>>(                  \
+    return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
         n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
         max_shared_slots, max_cluster, xh::Weights{w, wsm, wsc, wcode}, out,  \
         stream);                                                             \
   }
 
+// The mixed entry of one route (slot_mixed.cu).
+#define XH_SLOT_MIXED_ENTRY(name, reduce_all) \
+  XH_SLOT_CODED_ENTRY(name, slot::Mixed, reduce_all)
+
 // Every route's weighted mixed entries xh_<route>_mixed_<cls>.
 #define XH_SLOT_MIXED_WEIGHTED_CLASS(cls, A)                                  \
-  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_full_mixed_##cls, A, 1)            \
-  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_per_row_mixed_##cls, A, 0)         \
-  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_factored_packed_mixed_##cls, A, 0)          \
-  XH_SLOT_MIXED_WEIGHTED_ENTRY(xh_direct_mixed_##cls, A, 0)
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_full_mixed_##cls, slot::Mixed, A, 1) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_per_row_mixed_##cls, slot::Mixed, A, 0) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_packed_mixed_##cls, slot::Mixed, A, 0) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_direct_mixed_##cls, slot::Mixed, A, 0)
+
+// The narrow entry of one route (slot_narrow.cu).
+#define XH_SLOT_NARROW_ENTRY(name, reduce_all) \
+  XH_SLOT_CODED_ENTRY(name, slot::Narrow, reduce_all)
+
+// Every route's weighted narrow entries xh_<route>_narrow_<cls>.
+#define XH_SLOT_NARROW_WEIGHTED_CLASS(cls, A)                                 \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_full_narrow_##cls, slot::Narrow, A, 1) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_per_row_narrow_##cls, slot::Narrow, A, 0) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_packed_narrow_##cls, slot::Narrow, A, 0) \
+  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_direct_narrow_##cls, slot::Narrow, A, 0)

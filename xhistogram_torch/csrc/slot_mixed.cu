@@ -1,8 +1,11 @@
 // Flat-slot histograms of inputs with no exact common compare type: int64
-// beside a float (slot.cuh's mixed instantiation, T = Mixed). Each input
-// compares in its own type against its own thresholds, int64 in int64 and
-// float32, float64 and int32 in double, to which they convert exactly, so
-// the counts equal the plain path's bit for bit.
+// beside a float, or narrow data (bool, 8- and 16-bit integers, float16,
+// bfloat16) beside int32, int64 or float64 (slot.cuh's mixed
+// instantiation, T = Mixed). Each input is read in place as its own type
+// and compares against its own thresholds, int64 in int64 and every other
+// type in double, to which it converts exactly (8-bit data through a table
+// of its 256 values' bins), so the counts equal the plain path's bit for
+// bit.
 //
 // The entries of the routes factored (full, per_row, packed; factored.cu,
 // which replaces xhistogram_tpu/ops/pallas_hist.py::_factored_kernel) and

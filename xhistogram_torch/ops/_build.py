@@ -17,9 +17,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
-__all__ = ["load", "BUILD_LOG"]
+__all__ = ["load", "BUILD_LOG", "BUILD_SECONDS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -34,6 +35,9 @@ _LIB = None
 #: nvcc's output of the build this process ran (register and shared-memory
 #: use per kernel, from -Xptxas -v); empty when the library was cached.
 BUILD_LOG = ""
+#: the wall seconds of each source's nvcc in the build this process ran
+#: (all started together), by file name; empty when the library was cached
+BUILD_SECONDS = {}
 
 
 def _nvcc():
@@ -52,17 +56,21 @@ def _nvcc():
 
 #: suffix of each kernel symbol, by the data type it takes
 DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
-#: one_input's further load types (csrc/one_input_narrow.cu): float16 and
-#: bfloat16 compared in float32, 16- and 8-bit integers (bool as uint8) in
-#: int32
+#: the narrow load types of one_input (csrc/one_input_narrow.cu) and of
+#: joint2's pairs of one type (csrc/joint2_narrow.cu), read at their own
+#: width: float16, bfloat16 and 16-bit integers compared in float32, 8-bit
+#: integers (bool as uint8) through a table of their 256 values' bins
 NARROW_SUFFIXES = ("f16", "bf16", "i16", "u16", "i8", "u8")
 #: joint2's pairs of an int64 input and a float one, each compared in its
 #: own type (csrc/joint2_mixed.cu): symbols ``xh_joint2_<a>_<b>``
 JOINT2_MIXED = ("i64_f32", "f32_i64", "i64_f64", "f64_i64")
 #: the flat-slot routes of csrc/slot.cuh, each its own C symbol
-#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and
-#: ``xh_<route>_mixed`` for int64 beside a float (csrc/slot_mixed.cu); the
-#: direct route's own kernel (csrc/direct.cuh) is ``xh_direct_rows_<suffix>``
+#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and, for
+#: inputs with run-time stored types, ``xh_<route>_narrow`` (float32 and
+#: narrow data, csrc/slot_narrow.cu) and ``xh_<route>_mixed`` (no exact
+#: common compare type, csrc/slot_mixed.cu); the direct route's own kernel
+#: (csrc/direct.cuh) is ``xh_direct_rows_<suffix>`` and
+#: ``xh_direct_rows_narrow`` (csrc/direct_rows_narrow.cu)
 SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 #: the weighted kernels' accumulator classes (csrc/weights.cuh): each
 #: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
@@ -83,17 +91,19 @@ def symbols():
     # its weight classes
     kernels = {
         "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32], [p],
-                   DTYPE_SUFFIXES + JOINT2_MIXED, WEIGHT_CLASSES),
+                   DTYPE_SUFFIXES + NARROW_SUFFIXES + JOINT2_MIXED, WEIGHT_CLASSES),
         "one_input": ([p, i64, i64, i64, i64, p, i32, i32], weight_view, [p, p],
                       DTYPE_SUFFIXES + NARROW_SUFFIXES, WEIGHT_CLASSES),
         **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
            for route in SLOT_ROUTES},
-        # the mixed entries take each input's stored type after the count
-        **{f"{route}_mixed": ([i32, p, *slot_args[1:]], weight_view, [p], ("",),
-                              WEIGHT_CLASSES)
-           for route in SLOT_ROUTES},
+        # the coded entries take each input's stored type after the count
+        **{f"{route}_{kind}": ([i32, p, *slot_args[1:]], weight_view, [p], ("",),
+                               WEIGHT_CLASSES)
+           for route in SLOT_ROUTES for kind in ("mixed", "narrow")},
         "direct_rows": (slot_args[:7], weight_view, [p], DTYPE_SUFFIXES,
                         (*WEIGHT_CLASSES, ROUNDED_CLASS)),
+        "direct_rows_narrow": ([i32, p, *slot_args[1:7]], weight_view, [p], ("",),
+                               (*WEIGHT_CLASSES, ROUNDED_CLASS)),
     }
     out = []
     for kernel, (args, weight_args, tail, suffixes, classes) in kernels.items():
@@ -117,7 +127,7 @@ def _declare(lib):
 
 def load():
     """The loaded kernel library, built first if this source hash is new."""
-    global _LIB, BUILD_LOG
+    global _LIB, BUILD_LOG, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
     sources = sorted(_CSRC.glob("*.cu"))
@@ -133,14 +143,22 @@ def load():
         # name
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
             objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
-            procs = [
-                subprocess.Popen(
-                    [_nvcc(), *_FLAGS, "-c", "-o", obj, str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                )
-                for src, obj in zip(sources, objs)
-            ]
-            logs = [proc.communicate()[0] for proc in procs]
+            log_paths = [os.path.join(tmp, f"{src.stem}.log") for src in sources]
+            t0 = time.perf_counter()
+            procs = []
+            for src, obj, log_path in zip(sources, objs, log_paths):
+                with open(log_path, "w") as log_file:
+                    procs.append(subprocess.Popen(
+                        [_nvcc(), *_FLAGS, "-c", "-o", obj, str(src)],
+                        stdout=log_file, stderr=subprocess.STDOUT,
+                    ))
+            seconds = {}
+            while len(seconds) < len(procs):
+                for src, proc in zip(sources, procs):
+                    if src.name not in seconds and proc.poll() is not None:
+                        seconds[src.name] = time.perf_counter() - t0
+                time.sleep(0.05)
+            logs = [Path(log_path).read_text() for log_path in log_paths]
             failed = [(src.name, proc.returncode, log)
                       for src, proc, log in zip(sources, procs, logs)
                       if proc.returncode != 0]
@@ -157,6 +175,7 @@ def load():
                     f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}"
                 )
             BUILD_LOG = "".join(logs) + res.stdout + res.stderr
+            BUILD_SECONDS = seconds
             os.replace(lib, so)
     _LIB = _declare(ctypes.CDLL(str(so)))
     return _LIB

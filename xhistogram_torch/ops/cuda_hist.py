@@ -25,17 +25,25 @@ runs the same kernel. ``validate_public_precision`` keeps the JAX package's
 contract for that argument. The direct kernel can also store float sums
 finished, as float32 rounded once from float64 (``finish=True``).
 
-The kernels compare in the data's own type: float32, float64, int32 or
-int64. float16 data and its thresholds widen to float32, which is exact
-and keeps every comparison (the JAX package's ``_dispatch`` does the same);
-bool, 8- and 16-bit integers and bfloat16 come with thresholds in int32 or
-float32 (``bins.compare_form`` of their compare type). one_input reads all
-of these in place at their own width and widens in registers; joint2,
-factored and direct widen a copy. Inputs of several dtypes widen to the
-narrowest type that holds each exactly, and int64 beside a float, which no
-type holds, runs the kernels' mixed entries, each input compared in its
-own type. A wrapper takes the plain version only for CPU tensors; for a
-CUDA tensor it launches the kernel or raises.
+The kernels compare float32, float64, int32 and int64 data in its own
+type. bool, 8- and 16-bit integers, float16 and bfloat16 come with
+thresholds in int32, float32 or float16 (``bins.compare_form`` of their
+compare type), and every kernel reads them in place at their own width and
+widens each value in registers to float32 or int32, exactly, keeping every
+comparison (``csrc/narrow.cuh``; the JAX kernels' ``_widen`` does the same
+after the load). ``operand_plan`` is the choice, for each kernel and mix
+of data dtypes, of the C entry, the dtype each input is read as and the
+thresholds' dtype: joint2 reads two inputs of one narrow dtype in place;
+factored and direct read float32 and narrow inputs in any mix in place
+(their narrow entries), and narrow data beside int32, int64 or float64 in
+place too (the mixed entries, each input compared in its own type or in
+float64). Wide inputs of several dtypes widen to the narrowest type that
+holds each exactly, and int64 beside a float, which no type holds, runs the
+mixed entries. Only joint2's pairs of two different dtypes with a narrow
+one widen narrow data with a copy (``operand_plan`` names them); every
+launch records the dtypes it read (``last_launch()["loads"]``). A wrapper
+takes the plain version only for CPU tensors; for a CUDA tensor it
+launches the kernel or raises.
 
 Each kernel is a registered torch op, ``torch.ops.xhistogram.one_input``,
 ``.joint2``, ``.factored`` (the variant a ``str``) and ``.direct``
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -64,6 +73,8 @@ from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
     "plan",
+    "operand_plan",
+    "OperandPlan",
     "validate_public_precision",
     "WEIGHTED_MODES",
     "one_input",
@@ -109,8 +120,9 @@ MAX_SHARED_SLOTS = 8 * 232448 // 4
 MAX_CLUSTER_CTAS = 8
 _MAX_SLOT_INPUTS = 32  # csrc/slot.cuh and csrc/direct.cuh kMaxInputs
 #: the direct-row kernel's envelope (csrc/direct.cuh): rows of at most 255
-#: elements, at most 8192 slots, one compare type. The direct route runs
-#: the flat-slot template's entries (csrc/direct.cu) outside it
+#: elements, at most 8192 slots, one compare type (float32 and narrow
+#: inputs have float32). The direct route runs the flat-slot template's
+#: entries (csrc/direct.cu) outside it
 _DIRECT_ROWS_MAX_COLS = 255
 _DIRECT_ROWS_MAX_SLOTS = 8192
 #: the weight dtypes whose finished sums are float32, rounded once from
@@ -124,29 +136,40 @@ _SUFFIX = dict(zip(
     (torch.float32, torch.float64, torch.int32, torch.int64),
     _build.DTYPE_SUFFIXES,
 ))
-#: the compare type of each narrow data dtype: its thresholds' dtype
-#: (``bins.compare_form``), into which every value converts exactly
+#: the thresholds' dtype of each narrow data dtype (``bins.compare_form``),
+#: into which every value converts exactly
 _NARROW = {
     torch.bool: torch.int32, torch.int8: torch.int32, torch.uint8: torch.int32,
     torch.int16: torch.int32, torch.uint16: torch.int32,
     torch.bfloat16: torch.float32,
 }
 _DATA_DTYPES = (*_NARROW, torch.float16, *_SUFFIX)
-#: the type one_input loads each data dtype as (the suffix of its C symbols):
-#: every one at its own width, widened to its compare type in registers
-_ONE_INPUT_LOAD = {
-    **{d: s for d, s in _SUFFIX.items()}, torch.float16: "f16",
-    torch.bfloat16: "bf16", torch.int16: "i16", torch.uint16: "u16",
-    torch.int8: "i8", torch.uint8: "u8", torch.bool: "u8",
+#: the narrow dtypes' load types in the kernels of one narrow type
+#: (one_input, joint2; the suffix of their C symbols; bool as its bytes)
+_NARROW_SUFFIX = {
+    torch.float16: "f16", torch.bfloat16: "bf16", torch.int16: "i16",
+    torch.uint16: "u16", torch.int8: "i8", torch.uint8: "u8", torch.bool: "u8",
 }
-#: where one_input compares in another type than the thresholds': float32
-#: for float16 and for 16-bit integers (int32 thresholds round only past
-#: 2^24, beyond every 16-bit value, so every comparison is kept)
-_ONE_INPUT_COMPARE = {torch.float16: torch.float32, torch.int16: torch.float32,
-                      torch.uint16: torch.float32}
-#: the mixed flat-slot entries' code of each input's stored type
-#: (csrc/slot.cuh, Cmp<Mixed>)
-_MIXED_CODE = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
+#: the type a narrow dtype read in place is widened to in registers and
+#: compared as, in one_input and joint2: float32 for the 16-bit types (int32
+#: thresholds round only past 2^24, beyond every 16-bit value, so every
+#: comparison is kept), int32 for the 8-bit ones, digitized through a table
+#: of their 256 values' bins
+_NARROW_COMPARE = {
+    torch.float16: torch.float32, torch.bfloat16: torch.float32,
+    torch.int16: torch.float32, torch.uint16: torch.float32,
+    torch.int8: torch.int32, torch.uint8: torch.int32, torch.bool: torch.int32,
+}
+#: each data dtype's code in the entries whose inputs carry a run-time
+#: stored type (csrc/narrow.cuh's LoadCode)
+_LOAD_CODE = {
+    torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3,
+    torch.float16: 4, torch.bfloat16: 5, torch.int16: 6, torch.uint16: 7,
+    torch.int8: 8, torch.uint8: 9, torch.bool: 9,
+}
+#: the dtypes the narrow entries of factored and direct read, in any mix,
+#: each compared in float32
+_FLOAT32_READS = (torch.float32, *_NARROW_SUFFIX)
 
 # the dtypes each compare dtype converts to exactly, comparisons unchanged
 _EXACT_WIDENINGS = {
@@ -260,10 +283,67 @@ def _compare_dtype(dtypes):
     """The narrowest kernel compare type every one of ``dtypes`` (compare
     dtypes: the thresholds') converts to exactly, or None: int64 beside a
     float, which the kernels' mixed entries compare each in its own type."""
-    for t in _SUFFIX:
+    for t in (torch.float32, torch.int32, torch.float64, torch.int64):
         if all(t in _EXACT_WIDENINGS[d] for d in dtypes):
             return t
     return None
+
+
+class OperandPlan(NamedTuple):
+    """How a kernel takes its inputs (``operand_plan``)."""
+
+    #: the suffix of the C entry: a data type ("f32", "bf16"), joint2's
+    #: pair of two ("i64_f32"), or the coded entries "narrow" and "mixed"
+    entry: str
+    #: the dtype each input is read as: its own, or that of a widened copy
+    loads: tuple
+    #: the dtype each input's thresholds are handed to the kernel in
+    compare: tuple
+    #: each input's load code (``_LOAD_CODE``) for the coded entries, else
+    #: None
+    codes: tuple = None
+
+
+def operand_plan(kernel, dtypes):
+    """The ``OperandPlan`` of ``kernel`` ("joint2", or "slot" for factored
+    and direct) for inputs of ``dtypes``, a pure function of them.
+
+    Every input is read in place (``loads`` its own dtype) except wide ones
+    of several dtypes with an exact common compare type (int32 beside
+    float32 widens to float64, as before) and joint2's pairs of two
+    different dtypes with a narrow one, which widen to the common compare
+    type of their thresholds, or, for int64 beside float16 or bfloat16, the
+    narrow one to float32: the pairs that need no more instantiations
+    (``csrc/joint2_narrow.cu`` has one narrow type for both inputs). For
+    "slot", float32 and narrow inputs in any mix take the narrow entries
+    (each compared in float32, thresholds in float32), and narrow inputs
+    beside int32, int64 or float64 the mixed ones (int64 compared in int64,
+    the rest in float64), as does int64 beside a float. The direct route's
+    own kernel (``csrc/direct.cuh``) takes every entry but "mixed"."""
+    dtypes = tuple(dtypes)
+    n = len(dtypes)
+    narrow = [d in _NARROW_SUFFIX for d in dtypes]
+    if kernel == "joint2":
+        if dtypes[0] == dtypes[1] and narrow[0]:
+            c = _NARROW_COMPARE[dtypes[0]]
+            return OperandPlan(_NARROW_SUFFIX[dtypes[0]], dtypes, (c, c))
+    elif any(narrow):
+        codes = tuple(_LOAD_CODE[d] for d in dtypes)
+        if all(d in _FLOAT32_READS for d in dtypes):
+            return OperandPlan("narrow", dtypes, (torch.float32,) * n, codes)
+        compare = tuple(torch.int64 if d == torch.int64 else torch.float64
+                        for d in dtypes)
+        return OperandPlan("mixed", dtypes, compare, codes)
+    thr = tuple(_NARROW.get(d, d) for d in dtypes)
+    common = _compare_dtype(thr)
+    if common is not None:
+        return OperandPlan(_SUFFIX[common], (common,) * n, (common,) * n)
+    # int64 beside a float: each input read and compared in its own type
+    types = tuple(torch.float32 if t == torch.float16 else t for t in thr)
+    if kernel == "joint2":
+        return OperandPlan("_".join(_SUFFIX[t] for t in types), types, types)
+    compare = tuple(torch.int64 if t == torch.int64 else torch.float64 for t in types)
+    return OperandPlan("mixed", types, compare, tuple(_LOAD_CODE[t] for t in types))
 
 
 def _check_operands(name, data, thresholds, nbins):
@@ -306,14 +386,16 @@ def _stream(device):
 #: (csrc/one_input.cuh): per-lane private counters, warp replicas added with
 #: 32-bit shared atomics, warp-owned copies added by __match_any_sync leaders
 ONE_INPUT_LAYOUTS = {1: "lane-private", 2: "warp replicas", 3: "aggregated"}
-_LAST_ONE_INPUT_LOAD = [None]  # the dtype the last one_input launch read
+_LAST_LOADS = [None]  # (the dtypes the last launch read, its device)
 _WIDEST = {}  # per device: one int32 the one_input kernel writes L into
 
 
 def last_launch():
     """What the last launch of this process chose (``xh_last_launch``).
 
-    joint2, factored and direct: ``cluster`` (blocks whose shared memory
+    Every kernel: ``loads``, the dtype it read each input as (the input's
+    own dtype, or that of a widened copy: ``operand_plan``). joint2,
+    factored and direct: ``cluster`` (blocks whose shared memory
     held the histogram, 1 to 8), ``passes`` over the data (joint2's chunks
     of T rows), ``shared`` (False: the histogram was in device memory) and
     ``cells`` (the cell-table sizes asked for the first two inputs;
@@ -330,14 +412,14 @@ def last_launch():
     out = (ctypes.c_int * 11)()
     _build.load().xh_last_launch(out)
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
+    loads, device = _LAST_LOADS[0]
     rec = {"kernel": kernel, "cluster": out[0], "passes": out[1],
-           "shared": bool(out[2]), "cells": (out[3], out[4])}
+           "shared": bool(out[2]), "cells": (out[3], out[4]), "loads": loads}
     if out[8]:
         rec.update(warps_per_row=1, warps_per_block=out[8], blocks=out[9],
                    rows_per_warp=out[10])
     if out[5]:
-        load, device = _LAST_ONE_INPUT_LOAD[0]
-        rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], load=load,
+        rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], load=loads[0],
                    widest=int(_WIDEST[device].item()))
     return rec
 
@@ -473,7 +555,7 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     global ONE_INPUT_LAUNCHES
     if a2d.device.type == "cpu":
         return _slot_sums_reference([a2d], [thr], [nb], reduce_all, weights)
-    thr = thr.to(_ONE_INPUT_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
+    thr = thr.to(_NARROW_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
     m, c = a2d.shape
     out = torch.zeros(1 if reduce_all else m, nb + 1, dtype=_out_dtype(weights),
                       device=a2d.device)
@@ -484,8 +566,9 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     if widest is None:
         widest = _WIDEST[a2d.device] = torch.zeros(1, dtype=torch.int32,
                                                    device=a2d.device)
-    fn = getattr(_build.load(), f"xh_one_input_{_ONE_INPUT_LOAD[a2d.dtype]}{suffix}")
-    _LAST_ONE_INPUT_LOAD[0] = (a2d.dtype, a2d.device)
+    load = _NARROW_SUFFIX.get(a2d.dtype) or _SUFFIX[a2d.dtype]
+    fn = getattr(_build.load(), f"xh_one_input_{load}{suffix}")
+    _LAST_LOADS[0] = ((a2d.dtype,), a2d.device)
     with torch.cuda.device(a2d.device):
         rc = fn(
             a2d.data_ptr(), m, c, a2d.stride(0), a2d.stride(1),
@@ -526,12 +609,17 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None, finish=True):
     ``weighted_dtype`` instead (``finish=False``: in their accumulator
     class, as the op ``xhistogram::joint2`` returns them).
 
-    A CUDA tensor launches the CUDA kernel, and any failure raises. Narrow
-    data widens to its compare dtype first; inputs of two dtypes both widen
-    to the narrowest compare type that holds each exactly (float32 with
-    int32 compares in float64), and int64 beside a float runs the kernel's
-    mixed entries, each input compared in its own type (float16 as
-    float32). A CPU tensor runs ``joint2_reference``.
+    ``a`` and ``b`` may hold narrow data (bool, 8- and 16-bit integers,
+    float16, bfloat16) with thresholds in its compare dtype (int32 for the
+    integers, float32 for bfloat16, float16 for float16). A CUDA tensor
+    launches the CUDA kernel, and any failure raises (a narrow input never
+    widens and retries): two inputs of one narrow dtype are read in place
+    at their own width (``csrc/joint2_narrow.cu``); inputs of two dtypes
+    widen to the narrowest compare type that holds each exactly (float32
+    with int32 compares in float64), and int64 beside a float runs the
+    kernel's mixed entries, each input compared in its own type (float16
+    and bfloat16 widened to float32) (``operand_plan``). A CPU tensor runs
+    ``joint2_reference``.
     """
     if a.numel() != b.numel():
         raise ValueError(
@@ -558,17 +646,11 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
             [a.reshape(1, -1), b.reshape(1, -1)], [thr_a, thr_b], [nba, nbb], True,
             None if weights is None else weights.reshape(1, -1),
         )
-    dtype = _compare_dtype((thr_a.dtype, thr_b.dtype))
-    if dtype is None:  # int64 beside a float: (int64, float32 or float64)
-        types = [torch.float32 if t.dtype == torch.float16 else t.dtype
-                 for t in (thr_a, thr_b)]
-        name = "_".join(_SUFFIX[t] for t in types)
-    else:
-        types, name = (dtype, dtype), _SUFFIX[dtype]
+    op = operand_plan("joint2", (a.dtype, b.dtype))
     # .contiguous() copies only a non-contiguous input, at the cost of a full
     # pass over it; the main path's views are contiguous and pass through
-    a, thr_a = (x.to(types[0]).contiguous() for x in (a, thr_a))
-    b, thr_b = (x.to(types[1]).contiguous() for x in (b, thr_b))
+    a, b = (x.to(t).contiguous() for x, t in zip((a, b), op.loads))
+    thr_a, thr_b = (x.to(t).contiguous() for x, t in zip((thr_a, thr_b), op.compare))
     out = torch.zeros(1, nba * nbb + 1, dtype=_out_dtype(weights), device=a.device)
     n = a.numel()
     if n == 0:
@@ -576,7 +658,8 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
     if weights is not None:
         weights = weights.contiguous()
     suffix, w_args = _weight_args(weights, strides=False)
-    fn = getattr(_build.load(), f"xh_joint2_{name}{suffix}")
+    fn = getattr(_build.load(), f"xh_joint2_{op.entry}{suffix}")
+    _LAST_LOADS[0] = (op.loads, a.device)
     with torch.cuda.device(a.device):
         rc = fn(
             a.data_ptr(), b.data_ptr(), n,
@@ -629,29 +712,26 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
 
 
 def _slot_operands(name, arrays_2d, thresholds):
-    """(kind, arrays, thresholds) as a flat-slot kernel reads them: ``kind``
-    is the suffix of its C entries, or "mixed".
-
-    Inputs whose compare types share an exact common type widen to it (a
-    broadcast stays one); int64 beside a float takes the mixed entries
-    instead, which read float32, float64, int32 and int64 inputs in place
-    and compare each in int64 or float64 (narrow data, float16 and
-    bfloat16 widen to int32 or float32 first, their thresholds to float64)."""
+    """(plan, arrays, thresholds) as a flat-slot or direct-row kernel reads
+    them: ``operand_plan("slot", ...)``, the inputs (narrow ones and the
+    coded entries' inputs as they are, wide inputs of several dtypes widened
+    to their common compare type, a broadcast staying one) and the
+    thresholds in the plan's compare dtypes."""
     if len(arrays_2d) > _MAX_SLOT_INPUTS:
         raise NotImplementedError(
             f"the {name} CUDA kernel takes at most {_MAX_SLOT_INPUTS} inputs, "
             f"got {len(arrays_2d)}"
         )
-    dtype = _compare_dtype([t.dtype for t in thresholds])
-    if dtype is None:
-        stored = [torch.float32 if t.dtype == torch.float16 else t.dtype
-                  for t in thresholds]
-        arrays = [_widen(a, t) for a, t in zip(arrays_2d, stored)]
-        thr = [t.to(torch.int64 if t.dtype == torch.int64 else torch.float64)
-               .contiguous() for t in thresholds]
-        return "mixed", arrays, thr
-    arrays = [_widen(a, dtype) for a in arrays_2d]
-    return _SUFFIX[dtype], arrays, [t.to(dtype).contiguous() for t in thresholds]
+    op = operand_plan("slot", [a.dtype for a in arrays_2d])
+    arrays = [_widen(a, t) for a, t in zip(arrays_2d, op.loads)]
+    thr = [t.to(c).contiguous() for t, c in zip(thresholds, op.compare)]
+    return op, arrays, thr
+
+
+def _codes_arg(op):
+    """The coded entries' argument of each input's load code, as a C
+    array, or none."""
+    return [] if op.codes is None else [(ctypes.c_int * len(op.codes))(*op.codes)]
 
 
 def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, tail, out):
@@ -678,7 +758,7 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     """(counts or weighted sums in their accumulator class, launches) of the
     flat-slot kernel of ``route`` (``csrc/slot.cuh``) on CUDA tensors, with
     the operands of ``_slot_operands``; any failure raises."""
-    kind, arrays, thr = _slot_operands(name, arrays_2d, thresholds)
+    op, arrays, thr = _slot_operands(name, arrays_2d, thresholds)
     n = len(arrays)
     m, c = arrays[0].shape
     shape = (1 if reduce_all else m, math.prod(nbins) + 1)
@@ -688,10 +768,9 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     # launcher
     out = torch.empty(shape, dtype=_out_dtype(weights), device=arrays[0].device)
     suffix, w_args = _weight_args(weights)
-    codes = [(ctypes.c_int * n)(*(_MIXED_CODE[a.dtype] for a in arrays))] \
-        if kind == "mixed" else []
-    _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{kind}{suffix}"),
-                       [n, *codes], arrays, thr, nbins,
+    _LAST_LOADS[0] = (op.loads, out.device)
+    _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{op.entry}{suffix}"),
+                       [n, *_codes_arg(op)], arrays, thr, nbins,
                        [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args], out)
     return out, 1
 
@@ -720,10 +799,14 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     accumulator class, as the op ``xhistogram::factored`` returns them).
 
     A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
-    failure raises; inputs of several dtypes widen to the narrowest compare
-    type that holds each exactly, and int64 beside a float runs the mixed
-    entry (``csrc/slot_mixed.cu``), each input compared in its own type. A
-    CPU tensor runs ``factored_reference``.
+    failure raises. Narrow inputs (bool, 8- and 16-bit integers, float16,
+    bfloat16; thresholds in their compare dtype) are read in place at their
+    own width: beside float32 or narrow inputs by the narrow entry
+    (``csrc/slot_narrow.cu``, each compared in float32), beside other wide
+    ones by the mixed entry (``csrc/slot_mixed.cu``), as is int64 beside a
+    float, each input compared in its own type; wide inputs of several
+    dtypes widen to the narrowest compare type that holds each exactly
+    (``operand_plan``). A CPU tensor runs ``factored_reference``.
     """
     if variant not in _FACTORED_VARIANTS:
         raise ValueError(
@@ -780,11 +863,13 @@ def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
     Arguments as for ``factored``. Returns ``(m, prod(nbins) + 1)`` int64
     counts (or weighted sums) with a zero trailing trash slot. A CUDA
     tensor launches a CUDA kernel, and any failure raises: rows of at most
-    255 elements over at most 8192 slots, of inputs with one compare type,
-    run ``csrc/direct.cuh`` (a warp per row; float sums are rounded to
-    float32 as each row is stored, unless ``finish=False``); the rest the
-    flat-slot template's direct entries (``csrc/direct.cu``). A CPU tensor
-    runs ``direct_reference``.
+    255 elements over at most 8192 slots, of inputs with one compare type
+    (float32 and narrow inputs, read in place, have float32), run
+    ``csrc/direct.cuh`` (a warp per row; float sums are rounded to float32
+    as each row is stored, unless ``finish=False``); the rest the flat-slot
+    template's direct entries (``csrc/direct.cu``, and ``slot_mixed.cu``
+    for mixes with no common compare type). A CPU tensor runs
+    ``direct_reference``.
     """
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
@@ -796,7 +881,7 @@ def _direct_rows_cuda(arrays_2d, thresholds, nbins, weights, rounds):
     """(counts or weighted sums, launches) of the direct-row kernel
     (``csrc/direct.cuh``) on CUDA tensors, in the weights' accumulator
     class or, where ``rounds``, float32; any failure raises."""
-    kind, arrays, thr = _slot_operands("direct", arrays_2d, thresholds)
+    op, arrays, thr = _slot_operands("direct", arrays_2d, thresholds)
     m, c = arrays[0].shape
     dtype = torch.float32 if rounds else _out_dtype(weights)
     shape = (m, math.prod(nbins) + 1)
@@ -806,8 +891,10 @@ def _direct_rows_cuda(arrays_2d, thresholds, nbins, weights, rounds):
     suffix, w_args = _weight_args(weights)
     if rounds:
         suffix = f"_{_build.ROUNDED_CLASS}"
-    _launch_slot_entry("direct", getattr(_build.load(), f"xh_direct_rows_{kind}{suffix}"),
-                       [len(arrays)], arrays, thr, nbins, w_args, out)
+    _LAST_LOADS[0] = (op.loads, out.device)
+    _launch_slot_entry("direct",
+                       getattr(_build.load(), f"xh_direct_rows_{op.entry}{suffix}"),
+                       [len(arrays), *_codes_arg(op)], arrays, thr, nbins, w_args, out)
     return out, 1
 
 
@@ -827,7 +914,7 @@ def _direct_op(arrays, thresholds, weights, nbins, finish=False):
         return out.to(torch.float32) if rounds else out
     if (arrays[0].shape[1] <= _DIRECT_ROWS_MAX_COLS
             and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS
-            and _compare_dtype([t.dtype for t in thresholds]) is not None):
+            and operand_plan("slot", [a.dtype for a in arrays]).entry != "mixed"):
         out, launched = _direct_rows_cuda(arrays, thresholds, nbins, weights, rounds)
     else:
         out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
