@@ -6,7 +6,8 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (``csrc/joint2.cu`` with
-``csrc/joint2_mixed.cu`` and ``csrc/joint2_narrow.cu``, ``csrc/one_input.cu``
+``csrc/joint2_mixed.cu``, ``csrc/joint2_narrow.cu``, ``csrc/joint2_pairs.cu``
+and ``csrc/joint2_pairs_swapped.cu``, ``csrc/one_input.cu``
 with ``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, the direct route's
 kernel ``csrc/direct.cuh`` with its entries ``csrc/direct_rows*.cu`` and,
 outside its envelope, ``csrc/direct.cu``, the weighted flat-slot entries
@@ -51,6 +52,19 @@ just after:
   1000x1000 bins (factored), the README's per-level layout cut to 8 times
   (factored per row), 40x40 at (64800, 64) (direct); and 10^8 uint64
   values in 50 bins, flipped onto int64 (one_input);
+- inputs of two dtypes, each read in place and compared in its own type,
+  each call with the dtypes its kernel read, its peak memory and its
+  kernel timed in turns with what earlier releases ran (a widening copy
+  and the kernel on it, or the template's mixed entry), beside its bound:
+  the T–S diagram over 2^30 pairs with T packed as int16, stored as
+  bfloat16 or held as int32 millidegrees beside float32 S (joint2's pair
+  entries), bfloat16 T beside float16 S (joint2's mixed entry, also timed
+  on factored full), float32 T beside float64 S at 2^26 pairs (joint2),
+  the README's per-depth call with float32 T beside float64 S (factored
+  per row's mixed entry), 5e7 pairs in 1000x1000 bins with int32 beside
+  float32 (factored full), and 40x40 direct at (64800, 64) with int16
+  members beside int64 and int32 beside float32 (the direct-row kernel's
+  mixed entry);
 - weighted (``weights=``): BASELINE config 2 with U(0,1) float32 weights and
   ``density`` (one_input); the T–S diagram over 2^28 pairs with float32
   weights and with int32 weights of one, two and four base-256 digits
@@ -105,7 +119,12 @@ float16 and bfloat16 data read in place against their plain versions on a
 widened copy: every accumulator class, beside float32 and int32 data,
 views at odd offsets and strides, every value of the 8-bit types through
 their tables, and the bucketed search's adversarial edge sets as
-bfloat16 and int16 data (``ts_cases.BUCKET_EDGE_SETS``).
+bfloat16 and int16 data (``ts_cases.BUCKET_EDGE_SETS``). joint2,
+factored and direct are held on every ordered pair of two of the eleven
+data dtypes read in place against their plain versions on widened copies:
+every accumulator class, the direct-row kernel's float64 rows, odd offsets
+and ragged sizes, and the 8-bit tables at every value beside each wide
+type.
 
 The direct-row kernel (``csrc/direct.cuh``) is held against its plain
 version at the shapes of the card-only tests (every data dtype and weight
@@ -800,16 +819,14 @@ def narrow_data(dtype, shape, dev, seed):
     return x.to(dtype), edges
 
 
-def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
-    """joint2, factored (full, per row, packed) and direct on bool, int8,
-    uint8, int16, uint16, float16 and bfloat16 data read in place: each
-    launch's ``loads`` name the narrow dtype, and each result is bit-equal to
-    the plain version on a widened copy (float sums within two float32
-    ulps), for counts and float32, int32 and int64 weights; then narrow
-    beside float32 and int32 data (the factored and direct routes' narrow
-    and mixed entries, joint2's widened pairs), views at odd offsets (joint2
-    reads 4 elements a load where both inputs allow it) and the 8-bit table
-    at every value of int8, uint8 and bool. Returns the cases held."""
+def kernel_holder(dev, max_abs_err):
+    """(hold, held): ``hold(label, route, layouts, edges, w=None,
+    finish=True)`` runs joint2, factored (``route`` "full", "per_row" or
+    "packed") or direct on the card, checks that the launch read each input
+    as its own dtype (``last_launch()["loads"]``) and that direct ran the
+    row kernel, and holds the result bit for bit against the plain version
+    on copies widened to float32 or int32 (float sums within two float32
+    ulps), raising on a mismatch; ``held()`` is the count of cases held."""
     from xhistogram_torch.bins import compare_form
     from xhistogram_torch.core import _compare_dtype
     from xhistogram_torch.ops import cuda_hist
@@ -825,40 +842,32 @@ def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
             return x
         return x.to(torch.float32 if x.dtype.is_floating_point else torch.int32)
 
-    def run(route, layouts, thr, nbins, w, plain=False):
+    def run(route, layouts, thr, nbins, w, plain=False, finish=True):
         if route == "joint2":
             fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
             return fn(*layouts, *thr, *nbins, weights=w)
         if route == "direct":
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
-            return fn(layouts, thr, nbins, weights=w)
+            return fn(layouts, thr, nbins, weights=w, finish=finish)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
         return fn(layouts, thr, nbins, route, weights=w)
 
-    def weights_of(shape, dtype, seed):
-        if dtype is None:
-            return None
-        g = torch.Generator(device=dev).manual_seed(seed)
-        if dtype.is_floating_point:
-            return torch.rand(shape, device=dev, generator=g).to(dtype)
-        return torch.randint(-(2**30), 2**30, shape, device=dev, generator=g).to(dtype)
+    cases = [0]
 
-    cases = 0
-
-    def hold(label, route, layouts, edges, w=None):
-        nonlocal cases
+    def hold(label, route, layouts, edges, w=None, finish=True):
         thr = [thr_of(e, x) for e, x in zip(edges, layouts)]
         nbins = [len(e) - 1 for e in edges]
-        got = run(route, layouts, thr, nbins, w)
+        got = run(route, layouts, thr, nbins, w, finish=finish)
         torch.cuda.synchronize()
         rec = cuda_hist.last_launch()
-        want_loads = cuda_hist.operand_plan(
-            "joint2" if route == "joint2" else "slot", [x.dtype for x in layouts]).loads
-        if rec["loads"] != want_loads:
-            raise AssertionError(f"{label}, {route}: read {rec['loads']}, planned {want_loads}")
+        dtypes = tuple(x.dtype for x in layouts)
+        if rec["loads"] != dtypes:
+            raise AssertionError(f"{label}, {route}: read {rec['loads']}, not {dtypes}")
+        if route == "direct" and rec["kernel"] != "direct_rows":
+            raise AssertionError(f"{label}: direct ran {rec['kernel']}")
         widened = [wide(x) for x in layouts]
         want = run(route, widened, [t.to(x.dtype) for t, x in zip(thr, widened)], nbins, w,
-                   plain=True)
+                   plain=True, finish=finish)
         if w is None or not got.is_floating_point():
             err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
             ok = torch.equal(got, want)
@@ -872,8 +881,30 @@ def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
         if not ok:
             raise AssertionError(f"{label}, {route}: kernel != plain on a widened copy "
                                  f"(max abs err {err}; {rec})")
-        cases += 1
-        return rec
+        cases[0] += 1
+
+    return hold, lambda: cases[0]
+
+
+def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
+    """joint2, factored (full, per row, packed) and direct on bool, int8,
+    uint8, int16, uint16, float16 and bfloat16 data read in place: each
+    launch's ``loads`` name the narrow dtype, and each result is bit-equal to
+    the plain version on a widened copy (float sums within two float32
+    ulps), for counts and float32, int32 and int64 weights; then narrow
+    beside float32 and int32 data (the factored and direct routes' narrow
+    and mixed entries, joint2's pair entries), views at odd offsets (joint2
+    reads 4 elements a load where both inputs allow it) and the 8-bit table
+    at every value of int8, uint8 and bool. Returns the cases held."""
+    hold, held = kernel_holder(dev, max_abs_err)
+
+    def weights_of(shape, dtype, seed):
+        if dtype is None:
+            return None
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if dtype.is_floating_point:
+            return torch.rand(shape, device=dev, generator=g).to(dtype)
+        return torch.randint(-(2**30), 2**30, shape, device=dev, generator=g).to(dtype)
 
     routes = ("joint2", "full", "per_row", "packed", "direct")
     for dtype in NARROW_DTYPES:
@@ -920,7 +951,7 @@ def narrow_kernels(dev, max_abs_err, shape=N_NARROW_CMP):
               f"({shape}; joint2, factored full, per row, packed, direct; counts and "
               f"float32, int32, int64 weights; beside float32 and int32; odd offsets, "
               f"strided views{'; every value through the table' if dtype.itemsize == 1 else ''})")
-    return cases
+    return held()
 
 
 def narrow_bucket_sets(dev, max_abs_err):
@@ -1013,20 +1044,25 @@ def narrow_bucket_sets(dev, max_abs_err):
     return cases
 
 
-def narrow_paths(dev, card, reset_counts, counts_now, max_abs_err):
-    """The narrow cells through the public ``histogram``, each with its launch
-    count, the dtypes its kernel read, the peak memory the call allocated
-    beside its inputs (below one widened copy of them), its counts against
-    the plain version on a widened copy and numpy, and its kernel timed in
-    turns with a widening copy and the kernel on it, beside its bound:
-    the T-S diagram over 2^30 pairs stored as bfloat16 and as CF-packed
-    int16 (T as round(100 T), S as round(1000 (S - 35)), edges in the same
-    units), 2^30 int8 pairs (30 N(0,1) rounded, 64x64 bins over the type),
-    the README per-level call as packed int16 (unweighted, and weighted by a
-    (50, 64800) float32 cell volume), and 40x40 direct at (64800, 64) with
-    bfloat16 members (counts and int32 weights). Returns ({label: launches},
-    {label: record})."""
-    from ts_cases import S_EDGES, T_EDGES, reference_numpy_joint, reference_numpy_ts
+def public_paths(dev, card, reset_counts, counts_now, max_abs_err, tag):
+    """(path, launches, records): ``path(label, args, bins, axis, key,
+    kernel, today=None, weights=None, plain_blocks=1, numpy_check=None,
+    others=(), reps=5)`` drives one cell through the public ``histogram``
+    and records, under ``label``: its launch count (``key`` of
+    ``counts_now()``, once and nothing else), that its kernel (``kernel``:
+    "joint2", a factored variant or "direct") read each input as its own
+    dtype (and direct the row kernel), the peak memory the call allocated
+    beside its inputs (less than one widened copy of the narrowest input at
+    4 bytes an element, beside the output and the layout copies of data and
+    weights that a kept middle axis or a broadcast weight takes), its result
+    against the plain version on copies widened to float32 or int32 (in
+    ``plain_blocks`` blocks of rows) and the public call against its
+    kernel, ``numpy_check(h)``, and its kernel timed in turns (kernel,
+    today, others, then back) with what earlier releases ran, beside its
+    bound. ``today``: None for a copy of each narrow input widened to
+    float32 or int32, a tuple of the dtypes to widen each input to, or the
+    name of the one of ``others`` (name, fn of (layouts, thresholds)) that
+    ran instead."""
     import xhistogram_torch
     from xhistogram_torch.bins import compare_form
     from xhistogram_torch.core import _compare_dtype
@@ -1034,25 +1070,44 @@ def narrow_paths(dev, card, reset_counts, counts_now, max_abs_err):
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
     from xhistogram_torch.utils.profiling import measure
 
-    def thr_of(edges, x):
+    def thr_of(edges, dtype):
+        x = torch.empty(0, dtype=dtype)
         return torch.from_numpy(compare_form(np.asarray(edges), _compare_dtype(x)).edges
                                 ).to(dev)
 
+    def wide_dtype(dtype):
+        if dtype.itemsize >= 4:
+            return dtype
+        return torch.float32 if dtype.is_floating_point else torch.int32
+
+    def name_of(dtype):
+        return str(dtype).replace("torch.", "")
+
     launches, records = {}, {}
 
-    def path(label, args, bins, axis, key, kernel, weights=None, plain_blocks=1,
-             numpy_check=None, reps=5):
+    def call(kernel, ls, ts, nbins, w, plain=False):
+        if kernel == "joint2":
+            fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+            return fn(*ls, *ts, *nbins, weights=w)
+        if kernel == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(ls, ts, nbins, weights=w)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(ls, ts, nbins, kernel, weights=w)
+
+    def path(label, args, bins, axis, key, kernel, today=None, weights=None,
+             plain_blocks=1, numpy_check=None, others=(), reps=5):
         axis_t = normalize_axis(axis, args[0].ndim)
         shape = torch.broadcast_shapes(*(a.shape for a in args))
         # the kernel's operands, as the public call hands them on
         layouts = [canonicalize_2d(a.expand(shape), axis_t) for a in args]
         w2d = None if weights is None else canonicalize_2d(weights.expand(shape), axis_t)
-        thr = [thr_of(e, a) for e, a in zip(bins, args)]
-        nbins = [len(e) - 1 for e in bins]
-        reduce_all = axis is None
-        if reduce_all:
+        if axis is None:
             layouts = [v.reshape(1, -1) for v in layouts]
             w2d = None if w2d is None else w2d.reshape(1, -1)
+        dtypes = tuple(a.dtype for a in args)
+        thr = [thr_of(e, d) for e, d in zip(bins, dtypes)]
+        nbins = [len(e) - 1 for e in bins]
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1064,94 +1119,113 @@ def narrow_paths(dev, card, reset_counts, counts_now, max_abs_err):
         if launched[key] != 1 or sum(launched.values()) != 1:
             raise AssertionError(f"{label}: launches {launched}")
         rec = cuda_hist.last_launch()
-        dtypes = tuple(a.dtype for a in args)
         if rec["loads"] != dtypes:
             raise AssertionError(f"{label}: the kernel read {rec['loads']}, not {dtypes}")
-        widened_bytes = sum(4 * a.expand(shape).numel() for a in args)
+        if kernel == "direct" and rec["kernel"] != "direct_rows":
+            raise AssertionError(f"{label}: direct ran {rec['kernel']}")
         # beside the output (the kernel's, trash slot included, and the
-        # trimmed result, at most 8 bytes a slot each) and the weights' own
-        # layout copy, where a broadcast weight takes one
+        # trimmed result, at most 8 bytes a slot each) and the layout copies
+        # of data and weights
+        n = math.prod(shape)
+        copy_bytes = max(4, 2 * min(a.element_size() for a in args)) * n
         out_bytes = 2 * 8 * layouts[0].shape[0] * (math.prod(nbins) + 1)
-        w_copy = 0 if w2d is None or w2d.numel() == weights.numel() else \
-            w2d.numel() * w2d.element_size()
-        if extra - out_bytes - w_copy >= widened_bytes:
-            raise AssertionError(f"{label}: {extra} bytes allocated ({w_copy} of them the "
-                                 f"weights' layout, at most {out_bytes} the output), one "
-                                 f"widened copy takes {widened_bytes}")
-        wide = [v.to(torch.float32 if v.dtype.is_floating_point else torch.int32)
-                for v in layouts]
+        layout_bytes = sum(v.numel() * v.element_size() for v, a in
+                           zip([*layouts, w2d], [*args, weights]) if v is not None and
+                           v.untyped_storage().data_ptr() != a.untyped_storage().data_ptr())
+        if extra - out_bytes - layout_bytes >= copy_bytes:
+            raise AssertionError(f"{label}: {extra} bytes allocated ({layout_bytes} of them "
+                                 f"layout copies, at most {out_bytes} the output); a "
+                                 f"widened copy takes {copy_bytes}")
+        wide = [v.to(wide_dtype(v.dtype)) for v in layouts]
         wthr = [t.to(v.dtype) for t, v in zip(thr, wide)]
-
-        def call(ls, ts, plain=False):
-            if kernel == "joint2":
-                fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
-                return fn(*ls, *ts, *nbins, weights=w2d)
-            if kernel == "direct":
-                fn = cuda_hist.direct_reference if plain else cuda_hist.direct
-                return fn(ls, ts, nbins, weights=w2d)
-            fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-            return fn(ls, ts, nbins, kernel, weights=w2d)
-
-        # the plain version on a widened copy, over blocks of rows where the
-        # call is a full reduction of many pairs
         if plain_blocks > 1:
-            plain = sum(call([v.reshape(plain_blocks, -1)[k:k + 1] for v in wide], wthr,
-                             plain=True) for k in range(plain_blocks))
+            plain = sum(call(kernel, [v.reshape(plain_blocks, -1)[k:k + 1] for v in wide],
+                             wthr, nbins, None if w2d is None else
+                             w2d.reshape(plain_blocks, -1)[k:k + 1], plain=True)
+                        for k in range(plain_blocks))
         else:
-            plain = call(wide, wthr, plain=True)
-        kernel_out = call(layouts, thr)
+            plain = call(kernel, wide, wthr, nbins, w2d, plain=True)
+        del wide
+        kernel_out = call(kernel, layouts, thr, nbins, w2d)
+        family = key.split()[0]
         if w2d is None or not kernel_out.is_floating_point():
             ok = torch.equal(kernel_out, plain)
             err = int((kernel_out.long() - plain.long()).abs().max())
-            max_abs_err[key.split()[0]] = max(max_abs_err[key.split()[0]], err)
+            max_abs_err[family] = max(max_abs_err[family], err)
         else:
             diff = (kernel_out.double() - plain.double()).abs()
             err = float(diff.max())
             ok = bool((diff <= 2.4e-7 * plain.double().abs() + 1e-6).all())
         if not ok:
-            raise AssertionError(f"{label}: kernel != plain on a widened copy (max abs "
+            raise AssertionError(f"{label}: kernel != plain on widened copies (max abs "
                                  f"err {err})")
         if not torch.equal(h.reshape(kernel_out.shape[0], -1), kernel_out[:, :-1]):
             raise AssertionError(f"{label}: public call != its kernel")
         del plain, kernel_out
         if numpy_check is not None:
             numpy_check(h)
-        # in turns: read in place, widening copy then the kernel, twice
-        wide_dtypes = [v.dtype for v in wide]
-        del wide
-
-        def narrow_fn():
-            return call(layouts, thr)
-
-        def widened_fn():
-            return call([v.to(d) for v, d in zip(layouts, wide_dtypes)], wthr)
+        if today is None:
+            today = tuple(wide_dtype(d) for d in dtypes)
+        fns = {"kernel": lambda: call(kernel, layouts, thr, nbins, w2d)}
+        if not isinstance(today, str):
+            today_thr = [thr_of(e, d) for e, d in zip(bins, today)]
+            fns["today"] = lambda: call(kernel, [v.to(d) for v, d in zip(layouts, today)],
+                                        today_thr, nbins, w2d)
+        fns.update({name: (lambda f=f: f(layouts, thr)) for name, f in others})
         torch.cuda.empty_cache()
-        narrow_fn(), widened_fn()
-        t = [event_ms(fn, reps) for fn in (narrow_fn, widened_fn, widened_fn, narrow_fn)]
-        ms, wide_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        for fn in fns.values():
+            fn()
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(event_ms(fns[name], reps))
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
         n_bytes = sum(a.numel() * a.element_size() for a in args) + \
             (0 if weights is None else weights.numel() * weights.element_size()) + \
             h.numel() * h.element_size()
         bound_ms, bound_by = bound(n_bytes, 0)
-        med, times = measure(lambda: xhistogram_torch.histogram(*args, bins=bins, axis=axis,
-                                                                weights=weights), reps=3)
+        med, pub = measure(lambda: xhistogram_torch.histogram(*args, bins=bins, axis=axis,
+                                                              weights=weights), reps=3)
         launches[label] = launched[key]
-        records[label] = {"kernel": kernel, "loads": [str(d).replace("torch.", "")
-                                                      for d in rec["loads"]],
-                          "ms": ms, "widened_copy_and_kernel_ms": wide_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "public_ms": med * 1e3, "peak_extra_bytes": int(extra),
-                          "weights_layout_bytes": int(w_copy),
-                          "widened_copy_bytes": int(widened_bytes)}
-        print(f"# narrow path {label}: {key} launched once, read as "
-              f"{records[label]['loads']}, {extra} bytes allocated beside the inputs "
-              f"({w_copy} the weights' layout, at most {out_bytes} the output; one "
-              f"widened copy: {widened_bytes}), == plain "
-              f"on a widened copy; kernel "
-              f"{ms:.4f} ms, widening copy then kernel {wide_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms; public call median {med * 1e3:.3f} ms of "
-              f"{[round(x * 1e3, 3) for x in times]} [{card}]")
+        records[label] = {
+            "kernel": kernel, "loads": [name_of(d) for d in dtypes], "ms": ms.pop("kernel"),
+            "today_ms": ms[today] if isinstance(today, str) else ms.pop("today"),
+            "today": today if isinstance(today, str) else [name_of(d) for d in today],
+            **{f"{name}_ms": t for name, t in ms.items()},
+            "bound_ms": bound_ms, "bound_by": bound_by, "public_ms": med * 1e3,
+            "peak_extra_bytes": int(extra), "layout_copy_bytes": int(layout_bytes),
+            "widened_copy_bytes": int(copy_bytes),
+            **{k: rec[k] for k in ("cluster", "warps_per_block", "blocks", "rows_per_warp")
+               if k in rec}}
+        r = records[label]
+        print(f"# {tag} {label}: {key} launched once, read as {r['loads']}, {extra} bytes "
+              f"allocated beside the inputs ({layout_bytes} layout copies, at most "
+              f"{out_bytes} the output), == plain on widened copies; kernel {r['ms']:.4f} "
+              f"ms, earlier releases ({r['today']}) {r['today_ms']:.4f} ms"
+              + "".join(f", {name} {r[f'{name}_ms']:.4f} ms" for name, _ in others)
+              + f", bound {bound_ms:.4f} ms; public call median {med * 1e3:.3f} ms of "
+              f"{[round(x * 1e3, 3) for x in pub]} [{card}]")
         return h
+
+    return path, launches, records
+
+
+def narrow_paths(dev, card, reset_counts, counts_now, max_abs_err):
+    """The narrow cells through the public ``histogram`` (``public_paths``:
+    launches, loads, peak memory below a widened copy, the plain version on
+    a widened copy, the kernel in turns with a widening copy and the kernel
+    on it, beside its bound), each also against numpy: the T-S diagram over
+    2^30 pairs stored as bfloat16 and as CF-packed int16 (T as round(100 T),
+    S as round(1000 (S - 35)), edges in the same units), 2^30 int8 pairs (30
+    N(0,1) rounded, 64x64 bins over the type), the README per-level call as
+    packed int16 (unweighted, and weighted by a (50, 64800) float32 cell
+    volume), and 40x40 direct at (64800, 64) with bfloat16 members (counts
+    and int32 weights). Returns ({label: launches}, {label: record})."""
+    from ts_cases import S_EDGES, T_EDGES, reference_numpy_joint, reference_numpy_ts
+    import xhistogram_torch
+    from xhistogram_torch.ops import cuda_hist
+
+    path, launches, records = public_paths(dev, card, reset_counts, counts_now,
+                                           max_abs_err, "narrow path")
 
     # --- the T-S diagram over 2^30 pairs as bfloat16 ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1443,9 +1517,9 @@ def direct_rows_phase(dev, card, reset_counts, counts_now, max_abs_err):
     check("rows of 256: the template", big, e40, rows=False)
     check("rows of 256, float32 weights: the template", big, e40,
           weights(torch.float32, (50, 256), 22), rows=False)
-    check("int64 beside float32: the template",
+    check("int64 beside float32: the row kernel's mixed entry",
           [(big[0][:, :64] * 2.0**40).long(), big[1][:, :64]],
-          [np.linspace(-(2.0**42), 2.0**42, 41), e40[1]], rows=False)
+          [np.linspace(-(2.0**42), 2.0**42, 41), e40[1]])
     print(f"# direct-row kernel == plain: {checked[0]} cases, each run twice bit-identical "
           f"(11 data dtypes; 13 weight dtypes, finished and raw, finished == raw rounded; "
           f"rows of 1 to 255; strided and stride-0 inputs and weights; {len(warps)} slot "
@@ -1671,6 +1745,173 @@ def mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err):
     del u
     torch.cuda.empty_cache()
     return launches
+
+
+DATA_DTYPES = (torch.float32, torch.float64, torch.int32, torch.int64, *NARROW_DTYPES)
+N_PAIR_CMP = (16, 4096)  # kernel vs plain per ordered pair of dtypes and route
+
+
+def pair_data(dtype, shape, dev, seed):
+    """(values of ``dtype`` on the card, edges): ``narrow_data`` for the
+    narrow types and float32 and float64 (N(0, 1.5) with NaN and
+    infinities); int32 as 1000 N(0, 1.5) and int64 as 2^40 N(0, 1.5), with
+    edges over +-3 of those units."""
+    if dtype.is_floating_point or dtype in NARROW_DTYPES:
+        return narrow_data(dtype, shape, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 2.0**40 if dtype == torch.int64 else 1000.0
+    x = (1.5 * scale * torch.randn(shape, device=dev, generator=gen)).to(dtype)
+    return x, np.linspace(-3 * scale - 0.5, 3 * scale + 0.5, 41)
+
+
+def mixed_pair_kernels(dev, max_abs_err, shape=N_PAIR_CMP):
+    """joint2, factored (full, per row, packed) and direct on every ordered
+    pair of two of the eleven data dtypes, each input read in place (the
+    launch's ``loads`` are the pair): joint2's pair entries and its mixed
+    entry, the template's narrow and mixed entries and the row kernel's
+    narrow and mixed ones, each bit-equal to the plain version on copies
+    widened to float32 or int32 (float sums within two float32 ulps), for
+    counts and float32, int32 and int64 weights, and the rounded float32
+    rows of the row kernel; then joint2 at odd offsets and ragged sizes (its
+    grouped loads where an input is narrow) and the 8-bit tables at every
+    value beside the wide types. Returns the cases held."""
+    hold, held = kernel_holder(dev, max_abs_err)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = {wd: (torch.rand(shape, device=dev, generator=gen) if wd == torch.float32
+                    else torch.randint(-(2**30), 2**30, shape, device=dev, generator=gen,
+                                       dtype=torch.int64).to(wd))
+               for wd in (torch.float32, torch.int32, torch.int64)}
+    routes = ("joint2", "full", "per_row", "packed", "direct")
+    data = {d: pair_data(d, shape, dev, seed=11 + k) for k, d in enumerate(DATA_DTYPES)}
+    for da in DATA_DTYPES:
+        for db in DATA_DTYPES:
+            if da == db:
+                continue
+            (x, ex), (y, ey) = data[da], data[db]
+            label = f"{da} beside {db}".replace("torch.", "")
+            for route in routes:
+                lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+                    (lambda t: t.reshape(-1, 64)) if route in ("direct", "packed") else \
+                    (lambda t: t)
+                for wd in (None, torch.float32, torch.int32, torch.int64):
+                    w = None if wd is None else lay(weights[wd])
+                    hold(f"{label}, weights {wd}", route, [lay(x), lay(y)], [ex, ey], w)
+            # the row kernel's float64 sums, stored unrounded
+            hold(f"{label}, float64 rows", "direct", [x.reshape(-1, 64), y.reshape(-1, 64)],
+                 [ex, ey], weights[torch.float32].reshape(-1, 64), finish=False)
+            xf, yf = x.reshape(-1), y.reshape(-1)
+            for a, b in ((xf[1:], yf[1:]), (xf[4:], yf[1:-3]), (xf[3:4100], yf[3:4100]),
+                         (xf[:7], yf[:7])):
+                hold(f"{label} at offsets", "joint2", [a, b], [ex, ey])
+    for dtype in (torch.int8, torch.uint8, torch.bool):
+        if dtype == torch.bool:
+            v = torch.tensor([False, True], device=dev).repeat(64 * 128)
+            e = np.array([0.0, 0.5, 1.0])
+        else:
+            lo = -128 if dtype == torch.int8 else 0
+            v = torch.arange(lo, lo + 256, device=dev).to(dtype).repeat(64)
+            e = np.unique(np.concatenate([[lo - 0.5], np.arange(lo + 2, lo + 256, 17),
+                                          np.linspace(lo, lo + 255, 23)[1:-1] + 0.5,
+                                          [lo + 255.0]]))
+        for other in (torch.float32, torch.float64, torch.int32, torch.int64):
+            f, ef = pair_data(other, (v.numel(),), dev, seed=7)
+            for route in routes:
+                lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+                    (lambda t: t.reshape(-1, 64))
+                hold(f"{dtype} every value beside {other}", route, [lay(v), lay(f)], [e, ef])
+                hold(f"{other} beside {dtype} every value", route, [lay(f), lay(v)], [ef, e])
+    print(f"# mixed pairs == plain on widened copies: every ordered pair of two of "
+          f"{len(DATA_DTYPES)} dtypes read in place ({shape}; joint2, factored full, per "
+          f"row, packed, direct; counts and float32, int32, int64 weights; the row "
+          f"kernel's float64 rows; odd offsets and ragged sizes; the 8-bit tables at "
+          f"every value beside each wide type): {held()} cases")
+    return held()
+
+
+def mixed_pair_paths(dev, card, reset_counts, counts_now, max_abs_err):
+    """Inputs of two dtypes at the paths' sizes through the public
+    ``histogram`` (``public_paths``: launches, loads, peak memory, the plain
+    version on widened copies, in blocks of rows at 2^30 pairs), each kernel
+    timed in turns with what earlier releases ran: a copy of each input
+    widened to their common compare type and the kernel on it, or the
+    template's mixed entry. The T-S diagram over 2^30 pairs with T packed as
+    int16 (round(100 T)), stored as bfloat16 or held as int32 millidegrees
+    beside float32 S; bfloat16 T beside float16 S at 2^30 pairs, also on
+    factored full (the choice of joint2's mixed entry); float32 T beside
+    float64 S at 2^26 pairs; the README per-level call with float32 T beside
+    float64 S; 5e7 pairs in 1000x1000 bins, int32 beside float32; and 40x40
+    direct at (64800, 64) with int16 members beside int64 ones (which the
+    earlier releases ran on the template's mixed entry) and int32 beside
+    float32, each also against the template's mixed entry. Returns ({label:
+    launches}, {label: record})."""
+    from ts_cases import S_EDGES, T_EDGES
+    from xhistogram_torch.ops import cuda_hist
+
+    path, launches, records = public_paths(dev, card, reset_counts, counts_now,
+                                           max_abs_err, "mixed pair path")
+
+    f32, f64, i32, i64 = torch.float32, torch.float64, torch.int32, torch.int64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = 14.0 + 8.0 * torch.randn(N_MAIN, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(N_MAIN, device=dev, generator=gen)
+    Ti = torch.round(100 * T).to(torch.int16)
+    path("T-S 2^30 pairs, T int16 round(100 T) beside S float32, 280x340 bins", [Ti, S],
+         [T_EDGES.astype(np.float64) * 100, S_EDGES], None, "joint2", "joint2",
+         (f64, f64), plain_blocks=16)
+    del Ti
+    Tb = T.to(torch.bfloat16)
+    path("T-S 2^30 pairs, T bfloat16 beside S float32, 280x340 bins", [Tb, S],
+         [T_EDGES, S_EDGES], None, "joint2", "joint2", (f32, f32), plain_blocks=16)
+    Ti = torch.round(1000 * T).to(i32)
+    path("T-S 2^30 pairs, T int32 millidegrees beside S float32, 280x340 bins", [Ti, S],
+         [T_EDGES.astype(np.float64) * 1000, S_EDGES], None, "joint2", "joint2",
+         (f64, f64), plain_blocks=16)
+    del Ti, T
+    Sh = S.to(torch.float16)
+    del S
+
+    def factored_full(layouts, thr):
+        return cuda_hist.factored(layouts, thr, [280, 340], "full")
+    path("T-S 2^30 pairs, T bfloat16 beside S float16, 280x340 bins", [Tb, Sh],
+         [T_EDGES, S_EDGES], None, "joint2", "joint2", (f32, f32), plain_blocks=16,
+         others=(("factored_full", factored_full),))
+    del Tb, Sh
+    torch.cuda.empty_cache()
+    T = (14.0 + 8.0 * torch.randn(N_CMP, device=dev, generator=gen))
+    S = (35.0 + 1.5 * torch.randn(N_CMP, device=dev, generator=gen)).double()
+    path("T-S 2^26 pairs, T float32 beside S float64, 280x340 bins", [T, S],
+         [T_EDGES, S_EDGES], None, "joint2", "joint2", (f64, f64))
+    del T, S
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = (35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)).double()
+    path("README per-level (73, 50, 64800), T float32 beside S float64, axis=(0, 2)",
+         [T, S], [T_EDGES, S_EDGES], (0, 2), "factored per_row", "per_row", (f64, f64))
+    del T, S
+    torch.cuda.empty_cache()
+    a = torch.round(1000 * torch.randn(N_FULL, device=dev, generator=gen)).to(i32)
+    b = torch.randn(N_FULL, device=dev, generator=gen)
+    path("5e7 pairs, int32 (1000 N(0,1)) beside float32, 1000x1000 bins, full", [a, b],
+         [np.linspace(-4000.0, 4000.0, 1001), linspace_edges(1000)], None,
+         "factored full", "full", (f64, f64))
+    del a, b
+
+    def template(layouts, thr):
+        out, _ = cuda_hist._slot_hist_cuda("direct", "direct", layouts, thr, [40, 40],
+                                           False, None)
+        return out
+    a = torch.round(1000 * torch.randn(DIRECT[0], device=dev, generator=gen)).to(torch.int16)
+    b = torch.round(2.0**40 * torch.randn(DIRECT[0], device=dev, generator=gen)).to(i64)
+    path("40x40 direct (64800, 64), int16 members beside int64, axis=1", [a, b],
+         [np.linspace(-4000.0, 4000.0, 41), np.linspace(-(2.0**42), 2.0**42, 41)], (1,),
+         "direct", "direct", "template_mixed", others=(("template_mixed", template),))
+    a = torch.round(1000 * torch.randn(DIRECT[0], device=dev, generator=gen)).to(i32)
+    b = torch.randn(DIRECT[0], device=dev, generator=gen)
+    path("40x40 direct (64800, 64), int32 members beside float32, axis=1", [a, b],
+         [np.linspace(-4000.0, 4000.0, 41), linspace_edges(40)], (1,), "direct", "direct",
+         (f64, f64), others=(("template_mixed", template),))
+    del a, b
+    torch.cuda.empty_cache()
+    return launches, records
 
 
 def weighted_turns(plain, weighted, unweighted, reps=10):
@@ -3081,6 +3322,12 @@ def main():
     direct["device_ms"] = rows["(64800, 64) counts"]["device_ms"]
     direct["rows_kernel"] = {"cases_held_to_plain": rows_cases, **rows}
     mixed = mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err)
+    t_pairs = time.perf_counter()
+    pair_cases = mixed_pair_kernels(dev, max_abs_err)
+    pair_launches, pair_rows = mixed_pair_paths(dev, card, reset_counts, counts_now,
+                                                max_abs_err)
+    print(f"# mixed pair phase: {pair_cases} kernel cases == plain on widened copies, "
+          f"{len(pair_rows)} public paths, {time.perf_counter() - t_pairs:.1f} s")
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
     api_launches, api = api_phase(dev, card, reset_counts, counts_now)
     sharded_launches, sharded = sharded_phase(dev, card, reset_counts, counts_now)
@@ -3129,6 +3376,17 @@ def main():
                                 | ({"float32"} if entry["name"] != "one_input" else
                                    {"float32", "bfloat16", "int8"}))
     kernels[0]["narrow_kernel_cases"] = narrow_cases
+    family = {"joint2": "joint2", "per_row": "factored", "full": "factored",
+              "direct": "direct"}
+    for entry in kernels:  # the mixed pair paths: launches, loads, times in turns
+        rows = {label: rec for label, rec in pair_rows.items()
+                if family[rec["kernel"]] == entry["name"]}
+        if rows:
+            entry["launches"] += sum(pair_launches[label] for label in rows)
+            entry["mixed_pair_rows"] = rows
+            entry["loads"] = sorted(set(entry["loads"]) |
+                                    {d for rec in rows.values() for d in rec["loads"]})
+    kernels[0]["mixed_pair_kernel_cases"] = pair_cases
     for entry in kernels:  # the weighted, mixed and API paths' launches join the counts
         entry.update(weighted[entry["name"]])
         entry["api_launches"] = api_launches[entry["name"]]

@@ -288,15 +288,22 @@ def test_wrapper_contract_on_cpu():
 
 
 def test_widen_keeps_broadcasts():
-    """The kernels' dtype widening converts only the distinct elements: a
-    broadcast stays a zero-stride view."""
+    """Inputs of two dtypes are not widened at all now: ``_slot_operands``
+    hands the kernels each view as it is, a broadcast (zero-stride) input of
+    another dtype included, and only the thresholds take the plan's compare
+    dtypes."""
     row = torch.arange(5, dtype=torch.int32).reshape(1, 5).expand(4, 5)
     col = torch.arange(4, dtype=torch.float32).reshape(4, 1).expand(4, 5)
-    for x in (row, col, row.t()):
-        w = cuda_hist._widen(x, torch.float64)
-        assert w.dtype == torch.float64 and torch.equal(w, x.double())
-        assert [s == 0 for s in w.stride()] == [s == 0 for s in x.stride()]
-    assert cuda_hist._widen(row, torch.int32) is row
+    thr = [torch.tensor([0, 2, 9], dtype=torch.int32),
+           torch.tensor([0.0, 1.5, 9.0], dtype=torch.float32)]
+    for layouts, t in (([row, col], thr), ([col, row.t().t()], thr[::-1])):
+        op, arrays, t_out = cuda_hist._slot_operands("factored", layouts, t)
+        assert op.entry == "mixed" and op.loads == tuple(x.dtype for x in layouts)
+        assert all(a is x for a, x in zip(arrays, layouts))
+        assert [s == 0 for a in arrays for s in a.stride()] == \
+            [s == 0 for x in layouts for s in x.stride()]
+        assert all(x.dtype == torch.float64 for x in t_out)
+        assert all(torch.equal(a.double(), b) for a, b in zip(t, t_out))
 
 
 PATHS = {

@@ -1603,8 +1603,9 @@ def test_direct_rows_many_inputs_and_reruns(cuda):
 
 
 def test_direct_outside_the_rows_envelope_runs_the_template(cuda):
-    """Rows of 256 elements or more, and int64 beside a float, run the
-    flat-slot template's direct entries, with the same results."""
+    """Rows of 256 elements or more run the flat-slot template's direct
+    entries, with the same results; int64 beside a float, within the
+    envelope, runs the row kernel's mixed entry."""
     layouts = _layouts("direct", 50, 256, cuda, seed=21)
     got, want = _row_pair(layouts, [_edges(40)] * 2, rows_kernel=False)
     assert torch.equal(got, want)
@@ -1614,6 +1615,105 @@ def test_direct_outside_the_rows_envelope_runs_the_template(cuda):
     _assert_sums_equal(got, want)
     big = (layouts[0][:, :64] * 2.0**40).long()
     got, want = _row_pair([big, layouts[1][:, :64]],
-                          [np.linspace(-(2.0**42), 2.0**42, 41), _edges(40)],
-                          rows_kernel=False)
+                          [np.linspace(-(2.0**42), 2.0**42, 41), _edges(40)])
     assert torch.equal(got, want)
+    assert cuda_hist.last_launch()["loads"] == (torch.int64, torch.float32)
+
+
+# --- inputs of two dtypes, each read in place ----------------------------------
+
+PAIRS = [(a, b) for a in ALL_DATA_DTYPES for b in ALL_DATA_DTYPES if a != b]
+
+
+def _pair_layouts(route, x, y):
+    """Two inputs of one shape, laid out as ``route`` takes them: flat for
+    joint2, rows of 64 for packed and direct, 64 rows for the others."""
+    lay = (lambda t: t.reshape(-1)) if route == "joint2" else \
+        (lambda t: t.reshape(-1, 64)) if route in ("packed", "direct") else \
+        (lambda t: t.reshape(64, -1))
+    return lay(x), lay(y)
+
+
+@pytest.mark.parametrize("da,db", PAIRS, ids=[f"{a}-{b}" for a, b in PAIRS])
+def test_pairs_of_two_dtypes_read_in_place(cuda, da, db):
+    # every ordered pair of two data dtypes, on every route: each input read
+    # at its own width (the launch record's loads), bit-equal to the plain
+    # version on copies widened to float32 or int32, for counts and every
+    # accumulator class; joint2 also over ragged sizes and at odd offsets
+    # (its vector loads where an input is narrow)
+    x, ex = _row_data(da, (64, 4096), cuda, seed=31)
+    y, ey = _row_data(db, (64, 4096), cuda, seed=32)
+    for route in NARROW_ROUTES:
+        a, b = _pair_layouts(route, x, y)
+        for wdtype in (None, torch.float32, torch.int32, torch.int64):
+            w = None if wdtype is None else _weights(tuple(a.shape), wdtype, cuda, seed=6)
+            _, launch = _narrow_route_run(route, [a, b], [ex, ey], w)
+            assert launch["loads"] == (da, db), (route, launch)
+        if route == "direct":
+            assert launch["kernel"] == "direct_rows"
+    a, b = x.reshape(-1), y.reshape(-1)
+    for va, vb in ((a[1:], b[1:]), (a[4:], b[1:-3]), (a[3:-2], b[3:-2]), (a[:4097], b[:4097]),
+                   (a[:7], b[:7])):
+        _, launch = _narrow_route_run("joint2", [va, vb], [ex, ey])
+        assert launch["loads"] == (da, db)
+    _, launch = _narrow_route_run("per_row", [x.t()[1:].t(), y[:, :-1]], [ex, ey])
+    assert launch["loads"] == (da, db)
+
+
+@pytest.mark.parametrize("other", [torch.float32, torch.float64, torch.int32, torch.int64],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.bool], ids=str)
+def test_pair_table_at_every_value(cuda, dtype, other):
+    # an 8-bit input's table holds every value's bin beside a wide input of
+    # another type: joint2's pairs with float32 and its mixed entry beside
+    # the rest, the template's and the row kernel's narrow and mixed entries
+    if dtype == torch.bool:
+        v = torch.tensor([False, True], device=cuda).repeat(64 * 64)
+        edge_sets = [np.array([0.0, 0.5, 1.0]), np.array([-1.0, 1.0])]
+    else:
+        lo = -128 if dtype == torch.int8 else 0
+        v = torch.arange(lo, lo + 256, device=cuda).to(dtype).repeat(32)
+        edge_sets = [np.arange(lo, lo + 257, 7.0), np.arange(lo - 0.5, lo + 256, 3.0)]
+    f, ef = _row_data(other, (v.numel(),), cuda, seed=33)
+    for route in NARROW_ROUTES:
+        a, b = _pair_layouts(route, v, f)
+        for edges in edge_sets:
+            _, launch = _narrow_route_run(route, [a, b], [edges, ef])
+            assert launch["loads"] == (dtype, other)
+            _, launch = _narrow_route_run(route, [b, a], [ef, edges])
+            assert launch["loads"] == (other, dtype)
+
+
+MIXED_PUBLIC_PAIRS = [(torch.int16, torch.float32), (torch.bfloat16, torch.float32),
+                      (torch.int32, torch.float32), (torch.float32, torch.float64),
+                      (torch.int32, torch.int64), (torch.bfloat16, torch.float16),
+                      (torch.int16, torch.int64)]
+
+
+@pytest.mark.parametrize("da,db", MIXED_PUBLIC_PAIRS,
+                         ids=[f"{a}-{b}" for a, b in MIXED_PUBLIC_PAIRS])
+def test_mixed_public_calls_allocate_no_widened_copy(cuda, da, db):
+    # the public call hands joint2, factored and direct a pair of two dtypes
+    # as it lies: its peak allocation stays below a copy of the narrower
+    # input at 2 bytes an element (beside the output), and it equals the
+    # call on the CPU
+    x, ex = _row_data(da, (64, 1 << 16), cuda, seed=41)
+    y, ey = _row_data(db, (64, 1 << 16), cuda, seed=42)
+    for args, axis, counter in (((x, y), None, "joint2"),
+                                ((x, y), (1,), "factored"),
+                                ((x.reshape(-1, 64), y.reshape(-1, 64)), (1,), "direct")):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launch_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=[ex, ey], axis=axis)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        launched = [a - b for a, b in zip(_launch_counts(), before)]
+        assert sum(launched) == 1, launched
+        assert cuda_hist.last_launch()["loads"] == (da, db)
+        out_bytes = 8 * h.numel() * 2  # the kernel's output and the trimmed result
+        assert extra < out_bytes + 2 * x.numel(), (counter, extra)
+        h_cpu, _ = xhistogram_torch.histogram(*(a.cpu() for a in args), bins=[ex, ey],
+                                              axis=axis)
+        assert torch.equal(h.cpu(), h_cpu)

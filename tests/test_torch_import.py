@@ -90,33 +90,44 @@ def test_no_port_file_imports_jax():
 
 
 def test_every_declared_kernel_symbol_is_defined():
-    """The C symbols ``ops/_build.py`` binds (joint2 with its narrow and
-    mixed pairs, one_input with its narrow loads, the four flat-slot routes
-    of csrc/factored.cu and csrc/direct.cu with their mixed and narrow
-    entries, and the direct-row kernel of csrc/direct.cuh with its narrow
-    entry, per data type, unweighted and per weight class, its rounded
-    float32 class included) are each defined once by a ``csrc/*.cu`` entry
-    macro, the weighted ones through a macro that names a class's entries
-    ``xh_<kernel>_<data>_##cls``."""
+    """The C symbols ``ops/_build.py`` binds (joint2 with its narrow types,
+    its pairs of two types and its mixed entry, one_input with its narrow
+    loads, the four flat-slot routes of csrc/factored.cu and csrc/direct.cu
+    with their mixed and narrow entries, and the direct-row kernel of
+    csrc/direct.cuh with its narrow and mixed entries, per data type,
+    unweighted and per weight class, its rounded float32 class included)
+    are each defined once by a ``csrc/*.cu`` entry macro: one that names
+    its entry, or one that builds the names by pasting its arguments into
+    the entries of the macros it calls (``xh_<kernel>_<data>_##cls``,
+    ``xh_joint2_##sa##_##sb``)."""
     import re
 
     from xhistogram_torch.ops import _build
 
     csrc = REPO / "xhistogram_torch" / "csrc"
-    per_class = {}  # class macro -> the entries it defines, less the class
+    templates = {}  # macro -> (its parameters, the entry names it pastes)
     for path in sorted(csrc.glob("*.cu*")):
-        for macro, body in re.findall(r"^#define (XH_\w+_CLASS)\(cls, A\)((?:.*\\\n)*.*)",
-                                      path.read_text(), re.M):
-            per_class[macro] = re.findall(r"\((xh_\w+)_##cls,", body)
+        for macro, params, body in re.findall(
+                r"^#define (XH_\w+)\(([^)]*)\)((?:.*\\\n)*.*)", path.read_text(), re.M):
+            templates[macro] = ([p.strip() for p in params.split(",")],
+                                re.findall(r"\((xh_\w*##[\w#]*),", body))
+
+    def paste(template, params, args):
+        values = dict(zip(params, args))
+        return "".join(values.get(token, token) for token in template.split("##"))
+
     defined = []
     for path in sorted(csrc.glob("*.cu")):
-        text = path.read_text()
-        defined += re.findall(r"^XH_\w+\((xh_\w+),", text, re.M)
-        for macro, cls in re.findall(r"^(XH_\w+_CLASS)\((\w+),", text, re.M):
-            defined += [f"{name}_{cls}" for name in per_class[macro]]
+        for macro, args in re.findall(r"^(XH_\w+)\(([^)]*)\)", path.read_text(), re.M):
+            args = [a.strip() for a in args.split(",")]
+            if args[0].startswith("xh_"):
+                defined.append(args[0])
+            else:
+                params, names = templates[macro]
+                defined += [paste(t, params, args) for t in names]
     declared = [name for name, _ in _build.symbols()]
-    # each unweighted and in 3 classes (joint2 14 suffixes, one_input 10,
-    # four routes of 4 types, mixed and narrow); the direct-row kernel in 4,
-    # for its 4 types and narrow
-    assert len(declared) == 4 * (14 + 10 + 4 * 4 + 4 + 4) + 5 * 5
+    # each unweighted and in 3 classes (joint2 32 suffixes and its mixed
+    # entry, one_input 10, four routes of 4 types, mixed and narrow); the
+    # direct-row kernel in 5, for its 4 types, narrow and mixed
+    assert len(declared) == 4 * (32 + 1 + 10 + 4 * 4 + 4 + 4) + 5 * 6
     assert sorted(defined) == sorted(declared)

@@ -210,5 +210,22 @@ def test_mixed_dtypes_bit_equal_to_jax_kernel():
     ids=str,
 )
 def test_compare_dtype_widens_exactly(dtypes, want):
-    # the card's joint2 compares both inputs in this one type
-    assert cuda_hist._compare_dtype(dtypes) == want
+    # the card's joint2 once compared both inputs in ``want``, the narrowest
+    # type that holds each exactly (None: int64 beside a float, which none
+    # holds), and widened a copy to it. It now reads each input in place and
+    # compares it in its own type, which holds every one of its values and
+    # converts exactly to ``want`` where there is one
+    op = cuda_hist.operand_plan("joint2", dtypes)
+    assert op.loads == dtypes
+    assert op.compare == tuple(cuda_hist._JOINT2_COMPARE[d] for d in dtypes)
+    assert op.entry == ("mixed" if want is None and torch.float16 in dtypes else
+                        "_".join(cuda_hist._LOAD_SUFFIX[d] for d in dtypes)
+                        if dtypes[0] != dtypes[1] else cuda_hist._LOAD_SUFFIX[dtypes[0]])
+    for d, cmp in zip(dtypes, op.compare):
+        info = torch.finfo(d) if d.is_floating_point else torch.iinfo(d)
+        values = torch.tensor([info.min, -1, 0, 1, info.max], dtype=d)
+        if d.is_floating_point:
+            values = torch.cat([values, torch.tensor([info.tiny, info.eps], dtype=d)])
+        assert torch.equal(values.to(cmp).to(d), values), (d, cmp)
+        if want is not None:
+            assert torch.equal(values.to(cmp).to(want).to(d), values), (d, want)

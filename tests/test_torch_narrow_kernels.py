@@ -8,7 +8,8 @@ one narrow dtype in joint2's narrow entries, float32 and narrow inputs in
 any mix in factored's and direct's narrow entries, narrow beside other wide
 inputs in their mixed entries. ``cuda_hist.operand_plan``, a pure host
 function, picks the entry and what each input is read as; here it is held
-to widen no narrow input except joint2's pairs of two different dtypes.
+to widen no input (tests/test_torch_pairs.py holds the pairs of two
+dtypes).
 On the CPU each wrapper runs its plain version, the one the kernels are
 held to on the card (tests/test_torch_gpu.py, chip_smoke.py). The public
 ``histogram`` (``method="auto"`` and ``"cuda"``) and each plain version
@@ -267,11 +268,11 @@ ALL = (*(t for t, _ in NARROW.values()), *WIDE)
 
 @pytest.mark.parametrize("kernel", ["joint2", "slot"])
 def test_operand_plan_reads_narrow_data_in_place(kernel):
-    """For every pair (and a triple) of data dtypes: no narrow input is
-    widened except joint2's pairs of two different dtypes with a narrow one,
-    which widen to the common compare type of their thresholds (int64 beside
-    float16 or bfloat16: the narrow one to float32); the thresholds' dtype
-    holds every value of the data read."""
+    """For every pair (and a triple) of data dtypes: no input is widened,
+    joint2's pairs of two different dtypes with a narrow one included (they
+    once widened both to a common compare type); joint2 compares each input
+    in its own type, and the thresholds' dtype holds every value of the data
+    read."""
     narrow = {t for t, _ in NARROW.values()}
     for dtypes in [*itertools.product(ALL, repeat=2),
                    *((a, b, torch.float32) for a in ALL for b in narrow)]:
@@ -279,17 +280,12 @@ def test_operand_plan_reads_narrow_data_in_place(kernel):
             continue
         op = cuda_hist.operand_plan(kernel, dtypes)
         assert len(op.loads) == len(op.compare) == len(dtypes)
-        widened = [d for d, load in zip(dtypes, op.loads) if d != load]
-        if kernel == "joint2" and dtypes[0] != dtypes[1] and set(dtypes) & narrow:
-            if torch.int64 in dtypes:
-                assert op.entry in ("i64", "i64_f32", "f32_i64"), dtypes
-            else:
-                assert op.loads[0] == op.loads[1] in WIDE, dtypes
-            continue
-        assert not set(widened) & narrow, (kernel, dtypes, op)
-        if kernel == "joint2" and dtypes[0] in narrow:
+        assert op.loads == dtypes, (kernel, dtypes, op)
+        if kernel == "joint2" and dtypes[0] in narrow and dtypes[0] == dtypes[1]:
             assert op.entry == cuda_hist._NARROW_SUFFIX[dtypes[0]]
             assert op.codes is None
+        if kernel == "joint2" and op.entry != "mixed":
+            assert op.compare == tuple(cuda_hist._JOINT2_COMPARE[d] for d in dtypes)
         if kernel == "slot" and set(dtypes) & narrow:
             assert op.entry in ("narrow", "mixed")
             assert op.codes == tuple(cuda_hist._LOAD_CODE[d] for d in dtypes)
@@ -310,15 +306,23 @@ def test_operand_plan_reads_narrow_data_in_place(kernel):
 
 def test_operand_plan_keeps_the_wide_entries():
     """Wide inputs keep their entries: one type read as itself, int32 beside
-    int32 in int32 (not float64), int32 beside float32 in float64, int64
-    beside a float in the mixed entries."""
+    int32 in int32 (not float64), int64 beside a float in joint2's own pair
+    entries and the template's mixed entry. Wide pairs of two dtypes are
+    read in place now (they once widened a float64 copy of both): joint2's
+    pair entries compare each in its own type, the template's mixed entry
+    int32 and float32 in float64 and int64 in int64."""
     f32, f64, i32, i64 = WIDE
     for d in WIDE:
         for kernel in ("joint2", "slot"):
             op = cuda_hist.operand_plan(kernel, (d, d))
             assert op.entry == {f32: "f32", f64: "f64", i32: "i32", i64: "i64"}[d]
             assert op.loads == op.compare == (d, d) and op.codes is None
-    assert cuda_hist.operand_plan("slot", (i32, f32)).loads == (f64, f64)
+    op = cuda_hist.operand_plan("slot", (i32, f32))
+    assert op.entry == "mixed" and op.loads == (i32, f32) and op.compare == (f64, f64)
+    op = cuda_hist.operand_plan("joint2", (i32, f32))
+    assert op.entry == "i32_f32" and op.loads == op.compare == (i32, f32)
+    assert cuda_hist.operand_plan("joint2", (f64, f32)).entry == "f64_f32"
+    assert cuda_hist.operand_plan("joint2", (i64, i32)).entry == "i64_i32"
     assert cuda_hist.operand_plan("joint2", (i64, f32)).entry == "i64_f32"
     op = cuda_hist.operand_plan("slot", (i64, f32))
     assert op.entry == "mixed" and op.loads == (i64, f32) and op.codes == (3, 0)

@@ -35,6 +35,8 @@ __all__ = [
     "normalize_range",
     "resolve_bin_edges",
     "validate_edges",
+    "check_numeric",
+    "non_numeric_message",
     "is_traced",
     "int_thresholds",
     "bin_centers",
@@ -126,6 +128,27 @@ def _view_datetime_as_int(x):
     return x
 
 
+#: the numpy kinds that define no numeric order to bin by
+_NON_NUMERIC_KINDS = {"O": "object", "U": "string", "S": "bytes"}
+
+
+def non_numeric_message(what, dtype):
+    """The message of the ``TypeError`` that object, string and bytes data,
+    weights and edges raise, naming ``what`` and its ``dtype``."""
+    return (
+        f"{what} of {_NON_NUMERIC_KINDS[np.dtype(dtype).kind]} dtype {dtype} "
+        "is not supported: histograms take numeric, bool or datetime arrays; "
+        "convert the values to a numeric dtype first"
+    )
+
+
+def check_numeric(x, what):
+    """Raise ``TypeError(non_numeric_message(...))`` for a numpy array of
+    object, string or bytes dtype."""
+    if x.dtype.kind in _NON_NUMERIC_KINDS:
+        raise TypeError(non_numeric_message(what, x.dtype))
+
+
 def validate_edges(e):
     """Validate one explicit bin-edge array; returns it (datetime viewed
     as int64).
@@ -133,7 +156,9 @@ def validate_edges(e):
     Raises
     ------
     TypeError
-        complex edges (complex numbers define no binning order).
+        complex edges (complex numbers define no binning order); string and
+        bytes edges, and object edges whose values are not numbers
+        (``non_numeric_message``).
     ValueError
         non-1-D arrays; fewer than two edges; NaN edges; any decreasing
         adjacent pair (numpy's exact message). Equal adjacent edges
@@ -148,8 +173,14 @@ def validate_edges(e):
         raise ValueError("each bins spec must define at least one bin")
     if e.dtype.kind == "f" and np.isnan(e).any():
         raise ValueError("bin edges must not contain NaN")
+    if e.dtype.kind == "O" and np.asarray(e.tolist()).dtype.kind not in "biuf":
+        check_numeric(e, "bin edges")  # numbers held as objects pass
     if np.any(e[:-1] > e[1:]):
         raise ValueError("bins must increase monotonically")
+    if e.dtype.kind != "O":
+        # after the order check: string edges order by their characters, and
+        # a decreasing pair raises the ValueError above first
+        check_numeric(e, "bin edges")
     return e
 
 

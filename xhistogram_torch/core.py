@@ -78,8 +78,8 @@ _COMPLEX_MSG = (
 #: the dtype each data dtype is compared in, where it is not its own: the
 #: dtype of its compare-form thresholds (``bins.compare_form``). The data
 #: itself stays narrow: every kernel reads it at its own width and widens
-#: it in registers (``ops.cuda_hist.operand_plan`` names joint2's pairs of
-#: two different dtypes, which widen a copy); the plain path widens a copy
+#: it in registers, beside inputs of any other dtype
+#: (``ops.cuda_hist.operand_plan``); the plain path widens a copy
 #: (``ops.digitize.digitize_edges``). int32 thresholds never saturate at a
 #: narrow type's bounds, and every bfloat16 value is exact in float32
 _COMPARE_AS = {
@@ -97,7 +97,8 @@ def _coerce_host(x):
     uint32 goes to int64. Narrow inputs (bool, 8- and 16-bit integers,
     float16, bfloat16) and uint64 keep their dtype: ``_compare_dtype``
     names the thresholds' dtype, and uint64 is flipped onto int64 after
-    placement (``bins.flip_uint64``). Complex input raises.
+    placement (``bins.flip_uint64``). Complex input raises, and so do
+    object, string and bytes arrays (``bins.non_numeric_message``).
     """
     if isinstance(x, torch.Tensor):
         if x.is_complex():
@@ -108,6 +109,7 @@ def _coerce_host(x):
     x = np.asarray(x)
     if x.dtype.kind == "c":
         raise TypeError(_COMPLEX_MSG)
+    _bins.check_numeric(x, "data")
     if x.dtype.kind in "Mm":
         x = x.view("i8")
     elif x.dtype == np.uint32:
@@ -128,8 +130,8 @@ def _compare_dtype(t):
 
 def _coerce_weights(w):
     """Weights as a tensor or numpy array in their own dtype, which picks
-    the sums' dtype, so nothing widens here. Complex weights raise as
-    complex data does; datetime64 is viewed as int64."""
+    the sums' dtype, so nothing widens here. Complex, object, string and
+    bytes weights raise as such data does; datetime64 is viewed as int64."""
     if isinstance(w, torch.Tensor):
         if w.is_complex():
             raise TypeError(_COMPLEX_MSG)
@@ -137,6 +139,7 @@ def _coerce_weights(w):
     w = np.asarray(w)
     if w.dtype.kind == "c":
         raise TypeError(_COMPLEX_MSG)
+    _bins.check_numeric(w, "weights")
     if w.dtype.kind in "Mm":
         w = w.view("i8")
     if any(s < 0 for s in w.strides):

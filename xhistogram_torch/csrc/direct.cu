@@ -14,7 +14,8 @@
 // cells over 64 members), which direct.cuh's warp-per-row kernel takes
 // (direct_rows*.cu). These entries take the rest: every kept-row call forced
 // with method="cuda" outside plan()'s envelopes, at any slot count or row
-// length, and int64 beside a float (slot_mixed.cu). A tile holds several
+// length (inputs of several types through slot_mixed.cu and
+// slot_narrow.cu). A tile holds several
 // whole rows, each with its histogram in shared memory, and stores every
 // slot of them, so the output needs no zeroing pass.
 //

@@ -64,18 +64,22 @@
 //   integers, exact for every 8- and 16-bit value); 8-bit data through a
 //   table of its 256 values' bins built in the prologue. The row stores,
 //   which set the pace, are the same.
+// - Every other mix of types (T = Mixed, direct_rows_mixed.cu): int32,
+//   int64 or float64 beside other types, each input read in place by its
+//   load code and held in 8 bytes, int64 compared in int64 and every other
+//   type in double, to which it converts exactly, against its own
+//   thresholds (narrow.cuh's mixed entries); 8-bit data through its table.
 //
-// Outside this envelope (rows of 256 elements or more, over 8192 slots,
-// inputs with no common compare type: int64 beside a float, narrow data
-// beside int32, int64 or float64) the direct route runs the flat-slot
-// template's entries of direct.cu (slot.cuh).
+// Outside this envelope (rows of 256 elements or more, over 8192 slots) the
+// direct route runs the flat-slot template's entries of direct.cu
+// (slot.cuh).
 //
 // Entries: xh_direct_rows_<data> (counts; direct_rows.cu) and
 // xh_direct_rows_<data>_<class>, per accumulator class of weights.cuh
 // (direct_rows_wf64.cu, direct_rows_wu32.cu, direct_rows_wu64.cu), and the
 // class wf32 (direct_rows_wf32.cu): float weights summed in float64, rows
-// stored as float32; xh_direct_rows_narrow and its classes
-// (direct_rows_narrow.cu).
+// stored as float32; xh_direct_rows_narrow and xh_direct_rows_mixed and
+// their classes (direct_rows_narrow.cu, direct_rows_mixed.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, without
 // --use_fast_math (digitize.cuh).
@@ -115,22 +119,31 @@ struct Input {
   int cells;  // cells of its table
 };
 
-// The instantiation of narrow data: see the header.
+// The instantiations of inputs with run-time stored types: see the header.
 struct Narrow {};
+struct Mixed {};
 template <typename T>
 constexpr bool kNarrow = std::is_same<T, Narrow>::value;
-// The compare type (and that of the thresholds): T, or float for Narrow.
 template <typename T>
-using Cmp = typename std::conditional<kNarrow<T>, float, T>::type;
+constexpr bool kMixed = std::is_same<T, Mixed>::value;
+template <typename T>
+constexpr bool kCoded = kNarrow<T> || kMixed<T>;
+// The compare type (and that of the thresholds): T, float for Narrow; for
+// Mixed, 8 bytes that hold int64 as itself and every other type as the bits
+// of its double (narrow.cuh's mixed entries).
+template <typename T>
+using Cmp = typename std::conditional<
+    kNarrow<T>, float, typename std::conditional<kMixed<T>, long long, T>::type>::type;
 
-// Narrow: the stored type (narrow.cuh's load codes), and, for 8-bit data,
-// the first int of its table of 256 bins in shared memory (else -1).
+// Narrow and Mixed: the stored type (narrow.cuh's load codes), and, for
+// 8-bit data, the first int of its table of 256 bins in shared memory (else
+// -1).
 struct Coded : Input {
   int code;
   int lut;
 };
 template <typename T>
-using InputOf = typename std::conditional<kNarrow<T>, Coded, Input>::type;
+using InputOf = typename std::conditional<kCoded<T>, Coded, Input>::type;
 
 template <typename T>
 struct Inputs {
@@ -166,16 +179,19 @@ struct AccOf<xh::Count> {
 };
 
 // v[q] for q in [Q0, Q1): input d's elements of row r at columns
-// lane + 32 q, widened to its compare type (Narrow: by its load code);
-// zeros where !ok[q].
+// lane + 32 q, widened to its compare type (Narrow: by its load code; Mixed:
+// by its load code, held in 8 bytes); zeros where !ok[q].
 template <int Q0, int Q1, int K, typename T, typename In>
 __device__ __forceinline__ void load_input(const In& d, long long r, int lane,
                                            const bool (&ok)[K], Cmp<T> (&v)[K]) {
-  if constexpr (kNarrow<T>) {
+  if constexpr (kCoded<T>) {
     long long at[K];
 #pragma unroll
     for (int q = Q0; q < Q1; ++q) at[q] = r * d.sm + (long long)(lane + 32 * q) * d.sc;
-    xh::gather_coded<float, K, Q0, Q1>(d.data, at, ok, d.code, v);
+    if constexpr (kMixed<T>)
+      xh::gather_mixed<K, Q0, Q1>(d.data, at, ok, d.code, v);
+    else
+      xh::gather_coded<float, K, Q0, Q1>(d.data, at, ok, d.code, v);
   } else {
     const T* base = static_cast<const T*>(d.data) + r * d.sm;
     const long long sc = d.sc;
@@ -238,17 +254,29 @@ direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
                          in[i].nb + 1);
   __syncthreads();
   for (int i = 0; i < n; ++i) {
-    const xh::CellMap<C> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
-    if (threadIdx.x == 0) maps[i] = mp;
-    xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff, &widest[i]);
-    if constexpr (kNarrow<T>) {  // 8-bit data: its 256 values' bins
-      if (in[i].lut >= 0)
-        xh::build_byte_table(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
+    if constexpr (kMixed<T>) {  // int64 in int64, the rest in double
+      const xh::CellMap<C> mp =
+          xh::mixed_cell_map(t + in[i].soff, in[i].nb, in[i].cells, in[i].code);
+      if (threadIdx.x == 0) maps[i] = mp;
+      xh::mixed_build_cells(t + in[i].soff, in[i].nb, mp, in[i].code, win + in[i].toff,
+                            &widest[i]);
+      if (in[i].lut >= 0)  // 8-bit data: its 256 values' bins
+        xh::mixed_byte_table(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
                              xh::first_step(widest[i]), in[i].code,
                              reinterpret_cast<int*>(smem) + in[i].lut);
+    } else {
+      const xh::CellMap<C> mp = xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
+      if (threadIdx.x == 0) maps[i] = mp;
+      xh::build_cells(t + in[i].soff, in[i].nb, mp, win + in[i].toff, &widest[i]);
+      if constexpr (kNarrow<T>) {  // 8-bit data: its 256 values' bins
+        if (in[i].lut >= 0)
+          xh::build_byte_table(t + in[i].soff, in[i].nb, mp, win + in[i].toff,
+                               xh::first_step(widest[i]), in[i].code,
+                               reinterpret_cast<int*>(smem) + in[i].lut);
+      }
     }
   }
-  if constexpr (kNarrow<T>) __syncthreads();  // the tables, before a read
+  if constexpr (kCoded<T>) __syncthreads();  // the tables, before a read
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -306,11 +334,20 @@ direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
         }
         int bin[kUnroll];
         int lut = -1;  // 8-bit data: its table's first int
-        if constexpr (kNarrow<T>) lut = d.lut;
+        if constexpr (kCoded<T>) lut = d.lut;
         if (lut >= 0) {
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
-            bin[u] = reinterpret_cast<const int*>(smem)[lut + xh::byte_of(x[u])];
+          for (int u = 0; u < kUnroll; ++u) {
+            unsigned byte;
+            if constexpr (kMixed<T>)
+              byte = xh::held_byte(x[u]);
+            else
+              byte = xh::byte_of(x[u]);
+            bin[u] = reinterpret_cast<const int*>(smem)[lut + byte];
+          }
+        } else if constexpr (kMixed<T>) {
+          xh::mixed_bins<kUnroll>(t + d.soff, d.nb, maps[i], win + d.toff,
+                                  xh::first_step(widest[i]), d.code, x, bin);
         } else {
           xh::bins_bucketed<C, kUnroll>(t + d.soff, d.nb, maps[i], win + d.toff,
                                         xh::first_step(widest[i]), x, bin);
@@ -426,7 +463,8 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m, long lo
 // float sums) of the n inputs' (m, c) layouts into out, (m, S + 1) of Out,
 // which needs no zeroing. data[k], thr[k]: device pointers of type T
 // (Narrow: data of the type codes[k] names, narrow.cuh, and float
-// thresholds); strides[2k], strides[2k + 1]: input k's (sm, sc) in
+// thresholds; Mixed: data of that type, and int64 thresholds for int64
+// data, float64 for the rest); strides[2k], strides[2k + 1]: input k's (sm, sc) in
 // elements; nb[k] its bin count. Takes 1 <= c <= 255 and S <= 8192 (the
 // caller sends the rest to slot.cuh); launches on `stream` and returns
 // cudaGetLastError() or the first failing CUDA call's error; never
@@ -445,13 +483,14 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
   long long S = 1;
   size_t thr_slots = 0;
   size_t cells = 0;
-  int tables = 0;  // 8-bit inputs (Narrow)
+  int tables = 0;  // 8-bit inputs (Narrow, Mixed)
   for (int k = 0; k < n; ++k) {
     InputOf<T>& d = p.in[k];
-    if constexpr (kNarrow<T>) {
+    if constexpr (kCoded<T>) {
+      // Narrow reads float32 and the narrow types; Mixed every type
       const int code = codes[k];
-      if (code < 0 || code >= xh::kLoadCodes || code == xh::kF64 || code == xh::kI32 ||
-          code == xh::kI64)
+      if (code < 0 || code >= xh::kLoadCodes ||
+          (kNarrow<T> && (code == xh::kF64 || code == xh::kI32 || code == xh::kI64)))
         return (int)cudaErrorInvalidValue;
       d.code = code;
       d.lut = -1;
@@ -486,7 +525,7 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
   }
   for (int k = 0, toff = 0; k < n; toff += p.in[k++].cells) p.in[k].toff = toff;
   const size_t lut_at = ly.thr_bytes + xh::cells_bytes((int)cells);
-  if constexpr (kNarrow<T>) {
+  if constexpr (kCoded<T>) {
     int lut = (int)(lut_at / sizeof(int));
     for (int k = 0; k < n; ++k)
       if (xh::is_byte(p.in[k].code)) {
@@ -549,9 +588,11 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
   XH_DIRECT_ROWS_WEIGHTED_ENTRY(xh_direct_rows_i64_##cls, long long, double, A)
 
 // The entry of counts of inputs with run-time stored types (T =
-// drow::Narrow; direct_rows_narrow.cu): as XH_DIRECT_ROWS_ENTRY, with
-// codes[k] naming input k's stored type (narrow.cuh's load codes: float32
-// and the narrow types) and float32 thresholds.
+// drow::Narrow, direct_rows_narrow.cu; drow::Mixed, direct_rows_mixed.cu):
+// as XH_DIRECT_ROWS_ENTRY, with codes[k] naming input k's stored type
+// (narrow.cuh's load codes; Narrow: float32 and the narrow types, with
+// float32 thresholds; Mixed: any, with int64 thresholds for int64 data and
+// float64 for the rest).
 #define XH_DIRECT_ROWS_CODED_ENTRY(name, T)                                   \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
@@ -561,22 +602,23 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
         n, codes, data, strides, thr, nb, m, c, xh::Weights{}, out, stream); \
   }
 
-// The weighted narrow entry, added in A and stored as Out.
-#define XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(name, A, Out)                    \
+// The weighted coded entry, added in A and stored as Out.
+#define XH_DIRECT_ROWS_CODED_WEIGHTED_ENTRY(name, T, A, Out)                  \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, long long m, long long c, const void* w, \
                       long long wsm, long long wsc, int wcode, void* out,    \
                       void* stream) {                                        \
-    return drow::launch_direct_rows<drow::Narrow, xh::Sum<A>, Out>(          \
+    return drow::launch_direct_rows<T, xh::Sum<A>, Out>(                     \
         n, codes, data, strides, thr, nb, m, c,                              \
         xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
   }
 
-// The narrow entry xh_direct_rows_narrow_<cls> of accumulator class cls
-// (accumulator and output type A), and of float weights summed in float64
-// and stored as float (the rounded class).
-#define XH_DIRECT_ROWS_NARROW_CLASS(cls, A) \
-  XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(xh_direct_rows_narrow_##cls, A, A)
-#define XH_DIRECT_ROWS_NARROW_ROUNDED_CLASS(cls, A) \
-  XH_DIRECT_ROWS_NARROW_WEIGHTED_ENTRY(xh_direct_rows_narrow_##cls, double, A)
+// The coded entry xh_direct_rows_<kind>_<cls> (kind narrow or mixed, T its
+// instantiation) of accumulator class cls (accumulator and output type A),
+// and of float weights summed in float64 and stored as float (the rounded
+// class).
+#define XH_DIRECT_ROWS_CODED_CLASS(kind, T, cls, A) \
+  XH_DIRECT_ROWS_CODED_WEIGHTED_ENTRY(xh_direct_rows_##kind##_##cls, T, A, A)
+#define XH_DIRECT_ROWS_CODED_ROUNDED_CLASS(kind, T, cls, A) \
+  XH_DIRECT_ROWS_CODED_WEIGHTED_ENTRY(xh_direct_rows_##kind##_##cls, T, double, A)

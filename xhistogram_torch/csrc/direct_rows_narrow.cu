@@ -11,7 +11,7 @@
 
 XH_DIRECT_ROWS_CODED_ENTRY(xh_direct_rows_narrow, drow::Narrow)
 
-XH_DIRECT_ROWS_NARROW_CLASS(wf64, double)
-XH_DIRECT_ROWS_NARROW_CLASS(wu32, unsigned int)
-XH_DIRECT_ROWS_NARROW_CLASS(wu64, unsigned long long)
-XH_DIRECT_ROWS_NARROW_ROUNDED_CLASS(wf32, float)
+XH_DIRECT_ROWS_CODED_CLASS(narrow, drow::Narrow, wf64, double)
+XH_DIRECT_ROWS_CODED_CLASS(narrow, drow::Narrow, wu32, unsigned int)
+XH_DIRECT_ROWS_CODED_CLASS(narrow, drow::Narrow, wu64, unsigned long long)
+XH_DIRECT_ROWS_CODED_ROUNDED_CLASS(narrow, drow::Narrow, wf32, float)

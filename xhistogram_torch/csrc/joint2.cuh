@@ -8,13 +8,14 @@
 // the blocks of a cluster instead.
 //
 // What it computes, per element pair (a_e, b_e) read as La and Lb and
-// compared as Ta and Tb (float, double, int32 or int64 read as themselves;
-// one type for both, or int64 beside a float, each input compared in its
-// own type; or two inputs of one narrow type read in place at its own width
-// and widened in registers, narrow.cuh: float16, bfloat16, int16 and uint16
-// compared as float32, int8 and uint8 (bool as bytes) as int32), against
-// the compare-form thresholds of xhistogram_torch.bins.compare_form in Ta
-// and Tb (digitize.cuh):
+// compared as Ta and Tb, each input in its own type, as the TPU kernel
+// widens each input's tile on its own: float, double, int32 or int64 read
+// as themselves; narrow types read in place at their own width and widened
+// in registers (narrow.cuh): float16, bfloat16, int16 and uint16 compared
+// as float32, int8 and uint8 (bool as bytes) as int32 through a table; or,
+// in the mixed entries, any type by its run-time load code, compared in
+// int64 or double (xh::Held). Against the compare-form thresholds of
+// xhistogram_torch.bins.compare_form in Ta and Tb (digitize.cuh):
 //   i = #{t in thr_a : t <= a_e},  j = #{t in thr_b : t <= b_e}
 //   the pair counts iff neither value is NaN, 1 <= i <= nba, 1 <= j <= nbb,
 //   and then adds one to slot (i-1)*nbb + (j-1) of the int64 output.
@@ -27,11 +28,11 @@
 //   shared-memory loads and set the kernel's pace. 8-bit data has 256
 //   values: each block finds their bins once, by the same search, so a
 //   pair costs two shared-memory loads and no search.
-// - Narrow pairs read kUnroll neighbouring elements of each input by one
-//   load (8 bytes of 16-bit data, 4 of 8-bit) where both inputs start on
-//   such a boundary, the few past the last whole group one by one; else,
-//   and for 4- and 8-byte data, each element by itself, neighbouring
-//   threads on neighbouring elements.
+// - A pair with a narrow input reads kUnroll neighbouring elements of each
+//   input by one load (8 bytes of 16-bit data, 4 of 8-bit, 16 of float32)
+//   where both inputs start on such a boundary, the few past the last whole
+//   group one by one; else, for wide pairs and the mixed entries, each
+//   element by itself, neighbouring threads on neighbouring elements.
 // - The full 280x340 grid (381 KB of int32) does not fit one block's 227 KB
 //   of shared memory, so it is spread over a cluster of C blocks (the
 //   smallest of 1, 2, 4 and 8 that holds it; C = 2 for counts, C = 4 for
@@ -51,8 +52,10 @@
 // sums at most two blocks a cluster, in passes past that.
 //
 // The kernel and its launcher, included by joint2.cu (one type for both
-// inputs), joint2_mixed.cu (int64 beside a float) and joint2_narrow.cu (one
-// narrow type for both), which compile side by side.
+// inputs), joint2_narrow.cu (one narrow type for both), joint2_pairs.cu and
+// joint2_pairs_swapped.cu (pairs of two types that users pass together)
+// and joint2_mixed.cu (int64 beside a float, and the mixed entries for
+// every other pair), which compile side by side.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, without --use_fast_math: subnormal data must compare
@@ -77,10 +80,86 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kUnroll = 4;
 constexpr int kMaxCluster = 8;
-// 227 KB a block, less the kernel's static shared memory (and, for 8-bit
-// data, its two tables of 256 bins)
-template <typename La>
-constexpr size_t kSmemMax = 232448 - 64 - (sizeof(La) == 1 ? 2 * 256 * sizeof(int) : 0);
+// An input read by its run-time load code (the mixed entries).
+template <typename L>
+constexpr bool kHeld = std::is_same<L, xh::Held>::value;
+// An input that may be digitized through a table of its 256 values' bins:
+// 8-bit data, and a mixed input (8-bit or not, by its code).
+template <typename L>
+constexpr int kTableOf = (sizeof(L) == 1 || kHeld<L>) ? 1 : 0;
+// 227 KB a block, less the kernel's static shared memory (and a table of 256
+// bins for each input that may have one)
+template <typename La, typename Lb>
+constexpr size_t kSmemMax =
+    232448 - 64 - (kTableOf<La> + kTableOf<Lb>) * 256 * sizeof(int);
+
+// The prologue of one input: its cell map, then its cell table; a mixed
+// input's by the type its code names (narrow.cuh).
+template <typename L, typename T>
+__device__ __forceinline__ xh::CellMap<T> map_of(const T* t, int nb, int k, int code) {
+  if constexpr (kHeld<L>)
+    return xh::mixed_cell_map(t, nb, k, code);
+  else
+    return xh::cell_map(t, nb, k);
+}
+
+template <typename L, typename T>
+__device__ __forceinline__ void cells_of(const T* t, int nb, const xh::CellMap<T>& m,
+                                         int code, int2* win, int* widest) {
+  if constexpr (kHeld<L>)
+    xh::mixed_build_cells(t, nb, m, code, win, widest);
+  else
+    xh::build_cells(t, nb, m, win, widest);
+}
+
+// The table of an input that may have one (kTableOf), where it has one.
+template <typename L, typename T>
+__device__ __forceinline__ void table_of(const T* t, int nb, const xh::CellMap<T>& m,
+                                         const int2* win, int step0, int code,
+                                         int* lut) {
+  if constexpr (kHeld<L>) {
+    if (xh::is_byte(code)) xh::mixed_byte_table(t, nb, m, win, step0, code, lut);
+  } else {
+    xh::build_byte_table<T, L>(t, nb, m, win, step0, lut);
+  }
+}
+
+// bin[u]: the bin of raw[u] (narrow.cuh's bins_loaded; a mixed input's by
+// its code: through its table for 8-bit data, else in int64 or double).
+template <typename L, typename T, int U>
+__device__ __forceinline__ void bins_of_input(const T* t, int nb, const xh::CellMap<T>& m,
+                                              const int2* win, int step0, const int* lut,
+                                              int code, const L (&raw)[U],
+                                              int (&bin)[U]) {
+  if constexpr (kHeld<L>) {
+    long long x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) x[u] = raw[u].bits;
+    if (xh::is_byte(code)) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) bin[u] = lut[xh::held_byte(x[u])];
+    } else {
+      xh::mixed_bins<U>(t, nb, m, win, step0, code, x, bin);
+    }
+  } else {
+    xh::bins_loaded(t, nb, m, win, step0, lut, raw, bin);
+  }
+}
+
+// v[u]: element e0 + u * de of a mixed input p (the stored type `code`
+// names), held in 8 bytes; zero where !ok[u].
+template <int K>
+__device__ __forceinline__ void load_held(const void* p, int code, long long e0,
+                                          long long de, const bool (&ok)[K],
+                                          xh::Held (&v)[K]) {
+  long long at[K];
+  long long x[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) at[u] = e0 + u * de;
+  xh::gather_mixed<K>(p, at, ok, code, x);
+#pragma unroll
+  for (int u = 0; u < K; ++u) v[u].bits = x[u];
+}
 
 __host__ __device__ inline size_t align8(size_t x) { return (x + 7) / 8 * 8; }
 
@@ -108,21 +187,28 @@ __host__ __device__ inline size_t hist_offset(int nba, int nbb, int ka, int kb) 
 }
 
 // W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]). La, Lb: the
-// types the inputs are read as; Ta, Tb: their compare types. A narrow pair
-// has one type for both inputs.
+// types the inputs are read as; Ta, Tb: their compare types, each input's
+// own. xh::Held reads an input by its load code, codes & 255 for a and
+// codes >> 8 for b, compared in long long (int64) or in double held in
+// long long's 8 bytes (narrow.cuh's mixed entries).
 template <typename La, typename Lb, typename Ta, typename Tb, typename W>
 __global__ void __launch_bounds__(kThreads)
 joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
               const Ta* __restrict__ thr_a, int nba,
               const Tb* __restrict__ thr_b, int nbb, int ka, int kb,
               int rows_per_chunk, int log2c, const void* __restrict__ w,
-              int wcode, typename W::Out* __restrict__ out) {
+              int wcode, typename W::Out* __restrict__ out, int codes) {
   using Shared = typename W::Shared;
-  constexpr bool kTables = sizeof(La) == 1;  // 8-bit data: bins by table
-  constexpr bool kVec = sizeof(La) < 4;      // narrow: kUnroll elements a load
+  // each input's bins by table (8-bit data; a mixed input, by its code)
+  constexpr int kTabA = kTableOf<La>;
+  constexpr int kTabB = kTableOf<Lb>;
+  // a narrow input: kUnroll elements of each input a load
+  constexpr bool kVec = sizeof(La) < 4 || sizeof(Lb) < 4;
+  const int code_a = codes & 255;
+  const int code_b = codes >> 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int widest[2];
-  __shared__ int lut[kTables ? 2 : 1][kTables ? 256 : 1];
+  __shared__ int lut[kTabA + kTabB > 0 ? kTabA + kTabB : 1][kTabA + kTabB > 0 ? 256 : 1];
   Ta* ta = reinterpret_cast<Ta*>(smem);
   Tb* tb;
   if constexpr (std::is_same<Ta, Tb>::value)
@@ -146,15 +232,15 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
   xh::stage_thresholds(tb, thr_b, nbb + 1);
   for (int s = threadIdx.x; s < my_slots; s += blockDim.x) hist[s] = Shared(0);
   __syncthreads();
-  const xh::CellMap<Ta> ma = xh::cell_map(ta, nba, ka);
-  const xh::CellMap<Tb> mb = xh::cell_map(tb, nbb, kb);
-  xh::build_cells(ta, nba, ma, win_a, &widest[0]);
-  xh::build_cells(tb, nbb, mb, win_b, &widest[1]);
+  const xh::CellMap<Ta> ma = map_of<La>(ta, nba, ka, code_a);
+  const xh::CellMap<Tb> mb = map_of<Lb>(tb, nbb, kb, code_b);
+  cells_of<La>(ta, nba, ma, code_a, win_a, &widest[0]);
+  cells_of<Lb>(tb, nbb, mb, code_b, win_b, &widest[1]);
   const int step_a = xh::first_step(widest[0]);
   const int step_b = xh::first_step(widest[1]);
-  if constexpr (kTables) {
-    xh::build_byte_table<Ta, La>(ta, nba, ma, win_a, step_a, lut[0]);
-    xh::build_byte_table<Tb, Lb>(tb, nbb, mb, win_b, step_b, lut[1]);
+  if constexpr (kTabA + kTabB > 0) {
+    if constexpr (kTabA) table_of<La>(ta, nba, ma, win_a, step_a, code_a, lut[0]);
+    if constexpr (kTabB) table_of<Lb>(tb, nbb, mb, win_b, step_b, code_b, lut[kTabA]);
     __syncthreads();
   }
   if (cl > 1) cluster.sync();  // every block's histogram zeroed before an add
@@ -165,8 +251,8 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
                    const bool (&ok)[kUnroll], long long e0, long long de) {
     int i[kUnroll];  // -1: NaN or out of range
     int j[kUnroll];
-    xh::bins_loaded(ta, nba, ma, win_a, step_a, lut[0], av, i);
-    xh::bins_loaded(tb, nbb, mb, win_b, step_b, lut[kTables ? 1 : 0], bv, j);
+    bins_of_input(ta, nba, ma, win_a, step_a, lut[0], code_a, av, i);
+    bins_of_input(tb, nbb, mb, win_b, step_b, lut[kTabA], code_b, bv, j);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       // in this chunk's rows; r: the row within the chunk
@@ -214,9 +300,11 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
     for (int u = 0; u < kUnroll; ++u) {
       const long long e = base + (long long)u * blockDim.x;
       ok[u] = e < n;
-      av[u] = ok[u] ? a[e] : La{};
-      bv[u] = ok[u] ? b[e] : Lb{};
+      if constexpr (!kHeld<La>) av[u] = ok[u] ? a[e] : La{};
+      if constexpr (!kHeld<Lb>) bv[u] = ok[u] ? b[e] : Lb{};
     }
+    if constexpr (kHeld<La>) load_held(a, code_a, base, blockDim.x, ok, av);
+    if constexpr (kHeld<Lb>) load_held(b, code_b, base, blockDim.x, ok, bv);
     count(av, bv, ok, base, blockDim.x);
   }
   if (cl > 1)
@@ -236,7 +324,8 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
 template <typename La, typename Lb, typename Ta, typename Tb, typename W>
 int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
                   int nba, const void* thr_b, int nbb, int max_cluster,
-                  const void* w, int wcode, void* out, void* stream) {
+                  const void* w, int wcode, void* out, void* stream,
+                  int codes = 0) {
   using Shared = typename W::Shared;
   if (n <= 0 || nba < 1 || nbb < 1 || max_cluster < 1)
     return (int)cudaErrorInvalidValue;
@@ -244,7 +333,7 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   const int kb = nbb < xh::kMaxCells / 2 ? 2 * nbb : xh::kMaxCells;
   const size_t hoff = hist_offset<Ta, Tb>(nba, nbb, ka, kb);
   const long long rows_fit =
-      hoff < kSmemMax<La> ? (long long)((kSmemMax<La> - hoff) / sizeof(Shared)) / nbb : 0;
+      hoff < kSmemMax<La, Lb> ? (long long)((kSmemMax<La, Lb> - hoff) / sizeof(Shared)) / nbb : 0;
   if (rows_fit < 1) return (int)cudaErrorInvalidValue;
 
   // the smallest cluster that holds every T row, else the largest allowed,
@@ -288,7 +377,7 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
       dim3((unsigned int)grid_x, (unsigned int)n_chunks), kThreads, smem, cl,
       (cudaStream_t)stream, static_cast<const La*>(a), static_cast<const Lb*>(b), n, static_cast<const Ta*>(thr_a), nba,
       static_cast<const Tb*>(thr_b), nbb, ka, kb, rows_per_chunk, log2c, w, wcode,
-      static_cast<typename W::Out*>(out));
+      static_cast<typename W::Out*>(out), codes);
   xh::last_launch = {cl, n_chunks, 1, {ka, kb}};
   return (int)err;
 }
@@ -297,14 +386,18 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
 
 // Adds the joint counts of n pairs (a[e], b[e]) into out[nba * nbb], which
 // the caller zeroes, in clusters of at most max_cluster blocks (1, 2, 4 or
-// 8). Input a and its thresholds are of type Ta, b and its thresholds of Tb.
-// Launches on `stream` and returns cudaGetLastError() (or the first failing
-// CUDA call's error); never synchronises.
-#define XH_JOINT2(name, Ta, Tb)                                                \
+// 8), input a read as La and compared as Ta against thresholds of type Ta,
+// b read as Lb and compared as Tb: one wide type for both (joint2.cu), two
+// inputs of one narrow type (joint2_narrow.cu) and the pairs of two types
+// with instantiations of their own (joint2_pairs.cu,
+// joint2_pairs_swapped.cu, joint2_mixed.cu). Launches on `stream` and
+// returns cudaGetLastError() (or the first failing CUDA call's error);
+// never synchronises.
+#define XH_JOINT2_LOADS(name, La, Ta, Lb, Tb)                                  \
   extern "C" int name(const void* a, const void* b, long long n,              \
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, void* out, void* stream) {             \
-    return launch_joint2<Ta, Tb, Ta, Tb, xh::Count>(                          \
+    return launch_joint2<La, Lb, Ta, Tb, xh::Count>(                          \
         a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,        \
         stream);                                                              \
   }
@@ -312,32 +405,56 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
 // Weighted: adds the sums of the n contiguous weights w (of the type
 // `wcode` names within accumulator class A; weights.cuh) into
 // out[nba * nbb], of type A, which the caller zeroes.
-#define XH_JOINT2_WEIGHTED(name, Ta, Tb, A)                                    \
+#define XH_JOINT2_LOADS_WEIGHTED(name, La, Ta, Lb, Tb, A)                      \
   extern "C" int name(const void* a, const void* b, long long n,              \
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, const void* w, int wcode, void* out,    \
                       void* stream) {                                         \
-    return launch_joint2<Ta, Tb, Ta, Tb, xh::Sum<A>>(                         \
+    return launch_joint2<La, Lb, Ta, Tb, xh::Sum<A>>(                         \
         a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream); \
   }
 
-// As XH_JOINT2 for two inputs of the narrow type L (joint2_narrow.cu), read
-// in place and compared as C against thresholds of type C.
-#define XH_JOINT2_NARROW(name, L, C)                                           \
-  extern "C" int name(const void* a, const void* b, long long n,              \
-                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
-                      int max_cluster, void* out, void* stream) {             \
-    return launch_joint2<L, L, C, C, xh::Count>(                              \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,        \
-        stream);                                                              \
-  }
+// The same for inputs read as their compare types Ta and Tb.
+#define XH_JOINT2(name, Ta, Tb) XH_JOINT2_LOADS(name, Ta, Ta, Tb, Tb)
+#define XH_JOINT2_WEIGHTED(name, Ta, Tb, A) \
+  XH_JOINT2_LOADS_WEIGHTED(name, Ta, Ta, Tb, Tb, A)
 
-// The weighted entry of the narrow type L, for accumulator type A.
-#define XH_JOINT2_NARROW_WEIGHTED(name, L, C, A)                               \
-  extern "C" int name(const void* a, const void* b, long long n,              \
-                      const void* thr_a, int nba, const void* thr_b, int nbb,   \
-                      int max_cluster, const void* w, int wcode, void* out,    \
+// The count entry xh_joint2_<sa>_<sb> of a pair and its weighted entries
+// xh_joint2_<sa>_<sb>_<cls>, one per accumulator class.
+#define XH_JOINT2_PAIR(sa, La, Ta, sb, Lb, Tb)                                 \
+  XH_JOINT2_LOADS(xh_joint2_##sa##_##sb, La, Ta, Lb, Tb)                       \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_##sa##_##sb##_wf64, La, Ta, Lb, Tb, double) \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_##sa##_##sb##_wu32, La, Ta, Lb, Tb,       \
+                           unsigned int)                                      \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_##sa##_##sb##_wu64, La, Ta, Lb, Tb,       \
+                           unsigned long long)
+
+// The mixed entries (joint2_mixed.cu): each input read by its load code,
+// codes[0] for a and codes[1] for b (narrow.cuh; any of the eleven data
+// types), against thresholds in int64 for int64 data and in float64 for
+// the rest. The pairs with no instantiation of their own take them.
+#define XH_JOINT2_MIXED_CODES_OK(codes)                                       \
+  (codes[0] >= 0 && codes[0] < xh::kLoadCodes && codes[1] >= 0 &&              \
+   codes[1] < xh::kLoadCodes)
+#define XH_JOINT2_MIXED(name)                                                  \
+  extern "C" int name(const int* codes, const void* a, const void* b,         \
+                      long long n, const void* thr_a, int nba,                 \
+                      const void* thr_b, int nbb, int max_cluster, void* out,  \
                       void* stream) {                                         \
-    return launch_joint2<L, L, C, C, xh::Sum<A>>(                             \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream); \
+    if (!XH_JOINT2_MIXED_CODES_OK(codes)) return (int)cudaErrorInvalidValue;   \
+    return launch_joint2<xh::Held, xh::Held, long long, long long, xh::Count>( \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out, stream, \
+        codes[0] | codes[1] << 8);                                            \
+  }
+
+// The weighted mixed entry, for accumulator type A.
+#define XH_JOINT2_MIXED_WEIGHTED(name, A)                                      \
+  extern "C" int name(const int* codes, const void* a, const void* b,         \
+                      long long n, const void* thr_a, int nba,                 \
+                      const void* thr_b, int nbb, int max_cluster,             \
+                      const void* w, int wcode, void* out, void* stream) {     \
+    if (!XH_JOINT2_MIXED_CODES_OK(codes)) return (int)cudaErrorInvalidValue;   \
+    return launch_joint2<xh::Held, xh::Held, long long, long long, xh::Sum<A>>( \
+        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream,   \
+        codes[0] | codes[1] << 8);                                            \
   }

@@ -1,28 +1,29 @@
-// Joint two-input histogram of an int64 input beside a float one (joint2.cuh
+// Joint two-input histogram of an int64 input beside a float one, and of
+// every pair of two types without an instantiation of its own (joint2.cuh
 // has the kernel, which replaces
 // xhistogram_tpu/ops/pallas_hist.py::_joint2_kernel). Each input meets only
 // its own thresholds, so each is compared exactly in its own type: int64
 // against int64 thresholds, float32 or float64 against thresholds of its
-// type (float16 data arrive widened to float32). No common type would hold
-// both exactly. The pair's types are template parameters, as for one type,
-// so a mixed call runs as fast as the same-type kernel of its wider input;
-// these entries compile in their own nvcc, beside joint2.cu's.
+// type. No common type would hold both exactly. For int64 beside float32
+// or float64 the pair's types are template parameters, as for one type, so
+// such a call runs as fast as the same-type kernel of its wider input.
+//
+// The mixed entries xh_joint2_mixed take the rest, in place: two different
+// narrow types, narrow data beside int32, int64 or float64, int32 beside
+// float64. Each input is read by its run-time load code (narrow.cuh; the
+// same in every lane, one switch per input and group of elements) and held
+// in 8 bytes, int64 compared in int64 and every other type in double, to
+// which it converts exactly; 8-bit data through a table of its 256 values'
+// bins. These entries compile in their own nvcc, beside joint2.cu's.
 
 #include "joint2.cuh"
 
-XH_JOINT2(xh_joint2_i64_f32, long long, float)
-XH_JOINT2(xh_joint2_f32_i64, float, long long)
-XH_JOINT2(xh_joint2_i64_f64, long long, double)
-XH_JOINT2(xh_joint2_f64_i64, double, long long)
+XH_JOINT2_PAIR(i64, long long, long long, f32, float, float)
+XH_JOINT2_PAIR(f32, float, float, i64, long long, long long)
+XH_JOINT2_PAIR(i64, long long, long long, f64, double, double)
+XH_JOINT2_PAIR(f64, double, double, i64, long long, long long)
 
-// The weighted entries xh_joint2_<a>_<b>_<cls> of the accumulator
-// class cls (accumulator type A), for the four mixed pairs.
-#define XH_JOINT2_MIXED_WEIGHTED_CLASS(cls, A)                                \
-  XH_JOINT2_WEIGHTED(xh_joint2_i64_f32_##cls, long long, float, A)            \
-  XH_JOINT2_WEIGHTED(xh_joint2_f32_i64_##cls, float, long long, A)            \
-  XH_JOINT2_WEIGHTED(xh_joint2_i64_f64_##cls, long long, double, A)           \
-  XH_JOINT2_WEIGHTED(xh_joint2_f64_i64_##cls, double, long long, A)
-
-XH_JOINT2_MIXED_WEIGHTED_CLASS(wf64, double)
-XH_JOINT2_MIXED_WEIGHTED_CLASS(wu32, unsigned int)
-XH_JOINT2_MIXED_WEIGHTED_CLASS(wu64, unsigned long long)
+XH_JOINT2_MIXED(xh_joint2_mixed)
+XH_JOINT2_MIXED_WEIGHTED(xh_joint2_mixed_wf64, double)
+XH_JOINT2_MIXED_WEIGHTED(xh_joint2_mixed_wu32, unsigned int)
+XH_JOINT2_MIXED_WEIGHTED(xh_joint2_mixed_wu64, unsigned long long)

@@ -8,27 +8,31 @@
 // their 256 values' bins, found in each block's prologue by the search in
 // int32. On a card bound by device memory, reading 2 or 1 bytes an element
 // in place of a widened copy's 4 (and of the copy's own pass) is the gain.
-// Pairs of two different types reach joint2.cu's or joint2_mixed.cu's
-// entries on a widened copy (cuda_hist.operand_plan names them).
+// Pairs of two different types have entries of their own
+// (joint2_pairs.cu, joint2_pairs_swapped.cu, joint2_mixed.cu).
 
 #include "joint2.cuh"
 
-XH_JOINT2_NARROW(xh_joint2_f16, __half, float)
-XH_JOINT2_NARROW(xh_joint2_bf16, __nv_bfloat16, float)
-XH_JOINT2_NARROW(xh_joint2_i16, short, float)
-XH_JOINT2_NARROW(xh_joint2_u16, unsigned short, float)
-XH_JOINT2_NARROW(xh_joint2_i8, signed char, int)
-XH_JOINT2_NARROW(xh_joint2_u8, unsigned char, int)
+XH_JOINT2_LOADS(xh_joint2_f16, __half, float, __half, float)
+XH_JOINT2_LOADS(xh_joint2_bf16, __nv_bfloat16, float, __nv_bfloat16, float)
+XH_JOINT2_LOADS(xh_joint2_i16, short, float, short, float)
+XH_JOINT2_LOADS(xh_joint2_u16, unsigned short, float, unsigned short, float)
+XH_JOINT2_LOADS(xh_joint2_i8, signed char, int, signed char, int)
+XH_JOINT2_LOADS(xh_joint2_u8, unsigned char, int, unsigned char, int)
 
 // The weighted entries xh_joint2_<data>_<cls> of the accumulator class cls
 // (accumulator type A), for the six narrow types.
-#define XH_JOINT2_NARROW_WEIGHTED_CLASS(cls, A)                                \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_f16_##cls, __half, float, A)             \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_bf16_##cls, __nv_bfloat16, float, A)     \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_i16_##cls, short, float, A)              \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_u16_##cls, unsigned short, float, A)     \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_i8_##cls, signed char, int, A)           \
-  XH_JOINT2_NARROW_WEIGHTED(xh_joint2_u8_##cls, unsigned char, int, A)
+#define XH_JOINT2_NARROW_WEIGHTED_CLASS(cls, A)                                   \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_f16_##cls, __half, float, __half, float, A)  \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_bf16_##cls, __nv_bfloat16, float,            \
+                           __nv_bfloat16, float, A)                               \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_i16_##cls, short, float, short, float, A)    \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_u16_##cls, unsigned short, float,            \
+                           unsigned short, float, A)                              \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_i8_##cls, signed char, int, signed char,     \
+                           int, A)                                                \
+  XH_JOINT2_LOADS_WEIGHTED(xh_joint2_u8_##cls, unsigned char, int, unsigned char, \
+                           int, A)
 
 XH_JOINT2_NARROW_WEIGHTED_CLASS(wf64, double)
 XH_JOINT2_NARROW_WEIGHTED_CLASS(wu32, unsigned int)

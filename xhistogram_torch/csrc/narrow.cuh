@@ -11,6 +11,8 @@
 // types too; double beside int64 (slot.cuh's mixed instantiation). Integer
 // thresholds (bins.compare_form in int32) converted to float32 round only
 // past 2^24, beyond every 8- and 16-bit value, so every comparison is kept.
+// The mixed entries read any stored type by its load code and hold it in 8
+// bytes, int64 as itself and the rest widened to double (gather_mixed).
 // 8-bit data (int8, uint8, bool as the bytes 0 and 1) has 256 values: a
 // block finds their bins once, by the same search, and each element then
 // costs one shared-memory load.
@@ -112,10 +114,81 @@ __device__ __forceinline__ void gather_coded(const void* p, const long long (&at
   }
 }
 
+// --- the mixed entries: any stored type, held in 8 bytes ---------------------
+//
+// An input of the mixed entries (joint2's, the flat-slot template's and the
+// direct-row kernel's) is read by its run-time load code and held in 8
+// bytes: int64 as itself, every other type as the bits of its value widened
+// to double, exactly. Its thresholds are staged in 8-byte slots the same
+// way (int64, or the bits of doubles), so an int64 input compares in int64
+// and any other in double, each against its own thresholds. Its cell map is
+// kept as CellMap<long long>, whose layout CellMap<double> shares.
+
+// v[q] for q in [Q0, Q1): element at[q] of p, of the stored type `code`,
+// held in 8 bytes; 0 where !ok[q].
+template <int K, int Q0 = 0, int Q1 = K>
+__device__ __forceinline__ void gather_mixed(const void* p, const long long (&at)[K],
+                                             const bool (&ok)[K], int code,
+                                             long long (&v)[K]) {
+  if (code == kI64) {
+    gather<long long, long long, K, Q0, Q1>(p, at, ok, v);
+    return;
+  }
+  double d[K];
+  gather_coded<double, K, Q0, Q1>(p, at, ok, code, d);
+#pragma unroll
+  for (int q = Q0; q < Q1; ++q) v[q] = __double_as_longlong(d[q]);
+}
+
+__device__ __forceinline__ CellMap<double> as_double_map(const CellMap<long long>& m) {
+  return {m.lo, m.inv, m.k};
+}
+
+// The cell map of the nb + 1 thresholds t (skewed, staged) of an input of
+// the stored type `code`.
+__device__ __forceinline__ CellMap<long long> mixed_cell_map(const long long* t, int nb,
+                                                             int k, int code) {
+  if (code == kI64) return cell_map(t, nb, k);
+  const CellMap<double> m = cell_map(reinterpret_cast<const double*>(t), nb, k);
+  return {m.lo, m.inv, m.k};
+}
+
+// build_cells for an input of the stored type `code`.
+__device__ __forceinline__ void mixed_build_cells(const long long* t, int nb,
+                                                  const CellMap<long long>& m, int code,
+                                                  int2* win, int* widest) {
+  if (code == kI64)
+    build_cells(t, nb, m, win, widest);
+  else
+    build_cells(reinterpret_cast<const double*>(t), nb, as_double_map(m), win, widest);
+}
+
+// bin[u]: the bin of x[u], held in 8 bytes, of an input of the stored type
+// `code` (not 8-bit: those go through their table), by the bucketed search.
+template <int U>
+__device__ __forceinline__ void mixed_bins(const long long* t, int nb,
+                                           const CellMap<long long>& m, const int2* win,
+                                           int step0, int code, const long long (&x)[U],
+                                           int (&bin)[U]) {
+  if (code == kI64) {
+    bins_bucketed<long long, U>(t, nb, m, win, step0, x, bin);
+    return;
+  }
+  double d[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) d[u] = __longlong_as_double(x[u]);
+  bins_bucketed<double, U>(reinterpret_cast<const double*>(t), nb, as_double_map(m), win,
+                           step0, d, bin);
+}
+
 // The byte of 8-bit data widened to C: its index in the table.
 template <typename C>
 __device__ __forceinline__ unsigned byte_of(C v) {
   return (unsigned)(int)v & 255u;
+}
+// ... and of 8-bit data held in 8 bytes (the bits of its double)
+__device__ __forceinline__ unsigned held_byte(long long v) {
+  return byte_of(__longlong_as_double(v));
 }
 
 // lut[b]: the bin (-1 out of range) of the 8-bit value of type L whose
@@ -142,6 +215,22 @@ __device__ void build_byte_table(const C* t, int nb, const CellMap<C>& m,
   else
     build_byte_table<C, unsigned char>(t, nb, m, win, step0, lut);
 }
+
+// The table of an 8-bit input of the mixed entries (its thresholds staged
+// as the bits of doubles).
+__device__ __forceinline__ void mixed_byte_table(const long long* t, int nb,
+                                                 const CellMap<long long>& m,
+                                                 const int2* win, int step0, int code,
+                                                 int* lut) {
+  build_byte_table<double>(reinterpret_cast<const double*>(t), nb, as_double_map(m), win,
+                           step0, code, lut);
+}
+
+// The load type of a joint2 input of the mixed entries: its element held in
+// 8 bytes (gather_mixed), of the stored type the input's run-time code names.
+struct Held {
+  long long bits;
+};
 
 // bin[u]: the bin of raw[u], read as L and compared as C against the
 // staged thresholds t with cell map m and table win: through the 8-bit

@@ -46,9 +46,8 @@
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
 //
-// Inputs of one wide compare type T (float, double, int32, int64) share an
-// instantiation (wide data of several types widen to the narrowest that
-// holds each exactly, in the caller). Two instantiations read each input's
+// Inputs of one wide type T (float, double, int32, int64) share an
+// instantiation. Two instantiations read each input's
 // stored type as a run-time code (narrow.cuh's load codes, the same in
 // every lane) and widen it in registers, so narrow data is read in place
 // at its own width:
@@ -57,9 +56,11 @@
 //   compared in float32 against float32 thresholds (int32 ones converted
 //   for the integers: a threshold past 2^24 rounds, but stays past every 8-
 //   and 16-bit value). It has the two-input kernel too.
-// - T = Mixed (slot_mixed.cu): every other mix with no exact common compare
-//   type, int64 beside a float, or narrow data beside int32, int64 or
-//   float64: an int64 input compares in int64 and any other in double, to
+// - T = Mixed (slot_mixed.cu): every other mix of types (int32, int64 or
+//   float64 beside inputs of another type: int32 beside float32, float32
+//   beside float64, int32 beside int64, int64 beside a float, narrow data
+//   beside the wide types): an int64 input compares in int64 and any other
+//   in double, to
 //   which all the rest convert exactly, each against its own thresholds in
 //   that type; its cell map runs in double, as for int64 data. It is rare,
 //   so it has no two-input kernel of its own.

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bins import check_numeric
+
 __all__ = ["NamedArray", "full_like"]
 
 
@@ -27,6 +29,7 @@ def _as_tensor(x):
     if isinstance(x, torch.Tensor):
         return x
     x = np.asarray(x)
+    check_numeric(x, "data")
     if any(s < 0 for s in x.strides):
         x = x.copy()  # torch views no negative strides
     return torch.as_tensor(x)

@@ -61,16 +61,27 @@ DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
 #: width: float16, bfloat16 and 16-bit integers compared in float32, 8-bit
 #: integers (bool as uint8) through a table of their 256 values' bins
 NARROW_SUFFIXES = ("f16", "bf16", "i16", "u16", "i8", "u8")
-#: joint2's pairs of an int64 input and a float one, each compared in its
-#: own type (csrc/joint2_mixed.cu): symbols ``xh_joint2_<a>_<b>``
-JOINT2_MIXED = ("i64_f32", "f32_i64", "i64_f64", "f64_i64")
+#: joint2's pairs of two load types with instantiations of their own, each
+#: input read in place and compared in its own type, symbols
+#: ``xh_joint2_<a>_<b>``: int64 beside a float (csrc/joint2_mixed.cu), and
+#: the pairs users pass together (csrc/joint2_pairs.cu,
+#: csrc/joint2_pairs_swapped.cu): each narrow type and int32 beside
+#: float32, float32 beside float64 and int32 beside int64, in both orders.
+#: Every other pair of two types takes ``xh_joint2_mixed``
+JOINT2_PAIRS = (
+    "i64_f32", "f32_i64", "i64_f64", "f64_i64",
+    *(f"{s}_f32" for s in (*NARROW_SUFFIXES, "i32")),
+    *(f"f32_{s}" for s in (*NARROW_SUFFIXES, "i32")),
+    "f32_f64", "f64_f32", "i32_i64", "i64_i32",
+)
 #: the flat-slot routes of csrc/slot.cuh, each its own C symbol
 #: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and, for
 #: inputs with run-time stored types, ``xh_<route>_narrow`` (float32 and
 #: narrow data, csrc/slot_narrow.cu) and ``xh_<route>_mixed`` (no exact
-#: common compare type, csrc/slot_mixed.cu); the direct route's own kernel
-#: (csrc/direct.cuh) is ``xh_direct_rows_<suffix>`` and
-#: ``xh_direct_rows_narrow`` (csrc/direct_rows_narrow.cu)
+#: every other mix of types, csrc/slot_mixed.cu); the direct route's own
+#: kernel (csrc/direct.cuh) is ``xh_direct_rows_<suffix>``,
+#: ``xh_direct_rows_narrow`` (csrc/direct_rows_narrow.cu) and
+#: ``xh_direct_rows_mixed`` (csrc/direct_rows_mixed.cu)
 SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 #: the weighted kernels' accumulator classes (csrc/weights.cuh): each
 #: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
@@ -91,7 +102,10 @@ def symbols():
     # its weight classes
     kernels = {
         "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32], [p],
-                   DTYPE_SUFFIXES + NARROW_SUFFIXES + JOINT2_MIXED, WEIGHT_CLASSES),
+                   DTYPE_SUFFIXES + NARROW_SUFFIXES + JOINT2_PAIRS, WEIGHT_CLASSES),
+        # the coded entries take each input's stored type first
+        "joint2_mixed": ([p, p, p, i64, p, i32, p, i32, i32], [p, i32], [p], ("",),
+                         WEIGHT_CLASSES),
         "one_input": ([p, i64, i64, i64, i64, p, i32, i32], weight_view, [p, p],
                       DTYPE_SUFFIXES + NARROW_SUFFIXES, WEIGHT_CLASSES),
         **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
@@ -102,8 +116,9 @@ def symbols():
            for route in SLOT_ROUTES for kind in ("mixed", "narrow")},
         "direct_rows": (slot_args[:7], weight_view, [p], DTYPE_SUFFIXES,
                         (*WEIGHT_CLASSES, ROUNDED_CLASS)),
-        "direct_rows_narrow": ([i32, p, *slot_args[1:7]], weight_view, [p], ("",),
-                               (*WEIGHT_CLASSES, ROUNDED_CLASS)),
+        **{f"direct_rows_{kind}": ([i32, p, *slot_args[1:7]], weight_view, [p], ("",),
+                                   (*WEIGHT_CLASSES, ROUNDED_CLASS))
+           for kind in ("narrow", "mixed")},
     }
     out = []
     for kernel, (args, weight_args, tail, suffixes, classes) in kernels.items():

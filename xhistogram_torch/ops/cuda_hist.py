@@ -32,18 +32,15 @@ compare type), and every kernel reads them in place at their own width and
 widens each value in registers to float32 or int32, exactly, keeping every
 comparison (``csrc/narrow.cuh``; the JAX kernels' ``_widen`` does the same
 after the load). ``operand_plan`` is the choice, for each kernel and mix
-of data dtypes, of the C entry, the dtype each input is read as and the
-thresholds' dtype: joint2 reads two inputs of one narrow dtype in place;
-factored and direct read float32 and narrow inputs in any mix in place
-(their narrow entries), and narrow data beside int32, int64 or float64 in
-place too (the mixed entries, each input compared in its own type or in
-float64). Wide inputs of several dtypes widen to the narrowest type that
-holds each exactly, and int64 beside a float, which no type holds, runs the
-mixed entries. Only joint2's pairs of two different dtypes with a narrow
-one widen narrow data with a copy (``operand_plan`` names them); every
-launch records the dtypes it read (``last_launch()["loads"]``). A wrapper
-takes the plain version only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises.
+of data dtypes, of the C entry and the thresholds' dtype; every input of
+every mix of dtypes is read in place, none is copied: joint2 compares each
+input of a pair in its own type (entries for one load type and for the
+pairs users pass together, the mixed entry for the rest); factored and
+direct read float32 and narrow inputs in any mix through their narrow
+entries and every other mix of dtypes through their mixed ones (int64
+compared in int64, the rest in float64). Every launch records the dtypes
+it read (``last_launch()["loads"]``). A wrapper takes the plain version
+only for CPU tensors; for a CUDA tensor it launches the kernel or raises.
 
 Each kernel is a registered torch op, ``torch.ops.xhistogram.one_input``,
 ``.joint2``, ``.factored`` (the variant a ``str``) and ``.direct``
@@ -120,9 +117,8 @@ MAX_SHARED_SLOTS = 8 * 232448 // 4
 MAX_CLUSTER_CTAS = 8
 _MAX_SLOT_INPUTS = 32  # csrc/slot.cuh and csrc/direct.cuh kMaxInputs
 #: the direct-row kernel's envelope (csrc/direct.cuh): rows of at most 255
-#: elements, at most 8192 slots, one compare type (float32 and narrow
-#: inputs have float32). The direct route runs the flat-slot template's
-#: entries (csrc/direct.cu) outside it
+#: elements, at most 8192 slots, inputs of any dtypes. The direct route runs
+#: the flat-slot template's entries (csrc/direct.cu) outside it
 _DIRECT_ROWS_MAX_COLS = 255
 _DIRECT_ROWS_MAX_SLOTS = 8192
 #: the weight dtypes whose finished sums are float32, rounded once from
@@ -170,15 +166,13 @@ _LOAD_CODE = {
 #: the dtypes the narrow entries of factored and direct read, in any mix,
 #: each compared in float32
 _FLOAT32_READS = (torch.float32, *_NARROW_SUFFIX)
-
-# the dtypes each compare dtype converts to exactly, comparisons unchanged
-_EXACT_WIDENINGS = {
-    torch.float16: (torch.float32, torch.float64),
-    torch.float32: (torch.float32, torch.float64),
-    torch.float64: (torch.float64,),
-    torch.int32: (torch.int32, torch.int64, torch.float64),
-    torch.int64: (torch.int64,),
-}
+#: the suffix of each data dtype's load type in joint2's entries (bool as
+#: its bytes, uint8)
+_LOAD_SUFFIX = {**_NARROW_SUFFIX, **_SUFFIX}
+#: the type joint2 compares each data dtype in, whatever the other input's:
+#: its own for the wide types, float32 for the 16-bit ones, int32 (through
+#: a table of the 256 values' bins) for the 8-bit ones
+_JOINT2_COMPARE = {**_NARROW_COMPARE, **{t: t for t in _SUFFIX}}
 
 
 def _round_up(x, m):
@@ -279,23 +273,13 @@ def plan(n_inputs, nbins, m, c=None):
     return None
 
 
-def _compare_dtype(dtypes):
-    """The narrowest kernel compare type every one of ``dtypes`` (compare
-    dtypes: the thresholds') converts to exactly, or None: int64 beside a
-    float, which the kernels' mixed entries compare each in its own type."""
-    for t in (torch.float32, torch.int32, torch.float64, torch.int64):
-        if all(t in _EXACT_WIDENINGS[d] for d in dtypes):
-            return t
-    return None
-
-
 class OperandPlan(NamedTuple):
     """How a kernel takes its inputs (``operand_plan``)."""
 
     #: the suffix of the C entry: a data type ("f32", "bf16"), joint2's
-    #: pair of two ("i64_f32"), or the coded entries "narrow" and "mixed"
+    #: pair of two ("i16_f32"), or the coded entries "narrow" and "mixed"
     entry: str
-    #: the dtype each input is read as: its own, or that of a widened copy
+    #: the dtype each input is read as: its own, in place, always
     loads: tuple
     #: the dtype each input's thresholds are handed to the kernel in
     compare: tuple
@@ -304,46 +288,47 @@ class OperandPlan(NamedTuple):
     codes: tuple = None
 
 
+def _mixed_plan(dtypes):
+    """The mixed entries' plan: every input read by its load code, int64
+    compared in int64 and every other dtype in float64, which holds each of
+    its values exactly."""
+    compare = tuple(torch.int64 if d == torch.int64 else torch.float64 for d in dtypes)
+    return OperandPlan("mixed", dtypes, compare, tuple(_LOAD_CODE[d] for d in dtypes))
+
+
 def operand_plan(kernel, dtypes):
     """The ``OperandPlan`` of ``kernel`` ("joint2", or "slot" for factored
     and direct) for inputs of ``dtypes``, a pure function of them.
 
-    Every input is read in place (``loads`` its own dtype) except wide ones
-    of several dtypes with an exact common compare type (int32 beside
-    float32 widens to float64, as before) and joint2's pairs of two
-    different dtypes with a narrow one, which widen to the common compare
-    type of their thresholds, or, for int64 beside float16 or bfloat16, the
-    narrow one to float32: the pairs that need no more instantiations
-    (``csrc/joint2_narrow.cu`` has one narrow type for both inputs). For
-    "slot", float32 and narrow inputs in any mix take the narrow entries
-    (each compared in float32, thresholds in float32), and narrow inputs
-    beside int32, int64 or float64 the mixed ones (int64 compared in int64,
-    the rest in float64), as does int64 beside a float. The direct route's
-    own kernel (``csrc/direct.cuh``) takes every entry but "mixed"."""
+    Every input is read in place at its own width (``loads`` are the
+    dtypes), as the JAX kernels read each input's tile and widen it in
+    registers; nothing is copied on the card. joint2 compares each input in
+    its own type against its own thresholds (``_JOINT2_COMPARE``): one load
+    type for both inputs (bool beside uint8 too) and the pairs of
+    ``_build.JOINT2_PAIRS`` (each narrow dtype and int32 beside float32,
+    float32 beside float64, int32 beside int64, int64 beside a float, in
+    both orders) have entries of their own; every other pair takes the
+    mixed entry. For "slot" (the flat-slot template and the direct-row
+    kernel), inputs of one wide dtype take its entry, float32 and narrow
+    inputs in any mix the narrow entries (each compared in float32,
+    thresholds in float32), and every other mix the mixed ones (int64
+    compared in int64, the rest in float64)."""
     dtypes = tuple(dtypes)
     n = len(dtypes)
-    narrow = [d in _NARROW_SUFFIX for d in dtypes]
     if kernel == "joint2":
-        if dtypes[0] == dtypes[1] and narrow[0]:
-            c = _NARROW_COMPARE[dtypes[0]]
-            return OperandPlan(_NARROW_SUFFIX[dtypes[0]], dtypes, (c, c))
-    elif any(narrow):
-        codes = tuple(_LOAD_CODE[d] for d in dtypes)
-        if all(d in _FLOAT32_READS for d in dtypes):
-            return OperandPlan("narrow", dtypes, (torch.float32,) * n, codes)
-        compare = tuple(torch.int64 if d == torch.int64 else torch.float64
-                        for d in dtypes)
-        return OperandPlan("mixed", dtypes, compare, codes)
-    thr = tuple(_NARROW.get(d, d) for d in dtypes)
-    common = _compare_dtype(thr)
-    if common is not None:
-        return OperandPlan(_SUFFIX[common], (common,) * n, (common,) * n)
-    # int64 beside a float: each input read and compared in its own type
-    types = tuple(torch.float32 if t == torch.float16 else t for t in thr)
-    if kernel == "joint2":
-        return OperandPlan("_".join(_SUFFIX[t] for t in types), types, types)
-    compare = tuple(torch.int64 if t == torch.int64 else torch.float64 for t in types)
-    return OperandPlan("mixed", types, compare, tuple(_LOAD_CODE[t] for t in types))
+        suffixes = tuple(_LOAD_SUFFIX[d] for d in dtypes)
+        pair = "_".join(suffixes)
+        if suffixes[0] == suffixes[1]:
+            pair = suffixes[0]
+        elif pair not in _build.JOINT2_PAIRS:
+            return _mixed_plan(dtypes)
+        return OperandPlan(pair, dtypes, tuple(_JOINT2_COMPARE[d] for d in dtypes))
+    if dtypes[0] in _SUFFIX and len(set(dtypes)) == 1:
+        return OperandPlan(_SUFFIX[dtypes[0]], dtypes, dtypes)
+    if all(d in _FLOAT32_READS for d in dtypes):
+        return OperandPlan("narrow", dtypes, (torch.float32,) * n,
+                           tuple(_LOAD_CODE[d] for d in dtypes))
+    return _mixed_plan(dtypes)
 
 
 def _check_operands(name, data, thresholds, nbins):
@@ -394,7 +379,7 @@ def last_launch():
     """What the last launch of this process chose (``xh_last_launch``).
 
     Every kernel: ``loads``, the dtype it read each input as (the input's
-    own dtype, or that of a widened copy: ``operand_plan``). joint2,
+    own dtype, read in place: ``operand_plan``). joint2,
     factored and direct: ``cluster`` (blocks whose shared memory
     held the histogram, 1 to 8), ``passes`` over the data (joint2's chunks
     of T rows), ``shared`` (False: the histogram was in device memory) and
@@ -611,14 +596,13 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None, finish=True):
 
     ``a`` and ``b`` may hold narrow data (bool, 8- and 16-bit integers,
     float16, bfloat16) with thresholds in its compare dtype (int32 for the
-    integers, float32 for bfloat16, float16 for float16). A CUDA tensor
-    launches the CUDA kernel, and any failure raises (a narrow input never
-    widens and retries): two inputs of one narrow dtype are read in place
-    at their own width (``csrc/joint2_narrow.cu``); inputs of two dtypes
-    widen to the narrowest compare type that holds each exactly (float32
-    with int32 compares in float64), and int64 beside a float runs the
-    kernel's mixed entries, each input compared in its own type (float16
-    and bfloat16 widened to float32) (``operand_plan``). A CPU tensor runs
+    integers, float32 for bfloat16, float16 for float16), each its own. A
+    CUDA tensor launches the CUDA kernel, and any failure raises (no input
+    widens and retries): each input is read in place at its own width and
+    compared in its own type, by the entry of its pair of dtypes
+    (``csrc/joint2_narrow.cu``, ``joint2_pairs.cu``,
+    ``joint2_pairs_swapped.cu``) or by the mixed entry
+    (``csrc/joint2_mixed.cu``; ``operand_plan``). A CPU tensor runs
     ``joint2_reference``.
     """
     if a.numel() != b.numel():
@@ -649,7 +633,7 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
     op = operand_plan("joint2", (a.dtype, b.dtype))
     # .contiguous() copies only a non-contiguous input, at the cost of a full
     # pass over it; the main path's views are contiguous and pass through
-    a, b = (x.to(t).contiguous() for x, t in zip((a, b), op.loads))
+    a, b = a.contiguous(), b.contiguous()
     thr_a, thr_b = (x.to(t).contiguous() for x, t in zip((thr_a, thr_b), op.compare))
     out = torch.zeros(1, nba * nbb + 1, dtype=_out_dtype(weights), device=a.device)
     n = a.numel()
@@ -662,7 +646,7 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
     _LAST_LOADS[0] = (op.loads, a.device)
     with torch.cuda.device(a.device):
         rc = fn(
-            a.data_ptr(), b.data_ptr(), n,
+            *_codes_arg(op), a.data_ptr(), b.data_ptr(), n,
             thr_a.data_ptr(), nba, thr_b.data_ptr(), nbb, MAX_CLUSTER_CTAS,
             *w_args, out.data_ptr(), _stream(a.device),
         )
@@ -678,17 +662,6 @@ def _(a, b, thr_a, thr_b, weights, nba, nbb):
 
 
 _FACTORED_VARIANTS = tuple(FACTORED_LAUNCHES)
-
-
-def _widen(x, dtype):
-    """``x`` in ``dtype``. Only the distinct elements are converted: a
-    broadcast (zero-stride) dimension stays a broadcast."""
-    if x.dtype == dtype:
-        return x
-    distinct = x[tuple(
-        slice(0, 1) if stride == 0 else slice(None) for stride in x.stride()
-    )]
-    return distinct.to(dtype).expand(x.shape)
 
 
 def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
@@ -713,9 +686,8 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
 
 def _slot_operands(name, arrays_2d, thresholds):
     """(plan, arrays, thresholds) as a flat-slot or direct-row kernel reads
-    them: ``operand_plan("slot", ...)``, the inputs (narrow ones and the
-    coded entries' inputs as they are, wide inputs of several dtypes widened
-    to their common compare type, a broadcast staying one) and the
+    them: ``operand_plan("slot", ...)``, the inputs as they are (each read
+    in place with its own strides, a broadcast staying one) and the
     thresholds in the plan's compare dtypes."""
     if len(arrays_2d) > _MAX_SLOT_INPUTS:
         raise NotImplementedError(
@@ -723,9 +695,8 @@ def _slot_operands(name, arrays_2d, thresholds):
             f"got {len(arrays_2d)}"
         )
     op = operand_plan("slot", [a.dtype for a in arrays_2d])
-    arrays = [_widen(a, t) for a, t in zip(arrays_2d, op.loads)]
     thr = [t.to(c).contiguous() for t, c in zip(thresholds, op.compare)]
-    return op, arrays, thr
+    return op, list(arrays_2d), thr
 
 
 def _codes_arg(op):
@@ -799,13 +770,12 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     accumulator class, as the op ``xhistogram::factored`` returns them).
 
     A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
-    failure raises. Narrow inputs (bool, 8- and 16-bit integers, float16,
-    bfloat16; thresholds in their compare dtype) are read in place at their
-    own width: beside float32 or narrow inputs by the narrow entry
-    (``csrc/slot_narrow.cu``, each compared in float32), beside other wide
-    ones by the mixed entry (``csrc/slot_mixed.cu``), as is int64 beside a
-    float, each input compared in its own type; wide inputs of several
-    dtypes widen to the narrowest compare type that holds each exactly
+    failure raises. Every input is read in place at its own width: inputs
+    of one wide dtype by its entry; float32 and narrow inputs (bool, 8- and
+    16-bit integers, float16, bfloat16; thresholds in their compare dtype)
+    in any mix by the narrow entry (``csrc/slot_narrow.cu``, each compared
+    in float32); every other mix by the mixed entry
+    (``csrc/slot_mixed.cu``: int64 compared in int64, the rest in float64)
     (``operand_plan``). A CPU tensor runs ``factored_reference``.
     """
     if variant not in _FACTORED_VARIANTS:
@@ -863,13 +833,13 @@ def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
     Arguments as for ``factored``. Returns ``(m, prod(nbins) + 1)`` int64
     counts (or weighted sums) with a zero trailing trash slot. A CUDA
     tensor launches a CUDA kernel, and any failure raises: rows of at most
-    255 elements over at most 8192 slots, of inputs with one compare type
-    (float32 and narrow inputs, read in place, have float32), run
-    ``csrc/direct.cuh`` (a warp per row; float sums are rounded to float32
-    as each row is stored, unless ``finish=False``); the rest the flat-slot
-    template's direct entries (``csrc/direct.cu``, and ``slot_mixed.cu``
-    for mixes with no common compare type). A CPU tensor runs
-    ``direct_reference``.
+    255 elements over at most 8192 slots run ``csrc/direct.cuh`` (a warp
+    per row; float sums are rounded to float32 as each row is stored,
+    unless ``finish=False``), with the entries of ``operand_plan("slot",
+    ...)`` (``direct_rows_narrow.cu``, ``direct_rows_mixed.cu`` for inputs
+    of several types, each read in place); the rest the flat-slot
+    template's direct entries (``csrc/direct.cu``, ``slot_narrow.cu``,
+    ``slot_mixed.cu``). A CPU tensor runs ``direct_reference``.
     """
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
@@ -913,8 +883,7 @@ def _direct_op(arrays, thresholds, weights, nbins, finish=False):
         out = _slot_sums_reference(arrays, thresholds, nbins, False, weights)
         return out.to(torch.float32) if rounds else out
     if (arrays[0].shape[1] <= _DIRECT_ROWS_MAX_COLS
-            and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS
-            and operand_plan("slot", [a.dtype for a in arrays]).entry != "mixed"):
+            and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS):
         out, launched = _direct_rows_cuda(arrays, thresholds, nbins, weights, rounds)
     else:
         out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
