@@ -8,7 +8,7 @@ the CUDA toolkit:
 It builds the port's CUDA kernels (``csrc/joint2.cu`` with
 ``csrc/joint2_mixed.cu``, ``csrc/joint2_narrow.cu``, ``csrc/joint2_pairs.cu``
 and ``csrc/joint2_pairs_swapped.cu``, ``csrc/one_input.cu``
-with ``csrc/one_input_narrow.cu``, ``csrc/factored.cu``, the direct route's
+with ``csrc/one_input_narrow.cu`` and ``csrc/one_input_unsigned.cu``, ``csrc/factored.cu``, the direct route's
 kernel ``csrc/direct.cuh`` with its entries ``csrc/direct_rows*.cu`` and,
 outside its envelope, ``csrc/direct.cu``, the weighted flat-slot entries
 ``csrc/slot_w*.cu``, the mixed ones ``csrc/slot_mixed.cu`` and the narrow
@@ -65,6 +65,18 @@ just after:
   float32 (factored full), and 40x40 direct at (64800, 64) with int16
   members beside int64 and int32 beside float32 (the direct-row kernel's
   mixed entry);
+- views and unsigned data read in place (``view_paths``), each call with
+  the view its kernel read (``last_launch()["view"] == "in place"``), its
+  peak memory (the output and 1 MB: no copy of the inputs or of a
+  broadcast weight) and its kernel on the view timed in turns with what
+  earlier releases ran (the copy, then the kernel on it) and with the
+  kernel alone on those copies: the README call's (time, depth, cell) view
+  with ``axis=(0, 2)`` as float32 and as CF-packed int16, unweighted and by
+  the (50, 64800) cell volume broadcast over time (factored per row); the
+  same data with ``axis=1`` on one_input ((4, 50, 64800)) and direct ((2,
+  50, 64800), 40x40 bins); the T–S diagram over 2^28 pairs halo-trimmed
+  (``[:, 1:-1]``, joint2's runs); config 1's array as uint32 and as uint64
+  (one_input's own entries);
 - weighted (``weights=``): BASELINE config 2 with U(0,1) float32 weights and
   ``density`` (one_input); the T–S diagram over 2^28 pairs with float32
   weights and with int32 weights of one, two and four base-256 digits
@@ -1914,6 +1926,211 @@ def mixed_pair_paths(dev, card, reset_counts, counts_now, max_abs_err):
     return launches, records
 
 
+# the views and unsigned data read in place
+README_AXIS1_ONE = (4, 50, 64800)  # axis=1 on one_input: 259,200 kept rows, plan()'s cap
+README_AXIS1_DIRECT = (2, 50, 64800)  # axis=1 on direct: 129,600 kept rows
+N_HALO = (1024, (1 << 18) + 2)  # 2^28 T-S pairs once trimmed to [:, 1:-1]
+
+
+def view_paths(dev, card, reset_counts, counts_now, max_abs_err):
+    """Views and uint32/uint64 data read in place, through the public
+    ``histogram``: the README call ((73, 50, 64800), ``axis=(0, 2)``) as
+    float32 and as CF-packed int16, unweighted and by a (50, 64800) cell
+    volume broadcast over time (factored per row); the same data with
+    ``axis=1`` on one_input ((4, 50, 64800), 50 bins) and direct ((2, 50,
+    64800), 40x40 bins); the T-S diagram over 2^28 pairs halo-trimmed
+    ([:, 1:-1] of (1024, 2^18 + 2); joint2's runs); and config 1's (1000,
+    100000) array as uint32 and as uint64 (one_input's own entries). Each
+    call: its launch (once, and nothing else), the view it read
+    (``last_launch()["view"] == "in place"``), the peak memory it allocated
+    beside its inputs (the output and the trimmed result, and at most 1 MB
+    more: no copy of the inputs or of the broadcast weights), its kernel on
+    the views against the plain version on ``canonicalize_2d``'s copies, and
+    its kernel timed in turns with what earlier releases ran (the copy, then
+    the kernel on it: ``canonicalize_2d``, ``.contiguous()``, uint32
+    widened to int64, uint64 flipped onto int64) and the kernel alone on
+    those copies, beside its bound. Returns ({family: launches}, {label:
+    record})."""
+    from ts_cases import S_EDGES, T_EDGES
+    import xhistogram_torch
+    from xhistogram_torch.bins import compare_form, flip_uint64
+    from xhistogram_torch.core import _compare_dtype
+    from xhistogram_torch.ops import cuda_hist
+    from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis, strided_layout
+    from xhistogram_torch.utils.profiling import measure
+
+    def thr_of(edges, x):
+        t = compare_form(np.asarray(edges), _compare_dtype(x)).edges
+        return torch.from_numpy(flip_uint64(t) if t.dtype == np.uint64 else t).to(dev)
+
+    def call(kernel, layouts, thr, nbins, w, plain=False):
+        if kernel == "joint2":
+            fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
+            return fn(*layouts, *thr, *nbins, weights=w)
+        if kernel in ("one_input", "one_input_full"):
+            fn = cuda_hist.one_input_reference if plain else cuda_hist.one_input
+            return fn(layouts[0], thr[0], nbins[0], kernel == "one_input_full", weights=w)
+        if kernel == "direct":
+            fn = cuda_hist.direct_reference if plain else cuda_hist.direct
+            return fn(layouts, thr, nbins, weights=w)
+        fn = cuda_hist.factored_reference if plain else cuda_hist.factored
+        return fn(layouts, thr, nbins, kernel, weights=w)
+
+    launches = {"joint2": 0, "one_input": 0, "factored": 0, "direct": 0}
+    records = {}
+
+    def path(label, args, bins, axis, key, kernel, weights=None, earlier=None):
+        shape = torch.broadcast_shapes(*(a.shape for a in args))
+        axis_t = normalize_axis(axis, len(shape))
+        operands = [a.expand(shape) for a in args]
+        if weights is not None:
+            operands.append(weights.expand(shape))
+        layout = strided_layout(operands, axis_t)  # what the public call hands on
+        if layout.copied:
+            raise AssertionError(f"{label}: the layout copies")
+        views = layout.views[:len(args)]
+        w_view = layout.views[-1] if weights is not None else None
+        thr = [thr_of(e, a) for e, a in zip(bins, args)]
+        nbins = [len(e) - 1 for e in bins]
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=weights)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base_mem
+        launched = counts_now()
+        if launched[key] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"{label}: launches {launched}")
+        rec = cuda_hist.last_launch()
+        if rec["view"] != "in place" or rec["loads"] != tuple(a.dtype for a in args):
+            raise AssertionError(f"{label}: the kernel read {rec['loads']}, "
+                                 f"{rec['view']}")
+        # the kernel's output, the sums finished and the trimmed result
+        out_bytes = 3 * 8 * (h.numel() + h.numel() // math.prod(nbins) + 1)
+        if extra > out_bytes + (1 << 20):
+            raise AssertionError(f"{label}: {extra} bytes allocated beside the inputs, "
+                                 f"more than the output's {out_bytes} and 1 MB")
+        # earlier releases: canonicalize_2d's copies (and uint32 widened,
+        # uint64 flipped), then the kernel
+        if earlier is None:
+            def earlier(ls):
+                return [canonicalize_2d(v, axis_t) for v in ls]
+        copies = earlier(operands)  # each searched against the same thresholds
+        w_copy = copies[-1] if weights is not None else None
+        copies = copies[:len(args)]
+        got = call(kernel, views, thr, nbins, w_view)
+        want = call(kernel, copies, thr, nbins, w_copy, plain=True)
+        family = key.split()[0]
+        if w_view is None or not got.is_floating_point():
+            ok = torch.equal(got, want)
+            err = int((got.long() - want.long()).abs().max())
+            max_abs_err[family] = max(max_abs_err[family], err)
+        else:
+            diff = (got.double() - want.double()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= 2.4e-7 * want.double().abs() + 1e-6).all())
+        if not ok:
+            raise AssertionError(f"{label}: kernel on the views != plain on copies "
+                                 f"(max abs err {err})")
+        if not torch.equal(h.reshape(got.shape[0], -1), got[:, :-1]):
+            raise AssertionError(f"{label}: public call != its kernel")
+        del got, want
+        def copy_and_kernel():
+            c = earlier(operands)
+            return call(kernel, c[:len(args)], thr, nbins, c[-1] if weights is not None
+                        else None)
+        fns = {
+            "kernel": lambda: call(kernel, views, thr, nbins, w_view),
+            "earlier": copy_and_kernel,
+            "kernel_on_copies": lambda: call(kernel, copies, thr, nbins, w_copy),
+        }
+        for fn in fns.values():
+            fn()
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(event_ms(fns[name], 5))
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        n_bytes = sum(a.numel() * a.element_size() for a in args) + \
+            (0 if weights is None else weights.numel() * weights.element_size()) + \
+            8 * h.numel()
+        bound_ms, bound_by = bound(n_bytes, 0)
+        med, pub = measure(lambda: xhistogram_torch.histogram(*args, bins=bins, axis=axis,
+                                                              weights=weights), reps=3)
+        launches[family] += 1
+        records[label] = {
+            "kernel": kernel, "loads": [str(a.dtype).replace("torch.", "") for a in args],
+            "view": [list(v.shape) + list(v.stride()) for v in layout.views],
+            "ms": ms["kernel"], "copy_and_kernel_ms": ms["earlier"],
+            "kernel_on_copies_ms": ms["kernel_on_copies"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "public_ms": med * 1e3, "peak_extra_bytes": int(extra),
+            "copy_bytes": int(sum(c.numel() * c.element_size() for c in earlier(operands))),
+        }
+        r = records[label]
+        print(f"# view path {label}: {key} launched once on the view "
+              f"{tuple(layout.shape)} (strides {[v.stride() for v in layout.views]}), "
+              f"read as {r['loads']}, {extra} bytes allocated beside the inputs (the "
+              f"output {out_bytes}; earlier releases' copies {r['copy_bytes']}), == plain "
+              f"on the copies; kernel {r['ms']:.4f} ms, copy and kernel (earlier "
+              f"releases) {r['copy_and_kernel_ms']:.4f} ms, kernel on the copies "
+              f"{r['kernel_on_copies_ms']:.4f} ms, bound {bound_ms:.4f} ms; public call "
+              f"median {med * 1e3:.3f} ms of {[round(x * 1e3, 3) for x in pub]} [{card}]")
+        del copies, w_copy
+        torch.cuda.empty_cache()
+        return h
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)
+    volume = 1e9 * (0.5 + torch.rand(README_TS[1:], device=dev, generator=gen))
+    path("README (73, 50, 64800) float32, axis=(0, 2)", [T, S], [T_EDGES, S_EDGES],
+         (0, 2), "factored per_row", "per_row")
+    path("README (73, 50, 64800) float32, axis=(0, 2), by a (50, 64800) volume",
+         [T, S], [T_EDGES, S_EDGES], (0, 2), "factored per_row", "per_row",
+         weights=volume)
+    Ti, Si = (torch.round(100 * T).to(torch.int16),
+              torch.round(1000 * (S - 35)).to(torch.int16))
+    ie = [np.round(100 * T_EDGES.astype(np.float64)),
+          np.round(1000 * (S_EDGES.astype(np.float64) - 35))]
+    path("README (73, 50, 64800) packed int16, axis=(0, 2)", [Ti, Si], ie, (0, 2),
+         "factored per_row", "per_row")
+    path("README (73, 50, 64800) packed int16, axis=(0, 2), by a (50, 64800) volume",
+         [Ti, Si], ie, (0, 2), "factored per_row", "per_row", weights=volume)
+    del Ti, Si, volume
+    n1 = README_AXIS1_ONE[0]
+    path(f"README layout ({n1}, 50, 64800) T, axis=1, 50 bins", [T[:n1]],
+         [linspace_edges(50) * 8 + 14], (1,), "one_input", "one_input")
+    n2 = README_AXIS1_DIRECT[0]
+    path(f"README layout ({n2}, 50, 64800) T-S, axis=1, 40x40 bins", [T[:n2], S[:n2]],
+         [np.linspace(-10, 38, 41), np.linspace(31, 39, 41)], (1,), "direct", "direct")
+    del T, S
+    torch.cuda.empty_cache()
+    T = 14.0 + 8.0 * torch.randn(N_HALO, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(N_HALO, device=dev, generator=gen)
+
+    def contiguous(ls):
+        return [v.contiguous() for v in ls]
+    path("T-S 2^28 pairs halo-trimmed ([:, 1:-1] of (1024, 2^18 + 2)), 280x340 bins",
+         [T[:, 1:-1], S[:, 1:-1]], [T_EDGES, S_EDGES], None, "joint2", "joint2",
+         earlier=contiguous)
+    del T, S
+    torch.cuda.empty_cache()
+    x = torch.randn(CONFIG1, device=dev, generator=gen)
+    u32 = (2.0**31 + 2.0**28 * x).round().to(torch.int64).to(torch.uint32)
+    path("config 1 (1000, 100000) uint32, 50 bins over 2^31 +- 2^30, full", [u32],
+         [np.linspace(2.0**31 - 2.0**30, 2.0**31 + 2.0**30, 51)], None, "one_input",
+         "one_input_full", earlier=lambda ls: [v.reshape(1, -1).to(torch.int64)
+                                                for v in ls])
+    del u32
+    u64 = ((x.double() * 2.0**61).round().to(torch.int64) ^ -(1 << 63)).view(torch.uint64)
+    path("config 1 (1000, 100000) uint64, 50 bins over 2^63 +- 2^62, full", [u64],
+         [np.linspace(2.0**63 - 2.0**62, 2.0**63 + 2.0**62, 51)], None, "one_input",
+         "one_input_full", earlier=lambda ls: [flip_uint64(v.reshape(1, -1)) for v in ls])
+    del u64, x
+    torch.cuda.empty_cache()
+    return launches, records
+
+
 def weighted_turns(plain, weighted, unweighted, reps=10):
     """(weighted kernel ms, plain ms, unweighted kernel ms), timed plain,
     weighted, unweighted, unweighted, weighted, plain after a warm-up of
@@ -3328,6 +3545,10 @@ def main():
                                                 max_abs_err)
     print(f"# mixed pair phase: {pair_cases} kernel cases == plain on widened copies, "
           f"{len(pair_rows)} public paths, {time.perf_counter() - t_pairs:.1f} s")
+    t_views = time.perf_counter()
+    view_launches, view_rows = view_paths(dev, card, reset_counts, counts_now, max_abs_err)
+    print(f"# views and unsigned read in place: {len(view_rows)} public paths, "
+          f"{time.perf_counter() - t_views:.1f} s")
     weighted = weighted_phase(dev, card, thresholds, reset_counts, counts_now)
     api_launches, api = api_phase(dev, card, reset_counts, counts_now)
     sharded_launches, sharded = sharded_phase(dev, card, reset_counts, counts_now)
@@ -3387,6 +3608,14 @@ def main():
             entry["loads"] = sorted(set(entry["loads"]) |
                                     {d for rec in rows.values() for d in rec["loads"]})
     kernels[0]["mixed_pair_kernel_cases"] = pair_cases
+    family = {"joint2": "joint2", "per_row": "factored", "one_input": "one_input",
+              "one_input_full": "one_input", "direct": "direct"}
+    for entry in kernels:  # the view and unsigned paths: launches, times in turns
+        rows = {label: rec for label, rec in view_rows.items()
+                if family[rec["kernel"]] == entry["name"]}
+        entry["launches"] += view_launches[entry["name"]]
+        if rows:
+            entry["view_rows"] = rows
     for entry in kernels:  # the weighted, mixed and API paths' launches join the counts
         entry.update(weighted[entry["name"]])
         entry["api_launches"] = api_launches[entry["name"]]

@@ -155,12 +155,15 @@ def test_wrapper_contract_on_cpu():
     assert cuda_hist.DIRECT_LAUNCHES == before  # the CPU path launches nothing
     with pytest.raises(ValueError, match="2-D layouts of one shape"):
         cuda_hist.direct([a.reshape(-1), b.reshape(-1)], thr, [50, 30])
-    # bfloat16 data compares against float32 thresholds; uint32 is refused
+    # bfloat16 data compares against float32 thresholds, uint32 against
+    # int64 ones; a dtype no kernel reads is refused
     with pytest.raises(TypeError, match="data must be in its compare dtype torch.float32"):
         cuda_hist.direct([a.bfloat16(), b], [thr[0].bfloat16(), thr[1]], [50, 30])
-    with pytest.raises(TypeError, match="data, got torch.uint32"):
+    with pytest.raises(TypeError, match="data must be in its compare dtype torch.int64"):
         cuda_hist.direct([a.to(torch.uint32), b], [thr[0].to(torch.uint32), thr[1]],
                          [50, 30])
+    with pytest.raises(TypeError, match="data, got torch.complex64"):
+        cuda_hist.direct([a.to(torch.complex64), b], thr, [50, 30])
     with pytest.raises(ValueError, match="needs 51 thresholds"):
         cuda_hist.direct([a, b], [thr[0][:-1], thr[1]], [50, 30])
 

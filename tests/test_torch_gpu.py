@@ -203,6 +203,13 @@ def _edges(nb):
     return np.linspace(-3.0, 3.0, nb + 1)
 
 
+def _searched(thr):
+    """Compare-form thresholds as the kernels search them: uint64 ones
+    flipped onto int64 (``bins.flip_uint64``), as the data are in
+    registers."""
+    return tbins.flip_uint64(thr) if thr.dtype == np.uint64 else thr
+
+
 @pytest.mark.parametrize("which", [0, 1], ids=["first", "second"])
 @pytest.mark.parametrize("name", list(EDGE_SETS))
 def test_one_input_edge_cases(cuda, name, which):
@@ -321,7 +328,7 @@ def _slot_pair(layouts, edges, route):
     for x, e in zip(layouts, edges):
         ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
         assert ce.n_hi_clip == 0
-        thr.append(torch.from_numpy(ce.edges).to(x.device))
+        thr.append(torch.from_numpy(_searched(ce.edges)).to(x.device))
         nbins.append(len(e) - 1)
     before = _launches()
     if route == "direct":
@@ -594,7 +601,7 @@ def _run(kernel, layouts, edges, weights, plain):
     for x, e in zip(layouts, edges):
         ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
         assert ce.n_hi_clip == 0
-        thr.append(torch.from_numpy(ce.edges).to(x.device))
+        thr.append(torch.from_numpy(_searched(ce.edges)).to(x.device))
     nbins = [len(e) - 1 for e in edges]
     if kernel == "joint2":
         fn = cuda_hist.joint2_reference if plain else cuda_hist.joint2
@@ -1455,7 +1462,7 @@ def _row_pair(layouts, edges, weights=None, finish=True, rows_kernel=True):
     for x, e in zip(layouts, edges):
         ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
         assert ce.n_hi_clip == 0
-        thr.append(torch.from_numpy(ce.edges).to(x.device))
+        thr.append(torch.from_numpy(_searched(ce.edges)).to(x.device))
     nbins = [len(e) - 1 for e in edges]
     before = cuda_hist.DIRECT_LAUNCHES
     got = cuda_hist.direct(layouts, thr, nbins, weights=weights, finish=finish)
@@ -1716,4 +1723,195 @@ def test_mixed_public_calls_allocate_no_widened_copy(cuda, da, db):
         assert extra < out_bytes + 2 * x.numel(), (counter, extra)
         h_cpu, _ = xhistogram_torch.histogram(*(a.cpu() for a in args), bins=[ex, ey],
                                               axis=axis)
+        assert torch.equal(h.cpu(), h_cpu)
+
+
+# --- strided views read in place; uint32 and uint64 at their own width -------
+
+def _view_operands(kind, device, dtype=torch.float32, wdtype=None, seed=0):
+    """``(views, weights view or None, edges, reduce_all)``: two inputs of
+    ``dtype`` (and weights of ``wdtype``) of one view kind, as
+    ``utils.axes.strided_layout`` hands them to the kernels."""
+    from xhistogram_torch.utils.axes import strided_layout
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape, axis, weights_shape = {
+        "readme-axis02": ((6, 5, 3000), (0, 2), (5, 3000)),  # time, depth, cell
+        "readme-axis1": ((6, 5, 3000), (1,), (6, 1, 3000)),
+        "halo-trimmed": ((64, 1030), None, (64, 1030)),
+        "broadcast-over-time": ((6, 5, 3000), None, (5, 3000)),
+        "transposed": ((300, 40), (0,), (300, 40)),
+        "mixed-strides": ((20, 30, 40), (0, 2), (30, 1)),
+        "direct-two-column-levels": ((5, 300, 40), (0, 2), (300, 1)),
+        "direct-two-row-levels": ((40, 7, 50), (1,), (40, 7, 50)),
+    }[kind]
+    x = (1.5 * torch.randn((2, *shape), device=device, generator=gen))
+    x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    a, b = x.to(dtype).unbind(0) if dtype.is_floating_point else (
+        (1000 * x).nan_to_num(0.0, 0.0, 0.0).to(dtype).unbind(0))
+    if kind == "halo-trimmed":
+        a, b = a[:, 1:-1], b[:, 1:-1]
+        weights_shape = a.shape
+    if kind == "transposed":
+        a, b = a.t().contiguous().t(), b.t()
+    if kind == "mixed-strides":
+        b = b.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    operands = [a, b]
+    if wdtype is not None:
+        operands.append(_weights(weights_shape, wdtype, device, seed + 1).expand(a.shape))
+    layout = strided_layout(operands, axis)
+    assert not layout.copied, kind
+    for v, o in zip(layout.views, operands):
+        assert v.data_ptr() == o.data_ptr()
+    edges = _edges(40) if dtype.is_floating_point else np.linspace(-3000.5, 3000.5, 41)
+    weights = layout.views[2] if wdtype is not None else None
+    return layout.views[:2], weights, edges, axis is None
+
+
+VIEW_KINDS = ["readme-axis02", "readme-axis1", "halo-trimmed", "broadcast-over-time",
+              "transposed", "mixed-strides", "direct-two-column-levels",
+              "direct-two-row-levels"]
+
+
+def _view_kernels(kind, reduce_all):
+    if reduce_all:
+        return ["joint2", "one_input_full", "full"]
+    kernels = ["one_input_kept", "per_row", "packed", "direct"]
+    return kernels
+
+
+@pytest.mark.parametrize("wdtype", [None, torch.int32, torch.float32], ids=str)
+@pytest.mark.parametrize("kind", VIEW_KINDS)
+def test_kernels_read_views_in_place(cuda, kind, wdtype):
+    # each kernel on each view kind, bit-equal (float sums within a float32
+    # rounding) to its plain version on contiguous copies, with no copy
+    views, weights, edges, reduce_all = _view_operands(kind, cuda, wdtype=wdtype)
+    for kernel in _view_kernels(kind, reduce_all):
+        layouts = views[:1] if kernel.startswith("one_input") else views
+        edge_list = [edges] * len(layouts)
+        got = _run(kernel, layouts, edge_list, weights, plain=False)
+        torch.cuda.synchronize()
+        rec = cuda_hist.last_launch()
+        assert rec["view"] == "in place", (kind, kernel, rec)
+        if kernel == "direct" and kind.startswith("direct"):
+            assert rec["kernel"] == "direct_rows", (kind, rec)
+        copies = [v.contiguous() for v in layouts]
+        want = _run(kernel, copies, edge_list,
+                    None if weights is None else weights.contiguous(), plain=True)
+        _assert_sums_equal(got, want)
+
+
+def test_a_side_of_three_levels_is_copied_and_reported(cuda):
+    x = torch.randn(6, 8, 10, device=cuda)[::2, ::2, ::2]
+    before = cuda_hist.LAYOUT_COPIES
+    h, _ = xhistogram_torch.histogram(x, bins=[_edges(40)])
+    assert cuda_hist.last_launch()["view"] == "copied"
+    assert cuda_hist.LAYOUT_COPIES == before + 1
+    h2, _ = xhistogram_torch.histogram(x.contiguous(), bins=[_edges(40)])
+    assert torch.equal(h, h2)
+    assert cuda_hist.last_launch()["view"] == "in place"
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["counts", "by-volume"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16], ids=str)
+def test_readme_call_allocates_no_copy_of_its_view(cuda, dtype, weighted):
+    # the README call, axis=(0, 2) on (time, depth, cell), runs factored per
+    # row on the caller's memory: its peak allocation beside the inputs is
+    # the output (and the trimmed result) and ~1 MB, not a copy of the data
+    # (2 x 104 MB here) or of the broadcast volume
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    t = 14 + 8 * torch.randn(8, 50, 64800, device=cuda, generator=gen)
+    s = 35 + 1.5 * torch.randn(8, 50, 64800, device=cuda, generator=gen)
+    te, se = T_EDGES, S_EDGES
+    if dtype == torch.int16:  # CF-packed: T in centidegrees, S - 35 in milli-units
+        t, s = (100 * t).round().to(dtype), (1000 * (s - 35)).round().to(dtype)
+        te, se = np.round(100 * T_EDGES), np.round(1000 * (S_EDGES - 35))
+    volume = (0.5 + torch.rand(50, 64800, device=cuda, generator=gen)) if weighted else None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_hist.FACTORED_LAUNCHES)
+    h, _ = xhistogram_torch.histogram(t, s, bins=[te, se], axis=(0, 2), weights=volume)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert cuda_hist.FACTORED_LAUNCHES["per_row"] == before["per_row"] + 1
+    assert cuda_hist.last_launch()["view"] == "in place"
+    out_bytes = 8 * 50 * (len(te) - 1) * (len(se) - 1)
+    assert extra < 2 * out_bytes + (1 << 20), extra
+    # the same call on copies in canonicalize_2d's layout
+    from xhistogram_torch.utils.axes import canonicalize_2d
+
+    layouts = [canonicalize_2d(x, (0, 2)) for x in (t, s)]
+    w2d = None if volume is None else canonicalize_2d(volume.expand(t.shape), (0, 2))
+    thr = [torch.from_numpy(tbins.compare_form(e, _compare_dtype(x)).edges).to(cuda)
+           for e, x in zip((te, se), (t, s))]
+    want = cuda_hist.factored(layouts, thr, [len(te) - 1, len(se) - 1], "per_row",
+                              weights=w2d)
+    want = want[:, :-1].reshape(h.shape)
+    _assert_sums_equal(h, want)
+
+
+U32_EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1],
+                     np.uint64)
+# the kernels take no edge at the top value (its closed bin needs the plain
+# path's n_hi_clip): 2^64 - 1 lies above the last edge
+U64_EDGES = np.array([0, 1, 2**31, 2**32 - 1, 2**63 - 1, 2**63, 2**63 + 1,
+                      2**64 - 3, 2**64 - 2], np.uint64)
+
+
+def _unsigned_data(dtype, shape, device, seed):
+    """Random values of ``dtype`` with every boundary of its edges, and the
+    edges (both sides of 0, 2^31, 2^32 - 1, 2^63 and 2^64 - 1)."""
+    edges = U32_EDGES if dtype == torch.uint32 else U64_EDGES
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    np_dtype = np.uint32 if dtype == torch.uint32 else np.uint64
+    top = np.iinfo(np_dtype).max
+    x = rng.integers(0, top, n, dtype=np_dtype, endpoint=True)
+    special = np.concatenate([edges, np.clip(edges.astype(object) - 1, 0, None).astype(np.uint64),
+                              np.minimum(edges.astype(object) + 1, top).astype(np.uint64)])
+    special = special[special <= top].astype(np_dtype)
+    x[:special.size] = special
+    rng.shuffle(x)
+    return torch.from_numpy(x.reshape(shape)).to(device), edges.astype(np_dtype)
+
+
+@pytest.mark.parametrize("wdtype", [None, torch.int32, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
+def test_unsigned_through_every_kernel(cuda, dtype, wdtype):
+    # uint32 and uint64 read at their own width by one_input's entries and
+    # the mixed entries of joint2, factored and direct, bit-equal to the
+    # plain version (which widens or flips a copy)
+    x, ex = _unsigned_data(dtype, (64, 2048), cuda, seed=3)
+    y, ey = _row_data(torch.float32, (64, 2048), cuda, seed=4)
+    w = None if wdtype is None else _weights((64, 2048), wdtype, cuda, seed=5)
+    for kernel, layouts, edges in (
+            ("one_input_full", [x], [ex]), ("one_input_kept", [x], [ex]),
+            ("joint2", [x, y], [ex, ey]), ("joint2", [x, x.flip(0)], [ex, ex]),
+            ("full", [x, y], [ex, ey]), ("per_row", [y, x], [ey, ex]),
+            ("packed", [x, y], [ex, ey])):
+        got = _run(kernel, layouts, edges, w, plain=False)
+        torch.cuda.synchronize()
+        assert cuda_hist.last_launch()["loads"][:len(layouts)] == tuple(
+            a.dtype for a in layouts)
+        _assert_sums_equal(got, _run(kernel, layouts, edges, w, plain=True))
+    rows = [x.reshape(-1, 64), y.reshape(-1, 64)]
+    got, want = _row_pair(rows, [ex, ey],
+                          None if w is None else w.reshape(-1, 64))
+    _assert_sums_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
+def test_unsigned_public_calls_allocate_no_widened_copy(cuda, dtype):
+    x, ex = _unsigned_data(dtype, (64, 1 << 16), cuda, seed=9)
+    for axis in (None, (1,)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        h, _ = xhistogram_torch.histogram(x, bins=[ex], axis=axis)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert cuda_hist.last_launch()["loads"] == (dtype,)
+        assert extra < 8 * h.numel() * 2 + (1 << 20), (axis, extra)
+        h_cpu, _ = xhistogram_torch.histogram(x.cpu(), bins=[ex], axis=axis)
         assert torch.equal(h.cpu(), h_cpu)

@@ -127,7 +127,7 @@ def test_every_declared_kernel_symbol_is_defined():
                 defined += [paste(t, params, args) for t in names]
     declared = [name for name, _ in _build.symbols()]
     # each unweighted and in 3 classes (joint2 32 suffixes and its mixed
-    # entry, one_input 10, four routes of 4 types, mixed and narrow); the
+    # entry, one_input 12, four routes of 4 types, mixed and narrow); the
     # direct-row kernel in 5, for its 4 types, narrow and mixed
-    assert len(declared) == 4 * (32 + 1 + 10 + 4 * 4 + 4 + 4) + 5 * 6
+    assert len(declared) == 4 * (32 + 1 + 12 + 4 * 4 + 4 + 4) + 5 * 6
     assert sorted(defined) == sorted(declared)

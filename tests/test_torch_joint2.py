@@ -102,11 +102,14 @@ def test_wrapper_contract_on_cpu():
     assert cuda_hist.JOINT2_LAUNCHES == before  # the CPU path launches nothing
     with pytest.raises(TypeError, match="thresholds must be in the data's dtype"):
         cuda_hist.joint2(t.double(), s.double(), ta, tb, 280, 340)
-    # bfloat16 data compares against float32 thresholds; uint32 is refused
+    # bfloat16 data compares against float32 thresholds, uint32 against
+    # int64 ones; a dtype no kernel reads is refused
     with pytest.raises(TypeError, match="data must be in its compare dtype torch.float32"):
         cuda_hist.joint2(t.bfloat16(), s, ta.bfloat16(), tb, 280, 340)
-    with pytest.raises(TypeError, match="data, got torch.uint32"):
+    with pytest.raises(TypeError, match="data must be in its compare dtype torch.int64"):
         cuda_hist.joint2(t.to(torch.uint32), s, ta.to(torch.uint32), tb, 280, 340)
+    with pytest.raises(TypeError, match="data, got torch.complex64"):
+        cuda_hist.joint2(t.to(torch.complex64), s, ta, tb, 280, 340)
     with pytest.raises(ValueError, match="equally many"):
         cuda_hist.joint2(t, s[:2], ta, tb, 280, 340)
     with pytest.raises(ValueError, match="thresholds"):

@@ -179,11 +179,14 @@ def test_wrapper_contract_on_cpu():
         assert torch.equal(got, want)
         assert got.shape == (1 if reduce_all else 40, 51)
     assert cuda_hist.ONE_INPUT_LAUNCHES == before  # the CPU path launches nothing
-    # bfloat16 data compares against float32 thresholds; uint32 is refused
+    # bfloat16 data compares against float32 thresholds, uint32 against
+    # int64 ones; a dtype no kernel reads is refused
     with pytest.raises(TypeError, match="data must be in its compare dtype torch.float32"):
         cuda_hist.one_input(x.bfloat16(), thr.bfloat16(), 50, False)
-    with pytest.raises(TypeError, match="data, got torch.uint32"):
+    with pytest.raises(TypeError, match="data must be in its compare dtype torch.int64"):
         cuda_hist.one_input(x.to(torch.uint32), thr.to(torch.uint32), 50, False)
+    with pytest.raises(TypeError, match="data, got torch.complex64"):
+        cuda_hist.one_input(x.to(torch.complex64), thr, 50, False)
     with pytest.raises(TypeError, match="thresholds must be in the data's dtype"):
         cuda_hist.one_input(x.double(), thr, 50, False)
     with pytest.raises(ValueError, match="needs 51 thresholds"):

@@ -18,10 +18,11 @@ import torch
 
 import xhistogram_torch
 from torch_dist import run_ranks
-from torch_ops_cases import EDGES, call, cases
+from torch_ops_cases import EDGES, call, cases, view_cases
 
 OPS = torch.ops.xhistogram
 DTENSOR_CASES = cases()
+VIEW_CASES = view_cases()
 
 
 def _operands(weights):
@@ -207,6 +208,27 @@ def test_dtensor_op_runs_per_rank_without_gathering(ranks, name):
         got = rank[name]
         assert got["in_op"] == {}
         assert got["placements"] == ["S(0)" if keeps_rows else "P(sum)", "P(sum)"]
+        assert got["full"].dtype == want.dtype
+        assert torch.equal(got["full"], want) if not want.is_floating_point() else \
+            torch.allclose(got["full"], want, rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("name", list(VIEW_CASES))
+def test_dtensor_views_run_per_rank_without_gathering(ranks, name):
+    """(m1, m0, c1, c0) views sharded on both kept dims stay sharded on the
+    same dims of the output's kept rows, sharded on both reduced dims (or
+    reduced whole) they are Partial sums; no collective runs inside the op,
+    and the result equals the op on the full views."""
+    op, data, weights, rest, dims = VIEW_CASES[name]
+    thr = torch.from_numpy(EDGES.astype("f4"))
+    want = call(op, [torch.from_numpy(x) for x in data], [thr] * len(data),
+                None if weights is None else torch.from_numpy(weights), rest)
+    reduce_all = rest[-1] is True or rest[-1] == "full"
+    kept = dims == (0, 1) and not reduce_all
+    for rank in ranks:
+        got = rank[name]
+        assert got["in_op"] == {}
+        assert got["placements"] == (["S(0)", "S(1)"] if kept else ["P(sum)", "P(sum)"])
         assert got["full"].dtype == want.dtype
         assert torch.equal(got["full"], want) if not want.is_floating_point() else \
             torch.allclose(got["full"], want, rtol=1e-15, atol=0)

@@ -5,7 +5,7 @@ on a (2, 2) mesh of four CPU ranks, with the data sharded over ("r", "c")
 (the layout of ``tests/test_custom_partitioning.py``), records the
 collectives that ran inside the op (``CommDebugMode``), the output's
 placements, and the full result, which the test holds against the op on
-the full tensors. ``run`` is a rank's side (``tests/torch_dist.py``).
+the full tensors; ``view_cases`` do the same for (m1, m0, c1, c0) views. ``run`` is a rank's side (``tests/torch_dist.py``).
 """
 
 import numpy as np
@@ -32,6 +32,23 @@ def cases():
         "factored-packed": ("factored", [a, b], None, ([7, 7], "packed")),
         "direct": ("direct", [a, b], None, ([7, 7],)),
         "direct-weighted": ("direct", [a, b], w, ([7, 7],)),
+    }
+
+
+def view_cases():
+    """name -> (op name, numpy data, weights or None, the op's other
+    arguments, the dims sharded over ("r", "c")): the ops on (m1, m0, c1,
+    c0) views, sharded on both kept dims or on both reduced ones."""
+    rng = np.random.RandomState(1)
+    a, b, w = (rng.rand(4, 4, 8, 12).astype("f4") for _ in range(3))
+    return {
+        "view-one_input-kept": ("one_input", [a], w, (7, False), (0, 1)),
+        "view-one_input-full": ("one_input", [a], None, (7, True), (2, 3)),
+        "view-factored-per_row": ("factored", [a, b], w, ([7, 7], "per_row"), (0, 1)),
+        "view-factored-columns": ("factored", [a, b], None, ([7, 7], "per_row"), (2, 3)),
+        "view-factored-full": ("factored", [a, b], w, ([7, 7], "full"), (0, 1)),
+        "view-direct": ("direct", [a, b], None, ([7, 7],), (0, 1)),
+        "view-direct-columns": ("direct", [a, b], w, ([7, 7],), (2, 3)),
     }
 
 
@@ -73,5 +90,18 @@ def run(rank, world):
             "in_op": {str(k): v for k, v in in_op.get_comm_counts().items()},
             "to_full": {str(k): v for k, v in to_full.get_comm_counts().items()},
             "full": full,
+        }
+    for name, (op, data, weights, rest, dims) in view_cases().items():
+        placements = [Shard(d) for d in dims]
+        data = [distribute_tensor(torch.from_numpy(x), mesh, placements) for x in data]
+        thresholds = [distribute_tensor(thr, mesh, replicated) for _ in data]
+        if weights is not None:
+            weights = distribute_tensor(torch.from_numpy(weights), mesh, placements)
+        with CommDebugMode() as in_op:
+            out = call(op, data, thresholds, weights, rest)
+        results[name] = {
+            "placements": [str(p) for p in out.placements],
+            "in_op": {str(k): v for k, v in in_op.get_comm_counts().items()},
+            "full": out.full_tensor(),
         }
     return results

@@ -52,10 +52,11 @@ import torch
 from . import bins as _bins
 from .ops.bincount import finish_sums, slot_sums
 from .ops.cuda_hist import (
-    direct, factored, joint2, one_input, plan, validate_public_precision,
+    direct, factored, joint2, note_layout_copy, one_input, plan,
+    validate_public_precision,
 )
 from .ops.digitize import digitize_edges, joint_bin_index
-from .utils.axes import canonicalize_2d, kept_shape, normalize_axis
+from .utils.axes import kept_shape, normalize_axis, strided_layout
 from .utils.profiling import scope
 
 __all__ = ["histogram"]
@@ -81,10 +82,12 @@ _COMPLEX_MSG = (
 #: it in registers, beside inputs of any other dtype
 #: (``ops.cuda_hist.operand_plan``); the plain path widens a copy
 #: (``ops.digitize.digitize_edges``). int32 thresholds never saturate at a
-#: narrow type's bounds, and every bfloat16 value is exact in float32
+#: narrow type's bounds, and every bfloat16 value is exact in float32;
+#: uint32 compares in int64, which holds each of its values
 _COMPARE_AS = {
     torch.bool: np.int32, torch.int8: np.int32, torch.uint8: np.int32,
     torch.int16: np.int32, torch.uint16: np.int32, torch.bfloat16: np.float32,
+    torch.uint32: np.int64,
 }
 
 
@@ -94,17 +97,15 @@ def _coerce_host(x):
 
     numpy and Python inputs become numpy arrays (datetime64 viewed as int64,
     since binning only needs order); ``_place`` copies them to the device.
-    uint32 goes to int64. Narrow inputs (bool, 8- and 16-bit integers,
-    float16, bfloat16) and uint64 keep their dtype: ``_compare_dtype``
-    names the thresholds' dtype, and uint64 is flipped onto int64 after
-    placement (``bins.flip_uint64``). Complex input raises, and so do
-    object, string and bytes arrays (``bins.non_numeric_message``).
+    Every dtype is kept, narrow inputs (bool, 8- and 16-bit integers,
+    float16, bfloat16), uint32 and uint64 included: the kernels read each
+    at its own width and ``_compare_dtype`` names its thresholds' dtype.
+    Complex input raises, and so do object, string and bytes arrays
+    (``bins.non_numeric_message``).
     """
     if isinstance(x, torch.Tensor):
         if x.is_complex():
             raise TypeError(_COMPLEX_MSG)
-        if x.dtype == torch.uint32:
-            return x.to(torch.int64)
         return x
     x = np.asarray(x)
     if x.dtype.kind == "c":
@@ -112,8 +113,6 @@ def _coerce_host(x):
     _bins.check_numeric(x, "data")
     if x.dtype.kind in "Mm":
         x = x.view("i8")
-    elif x.dtype == np.uint32:
-        x = x.astype(np.int64)
     if any(s < 0 for s in x.strides):
         x = x.copy()  # torch views no negative strides
     return x
@@ -121,8 +120,10 @@ def _coerce_host(x):
 
 def _compare_dtype(t):
     """The numpy dtype of a placed input's compare-form thresholds: its own,
-    int32 for bool and sub-32-bit integers, float32 for bfloat16 (uint64
-    thresholds are then flipped onto int64 with the data)."""
+    int32 for bool and sub-32-bit integers, float32 for bfloat16, int64 for
+    uint32; uint64's, computed in uint64, are then flipped onto int64
+    (``_device_thresholds``), as the kernels flip each value they read.
+    So both unsigned types search int64 thresholds."""
     if t.dtype in _COMPARE_AS:
         return np.dtype(_COMPARE_AS[t.dtype])
     return torch.empty(0, dtype=t.dtype).numpy().dtype
@@ -154,12 +155,19 @@ class _WeightedSums(torch.autograd.Function):
     so the gradient of element e's weight is the incoming gradient at e's
     slot: a gather, in plain PyTorch, as the JAX backward is plain jnp.
     Elements in the trash slot get the trash column's gradient, which is 0
-    once the caller drops that column; the data get no gradient."""
+    once the caller drops that column; the data get no gradient.
+
+    ``w2d`` and the data are the kernels' ``(m1, m0, c1, c0)`` views (or the
+    plain path's ``(m, c)`` layouts); the gradient comes back in ``w2d``'s
+    shape, and autograd carries it back through the view's permute and
+    expand, which sums a broadcast weight's gradient over the axes it was
+    broadcast along."""
 
     @staticmethod
     def forward(ctx, w2d, sums, arrays_2d, thresholds, nbins, n_hi_clip):
         ctx.slots = (arrays_2d, thresholds, nbins, n_hi_clip)
         ctx.w_dtype = w2d.dtype
+        ctx.w_shape = w2d.shape
         return sums(w2d)
 
     @staticmethod
@@ -170,7 +178,10 @@ class _WeightedSums(torch.autograd.Function):
             for a, t, nh in zip(arrays_2d, thresholds, n_hi_clip)
         ]
         g, _ = joint_bin_index(indices, nbins)
-        dw = grad.expand(g.shape[0], -1).gather(1, g)
+        shape = ctx.w_shape
+        rows = math.prod(shape[:-2]) if len(shape) == 4 else shape[0]
+        g = g.reshape(rows, -1)
+        dw = grad.expand(rows, -1).gather(1, g).reshape(shape)
         return dw.to(ctx.w_dtype), None, None, None, None, None
 
 
@@ -572,12 +583,10 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
             )
         precision = None
     thresholds, n_hi_clip = [], []
-    for i, (a, e, cached) in enumerate(zip(args, edges_np, cache)):
+    for a, e, cached in zip(args, edges_np, cache):
         thr, nh = _device_thresholds(e, _compare_dtype(a), device, cache=cached)
         thresholds.append(thr)
         n_hi_clip.append(nh)
-        if a.dtype == torch.uint64:  # searched as int64, in the same order
-            args[i] = _bins.flip_uint64(a)
 
     operands = args if weights is None else [*args, weights]
     try:
@@ -594,15 +603,14 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
     if precision is not None:
         validate_public_precision(precision)
 
-    def to_2d(w):
-        return canonicalize_2d(w.expand(shape), axis_t)
-
     with scope("canonicalize"):
-        arrays_2d = [canonicalize_2d(a, axis_t) for a in arrays]
-        w2d = None if weights is None or exact_f64 else to_2d(weights)
+        # the kernels read these views of the caller's memory in place
+        operands = arrays if weights is None else [*arrays, weights.expand(shape)]
+        layout = strided_layout(operands, axis_t)
+    m1, m0, c1, c0 = layout.shape
+    m, c = m1 * m0, c1 * c0
 
     # pallas_hist._dispatch's view: a layout with one row is a full reduction
-    m, c = arrays_2d[0].shape
     reduce_all = full_reduce or m == 1
     n_slots = math.prod(nbins) + 1
 
@@ -612,6 +620,20 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
         kernel = kernel or ("factored" if reduce_all else "direct")
     elif method != "auto" or device.type != "cuda" or any(n_hi_clip):
         kernel = None  # a strategy (the JAX package's auto gate)
+
+    def to_2d(w):
+        """``w`` (of a shape that broadcasts to the call's) as the kernel or
+        the plain path reads it."""
+        w = layout.apply(w.expand(shape))
+        return w if kernel is not None else w.reshape(m, c)
+
+    views = layout.views
+    if kernel is None:  # the plain path reads (m, c) layouts, copies or not
+        views = [v.reshape(m, c) for v in views]
+    elif layout.copied:
+        note_layout_copy(len(views))
+    arrays_2d = views[:n_inputs]
+    w2d = None if weights is None or exact_f64 else views[n_inputs]
 
     def count(w2d, finish=False):
         """Counts, or sums of ``w2d``, ``(rows, prod(nbins) + 1)``, over

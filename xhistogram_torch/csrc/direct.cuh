@@ -21,7 +21,10 @@
 // - One warp owns one kept row at a time (rows dealt round the warps of a
 //   persistent grid). Its lanes read the row's elements with each input's
 //   own strides (a broadcast input has stride 0), at most 8 a lane, and
-//   digitize them. A lane loads its first two elements of the next row (of
+//   digitize them. Rows and columns each come as two levels (an (m1, m0,
+//   c1, c0) view, tile.cuh): a row r = i1 * m0 + i0 is split once a row,
+//   and a lane's column j = j1 * c0 + j0 by a multiply and a shift (j and
+//   c0 below 256). A lane loads its first two elements of the next row (of
 //   each input where the input count is a template argument, and their
 //   weights) before it digitizes this row, and the rest of a row before its
 //   first two, so the loads' latency hides behind a row's work; with a
@@ -109,10 +112,14 @@ constexpr int kUnroll = 2;             // elements a lane digitizes at a time
 constexpr int kRoundUnroll = 4;        // slots a lane rounds at a time
 
 struct Input {
-  const void* data;  // element (r, j) at data[r * sm + j * sc]
-  const void* thr;   // nb + 1 thresholds in device memory
+  // element (r, j), r = i1 * m0 + i0 and j = j1 * c0 + j0, at
+  // data[i1 * sm1 + i0 * sm + j1 * sc1 + j0 * sc]
+  const void* data;
+  const void* thr;  // nb + 1 thresholds in device memory
   long long sm;
   long long sc;
+  long long sm1;
+  long long sc1;
   int nb;
   int soff;   // slot of its first threshold in shared memory (skewed)
   int toff;   // its first cell in the staged cell tables
@@ -178,51 +185,79 @@ struct AccOf<xh::Count> {
   using type = unsigned long long;
 };
 
-// v[q] for q in [Q0, Q1): input d's elements of row r at columns
+// Where a row lies: r = i1 * m0 + i0.
+struct RowAt {
+  long long i1;
+  long long i0;
+};
+
+__device__ __forceinline__ RowAt row_at(long long r, long long m0, bool two_levels) {
+  if (!two_levels) return {0, r};
+  const long long i1 = r / m0;
+  return {i1, r - i1 * m0};
+}
+
+// The two levels of a row's columns: j = j1 * c0 + j0 with j1 = (j * mul)
+// >> 16, exact for j and c0 below 256 (mul = ceil(2^16 / c0)); j1 = 0 where
+// the row is one run (c0 = c).
+struct Cols {
+  int c0;
+  int mul;
+};
+
+// The offset of column j in a view of strides (sm1, sm, sc1, sc), row at.
+__device__ __forceinline__ long long offset_of(const RowAt& at, int j, const Cols& cs,
+                                               long long sm1, long long sm,
+                                               long long sc1, long long sc) {
+  const int j1 = (j * cs.mul) >> 16;
+  return at.i1 * sm1 + at.i0 * sm + j1 * sc1 + (long long)(j - j1 * cs.c0) * sc;
+}
+
+// v[q] for q in [Q0, Q1): input d's elements of row `at` at columns
 // lane + 32 q, widened to its compare type (Narrow: by its load code; Mixed:
 // by its load code, held in 8 bytes); zeros where !ok[q].
 template <int Q0, int Q1, int K, typename T, typename In>
-__device__ __forceinline__ void load_input(const In& d, long long r, int lane,
-                                           const bool (&ok)[K], Cmp<T> (&v)[K]) {
-  if constexpr (kCoded<T>) {
-    long long at[K];
+__device__ __forceinline__ void load_input(const In& d, const RowAt& row, const Cols& cs,
+                                           int lane, const bool (&ok)[K],
+                                           Cmp<T> (&v)[K]) {
+  long long at[K];
 #pragma unroll
-    for (int q = Q0; q < Q1; ++q) at[q] = r * d.sm + (long long)(lane + 32 * q) * d.sc;
-    if constexpr (kMixed<T>)
-      xh::gather_mixed<K, Q0, Q1>(d.data, at, ok, d.code, v);
-    else
-      xh::gather_coded<float, K, Q0, Q1>(d.data, at, ok, d.code, v);
+  for (int q = Q0; q < Q1; ++q)
+    at[q] = offset_of(row, lane + 32 * q, cs, d.sm1, d.sm, d.sc1, d.sc);
+  if constexpr (kMixed<T>) {
+    xh::gather_mixed<K, Q0, Q1>(d.data, at, ok, d.code, v);
+  } else if constexpr (kNarrow<T>) {
+    xh::gather_coded<float, K, Q0, Q1>(d.data, at, ok, d.code, v);
   } else {
-    const T* base = static_cast<const T*>(d.data) + r * d.sm;
-    const long long sc = d.sc;
+    const T* base = static_cast<const T*>(d.data);
 #pragma unroll
-    for (int q = Q0; q < Q1; ++q)
-      v[q] = ok[q] ? base[(long long)(lane + 32 * q) * sc] : T(0);
+    for (int q = Q0; q < Q1; ++q) v[q] = ok[q] ? base[at[q]] : T(0);
   }
 }
 
-// v[i][q] and wv[q] for q in [Q0, Q1): a lane's elements of row r (columns
-// lane + 32 q) of the first kH inputs (none when !kLoad), and their weights
-// (zeros unweighted); zeros past the row's c columns, or where !live.
+// v[i][q] and wv[q] for q in [Q0, Q1): a lane's elements of row `at`
+// (columns lane + 32 q) of the first kH inputs (none when !kLoad), and their
+// weights (zeros unweighted); zeros past the row's c columns, or where
+// !live.
 template <int Q0, int Q1, bool kLoad, int kH, typename T, typename W, typename Acc>
 __device__ __forceinline__ void load_columns(const InputOf<T>* in, const xh::Weights& w,
-                                             long long r, bool live, int c,
-                                             int lane, Cmp<T> (&v)[kH][kPer],
+                                             const RowAt& at, const Cols& cs, bool live,
+                                             int c, int lane, Cmp<T> (&v)[kH][kPer],
                                              Acc (&wv)[kPer]) {
   bool ok[kPer];
 #pragma unroll
   for (int q = Q0; q < Q1; ++q) ok[q] = live && lane + 32 * q < c;
   if constexpr (kLoad) {
 #pragma unroll
-    for (int i = 0; i < kH; ++i) load_input<Q0, Q1, kPer, T>(in[i], r, lane, ok, v[i]);
+    for (int i = 0; i < kH; ++i) load_input<Q0, Q1, kPer, T>(in[i], at, cs, lane, ok, v[i]);
   }
 #pragma unroll
   for (int q = Q0; q < Q1; ++q) {
     wv[q] = Acc(0);
     if constexpr (W::kWeighted)
       if (ok[q])
-        xh::load_weight(w.data, r * w.sm + (long long)(lane + 32 * q) * w.sc, w.code,
-                        wv[q]);
+        xh::load_weight(w.data, offset_of(at, lane + 32 * q, cs, w.sm1, w.sm, w.sc1, w.sc),
+                        w.code, wv[q]);
   }
 }
 
@@ -231,8 +266,8 @@ __device__ __forceinline__ void load_columns(const InputOf<T>* in, const xh::Wei
 // input count when it is known at compile time (0: read p.n).
 template <typename T, typename W, typename Out, int kN>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
-                   int S, Layout ly, Out* __restrict__ out) {
+direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, long long m0,
+                   int c, Cols cs, int S, Layout ly, Out* __restrict__ out) {
   using Acc = typename AccOf<W>::type;
   using C = Cmp<T>;
   constexpr bool kRound = !std::is_same<Acc, Out>::value;  // float64 -> float32
@@ -294,16 +329,20 @@ direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
   // a lane's elements of its row, each input's where kN is known: the first
   // kUnroll of each (and of their weights) loaded a row ahead
   constexpr int kHeld = kN > 0 ? kN : 1;
+  const bool two_levels = m0 < m;  // rows in runs of m0
   long long r = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  RowAt at = row_at(r, m0, two_levels);
   C v[kHeld][kPer];
   Acc wv[kPer];
-  load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, r, r < m, c, lane, v, wv);
+  load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, at, cs, r < m, c, lane, v, wv);
   for (; r < m; r += n_warps) {
     if (per > kUnroll)
-      load_columns<kUnroll, kPer, (kN > 0), kHeld, T, W>(in, w, r, true, c, lane, v, wv);
+      load_columns<kUnroll, kPer, (kN > 0), kHeld, T, W>(in, w, at, cs, true, c, lane, v,
+                                                         wv);
     C v_next[kHeld][kPer];
     Acc wv_next[kPer];
-    load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, r + n_warps, r + n_warps < m,
+    const RowAt at_next = row_at(r + n_warps, m0, two_levels);
+    load_columns<0, kUnroll, (kN > 0), kHeld, T, W>(in, w, at_next, cs, r + n_warps < m,
                                                     c, lane, v_next, wv_next);
     Out* dst = out + r * row_len;
     // the row sits in the buffer at its output address's offset mod 16
@@ -330,7 +369,7 @@ direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) x[u] = v[i][q0 + u];
         } else {
-          load_input<0, kUnroll, kUnroll, T>(d, r, lane + 32 * q0, valid, x);
+          load_input<0, kUnroll, kUnroll, T>(d, at, cs, lane + 32 * q0, valid, x);
         }
         int bin[kUnroll];
         int lut = -1;  // 8-bit data: its table's first int
@@ -425,13 +464,14 @@ direct_rows_kernel(const Inputs<T> p, const xh::Weights w, long long m, int c,
 #pragma unroll
       for (int i = 0; i < kHeld; ++i) v[i][q] = v_next[i][q];
     }
+    at = at_next;
   }
 }
 
 template <typename T, typename W, typename Out, int kN>
-int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m, long long c,
-                  long long S, const Layout& ly, int warps, void* out,
-                  cudaStream_t stream) {
+int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m, long long m0,
+                  long long c, Cols cs, long long S, const Layout& ly, int warps,
+                  void* out, cudaStream_t stream) {
   static xh::LaunchShape shape;
   const size_t smem = ly.stage_bytes + (size_t)warps * ly.warp_bytes;
   int sms = 0;
@@ -454,30 +494,35 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m, long lo
   rec.rows_per_warp = (int)xh::ceil_div(m, blocks * warps);
   xh::last_launch = rec;
   direct_rows_kernel<T, W, Out, kN><<<(unsigned)blocks, warps * 32, smem, stream>>>(
-      p, w, m, (int)c, (int)S, ly, static_cast<Out*>(out));
+      p, w, m, m0, (int)c, cs, (int)S, ly, static_cast<Out*>(out));
   return (int)cudaGetLastError();
 }
 
 // The C entries' common body: counts (W = xh::Count, Out = int64's bits) or
 // weighted sums (W = xh::Sum<A>, weights w; Out = A, or float for rounded
-// float sums) of the n inputs' (m, c) layouts into out, (m, S + 1) of Out,
+// float sums) of the n inputs' views into out, (m1 m0, S + 1) of Out,
 // which needs no zeroing. data[k], thr[k]: device pointers of type T
 // (Narrow: data of the type codes[k] names, narrow.cuh, and float
 // thresholds; Mixed: data of that type, and int64 thresholds for int64
-// data, float64 for the rest); strides[2k], strides[2k + 1]: input k's (sm, sc) in
-// elements; nb[k] its bin count. Takes 1 <= c <= 255 and S <= 8192 (the
-// caller sends the rest to slot.cuh); launches on `stream` and returns
-// cudaGetLastError() or the first failing CUDA call's error; never
-// synchronises.
+// data, float64 for the rest); strides[4k .. 4k + 3]: input k's (sm1, sm, sc1,
+// sc) in elements over the (m1, m0, c1, c0) view dims[0..3]; nb[k] its bin
+// count. Takes 1 <= c1 c0 <= 255 and S <= 8192 (the caller sends the rest
+// to slot.cuh); launches on `stream` and returns cudaGetLastError() or the
+// first failing CUDA call's error; never synchronises.
 template <typename T, typename W, typename Out>
 int launch_direct_rows(int n, const int* codes, const void* const* data,
                        const long long* strides, const void* const* thr,
-                       const int* nb, long long m, long long c,
-                       const xh::Weights& w, void* out, void* stream) {
+                       const int* nb, const long long* dims, const xh::Weights& w,
+                       void* out, void* stream) {
   using Acc = typename AccOf<W>::type;
-  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || c > kMaxCols || w.sm < 0 ||
-      w.sc < 0)
+  const long long m0 = dims[1];
+  const long long c0 = dims[3];
+  const long long m = dims[0] * m0;
+  const long long c = dims[2] * c0;
+  if (n < 1 || n > kMaxInputs || dims[0] <= 0 || m0 <= 0 || dims[2] <= 0 || c0 <= 0 ||
+      c > kMaxCols || w.sm < 0 || w.sc < 0 || w.sm1 < 0 || w.sc1 < 0)
     return (int)cudaErrorInvalidValue;
+  const Cols cs = {(int)c0, (int)((65536 + c0 - 1) / c0)};
   Inputs<T> p = {};
   p.n = n;
   long long S = 1;
@@ -489,8 +534,7 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
     if constexpr (kCoded<T>) {
       // Narrow reads float32 and the narrow types; Mixed every type
       const int code = codes[k];
-      if (code < 0 || code >= xh::kLoadCodes ||
-          (kNarrow<T> && (code == xh::kF64 || code == xh::kI32 || code == xh::kI64)))
+      if (code < 0 || code >= xh::kLoadCodes || (kNarrow<T> && !xh::narrow_code(code)))
         return (int)cudaErrorInvalidValue;
       d.code = code;
       d.lut = -1;
@@ -498,10 +542,13 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
     }
     d.data = data[k];
     d.thr = thr[k];
-    d.sm = strides[2 * k];
-    d.sc = strides[2 * k + 1];
+    d.sm1 = strides[4 * k];
+    d.sm = strides[4 * k + 1];
+    d.sc1 = strides[4 * k + 2];
+    d.sc = strides[4 * k + 3];
     d.nb = nb[k];
-    if (d.nb < 1 || d.sm < 0 || d.sc < 0 || S * d.nb > kMaxSlots)
+    if (d.nb < 1 || d.sm < 0 || d.sc < 0 || d.sm1 < 0 || d.sc1 < 0 ||
+        S * d.nb > kMaxSlots)
       return (int)cudaErrorInvalidValue;
     S *= d.nb;
     d.soff = (int)thr_slots;
@@ -540,8 +587,8 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
   if (warps > m) warps = m;
   const cudaStream_t st = (cudaStream_t)stream;
   if (n == 2)
-    return launch_kernel<T, W, Out, 2>(p, w, m, c, S, ly, (int)warps, out, st);
-  return launch_kernel<T, W, Out, 0>(p, w, m, c, S, ly, (int)warps, out, st);
+    return launch_kernel<T, W, Out, 2>(p, w, m, m0, c, cs, S, ly, (int)warps, out, st);
+  return launch_kernel<T, W, Out, 0>(p, w, m, m0, c, cs, S, ly, (int)warps, out, st);
 }
 
 }  // namespace drow
@@ -552,24 +599,24 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
 #define XH_DIRECT_ROWS_ENTRY(name, T)                                         \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c, void* out,    \
+                      const int* nb, const long long* dims, void* out,       \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Count, unsigned long long>(       \
-        n, nullptr, data, strides, thr, nb, m, c, xh::Weights{}, out, stream); \
+        n, nullptr, data, strides, thr, nb, dims, xh::Weights{}, out, stream); \
   }
 
-// The weighted C entry: sums of the weights w (an (m, c) view with strides
-// wsm, wsc, of the type `wcode` names within accumulator class A;
-// weights.cuh), added in A and stored as Out.
+// The weighted C entry: sums of the weights w (a view with the four strides
+// wst, of the type `wcode` names within accumulator class A; weights.cuh),
+// added in A and stored as Out.
 #define XH_DIRECT_ROWS_WEIGHTED_ENTRY(name, T, A, Out)                        \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c, const void* w, \
-                      long long wsm, long long wsc, int wcode, void* out,    \
+                      const int* nb, const long long* dims, const void* w,   \
+                      const long long* wst, int wcode, void* out,            \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Sum<A>, Out>(                     \
-        n, nullptr, data, strides, thr, nb, m, c,                            \
-        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
+        n, nullptr, data, strides, thr, nb, dims,                            \
+        xh::weights_of(w, wst, wcode), out, stream);                         \
   }
 
 // The weighted entries xh_direct_rows_<data>_<cls> of accumulator class cls
@@ -596,22 +643,22 @@ int launch_direct_rows(int n, const int* codes, const void* const* data,
 #define XH_DIRECT_ROWS_CODED_ENTRY(name, T)                                   \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c, void* out,    \
+                      const int* nb, const long long* dims, void* out,       \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Count, unsigned long long>(       \
-        n, codes, data, strides, thr, nb, m, c, xh::Weights{}, out, stream); \
+        n, codes, data, strides, thr, nb, dims, xh::Weights{}, out, stream); \
   }
 
 // The weighted coded entry, added in A and stored as Out.
 #define XH_DIRECT_ROWS_CODED_WEIGHTED_ENTRY(name, T, A, Out)                  \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c, const void* w, \
-                      long long wsm, long long wsc, int wcode, void* out,    \
+                      const int* nb, const long long* dims, const void* w,   \
+                      const long long* wst, int wcode, void* out,            \
                       void* stream) {                                        \
     return drow::launch_direct_rows<T, xh::Sum<A>, Out>(                     \
-        n, codes, data, strides, thr, nb, m, c,                              \
-        xh::Weights{w, wsm, wsc, wcode}, out, stream);                       \
+        n, codes, data, strides, thr, nb, dims,                              \
+        xh::weights_of(w, wst, wcode), out, stream);                         \
   }
 
 // The coded entry xh_direct_rows_<kind>_<cls> (kind narrow or mixed, T its

@@ -14,7 +14,7 @@
 // in registers (narrow.cuh): float16, bfloat16, int16 and uint16 compared
 // as float32, int8 and uint8 (bool as bytes) as int32 through a table; or,
 // in the mixed entries, any type by its run-time load code, compared in
-// int64 or double (xh::Held). Against the compare-form thresholds of
+// int64 (int64, uint32, uint64 flipped) or double (xh::Held). Against the compare-form thresholds of
 // xhistogram_torch.bins.compare_form in Ta and Tb (digitize.cuh):
 //   i = #{t in thr_a : t <= a_e},  j = #{t in thr_b : t <= b_e}
 //   the pair counts iff neither value is NaN, 1 <= i <= nba, 1 <= j <= nbb,
@@ -47,9 +47,18 @@
 // Weighted (policy xh::Sum<A>, weights.cuh; the TPU kernel's weighted form
 // multiplies weight limbs into its compare rows, with Kahan and NaN/inf
 // channel outputs): each pair in the chunk's rows adds its weight, read
-// contiguously beside the pair and converted at load to the accumulator A,
-// in place of one. 8-byte accumulators take twice the blocks; float64
-// sums at most two blocks a cluster, in passes past that.
+// beside the pair and converted at load to the accumulator A, in place of
+// one. 8-byte accumulators take twice the blocks; float64 sums at most two
+// blocks a cluster, in passes past that.
+//
+// Views: the inputs and weights are g runs of n contiguous elements, run k
+// of each at k times its own outer stride (cuda_hist._joint2_runs: a full
+// reduction of a halo-trimmed field, T[:, 1:-1], is runs of c - 2 at stride
+// c; a weight broadcast over time has outer stride 0). One run (g = 1) is
+// the contiguous case, read as before, with the vector loads of narrow
+// pairs; more runs are walked in pieces of one block's step (kThreads
+// kUnroll elements) inside a run, dealt round the grid, so no piece reads
+// past its run and the index arithmetic stays one carry a piece.
 //
 // The kernel and its launcher, included by joint2.cu (one type for both
 // inputs), joint2_narrow.cu (one narrow type for both), joint2_pairs.cu and
@@ -186,14 +195,17 @@ __host__ __device__ inline size_t hist_offset(int nba, int nbb, int ka, int kb) 
   return tables_offset<Ta, Tb>(nba, nbb) + xh::cells_bytes(ka) + xh::cells_bytes(kb);
 }
 
-// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]). La, Lb: the
+// W: xh::Count (adds one) or xh::Sum<A> (adds the weight w[e]). kRuns: g
+// runs at their outer strides, walked in pieces, else one contiguous run
+// (g == 1: the kernel of one run, its registers untouched). La, Lb: the
 // types the inputs are read as; Ta, Tb: their compare types, each input's
 // own. xh::Held reads an input by its load code, codes & 255 for a and
 // codes >> 8 for b, compared in long long (int64) or in double held in
 // long long's 8 bytes (narrow.cuh's mixed entries).
-template <typename La, typename Lb, typename Ta, typename Tb, typename W>
+template <typename La, typename Lb, typename Ta, typename Tb, typename W, bool kRuns>
 __global__ void __launch_bounds__(kThreads)
-joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
+joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long g,
+              long long n, long long sa, long long sb, long long sw,
               const Ta* __restrict__ thr_a, int nba,
               const Tb* __restrict__ thr_b, int nbb, int ka, int kb,
               int rows_per_chunk, int log2c, const void* __restrict__ w,
@@ -268,44 +280,81 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
     }
   };
 
-  long long done = 0;  // the elements the group loads below counted
-  if constexpr (kVec) {
-    // kUnroll neighbours of each input a load, where both inputs start on
-    // a boundary of that many bytes (a view at another offset is read
-    // element by element below)
-    using PackA = xh::Pack<La, kUnroll>;
-    using PackB = xh::Pack<Lb, kUnroll>;
-    const bool aligned =
-        reinterpret_cast<unsigned long long>(a) % sizeof(PackA) == 0 &&
-        reinterpret_cast<unsigned long long>(b) % sizeof(PackB) == 0;
-    const long long groups = aligned ? n / kUnroll : 0;
-    const bool ok[kUnroll] = {true, true, true, true};
-    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-         g += (long long)blockDim.x * gridDim.x) {
-      const PackA pa = reinterpret_cast<const PackA*>(a)[g];
-      const PackB pb = reinterpret_cast<const PackB*>(b)[g];
-      count(pa.v, pb.v, ok, g * kUnroll, 1);
-    }
-    done = groups * kUnroll;
-  }
-
   const long long step = (long long)blockDim.x * kUnroll;
-  const long long stride = step * gridDim.x;
-  for (long long base = done + (long long)blockIdx.x * step + threadIdx.x; base < n;
-       base += stride) {
-    La av[kUnroll];
-    Lb bv[kUnroll];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long e = base + (long long)u * blockDim.x;
-      ok[u] = e < n;
-      if constexpr (!kHeld<La>) av[u] = ok[u] ? a[e] : La{};
-      if constexpr (!kHeld<Lb>) bv[u] = ok[u] ? b[e] : Lb{};
+  if constexpr (!kRuns) {  // one run: g == 1
+    long long done = 0;  // the elements the group loads below counted
+    if constexpr (kVec) {
+      // kUnroll neighbours of each input a load, where both inputs start on
+      // a boundary of that many bytes (a view at another offset is read
+      // element by element below)
+      using PackA = xh::Pack<La, kUnroll>;
+      using PackB = xh::Pack<Lb, kUnroll>;
+      const bool aligned =
+          reinterpret_cast<unsigned long long>(a) % sizeof(PackA) == 0 &&
+          reinterpret_cast<unsigned long long>(b) % sizeof(PackB) == 0;
+      const long long groups = aligned ? n / kUnroll : 0;
+      const bool ok[kUnroll] = {true, true, true, true};
+      for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < groups;
+           q += (long long)blockDim.x * gridDim.x) {
+        const PackA pa = reinterpret_cast<const PackA*>(a)[q];
+        const PackB pb = reinterpret_cast<const PackB*>(b)[q];
+        count(pa.v, pb.v, ok, q * kUnroll, 1);
+      }
+      done = groups * kUnroll;
     }
-    if constexpr (kHeld<La>) load_held(a, code_a, base, blockDim.x, ok, av);
-    if constexpr (kHeld<Lb>) load_held(b, code_b, base, blockDim.x, ok, bv);
-    count(av, bv, ok, base, blockDim.x);
+
+    const long long stride = step * gridDim.x;
+    for (long long base = done + (long long)blockIdx.x * step + threadIdx.x; base < n;
+         base += stride) {
+      La av[kUnroll];
+      Lb bv[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long e = base + (long long)u * blockDim.x;
+        ok[u] = e < n;
+        if constexpr (!kHeld<La>) av[u] = ok[u] ? a[e] : La{};
+        if constexpr (!kHeld<Lb>) bv[u] = ok[u] ? b[e] : Lb{};
+      }
+      if constexpr (kHeld<La>) load_held(a, code_a, base, blockDim.x, ok, av);
+      if constexpr (kHeld<Lb>) load_held(b, code_b, base, blockDim.x, ok, bv);
+      count(av, bv, ok, base, blockDim.x);
+    }
+  } else {
+    // pieces of one step inside a run: piece p of run k covers elements
+    // [p step, (p + 1) step) of the run; the grid deals them out in order,
+    // each block advancing by gridDim.x pieces with one carry
+    // (32-bit state, to keep within the 64 registers a thread has at 1024
+    // threads; the launcher bounds the pieces below 2^31)
+    const int per_run = (int)((n + step - 1) / step);
+    const int dk = (int)gridDim.x / per_run;
+    const int dp = (int)gridDim.x - dk * per_run;
+    int k = (int)blockIdx.x / per_run;
+    int p = (int)blockIdx.x - k * per_run;
+    while (k < g) {
+      const long long pos = (long long)p * step + threadIdx.x;
+      const long long ea = k * sa;
+      const long long eb = k * sb;
+      La av[kUnroll];
+      Lb bv[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long e = pos + (long long)u * blockDim.x;
+        ok[u] = e < n;
+        if constexpr (!kHeld<La>) av[u] = ok[u] ? a[ea + e] : La{};
+        if constexpr (!kHeld<Lb>) bv[u] = ok[u] ? b[eb + e] : Lb{};
+      }
+      if constexpr (kHeld<La>) load_held(a, code_a, ea + pos, blockDim.x, ok, av);
+      if constexpr (kHeld<Lb>) load_held(b, code_b, eb + pos, blockDim.x, ok, bv);
+      count(av, bv, ok, k * sw + pos, blockDim.x);
+      p += dp;
+      k += dk;
+      if (p >= per_run) {
+        p -= per_run;
+        ++k;
+      }
+    }
   }
   if (cl > 1)
     cluster.sync();  // every add of the cluster landed
@@ -321,13 +370,58 @@ joint2_kernel(const La* __restrict__ a, const Lb* __restrict__ b, long long n,
   }
 }
 
+// The launch of one variant of the kernel (kRuns: g runs), each with its own
+// launch-shape cache (and shared-memory attribute).
+template <typename La, typename Lb, typename Ta, typename Tb, typename W, bool kRuns>
+int launch_pass(const void* a, const void* b, long long g, long long n,
+                const long long* strides, const void* thr_a, int nba, const void* thr_b,
+                int nbb, int ka, int kb, int rows_per_chunk, int n_chunks, int log2c,
+                size_t smem, const void* w, int wcode, void* out, cudaStream_t stream,
+                int codes) {
+  // one resident wave of clusters: every chunk gets the same share of the
+  // card, and no more blocks than there are element groups to give them
+  const int cl = 1 << log2c;
+  static xh::ClusterShape shape;
+  long long resident = 0;  // clusters
+  cudaError_t err = shape.get((const void*)joint2_kernel<La, Lb, Ta, Tb, W, kRuns>,
+                              kThreads, smem, cl, &resident);
+  if (err != cudaSuccess) return (int)err;
+  // element groups of one block's step (g runs: the pieces of every run)
+  const long long groups = g * ((n + (long long)kThreads * kUnroll - 1) /
+                                ((long long)kThreads * kUnroll));
+  if (g > 1 && groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  long long clusters_x = resident / n_chunks;
+  if (clusters_x > (groups + cl - 1) / cl) clusters_x = (groups + cl - 1) / cl;
+  if (clusters_x < 1) clusters_x = 1;
+  const long long grid_x = clusters_x * cl;
+  // each block's shared counters are 32-bit and every block of a cluster
+  // adds into them: bound the pairs one cluster visits (weighted sums wrap
+  // or round by their own type's rules instead)
+  if (!W::kWeighted &&
+      (groups + grid_x - 1) / grid_x * kThreads * kUnroll * cl > 0xffffffffLL)
+    return (int)cudaErrorInvalidValue;
+
+  err = xh::launch_clustered(
+      joint2_kernel<La, Lb, Ta, Tb, W, kRuns>,
+      dim3((unsigned int)grid_x, (unsigned int)n_chunks), kThreads, smem, cl, stream,
+      static_cast<const La*>(a), static_cast<const Lb*>(b), g, n, strides[0],
+      strides[1], strides[2], static_cast<const Ta*>(thr_a), nba,
+      static_cast<const Tb*>(thr_b), nbb, ka, kb, rows_per_chunk, log2c, w, wcode,
+      static_cast<typename W::Out*>(out), codes);
+  xh::last_launch = {cl, n_chunks, 1, {ka, kb}};
+  return (int)err;
+}
+
 template <typename La, typename Lb, typename Ta, typename Tb, typename W>
-int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
-                  int nba, const void* thr_b, int nbb, int max_cluster,
-                  const void* w, int wcode, void* out, void* stream,
+int launch_joint2(const void* a, const void* b, const long long* runs,
+                  const void* thr_a, int nba, const void* thr_b, int nbb,
+                  int max_cluster, const void* w, int wcode, void* out, void* stream,
                   int codes = 0) {
   using Shared = typename W::Shared;
-  if (n <= 0 || nba < 1 || nbb < 1 || max_cluster < 1)
+  const long long g = runs[0];
+  const long long n = runs[1];
+  if (g <= 0 || n <= 0 || runs[2] < 0 || runs[3] < 0 || runs[4] < 0 || nba < 1 ||
+      nbb < 1 || max_cluster < 1)
     return (int)cudaErrorInvalidValue;
   const int ka = nba < xh::kMaxCells / 2 ? 2 * nba : xh::kMaxCells;
   const int kb = nbb < xh::kMaxCells / 2 ? 2 * nbb : xh::kMaxCells;
@@ -352,41 +446,24 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
   const int rows_per_block = (rows_per_chunk + cl - 1) / cl;
   const size_t smem = hoff + sizeof(Shared) * (size_t)rows_per_block * nbb;
 
-  // one resident wave of clusters: every chunk gets the same share of the
-  // card, and no more blocks than there are element groups to give them
-  static xh::ClusterShape shape;
-  long long resident = 0;  // clusters
-  cudaError_t err = shape.get((const void*)joint2_kernel<La, Lb, Ta, Tb, W>, kThreads,
-                              smem, cl, &resident);
-  if (err != cudaSuccess) return (int)err;
-  const long long groups = (n + (long long)kThreads * kUnroll - 1) /
-                           ((long long)kThreads * kUnroll);
-  long long clusters_x = resident / n_chunks;
-  if (clusters_x > (groups + cl - 1) / cl) clusters_x = (groups + cl - 1) / cl;
-  if (clusters_x < 1) clusters_x = 1;
-  const long long grid_x = clusters_x * cl;
-  // each block's shared counters are 32-bit and every block of a cluster
-  // adds into them: bound the pairs one cluster visits (weighted sums wrap
-  // or round by their own type's rules instead)
-  if (!W::kWeighted &&
-      (groups + grid_x - 1) / grid_x * kThreads * kUnroll * cl > 0xffffffffLL)
-    return (int)cudaErrorInvalidValue;
-
-  err = xh::launch_clustered(
-      joint2_kernel<La, Lb, Ta, Tb, W>,
-      dim3((unsigned int)grid_x, (unsigned int)n_chunks), kThreads, smem, cl,
-      (cudaStream_t)stream, static_cast<const La*>(a), static_cast<const Lb*>(b), n, static_cast<const Ta*>(thr_a), nba,
-      static_cast<const Tb*>(thr_b), nbb, ka, kb, rows_per_chunk, log2c, w, wcode,
-      static_cast<typename W::Out*>(out), codes);
-  xh::last_launch = {cl, n_chunks, 1, {ka, kb}};
-  return (int)err;
+  const long long* strides = runs + 2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g > 1)
+    return launch_pass<La, Lb, Ta, Tb, W, true>(
+        a, b, g, n, strides, thr_a, nba, thr_b, nbb, ka, kb, rows_per_chunk, n_chunks,
+        log2c, smem, w, wcode, out, st, codes);
+  return launch_pass<La, Lb, Ta, Tb, W, false>(
+      a, b, g, n, strides, thr_a, nba, thr_b, nbb, ka, kb, rows_per_chunk, n_chunks,
+      log2c, smem, w, wcode, out, st, codes);
 }
 
 }  // namespace
 
-// Adds the joint counts of n pairs (a[e], b[e]) into out[nba * nbb], which
+// Adds the joint counts of the pairs (a[e], b[e]) into out[nba * nbb], which
 // the caller zeroes, in clusters of at most max_cluster blocks (1, 2, 4 or
-// 8), input a read as La and compared as Ta against thresholds of type Ta,
+// 8): runs[0] runs of runs[1] contiguous elements, run k of a at k runs[2]
+// and of b at k runs[3] (of the weights at k runs[4]; joint2_kernel's
+// views), input a read as La and compared as Ta against thresholds of type Ta,
 // b read as Lb and compared as Tb: one wide type for both (joint2.cu), two
 // inputs of one narrow type (joint2_narrow.cu) and the pairs of two types
 // with instantiations of their own (joint2_pairs.cu,
@@ -394,24 +471,25 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
 // returns cudaGetLastError() (or the first failing CUDA call's error);
 // never synchronises.
 #define XH_JOINT2_LOADS(name, La, Ta, Lb, Tb)                                  \
-  extern "C" int name(const void* a, const void* b, long long n,              \
+  extern "C" int name(const void* a, const void* b, const long long* runs,    \
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, void* out, void* stream) {             \
     return launch_joint2<La, Lb, Ta, Tb, xh::Count>(                          \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,        \
+        a, b, runs, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,     \
         stream);                                                              \
   }
 
-// Weighted: adds the sums of the n contiguous weights w (of the type
-// `wcode` names within accumulator class A; weights.cuh) into
+// Weighted: adds the sums of the weights w (runs like the data's, of the
+// type `wcode` names within accumulator class A; weights.cuh) into
 // out[nba * nbb], of type A, which the caller zeroes.
 #define XH_JOINT2_LOADS_WEIGHTED(name, La, Ta, Lb, Tb, A)                      \
-  extern "C" int name(const void* a, const void* b, long long n,              \
+  extern "C" int name(const void* a, const void* b, const long long* runs,    \
                       const void* thr_a, int nba, const void* thr_b, int nbb,   \
                       int max_cluster, const void* w, int wcode, void* out,    \
                       void* stream) {                                         \
     return launch_joint2<La, Lb, Ta, Tb, xh::Sum<A>>(                         \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream); \
+        a, b, runs, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out,       \
+        stream);                                                              \
   }
 
 // The same for inputs read as their compare types Ta and Tb.
@@ -438,23 +516,23 @@ int launch_joint2(const void* a, const void* b, long long n, const void* thr_a,
    codes[1] < xh::kLoadCodes)
 #define XH_JOINT2_MIXED(name)                                                  \
   extern "C" int name(const int* codes, const void* a, const void* b,         \
-                      long long n, const void* thr_a, int nba,                 \
+                      const long long* runs, const void* thr_a, int nba,       \
                       const void* thr_b, int nbb, int max_cluster, void* out,  \
                       void* stream) {                                         \
     if (!XH_JOINT2_MIXED_CODES_OK(codes)) return (int)cudaErrorInvalidValue;   \
     return launch_joint2<xh::Held, xh::Held, long long, long long, xh::Count>( \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out, stream, \
-        codes[0] | codes[1] << 8);                                            \
+        a, b, runs, thr_a, nba, thr_b, nbb, max_cluster, nullptr, 0, out,      \
+        stream, codes[0] | codes[1] << 8);                                    \
   }
 
 // The weighted mixed entry, for accumulator type A.
 #define XH_JOINT2_MIXED_WEIGHTED(name, A)                                      \
   extern "C" int name(const int* codes, const void* a, const void* b,         \
-                      long long n, const void* thr_a, int nba,                 \
+                      const long long* runs, const void* thr_a, int nba,       \
                       const void* thr_b, int nbb, int max_cluster,             \
                       const void* w, int wcode, void* out, void* stream) {     \
     if (!XH_JOINT2_MIXED_CODES_OK(codes)) return (int)cudaErrorInvalidValue;   \
     return launch_joint2<xh::Held, xh::Held, long long, long long, xh::Sum<A>>( \
-        a, b, n, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out, stream,   \
-        codes[0] | codes[1] << 8);                                            \
+        a, b, runs, thr_a, nba, thr_b, nbb, max_cluster, w, wcode, out,        \
+        stream, codes[0] | codes[1] << 8);                                    \
   }

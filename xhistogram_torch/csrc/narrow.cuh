@@ -12,7 +12,8 @@
 // thresholds (bins.compare_form in int32) converted to float32 round only
 // past 2^24, beyond every 8- and 16-bit value, so every comparison is kept.
 // The mixed entries read any stored type by its load code and hold it in 8
-// bytes, int64 as itself and the rest widened to double (gather_mixed).
+// bytes, int64, uint32 and uint64 as int64 (uint64 flipped, x ^ 2^63) and
+// the rest widened to double (gather_mixed).
 // 8-bit data (int8, uint8, bool as the bytes 0 and 1) has 256 values: a
 // block finds their bins once, by the same search, and each element then
 // costs one shared-memory load.
@@ -40,11 +41,27 @@ enum LoadCode : int {
   kU16 = 7,
   kI8 = 8,
   kU8 = 9,  // and bool
+  kU32 = 10,
+  kU64 = 11,
 };
-constexpr int kLoadCodes = 10;
+constexpr int kLoadCodes = 12;
 
 // 8-bit data, digitized through a table of its 256 values' bins.
 __host__ __device__ constexpr bool is_byte(int code) { return code == kI8 || code == kU8; }
+
+// The stored types the mixed entries hold and compare as int64: int64
+// itself, uint32 widened, and uint64 flipped onto int64 (x ^ 2^63, which
+// keeps its order) against thresholds flipped alike on the host
+// (bins.flip_uint64); every other type as a double.
+__host__ __device__ constexpr bool held_int64(int code) {
+  return code == kI64 || code == kU32 || code == kU64;
+}
+
+// The stored types of the narrow entries: float32 and the narrow types.
+__host__ __device__ constexpr bool narrow_code(int code) {
+  return code >= 0 && code < kLoadCodes && code != kF64 && code != kI32 &&
+         !held_int64(code);
+}
 
 // x converted to the compare type C, exactly.
 template <typename C, typename L>
@@ -66,6 +83,12 @@ __device__ __forceinline__ double widen<double, __half>(__half x) {
 template <>
 __device__ __forceinline__ double widen<double, __nv_bfloat16>(__nv_bfloat16 x) {
   return (double)__bfloat162float(x);
+}
+// uint64 onto int64 in the same order: x ^ 2^63 (bins.flip_uint64), which
+// sends 0 to the int64 minimum and 2^64 - 1 to its maximum
+template <>
+__device__ __forceinline__ long long widen<long long, unsigned long long>(unsigned long long x) {
+  return (long long)(x ^ 0x8000000000000000ull);
 }
 
 // K neighbouring elements of type L, read by one load of K sizeof(L) bytes
@@ -118,10 +141,11 @@ __device__ __forceinline__ void gather_coded(const void* p, const long long (&at
 //
 // An input of the mixed entries (joint2's, the flat-slot template's and the
 // direct-row kernel's) is read by its run-time load code and held in 8
-// bytes: int64 as itself, every other type as the bits of its value widened
-// to double, exactly. Its thresholds are staged in 8-byte slots the same
-// way (int64, or the bits of doubles), so an int64 input compares in int64
-// and any other in double, each against its own thresholds. Its cell map is
+// bytes: int64 as itself, uint32 widened and uint64 flipped onto int64
+// (held_int64), every other type as the bits of its value widened to
+// double, exactly. Its thresholds are staged in 8-byte slots the same way
+// (int64, or the bits of doubles), so such an input compares in int64 and
+// any other in double, each against its own thresholds. Its cell map is
 // kept as CellMap<long long>, whose layout CellMap<double> shares.
 
 // v[q] for q in [Q0, Q1): element at[q] of p, of the stored type `code`,
@@ -130,8 +154,13 @@ template <int K, int Q0 = 0, int Q1 = K>
 __device__ __forceinline__ void gather_mixed(const void* p, const long long (&at)[K],
                                              const bool (&ok)[K], int code,
                                              long long (&v)[K]) {
-  if (code == kI64) {
-    gather<long long, long long, K, Q0, Q1>(p, at, ok, v);
+  if (held_int64(code)) {
+    if (code == kU32)
+      gather<unsigned int, long long, K, Q0, Q1>(p, at, ok, v);
+    else if (code == kU64)
+      gather<unsigned long long, long long, K, Q0, Q1>(p, at, ok, v);
+    else
+      gather<long long, long long, K, Q0, Q1>(p, at, ok, v);
     return;
   }
   double d[K];
@@ -148,7 +177,7 @@ __device__ __forceinline__ CellMap<double> as_double_map(const CellMap<long long
 // the stored type `code`.
 __device__ __forceinline__ CellMap<long long> mixed_cell_map(const long long* t, int nb,
                                                              int k, int code) {
-  if (code == kI64) return cell_map(t, nb, k);
+  if (held_int64(code)) return cell_map(t, nb, k);
   const CellMap<double> m = cell_map(reinterpret_cast<const double*>(t), nb, k);
   return {m.lo, m.inv, m.k};
 }
@@ -157,7 +186,7 @@ __device__ __forceinline__ CellMap<long long> mixed_cell_map(const long long* t,
 __device__ __forceinline__ void mixed_build_cells(const long long* t, int nb,
                                                   const CellMap<long long>& m, int code,
                                                   int2* win, int* widest) {
-  if (code == kI64)
+  if (held_int64(code))
     build_cells(t, nb, m, win, widest);
   else
     build_cells(reinterpret_cast<const double*>(t), nb, as_double_map(m), win, widest);
@@ -170,7 +199,7 @@ __device__ __forceinline__ void mixed_bins(const long long* t, int nb,
                                            const CellMap<long long>& m, const int2* win,
                                            int step0, int code, const long long (&x)[U],
                                            int (&bin)[U]) {
-  if (code == kI64) {
+  if (held_int64(code)) {
     bins_bucketed<long long, U>(t, nb, m, win, step0, x, bin);
     return;
   }

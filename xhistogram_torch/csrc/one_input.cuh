@@ -9,20 +9,22 @@
 // (float16 is cast before the call). Here each element is
 // digitized once and counted once, in shared memory.
 //
-// Input: an (m, c) layout of load type L with any non-negative strides
-// (sm, sc), read in place at its own width (bool and 8- and 16-bit
-// integers, float16 and bfloat16 included) and widened in registers to the
-// compare type C: int32 for 8-bit integers and bool, float32 for 16-bit
-// integers, float16 and bfloat16, else L itself (float, double, int32,
-// int64). Thresholds (nb + 1,) of C with nb <= 1024
+// Input: an (m1, m0, c1, c0) view of load type L (kept rows r = i1 * m0 +
+// i0, columns j = j1 * c0 + j0; tile.cuh) with any non-negative strides
+// (sm1, sm, sc1, sc), read in place at its own width (bool and 8- and
+// 16-bit integers, float16, bfloat16, uint32 and uint64 included) and
+// widened in registers to the compare type C: int32 for 8-bit integers and
+// bool, float32 for 16-bit integers, float16 and bfloat16, int64 for uint32
+// and for uint64 flipped onto it (x ^ 2^63, narrow.cuh), else L itself
+// (float, double, int32, int64). Thresholds (nb + 1,) of C with nb <= 1024
 // (xhistogram_torch.bins.compare_form in C, or its int32 thresholds
 // converted to float32 for 16-bit integers, which keeps every comparison
 // of a 16-bit value). Output:
-// int64 (1 or m, nb + 1), zeroed by the caller; bin b of row r goes to
+// int64 (1 or m1 m0, nb + 1), zeroed by the caller; bin b of row r goes to
 // out[r * (nb + 1) + b], and the trailing trash slot stays zero.
 //
 // Weighted (policy xh::Sum<A>, weights.cuh): each counted element adds its
-// weight, an (m, c) view with its own strides, read in place and converted
+// weight, a view with its own strides, read in place and converted
 // at load to the accumulator A (float64 for float weights, 32- or 64-bit
 // integers), in place of one; the output is of type A.
 //
@@ -64,7 +66,8 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC, without --use_fast_math (digitize.cuh). The entries
-// live in one_input.cu (the four wide types) and one_input_narrow.cu.
+// live in one_input.cu (the four wide types), one_input_narrow.cu and
+// one_input_unsigned.cu.
 
 #pragma once
 
@@ -180,9 +183,10 @@ __device__ __forceinline__ void flush_to(Out* dst, Out v, bool owned) {
 // replicas added atomically or 64-bit copies one per warp (aggregated).
 template <typename L, typename C, typename W, bool kPrivate>
 __global__ void __launch_bounds__(kThreads)
-one_input_kernel(const L* __restrict__ a, long long m, long long c,
-                 long long sm, long long sc, const C* __restrict__ thr, int nb,
-                 int cells, Tiling tl, int reduce_all, const xh::Weights w,
+one_input_kernel(const L* __restrict__ a, xh::Dims dims, long long sm1,
+                 long long sm, long long sc1, long long sc,
+                 const C* __restrict__ thr, int nb, int cells, Tiling tl,
+                 int reduce_all, const xh::Weights w,
                  typename W::Out* __restrict__ out, int* __restrict__ widest_out) {
   using Shared = typename W::Shared;
   using Out = typename W::Out;
@@ -232,12 +236,13 @@ one_input_kernel(const L* __restrict__ a, long long m, long long c,
   const unsigned warp = threadIdx.x >> 5;
   Shared* mine = kPrivate ? hist + threadIdx.x : hist + warp % copies * one_copy;
 
-  const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile / tl.col_tiles * tl.rows;
-    const long long c0 = tile % tl.col_tiles * tl.cols;
-    const unsigned rr = (unsigned)min(tl.rows, m - r0);
-    const unsigned cc = (unsigned)min(tl.cols, c - c0);
+  xh::PieceLoop pl = xh::piece_loop(tl, dims, blockIdx.x, gridDim.x);
+  xh::Corner tc;
+  bool flush;
+  while (xh::next_piece(pl, tl, dims, tc, flush)) {
+    const long long r0 = tc.r0;
+    const unsigned rr = tc.rr;
+    const unsigned cc = tc.cc;
     const unsigned total = rr * cc;
     // flat: the tile's elements (and weights) lie at base + k, k < total,
     // and every one is in row 0 of the tile (one row) or the row does not
@@ -254,10 +259,10 @@ one_input_kernel(const L* __restrict__ a, long long m, long long c,
     const unsigned ds = blockDim.x / fast_n;
     unsigned f = threadIdx.x % fast_n;
     unsigned s = threadIdx.x / fast_n;
-    const L* base = a + r0 * sm + c0 * sc;
+    const L* base = a + xh::corner_offset(tc, sm1, sm, sc1, sc);
     const long long w_fast = tl.row_fast ? w.sm : w.sc;
     const long long w_slow = tl.row_fast ? w.sc : w.sm;
-    const long long w_base = r0 * w.sm + c0 * w.sc;
+    const long long w_base = xh::corner_offset(tc, w.sm1, w.sm, w.sc1, w.sc);
 
     // digitizes and counts kUnroll elements of each lane: raw values, valid
     // where ok, in rows row of the tile, with weights at w_at
@@ -382,6 +387,8 @@ one_input_kernel(const L* __restrict__ a, long long m, long long c,
     }
 
     if (!reduce_all) {
+      // a chunk's next tile of the same rows adds into their counters first
+      if (!flush) continue;
       __syncthreads();
       const bool owned = tl.col_tiles == 1;  // the block owns these whole rows
       if constexpr (kPrivate) {  // one row: lanes, then the warp
@@ -429,9 +436,9 @@ one_input_kernel(const L* __restrict__ a, long long m, long long c,
 }
 
 template <typename L, typename C, typename W, bool kPrivate>
-int launch(const void* a, long long m, long long c, long long sm, long long sc,
-           const void* thr, int nb, int cells, int reduce_all, bool row_fast,
-           const xh::Weights& w, void* out, void* widest, cudaStream_t stream) {
+int launch(const void* a, const xh::Dims& dims, const long long* st, const void* thr,
+           int nb, int cells, int reduce_all, bool row_fast, const xh::Weights& w,
+           void* out, void* widest, cudaStream_t stream) {
   using Shared = typename W::Shared;
   constexpr bool kAggregated = !kPrivate && sizeof(Shared) == 8;
   const size_t stage = hist_offset(nb, sizeof(C), cells);
@@ -458,13 +465,13 @@ int launch(const void* a, long long m, long long c, long long sm, long long sc,
                              : kPrivate ? 1
                              : kAggregated ? counters / ((long long)nb * kWarps)
                                            : counters / nb;
-  Tiling tl = xh::make_tiling(m, c, row_fast, max_rows < 1 ? 1 : max_rows,
+  Tiling tl = xh::make_tiling(dims, row_fast, max_rows < 1 ? 1 : max_rows,
                               kMinTile, resident);
-  if (tl.rows == 1 && tl.col_tiles > 1) {
+  if (tl.rows == 1 && tl.col_run > 1) {
     // column tiles of whole 16-element runs, so each tile of a row that
     // starts on a 16-byte boundary starts on one too (the vector reads)
     tl.cols = (tl.cols + 15) / 16 * 16;
-    tl.col_tiles = xh::ceil_div(c, tl.cols);
+    xh::count_tiles(tl, dims);
   }
   const long long one_copy = (reduce_all ? 1 : tl.rows) * nb;
   if (kPrivate) {
@@ -476,11 +483,15 @@ int launch(const void* a, long long m, long long c, long long sm, long long sc,
     tl.copies = copies < 1 ? 1 : copies > kWarps ? kWarps : (int)copies;
   }
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  const long long grid = n_tiles < resident ? n_tiles : resident;
+  // kept rows of several runs of columns: contiguous chunks, one a block
+  const long long grid = reduce_all ? (n_tiles < resident ? n_tiles : resident)
+                                    : xh::chunk_tiles(tl, dims, resident);
   // a block's shared counters are 32-bit: bound the elements one block
-  // visits before it flushes (a full reduction flushes only at the end);
-  // weighted sums wrap or round by their own type's rules instead
-  const long long visits = reduce_all ? xh::ceil_div(n_tiles, grid) : 1;
+  // visits before it flushes (a full reduction flushes only at the end, a
+  // chunk at most once a tile); weighted sums wrap or round by their own
+  // type's rules instead
+  const long long visits = reduce_all ? xh::ceil_div(n_tiles, grid)
+                           : tl.chunk ? tl.chunk : 1;
   if (!W::kWeighted && visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
@@ -492,38 +503,44 @@ int launch(const void* a, long long m, long long c, long long sm, long long sc,
                      kPrivate ? kLanePrivate : kAggregated ? oi::kAggregated : kReplicas,
                      tl.copies};
   one_input_kernel<L, C, W, kPrivate><<<(unsigned int)grid, kThreads, smem, stream>>>(
-      static_cast<const L*>(a), m, c, sm, sc, static_cast<const C*>(thr), nb,
-      cells, tl, reduce_all, w, static_cast<typename W::Out*>(out),
-      static_cast<int*>(widest));
+      static_cast<const L*>(a), dims, st[0], st[1], st[2], st[3],
+      static_cast<const C*>(thr), nb, cells, tl, reduce_all, w,
+      static_cast<typename W::Out*>(out), static_cast<int*>(widest));
   return (int)cudaGetLastError();
 }
 
-// Adds the counts (or weighted sums) of the (m, c) layout a (strides sm, sc
-// in elements, of load type L) against nb + 1 thresholds of compare type C
-// into out, which the caller zeroes; the first block writes the widest
-// window of its cell table into *widest. Launches on `stream` and returns
-// cudaGetLastError() (or the first failing CUDA call's error); never
-// synchronises.
+// Adds the counts (or weighted sums) of the (m1, m0, c1, c0) view a (dims
+// dim[0..3], strides st[0..3] = (sm1, sm, sc1, sc) in elements, of load type
+// L) against nb + 1 thresholds of compare type C into out, which the caller
+// zeroes; the first block writes the widest window of its cell table into
+// *widest. A full reduction's one row of two column levels comes as (1, c1,
+// 1, c0), its rows summed (cuda_hist._geometry). Launches on `stream` and
+// returns cudaGetLastError() (or the first failing CUDA call's error);
+// never synchronises.
 template <typename L, typename C, typename W>
-int launch_one_input(const void* a, long long m, long long c, long long sm,
-                     long long sc, const void* thr, int nb, int reduce_all,
-                     const xh::Weights& w, void* out, void* widest, void* stream) {
-  if (m <= 0 || c <= 0 || sm < 0 || sc < 0 || nb < 1 || nb > kMaxBins ||
-      w.sm < 0 || w.sc < 0 || widest == nullptr)
+int launch_one_input(const void* a, const long long* dim, const long long* st,
+                     const void* thr, int nb, int reduce_all, const xh::Weights& w,
+                     void* out, void* widest, void* stream) {
+  const xh::Dims dims = {dim[0], dim[1], dim[2], dim[3]};
+  if (dims.m1 <= 0 || dims.m0 <= 0 || dims.c1 <= 0 || dims.c0 <= 0 || st[0] < 0 ||
+      st[1] < 0 || st[2] < 0 || st[3] < 0 || nb < 1 || nb > kMaxBins || w.sm < 0 ||
+      w.sc < 0 || w.sm1 < 0 || w.sc1 < 0 || widest == nullptr)
     return (int)cudaErrorInvalidValue;
   using Shared = typename W::Shared;
   const int cells = 2 * nb;  // <= xh::kMaxCells for nb <= kMaxBins
-  const bool row_fast = m > 1 && (c == 1 || sm < sc);
+  // a tile lies in one run of rows and one of columns: the inner levels
+  const bool row_fast = dims.m0 > 1 && (dims.c0 == 1 || st[1] < st[3]);
   // lane-private counters where they fit and each tile is one histogram
   // row: a full reduction, or long rows walked along their columns
   const bool fits = sizeof(Shared) * (size_t)nb * kThreads <= kPrivateBytes;
-  const bool one_row = reduce_all || (!row_fast && c >= kPrivateRowRatio * nb * kThreads);
-  const cudaStream_t st = (cudaStream_t)stream;
+  const bool one_row = reduce_all || (!row_fast && dims.c1 * dims.c0 >=
+                                                       kPrivateRowRatio * nb * kThreads);
+  const cudaStream_t stream_ = (cudaStream_t)stream;
   if (fits && one_row)
-    return launch<L, C, W, true>(a, m, c, sm, sc, thr, nb, cells, reduce_all,
-                                 row_fast, w, out, widest, st);
-  return launch<L, C, W, false>(a, m, c, sm, sc, thr, nb, cells, reduce_all,
-                                row_fast, w, out, widest, st);
+    return launch<L, C, W, true>(a, dims, st, thr, nb, cells, reduce_all, row_fast, w,
+                                 out, widest, stream_);
+  return launch<L, C, W, false>(a, dims, st, thr, nb, cells, reduce_all, row_fast, w,
+                                out, widest, stream_);
 }
 
 }  // namespace oi
@@ -532,23 +549,23 @@ int launch_one_input(const void* a, long long m, long long c, long long sm,
 // The entry of load type L compared as C: counts into out; see
 // oi::launch_one_input.
 #define XH_ONE_INPUT(name, L, C)                                              \
-  extern "C" int name(const void* a, long long m, long long c, long long sm, \
-                      long long sc, const void* thr, int nb, int reduce_all, \
-                      void* out, void* widest, void* stream) {               \
+  extern "C" int name(const void* a, const long long* dims,                  \
+                      const long long* strides, const void* thr, int nb,     \
+                      int reduce_all, void* out, void* widest, void* stream) { \
     return oi::launch_one_input<L, C, xh::Count>(                            \
-        a, m, c, sm, sc, thr, nb, reduce_all, xh::Weights{}, out, widest,    \
+        a, dims, strides, thr, nb, reduce_all, xh::Weights{}, out, widest,   \
         stream);                                                             \
   }
 
-// Weighted: adds the sums of the weights w (an (m, c) view with strides
-// wsm, wsc, of the type `wcode` names within accumulator class A;
-// weights.cuh) into out, of type A, which the caller zeroes.
+// Weighted: adds the sums of the weights w (a view with the four strides
+// wst, of the type `wcode` names within accumulator class A; weights.cuh)
+// into out, of type A, which the caller zeroes.
 #define XH_ONE_INPUT_WEIGHTED(name, L, C, A)                                  \
-  extern "C" int name(const void* a, long long m, long long c, long long sm, \
-                      long long sc, const void* thr, int nb, int reduce_all, \
-                      const void* w, long long wsm, long long wsc,           \
+  extern "C" int name(const void* a, const long long* dims,                  \
+                      const long long* strides, const void* thr, int nb,     \
+                      int reduce_all, const void* w, const long long* wst,   \
                       int wcode, void* out, void* widest, void* stream) {    \
     return oi::launch_one_input<L, C, xh::Sum<A>>(                           \
-        a, m, c, sm, sc, thr, nb, reduce_all,                                \
-        xh::Weights{w, wsm, wsc, wcode}, out, widest, stream);               \
+        a, dims, strides, thr, nb, reduce_all,                               \
+        xh::weights_of(w, wst, wcode), out, widest, stream);                 \
   }

@@ -2,16 +2,18 @@
 // or weighted sums (weights.cuh).
 //
 // The one template behind factored.cu (routes factored, factored_per_row,
-// factored_packed) and direct.cu (route direct). Each input k is an (m, c)
-// view of data type T with its own non-negative strides, read in place
-// (a broadcast input has stride 0), and its own nb_k + 1 compare-form
+// factored_packed) and direct.cu (route direct). Each input k is an (m1,
+// m0, c1, c0) view of data type T (kept rows r = i1 * m0 + i0, columns j =
+// j1 * c0 + j0; tile.cuh) with its own non-negative strides on each level,
+// read in place (a broadcast input has stride 0 on a level, a halo-trimmed
+// or transposed one its own strides), and its own nb_k + 1 compare-form
 // thresholds (digitize.cuh). An element counts iff no input's value is NaN
 // or out of range, and then adds one to its flat slot
 //   g = ((t_0 * nb_1 + t_1) * nb_2 + ...) + t_{n-1},  t_k its bin on input k,
 // computed in 64 bits (a forced call may have 2^31 slots or more). Output:
 // int64 (1 or m, S + 1) with S = prod(nb_k); slot S is the trash slot and
 // stays zero. A weighted instantiation (policy xh::Sum<A>) adds the
-// element's weight, an (m, c) view with its own strides, in place of one,
+// element's weight, a view with its own strides, in place of one,
 // into accumulators and an output of type A (weights.cuh); its shared
 // histograms take sizeof(A) bytes a slot, so float64 and 64-bit integer
 // sums keep half as many slots in a block as the 32-bit counters.
@@ -59,8 +61,9 @@
 // - T = Mixed (slot_mixed.cu): every other mix of types (int32, int64 or
 //   float64 beside inputs of another type: int32 beside float32, float32
 //   beside float64, int32 beside int64, int64 beside a float, narrow data
-//   beside the wide types): an int64 input compares in int64 and any other
-//   in double, to
+//   beside the wide types; uint32 and uint64 beside anything): an int64,
+//   uint32 or uint64 input compares in int64 (uint64 flipped, narrow.cuh)
+//   and any other in double, to
 //   which all the rest convert exactly, each against its own thresholds in
 //   that type; its cell map runs in double, as for int64 data. It is rare,
 //   so it has no two-input kernel of its own.
@@ -131,10 +134,14 @@ template <typename T>
 using Map = xh::CellMap<Cmp<T>>;
 
 struct InputBase {
-  const void* data;  // element (r, j) at data[r * sm + j * sc]
-  const void* thr;   // nb + 1 thresholds in device memory
+  // element (r, j), r = i1 * m0 + i0 and j = j1 * c0 + j0, at
+  // data[i1 * sm1 + i0 * sm + j1 * sc1 + j0 * sc]
+  const void* data;
+  const void* thr;  // nb + 1 thresholds in device memory
   long long sm;
   long long sc;
+  long long sm1;
+  long long sc1;
   int nb;
   int soff;   // slot of its first threshold in shared memory (skewed)
   int toff;   // its first cell in the staged cell tables
@@ -164,10 +171,10 @@ struct Inputs {
 };
 
 // 227 KB a block, less the kernel's static shared memory (the input table,
-// the cell maps and the windows' widths)
+// the cell maps, the windows' widths and the tiles' corners)
 template <typename T>
 constexpr size_t kSmemMax = 232448 - (sizeof(Input<T>) + sizeof(Map<T>) +
-                                      sizeof(int)) * kMaxInputs - 64;
+                                      sizeof(int) + 2 * sizeof(long long)) * kMaxInputs - 64;
 
 struct Mode {
   size_t thr_bytes;    // staged thresholds' shared bytes; 0: searched in place
@@ -178,28 +185,71 @@ struct Mode {
   int whole_rows;  // each tile holds whole rows and stores all their slots
 };
 
-// bin[u]: the bin of input d's value at offset f[u] along the fast and s[u]
-// along the slow dimension from the tile's corner (r0, c0), read and
-// compared as C, or -1; against its thresholds staged (skewed) at t with
-// cell map mp, cell table win and widest window widest when `staged`, else
-// searched in device memory.
+// Where a piece of a view lies: the offset of its corner, and the strides
+// of its fast and slow dimensions (rows and columns of a tile, or a run
+// piece's columns and runs).
+struct Walk {
+  long long origin;
+  long long fast;
+  long long slow;
+};
+
+// The Walk of a view of strides (sm1, sm, sc1, sc) over the piece k.
+template <typename V>
+__device__ __forceinline__ Walk walk_of(const V& d, const xh::Corner& k,
+                                        const xh::Tiling& tl) {
+  Walk v;
+  v.origin = xh::corner_offset(k, d.sm1, d.sm, d.sc1, d.sc);
+  v.fast = tl.row_fast ? d.sm : d.sc;
+  v.slow = tl.runs ? d.sc1 : tl.row_fast ? d.sc : d.sm;
+  return v;
+}
+
+// at[u]: the offset of the element at f[u] along the fast and s[u] along
+// the slow dimension of the piece that v maps.
+template <int K>
+__device__ __forceinline__ void offsets(const Walk& v, const unsigned (&f)[K],
+                                        const unsigned (&s)[K], long long (&at)[K]) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) at[u] = v.origin + f[u] * v.fast + s[u] * v.slow;
+}
+
+// bin[u]: the bin of input d's value at f[u] along the fast and s[u] along
+// the slow dimension of the piece that v maps, read and compared as C, or
+// -1; against its thresholds staged (skewed) at t with cell map mp, cell
+// table win and widest window widest when `staged`, else searched in
+// device memory.
 template <typename C, int K>
 __device__ __forceinline__ void input_bins(
     const InputBase& d, const C* t, const xh::CellMap<C>& mp, const int2* win,
-    int widest, bool staged, long long r0, long long c0, bool row_fast,
-    const unsigned (&f)[K], const unsigned (&s)[K], const bool (&ok)[K],
-    int (&bin)[K]) {
-  const long long fast = row_fast ? d.sm : d.sc;
-  const long long slow = row_fast ? d.sc : d.sm;
-  const C* base = static_cast<const C*>(d.data) + r0 * d.sm + c0 * d.sc;
-  C v[K];
+    int widest, bool staged, const Walk& v, const unsigned (&f)[K],
+    const unsigned (&s)[K], const bool (&ok)[K], int (&bin)[K]) {
+  const C* base = static_cast<const C*>(d.data) + v.origin;
+  C x[K];
 #pragma unroll
   for (int u = 0; u < K; ++u)
-    v[u] = ok[u] ? C(base[f[u] * fast + s[u] * slow]) : C(0);
+    x[u] = ok[u] ? C(base[f[u] * v.fast + s[u] * v.slow]) : C(0);
   if (staged)
-    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), v, bin);
+    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), x, bin);
   else
-    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, v, bin);
+    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, x, bin);
+}
+
+// bin[u]: as input_bins, for a Mixed input held as int64 (int64, uint32,
+// uint64 flipped; narrow.cuh's held_int64), compared in int64.
+template <int K>
+__device__ __forceinline__ void held_bins(
+    const Coded& d, const long long* t, const xh::CellMap<long long>& mp,
+    const int2* win, int widest, bool staged, const Walk& v, const unsigned (&f)[K],
+    const unsigned (&s)[K], const bool (&ok)[K], int (&bin)[K]) {
+  long long at[K];
+  offsets<K>(v, f, s, at);
+  long long x[K];
+  xh::gather_mixed<K>(d.data, at, ok, d.code, x);
+  if (staged)
+    xh::bins_bucketed<long long, K>(t, d.nb, mp, win, xh::first_step(widest), x, bin);
+  else
+    xh::bins_of<long long, K, false>(static_cast<const long long*>(d.thr), d.nb, x, bin);
 }
 
 // bin[u]: as input_bins, for an input whose stored type is its run-time
@@ -207,30 +257,25 @@ __device__ __forceinline__ void input_bins(
 template <typename C, int K>
 __device__ __forceinline__ void coded_bins(
     const Coded& d, const C* t, const xh::CellMap<C>& mp, const int2* win,
-    int widest, bool staged, const int* luts, long long r0, long long c0,
-    bool row_fast, const unsigned (&f)[K], const unsigned (&s)[K],
-    const bool (&ok)[K], int (&bin)[K]) {
-  const long long fast = row_fast ? d.sm : d.sc;
-  const long long slow = row_fast ? d.sc : d.sm;
-  const long long origin = r0 * d.sm + c0 * d.sc;
+    int widest, bool staged, const int* luts, const Walk& v, const unsigned (&f)[K],
+    const unsigned (&s)[K], const bool (&ok)[K], int (&bin)[K]) {
   long long at[K];
-#pragma unroll
-  for (int u = 0; u < K; ++u) at[u] = origin + f[u] * fast + s[u] * slow;
-  C v[K];
-  xh::gather_coded<C, K>(d.data, at, ok, d.code, v);
+  offsets<K>(v, f, s, at);
+  C x[K];
+  xh::gather_coded<C, K>(d.data, at, ok, d.code, x);
   if (d.lut >= 0) {
     const int* lut = luts + d.lut;
 #pragma unroll
-    for (int u = 0; u < K; ++u) bin[u] = lut[xh::byte_of(v[u])];
+    for (int u = 0; u < K; ++u) bin[u] = lut[xh::byte_of(x[u])];
   } else if (staged) {
-    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), v, bin);
+    xh::bins_bucketed<C, K>(t, d.nb, mp, win, xh::first_step(widest), x, bin);
   } else {
-    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, v, bin);
+    xh::bins_of<C, K, false>(static_cast<const C*>(d.thr), d.nb, x, bin);
   }
 }
 
-// g[u]: the flat slot of element u, at offset f[u] along the fast and s[u]
-// along the slow dimension from the tile's corner (r0, c0), or -1 where
+// g[u]: the flat slot of element u, at f[u] along the fast and s[u] along
+// the slow dimension of the piece (org[i] maps it in input i), or -1 where
 // ok[u] is false or any input's value is NaN or out of range. t: every
 // input's thresholds staged (skewed) in shared memory, with its cell map
 // maps[i], cell table at win + toff and widest window widest[i], when
@@ -239,9 +284,9 @@ __device__ __forceinline__ void coded_bins(
 template <typename T, int K, int kN>
 __device__ __forceinline__ void flat_slots(
     const Input<T>* in, int n, const Stored<T>* t, const Map<T>* maps,
-    const int2* win, const int* widest, bool staged, const int* luts, long long r0,
-    long long c0, bool row_fast, const unsigned (&f)[K],
-    const unsigned (&s)[K], const bool (&ok)[K], long long (&g)[K]) {
+    const int2* win, const int* widest, bool staged, const int* luts,
+    const Walk* org, const unsigned (&f)[K], const unsigned (&s)[K],
+    const bool (&ok)[K], long long (&g)[K]) {
   bool valid[K];
 #pragma unroll
   for (int u = 0; u < K; ++u) {
@@ -255,18 +300,16 @@ __device__ __forceinline__ void flat_slots(
     if constexpr (kCoded<T>) {
       const Map<T> mp = maps[i];
       const int2* w = win + d.toff;
-      if (kMixed<T> && d.code == xh::kI64)
-        input_bins<long long, K>(
-            d, reinterpret_cast<const long long*>(t + d.soff),
-            xh::CellMap<long long>{mp.lo, mp.inv, mp.k}, w, widest[i], staged, r0,
-            c0, row_fast, f, s, ok, bin);
+      if (kMixed<T> && xh::held_int64(d.code))
+        held_bins<K>(d, reinterpret_cast<const long long*>(t + d.soff),
+                     xh::CellMap<long long>{mp.lo, mp.inv, mp.k}, w, widest[i], staged,
+                     org[i], f, s, ok, bin);
       else
         coded_bins<Cmp<T>, K>(d, reinterpret_cast<const Cmp<T>*>(t + d.soff), mp, w,
-                              widest[i], staged, luts, r0, c0, row_fast, f, s, ok,
-                              bin);
+                              widest[i], staged, luts, org[i], f, s, ok, bin);
     } else {
       input_bins<T, K>(d, t + d.soff, maps[i], win + d.toff, widest[i],
-                          staged, r0, c0, row_fast, f, s, ok, bin);
+                          staged, org[i], f, s, ok, bin);
     }
 #pragma unroll
     for (int u = 0; u < K; ++u) {
@@ -289,8 +332,8 @@ __device__ __forceinline__ long long slot_of(long long l, int log2c, int rank) {
 // W: xh::Count (adds one) or xh::Sum<A> (adds the weight in w).
 template <typename T, typename W, bool kShared, int kN>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
-                 long long c, long long S, xh::Tiling tl, Mode md,
+slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
+                 long long S, xh::Tiling tl, Mode md,
                  typename W::Out* __restrict__ out) {
   using Shared = typename W::Shared;
   using Out = typename W::Out;
@@ -298,6 +341,10 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   __shared__ Input<T> in[kMaxInputs];
   __shared__ Map<T> maps[kMaxInputs];
   __shared__ int widest[kMaxInputs];
+  // each input's offset of the piece's corner and its fast and slow
+  // strides, mapped once a piece, in two buffers by the piece's parity (one
+  // barrier a piece)
+  __shared__ Walk walk[2][kMaxInputs];
   const int n = p.n;
 #pragma unroll
   for (int k = 0; k < kMaxInputs; ++k)  // static indices: no local copy of p
@@ -316,7 +363,7 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
     __syncthreads();
     for (int i = 0; i < n; ++i) {
       if constexpr (kMixed<T>) {
-        if (in[i].code == xh::kI64) {
+        if (xh::held_int64(in[i].code)) {
           const xh::CellMap<long long> mp =
               xh::cell_map(t + in[i].soff, in[i].nb, in[i].cells);
           if (threadIdx.x == 0) maps[i] = {mp.lo, mp.inv, mp.k};
@@ -365,14 +412,20 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   // block of lanes threads would
   const unsigned lanes = blockDim.x << log2c;
   const unsigned tid = rank * blockDim.x + threadIdx.x;
-  const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  for (long long tile = blockIdx.x >> log2c; tile < n_tiles;
-       tile += gridDim.x >> log2c) {
-    const long long r0 = tile / tl.col_tiles * tl.rows;
-    const long long c0 = tile % tl.col_tiles * tl.cols;
-    const unsigned rr = (unsigned)min(tl.rows, m - r0);
-    const unsigned cc = (unsigned)min(tl.cols, c - c0);
-    const unsigned total = rr * cc;
+  xh::PieceLoop pl = xh::piece_loop(tl, dims, blockIdx.x >> log2c, gridDim.x >> log2c);
+  xh::Corner tc;
+  bool flush;
+  int parity = 0;
+  while (xh::next_piece(pl, tl, dims, tc, flush)) {
+    parity ^= 1;
+    if (threadIdx.x < n) walk[parity][threadIdx.x] = walk_of(in[threadIdx.x], tc, tl);
+    __syncthreads();
+    const Walk* org = walk[parity];
+    const long long r0 = tc.r0;
+    const unsigned rr = tc.rr;
+    const unsigned cc = tc.cc;
+    const unsigned total = rr * cc * tc.cj;
+    const Walk ww = walk_of(w, tc, tl);  // the weights' (all zero unweighted)
     // (f, s): a thread's position along the fast and the slow dimension of
     // the tile, advanced by `lanes` elements a step without a division
     const unsigned fast_n = tl.row_fast ? rr : cc;
@@ -399,19 +452,16 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
       }
       long long g[kUnroll];
       flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged,
-                                 reinterpret_cast<const int*>(smem), r0, c0,
-                                 tl.row_fast, fs, ss, ok, g);
+                                 reinterpret_cast<const int*>(smem), org, fs, ss,
+                                 ok, g);
       Shared wt[kUnroll];  // each counted element's weight
       if constexpr (W::kWeighted) {
-        const long long fast = tl.row_fast ? w.sm : w.sc;
-        const long long slow = tl.row_fast ? w.sc : w.sm;
-        const long long base = r0 * w.sm + c0 * w.sc;
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           wt[u] = Shared(0);
           if (g[u] >= 0)
-            xh::load_weight(w.data, base + fs[u] * fast + ss[u] * slow, w.code,
-                            wt[u]);
+            xh::load_weight(w.data, ww.origin + fs[u] * ww.fast + ss[u] * ww.slow,
+                            w.code, wt[u]);
         }
       } else {
 #pragma unroll
@@ -420,7 +470,8 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (g[u] < 0) continue;
-        const long long row = md.reduce_all ? 0 : (tl.row_fast ? fs[u] : ss[u]);
+        // (a piece of one row: its row 0, whatever the slow dimension)
+        const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
         if (kShared && cl == 1) {
           atomicAdd(&mine[row * s_local + g[u]], wt[u]);
         } else if (kShared) {
@@ -437,6 +488,9 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
     }
 
     if (kShared && !md.reduce_all) {
+      // a chunk's next tile of the same rows adds into their histograms
+      // first (the same decision in every block of the cluster)
+      if (!flush) continue;
       if (cl > 1)
         cluster.sync();  // every add of the tile landed
       else
@@ -483,35 +537,36 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, long long m,
   }
 }
 
-// Kept rows over a cluster: one row a tile, each row cut into ct column
-// tiles, ct minimising the rounds of tiles over the resident clusters times
-// a round's work (a tile's elements and the S slots it flushes).
-inline xh::Tiling cluster_row_tiling(long long m, long long c, bool row_fast,
-                                     long long S, long long resident) {
+// Kept rows over a cluster, the columns one run: one row a tile, each row
+// cut into ct column tiles, ct minimising the rounds of tiles over the
+// resident clusters times a round's work (a tile's elements and the S slots
+// it flushes). Rows of several runs take run_tiling instead.
+inline xh::Tiling cluster_row_tiling(const xh::Dims& d, bool row_fast, long long S,
+                                     long long resident) {
+  const long long m = d.m1 * d.m0;
   long long best_ct = 1;
   double best = -1.0;
-  for (long long ct = 1; ct <= c && ct <= 4096; ++ct) {
+  for (long long ct = 1; ct <= d.c0 && ct <= 4096; ++ct) {
     const double cost = (double)xh::ceil_div(m * ct, resident) *
-                        (double)(xh::ceil_div(c, ct) + S);
+                        (double)(xh::ceil_div(d.c0, ct) + S);
     if (best < 0 || cost < best) {
       best = cost;
       best_ct = ct;
     }
   }
-  xh::Tiling tl;
+  xh::Tiling tl = {};
   tl.row_fast = row_fast;
   tl.copies = 1;
   tl.rows = 1;
-  tl.cols = xh::ceil_div(c, best_ct);
-  tl.row_tiles = m;
-  tl.col_tiles = xh::ceil_div(c, tl.cols);
+  tl.cols = xh::ceil_div(d.c0, best_ct);
+  xh::count_tiles(tl, d);
   return tl;
 }
 
 template <typename T, typename W, bool kShared, int kN>
-int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
-                  long long c, long long S, long long most_counters,
-                  bool row_fast, Mode md, void* out, cudaStream_t stream) {
+int launch_kernel(const Inputs<T>& p, const xh::Weights& w, const xh::Dims& dims,
+                  long long S, long long most_counters, bool row_fast, Mode md,
+                  void* out, cudaStream_t stream) {
   using Shared = typename W::Shared;
   using Out = typename W::Out;
   static xh::ClusterShape shape;
@@ -527,16 +582,20 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
 
   xh::Tiling tl;
   size_t smem = md.stage_bytes;
+  // a kept row of several runs of columns, one row a tile: pieces of whole
+  // runs, each cluster a contiguous range of (row, run) pairs
+  const bool by_runs = kShared && !md.reduce_all && dims.c1 > 1 && dims.c0 < (1LL << 31);
   if (kShared && cl > 1) {
-    tl = md.reduce_all
-             ? xh::make_tiling(m, c, row_fast, xh::kMaxTile, kMinTile, resident)
-             : cluster_row_tiling(m, c, row_fast, S, resident);
+    tl = md.reduce_all ? xh::make_tiling(dims, row_fast, xh::kMaxTile, kMinTile, resident)
+         : by_runs     ? xh::run_tiling(dims, resident)
+                       : cluster_row_tiling(dims, row_fast, S, resident);
     smem = smem_most;  // one histogram share, no replicas
   } else {
     const long long max_rows =
         kShared && !md.reduce_all ? most_counters / S : xh::kMaxTile;
-    tl = xh::make_tiling(m, c, row_fast, max_rows > 0 ? max_rows : 1, kMinTile,
+    tl = xh::make_tiling(dims, row_fast, max_rows > 0 ? max_rows : 1, kMinTile,
                          resident);
+    if (by_runs && tl.rows == 1) tl = xh::run_tiling(dims, resident);
     if (kShared) {
       const long long one_copy = (md.reduce_all ? 1 : tl.rows) * S;
       const long long copies = most_counters / one_copy;
@@ -545,18 +604,25 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
     }
   }
   const long long n_tiles = tl.row_tiles * tl.col_tiles;
-  const long long clusters = n_tiles < resident ? n_tiles : resident;
+  // run pieces, or kept rows of several runs in contiguous chunks of tiles,
+  // one range a cluster
+  const long long clusters =
+      tl.runs ? xh::ceil_div(dims.m1 * dims.m0 * dims.c1, tl.runs)
+      : by_runs ? xh::chunk_tiles(tl, dims, resident)
+                : (n_tiles < resident ? n_tiles : resident);
   // each block's shared counters are 32-bit and every block of a cluster
   // adds into them: bound the elements one cluster counts before it
-  // flushes (a full reduction flushes only at the end); weighted sums wrap
-  // or round by their own type's rules instead
-  const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, clusters) : 1;
+  // flushes (a full reduction flushes only at the end, a chunk at most once
+  // a tile, a range of runs once a row); weighted sums wrap or round by
+  // their own type's rules instead
+  const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, clusters)
+                           : tl.runs ? tl.runs : tl.chunk ? tl.chunk : 1;
   if (!W::kWeighted && kShared && visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
   md.whole_rows = kShared && !md.reduce_all && tl.col_tiles == 1;
   if (!md.whole_rows) {
-    const long long rows_out = md.reduce_all ? 1 : m;
+    const long long rows_out = md.reduce_all ? 1 : dims.m1 * dims.m0;
     err = cudaMemsetAsync(out, 0, sizeof(Out) * rows_out * (S + 1), stream);
     if (err != cudaSuccess) return (int)err;
   }
@@ -564,7 +630,7 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, long long m,
                      {p.in[0].cells, p.n > 1 ? p.in[1].cells : 0}};
   return (int)xh::launch_clustered(slot_hist_kernel<T, W, kShared, kN>,
                                    dim3((unsigned int)(clusters * cl)), threads,
-                                   smem, cl, stream, p, w, m, c, S, tl, md,
+                                   smem, cl, stream, p, w, dims, S, tl, md,
                                    static_cast<Out*>(out));
 }
 
@@ -577,10 +643,12 @@ inline long long share(long long S, int log2c) {
 }
 
 // The C entries' common body: counts (W = xh::Count) or weighted sums
-// (W = xh::Sum<A>, weights w) of the n inputs' (m, c) layouts into out,
-// (1 if reduce_all else m, S + 1) of W::Out, which needs no zeroing.
-// data[k], thr[k]: device pointers of type T; strides[2k], strides[2k + 1]:
-// input k's (sm, sc) in elements; nb[k] its bin count. Histograms of at
+// (W = xh::Sum<A>, weights w) of the n inputs' (m1, m0, c1, c0) views
+// (dims[0..3]) into out, (1 if reduce_all else m1 m0, S + 1) of W::Out,
+// which needs no zeroing. data[k], thr[k]: device pointers of type T;
+// strides[4k .. 4k + 3]: input k's (sm1, sm, sc1, sc) in elements; nb[k]
+// its bin count. A full reduction's one row of two column levels comes as
+// (1, c1, 1, c0), its rows summed (cuda_hist._geometry). Histograms of at
 // most max_shared_slots slots a row are kept in the shared memory of one
 // block, or of a cluster of at most max_cluster blocks (1, 2, 4 or 8),
 // where they fit. Launches on `stream` and returns cudaGetLastError() (or
@@ -590,10 +658,12 @@ inline long long share(long long S, int log2c) {
 template <typename T, typename W>
 int launch_slot_hist(int n, const int* codes, const void* const* data,
                      const long long* strides, const void* const* thr,
-                     const int* nb, long long m, long long c, int reduce_all,
+                     const int* nb, const long long* dim, int reduce_all,
                      long long max_shared_slots, int max_cluster,
                      const xh::Weights& w, void* out, void* stream) {
-  if (n < 1 || n > kMaxInputs || m <= 0 || c <= 0 || w.sm < 0 || w.sc < 0 ||
+  const xh::Dims dims = {dim[0], dim[1], dim[2], dim[3]};
+  if (n < 1 || n > kMaxInputs || dims.m1 <= 0 || dims.m0 <= 0 || dims.c1 <= 0 ||
+      dims.c0 <= 0 || w.sm < 0 || w.sc < 0 || w.sm1 < 0 || w.sc1 < 0 ||
       max_cluster < 1)
     return (int)cudaErrorInvalidValue;
   using Shared = typename W::Shared;
@@ -612,17 +682,19 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
     if constexpr (kCoded<T>) {
       // Narrow reads float32 and the narrow types; Mixed every type
       const int code = codes[k];
-      if (code < 0 || code >= xh::kLoadCodes ||
-          (kNarrow<T> && (code == xh::kF64 || code == xh::kI32 || code == xh::kI64)))
+      if (code < 0 || code >= xh::kLoadCodes || (kNarrow<T> && !xh::narrow_code(code)))
         return (int)cudaErrorInvalidValue;
       d.code = code;
       d.lut = -1;
       tables += xh::is_byte(code);
     }
-    d.sm = strides[2 * k];
-    d.sc = strides[2 * k + 1];
+    d.sm1 = strides[4 * k];
+    d.sm = strides[4 * k + 1];
+    d.sc1 = strides[4 * k + 2];
+    d.sc = strides[4 * k + 3];
     d.nb = nb[k];
-    if (d.nb < 1 || d.sm < 0 || d.sc < 0 || S > (1LL << 62) / d.nb)
+    if (d.nb < 1 || d.sm < 0 || d.sc < 0 || d.sm1 < 0 || d.sc1 < 0 ||
+        S > (1LL << 62) / d.nb)
       return (int)cudaErrorInvalidValue;
     S *= d.nb;
     // read only when the thresholds are staged, and then below 2^16
@@ -635,7 +707,8 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
   }
   row_cost += w.sm > 1;  // the weights' view (all zero when unweighted)
   col_cost += w.sc > 1;
-  const bool row_fast = m > 1 && (c == 1 || row_cost < col_cost);
+  // a tile lies in one run of rows and one of columns: the inner levels
+  const bool row_fast = dims.m0 > 1 && (dims.c0 == 1 || row_cost < col_cost);
 
   // thresholds and their cell tables (and the 8-bit tables) where they
   // fit; one cell a table (the plain binary search) where only the
@@ -689,26 +762,24 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
     if (most > room) most = room;
     md.s_local = S;
     if (n == 2 && !kMixed<T>)
-      return launch_kernel<T, W, true, (kMixed<T> ? 0 : 2)>(p, w, m, c, S, most,
+      return launch_kernel<T, W, true, (kMixed<T> ? 0 : 2)>(p, w, dims, S, most,
                                                           row_fast, md, out, st);
-    return launch_kernel<T, W, true, 0>(p, w, m, c, S, most, row_fast, md,
-                                        out, st);
+    return launch_kernel<T, W, true, 0>(p, w, dims, S, most, row_fast, md, out, st);
   }
   if (log2c > 0) {
     md.log2c = log2c;
     md.s_local = share(S, log2c);
     if (n == 2 && !kMixed<T>)
       return launch_kernel<T, W, true, (kMixed<T> ? 0 : 2)>(
-          p, w, m, c, S, md.s_local, row_fast, md, out, st);
-    return launch_kernel<T, W, true, 0>(p, w, m, c, S, md.s_local, row_fast, md,
+          p, w, dims, S, md.s_local, row_fast, md, out, st);
+    return launch_kernel<T, W, true, 0>(p, w, dims, S, md.s_local, row_fast, md,
                                         out, st);
   }
   md.s_local = S;
   if (n == 2 && !kMixed<T>)
-    return launch_kernel<T, W, false, (kMixed<T> ? 0 : 2)>(p, w, m, c, S, 0,
+    return launch_kernel<T, W, false, (kMixed<T> ? 0 : 2)>(p, w, dims, S, 0,
                                                          row_fast, md, out, st);
-  return launch_kernel<T, W, false, 0>(p, w, m, c, S, 0, row_fast, md, out,
-                                       st);
+  return launch_kernel<T, W, false, 0>(p, w, dims, S, 0, row_fast, md, out, st);
 }
 
 }  // namespace slot
@@ -718,27 +789,27 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
 #define XH_SLOT_ENTRY(name, T, reduce_all)                                    \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c,               \
+                      const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
-        n, nullptr, data, strides, thr, nb, m, c, reduce_all,                \
+        n, nullptr, data, strides, thr, nb, dims, reduce_all,                \
         max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
   }
 
-// The weighted C entry of one route: sums of the weights w (an (m, c) view
-// with strides wsm, wsc, of the type `wcode` names within accumulator
-// class A; weights.cuh) into out, of type A; see launch_slot_hist.
+// The weighted C entry of one route: sums of the weights w (a view with
+// the four strides wst, of the type `wcode` names within accumulator class
+// A; weights.cuh) into out, of type A; see launch_slot_hist.
 #define XH_SLOT_WEIGHTED_ENTRY(name, T, A, reduce_all)                        \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c,               \
+                      const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster,           \
-                      const void* w, long long wsm, long long wsc, int wcode, \
+                      const void* w, const long long* wst, int wcode,        \
                       void* out, void* stream) {                             \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
-        n, nullptr, data, strides, thr, nb, m, c, reduce_all,                \
-        max_shared_slots, max_cluster, xh::Weights{w, wsm, wsc, wcode}, out,  \
+        n, nullptr, data, strides, thr, nb, dims, reduce_all,                \
+        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode), out,   \
         stream);                                                             \
   }
 
@@ -770,11 +841,11 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
 #define XH_SLOT_CODED_ENTRY(name, T, reduce_all)                              \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c,               \
+                      const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
-        n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
+        n, codes, data, strides, thr, nb, dims, reduce_all,                  \
         max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
   }
 
@@ -782,13 +853,13 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
 #define XH_SLOT_CODED_WEIGHTED_ENTRY(name, T, A, reduce_all)                  \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, long long m, long long c,               \
+                      const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster,           \
-                      const void* w, long long wsm, long long wsc, int wcode, \
+                      const void* w, const long long* wst, int wcode,        \
                       void* out, void* stream) {                             \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
-        n, codes, data, strides, thr, nb, m, c, reduce_all,                  \
-        max_shared_slots, max_cluster, xh::Weights{w, wsm, wsc, wcode}, out,  \
+        n, codes, data, strides, thr, nb, dims, reduce_all,                  \
+        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode), out,   \
         stream);                                                             \
   }
 

@@ -24,8 +24,8 @@
 // which varies from run to run, by about n 2^-53 relatively for n weights
 // in a slot, far below the float32 rounding that follows.
 //
-// Weights are an (m, c) view with their own non-negative strides (a
-// broadcast weight has stride 0), read in place like the data.
+// Weights are an (m1, m0, c1, c0) view with their own non-negative strides
+// (a broadcast weight has stride 0), read in place like the data.
 
 #pragma once
 
@@ -35,11 +35,21 @@
 namespace xh {
 
 struct Weights {
-  const void* data;  // element (r, j) at data[r * sm + j * sc]
+  // element (r, j), r = i1 * m0 + i0 and j = j1 * c0 + j0, at
+  // data[i1 * sm1 + i0 * sm + j1 * sc1 + j0 * sc]
+  const void* data;
   long long sm;
   long long sc;
   int code;  // the stored type within the class; see load_weight
+  long long sm1;
+  long long sc1;
 };
+
+// The weights of a C entry: w, the four strides (sm1, sm, sc1, sc) of its
+// view (none unweighted) and the type code.
+inline Weights weights_of(const void* w, const long long* st, int code) {
+  return st == nullptr ? Weights{} : Weights{w, st[1], st[3], code, st[0], st[2]};
+}
 
 struct Count {
   static constexpr bool kWeighted = false;

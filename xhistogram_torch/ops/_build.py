@@ -61,6 +61,10 @@ DTYPE_SUFFIXES = ("f32", "f64", "i32", "i64")
 #: width: float16, bfloat16 and 16-bit integers compared in float32, 8-bit
 #: integers (bool as uint8) through a table of their 256 values' bins
 NARROW_SUFFIXES = ("f16", "bf16", "i16", "u16", "i8", "u8")
+#: the unsigned load types of one_input (csrc/one_input_unsigned.cu), read
+#: at their own width and compared in int64 (uint64 flipped, x ^ 2^63); the
+#: other kernels read them through their mixed entries
+UNSIGNED_SUFFIXES = ("u32", "u64")
 #: joint2's pairs of two load types with instantiations of their own, each
 #: input read in place and compared in its own type, symbols
 #: ``xh_joint2_<a>_<b>``: int64 beside a float (csrc/joint2_mixed.cu), and
@@ -95,28 +99,34 @@ def symbols():
     """(name, argtypes) of every C entry the library defines: each kernel's
     unweighted entry and one per weight class, per suffix."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    slot_args = [i32, p, p, p, p, i64, i64, i64, i32]
-    weight_view = [p, i64, i64, i32]
-    # each kernel's arguments before and after the weights' (pointer,
-    # strides, type code) that its weighted entries take, its suffixes and
-    # its weight classes
+    # input count, data pointers, strides (m1, m0, c1, c0 of each input),
+    # thresholds, bin counts, dims (m1, m0, c1, c0), then the flat-slot
+    # routes' shared-slot and cluster caps
+    slot_args = [i32, p, p, p, p, p, i64, i32]
+    # the weights' pointer, their view's four strides, their type code
+    weight_view = [p, p, i32]
+    # each kernel's arguments before and after the weights' that its
+    # weighted entries take, its suffixes and its weight classes
     kernels = {
-        "joint2": ([p, p, i64, p, i32, p, i32, i32], [p, i32], [p],
+        # runs: (g, n, the outer strides of a, b and the weights)
+        "joint2": ([p, p, p, p, i32, p, i32, i32], [p, i32], [p],
                    DTYPE_SUFFIXES + NARROW_SUFFIXES + JOINT2_PAIRS, WEIGHT_CLASSES),
         # the coded entries take each input's stored type first
-        "joint2_mixed": ([p, p, p, i64, p, i32, p, i32, i32], [p, i32], [p], ("",),
+        "joint2_mixed": ([p, p, p, p, p, i32, p, i32, i32], [p, i32], [p], ("",),
                          WEIGHT_CLASSES),
-        "one_input": ([p, i64, i64, i64, i64, p, i32, i32], weight_view, [p, p],
-                      DTYPE_SUFFIXES + NARROW_SUFFIXES, WEIGHT_CLASSES),
+        # data, dims, strides, thresholds, bins, reduce_all
+        "one_input": ([p, p, p, p, i32, i32], weight_view, [p, p],
+                      DTYPE_SUFFIXES + NARROW_SUFFIXES + UNSIGNED_SUFFIXES,
+                      WEIGHT_CLASSES),
         **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
            for route in SLOT_ROUTES},
         # the coded entries take each input's stored type after the count
         **{f"{route}_{kind}": ([i32, p, *slot_args[1:]], weight_view, [p], ("",),
                                WEIGHT_CLASSES)
            for route in SLOT_ROUTES for kind in ("mixed", "narrow")},
-        "direct_rows": (slot_args[:7], weight_view, [p], DTYPE_SUFFIXES,
+        "direct_rows": (slot_args[:6], weight_view, [p], DTYPE_SUFFIXES,
                         (*WEIGHT_CLASSES, ROUNDED_CLASS)),
-        **{f"direct_rows_{kind}": ([i32, p, *slot_args[1:7]], weight_view, [p], ("",),
+        **{f"direct_rows_{kind}": ([i32, p, *slot_args[1:6]], weight_view, [p], ("",),
                                    (*WEIGHT_CLASSES, ROUNDED_CLASS))
            for kind in ("narrow", "mixed")},
     }

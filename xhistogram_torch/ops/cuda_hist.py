@@ -15,9 +15,15 @@ direct entries of ``csrc/direct.cu``). ``factored`` and those entries
 share the flat-slot histogram of ``csrc/slot.cuh``. Each ``*_reference``
 is the plain version: digitize, flat slot, bincount.
 
-Every wrapper takes ``weights=``, an ``(m, c)`` view shaped like the data,
-and then returns the weighted sums in ``bincount.weighted_dtype`` of the
-weights' dtype instead of int64 counts. The weighted kernels
+Every wrapper takes its data as ``(m, c)`` layouts or as the ``(m1, m0,
+c1, c0)`` views of ``utils.axes.strided_layout``: kept rows ``r = i1 * m0 +
+i0`` and reduced columns ``j = j1 * c0 + j0``, each level at its own stride
+(0 for a broadcast), which every kernel reads in place; joint2 reads runs of
+contiguous elements at one outer stride an operand and copies only an
+operand that has none (``last_launch()["view"]``). Every wrapper takes
+``weights=``, a view shaped like the data, and then returns the weighted
+sums in ``bincount.weighted_dtype`` of the weights' dtype instead of int64
+counts. The weighted kernels
 (``csrc/weights.cuh``) add each weight with an atomic in float64 (float
 weights) or in 32- or 64-bit integers, in place of the TPU kernels' weight
 limbs, Kahan outputs and NaN/inf channels, so every public ``precision=``
@@ -26,7 +32,11 @@ contract for that argument. The direct kernel can also store float sums
 finished, as float32 rounded once from float64 (``finish=True``).
 
 The kernels compare float32, float64, int32 and int64 data in its own
-type. bool, 8- and 16-bit integers, float16 and bfloat16 come with
+type, and uint32 and uint64 data in int64: uint32 widened in registers,
+uint64 flipped there (``x ^ 2^63``, the order of ``bins.flip_uint64``)
+against int64 thresholds flipped alike, read in place by one_input's own
+entries and by the other kernels' mixed entries. bool, 8- and 16-bit
+integers, float16 and bfloat16 come with
 thresholds in int32, float32 or float16 (``bins.compare_form`` of their
 compare type), and every kernel reads them in place at their own width and
 widens each value in registers to float32 or int32, exactly, keeping every
@@ -66,6 +76,7 @@ import torch
 
 from . import _build
 from .bincount import bincount2d_scatter, finish_sums, weight_sums
+from ..utils.axes import merged_levels
 from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
@@ -88,7 +99,9 @@ __all__ = [
     "DIRECT_LAUNCHES",
     "MAX_SHARED_SLOTS",
     "MAX_CLUSTER_CTAS",
+    "LAYOUT_COPIES",
     "last_launch",
+    "note_layout_copy",
 ]
 
 _SUB = 8  # the JAX package's sublane rounding, kept so plan() agrees with it
@@ -139,7 +152,11 @@ _NARROW = {
     torch.int16: torch.int32, torch.uint16: torch.int32,
     torch.bfloat16: torch.float32,
 }
-_DATA_DTYPES = (*_NARROW, torch.float16, *_SUFFIX)
+#: the unsigned types compared in int64, each read at its own width
+_UNSIGNED = {torch.uint32: torch.int64, torch.uint64: torch.int64}
+#: each data dtype's thresholds' dtype, where it is not the data's own
+_THRESHOLDS = {**_NARROW, **_UNSIGNED}
+_DATA_DTYPES = (*_NARROW, torch.float16, *_SUFFIX, *_UNSIGNED)
 #: the narrow dtypes' load types in the kernels of one narrow type
 #: (one_input, joint2; the suffix of their C symbols; bool as its bytes)
 _NARROW_SUFFIX = {
@@ -161,8 +178,16 @@ _NARROW_COMPARE = {
 _LOAD_CODE = {
     torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3,
     torch.float16: 4, torch.bfloat16: 5, torch.int16: 6, torch.uint16: 7,
-    torch.int8: 8, torch.uint8: 9, torch.bool: 9,
+    torch.int8: 8, torch.uint8: 9, torch.bool: 9, torch.uint32: 10,
+    torch.uint64: 11,
 }
+#: the dtypes the mixed entries compare in int64 (the rest in float64)
+_INT64_HELD = (torch.int64, *_UNSIGNED)
+#: one_input's load type of each data dtype (the suffix of its C symbols)
+#: and the type it compares it in, where not its own
+_ONE_INPUT_SUFFIX = {**_NARROW_SUFFIX, **_SUFFIX, torch.uint32: "u32",
+                     torch.uint64: "u64"}
+_ONE_INPUT_COMPARE = {**_NARROW_COMPARE, **_UNSIGNED}
 #: the dtypes the narrow entries of factored and direct read, in any mix,
 #: each compared in float32
 _FLOAT32_READS = (torch.float32, *_NARROW_SUFFIX)
@@ -289,10 +314,10 @@ class OperandPlan(NamedTuple):
 
 
 def _mixed_plan(dtypes):
-    """The mixed entries' plan: every input read by its load code, int64
-    compared in int64 and every other dtype in float64, which holds each of
-    its values exactly."""
-    compare = tuple(torch.int64 if d == torch.int64 else torch.float64 for d in dtypes)
+    """The mixed entries' plan: every input read by its load code, int64,
+    uint32 and uint64 compared in int64 (uint64 flipped) and every other
+    dtype in float64, which holds each of its values exactly."""
+    compare = tuple(torch.int64 if d in _INT64_HELD else torch.float64 for d in dtypes)
     return OperandPlan("mixed", dtypes, compare, tuple(_LOAD_CODE[d] for d in dtypes))
 
 
@@ -308,13 +333,16 @@ def operand_plan(kernel, dtypes):
     ``_build.JOINT2_PAIRS`` (each narrow dtype and int32 beside float32,
     float32 beside float64, int32 beside int64, int64 beside a float, in
     both orders) have entries of their own; every other pair takes the
-    mixed entry. For "slot" (the flat-slot template and the direct-row
-    kernel), inputs of one wide dtype take its entry, float32 and narrow
-    inputs in any mix the narrow entries (each compared in float32,
-    thresholds in float32), and every other mix the mixed ones (int64
+    mixed entry, as does every pair with uint32 or uint64. For "slot" (the
+    flat-slot template and the direct-row kernel), inputs of one wide dtype
+    take its entry, float32 and narrow inputs in any mix the narrow entries
+    (each compared in float32, thresholds in float32), and every other mix,
+    uint32 and uint64 included, the mixed ones (int64, uint32 and uint64
     compared in int64, the rest in float64)."""
     dtypes = tuple(dtypes)
     n = len(dtypes)
+    if kernel == "joint2" and any(d in _UNSIGNED for d in dtypes):
+        return _mixed_plan(dtypes)
     if kernel == "joint2":
         suffixes = tuple(_LOAD_SUFFIX[d] for d in dtypes)
         pair = "_".join(suffixes)
@@ -343,7 +371,7 @@ def _check_operands(name, data, thresholds, nbins):
             raise TypeError(
                 f"{name} takes {[str(d) for d in _DATA_DTYPES]} data, got {x.dtype}"
             )
-        want = _NARROW.get(x.dtype, x.dtype)
+        want = _THRESHOLDS.get(x.dtype, x.dtype)
         if thr.dtype != want:
             if want == x.dtype:
                 raise TypeError(
@@ -371,7 +399,30 @@ def _stream(device):
 #: (csrc/one_input.cuh): per-lane private counters, warp replicas added with
 #: 32-bit shared atomics, warp-owned copies added by __match_any_sync leaders
 ONE_INPUT_LAYOUTS = {1: "lane-private", 2: "warp replicas", 3: "aggregated"}
-_LAST_LOADS = [None]  # (the dtypes the last launch read, its device)
+#: (the dtypes the last launch read, its device, whether an operand was
+#: copied for its layout)
+_LAST_LOADS = [None]
+#: copies of operands made for a kernel's layout in this process: by
+#: ``core`` where a side of the call needs three or more levels
+#: (``note_layout_copy``), and by joint2 for an operand with no contiguous
+#: runs
+LAYOUT_COPIES = 0
+_COPY_PENDING = [False]  # core copied the operands of the next launch
+
+
+def note_layout_copy(n_operands):
+    """Record that the caller copied ``n_operands`` operands into a
+    contiguous layout for the next launch (``LAYOUT_COPIES``, and
+    ``last_launch()["view"]`` of that launch)."""
+    global LAYOUT_COPIES
+    LAYOUT_COPIES += n_operands
+    _COPY_PENDING[0] = True
+
+
+def _record(loads, device, copied=False):
+    """The launch record's loads, device and layout, for ``last_launch``."""
+    _LAST_LOADS[0] = (loads, device, copied or _COPY_PENDING[0])
+    _COPY_PENDING[0] = False
 _WIDEST = {}  # per device: one int32 the one_input kernel writes L into
 
 
@@ -385,7 +436,10 @@ def last_launch():
     of T rows), ``shared`` (False: the histogram was in device memory) and
     ``cells`` (the cell-table sizes asked for the first two inputs;
     ``ops.digitize.bucket_table`` gives the table the kernel built).
-    ``kernel`` names which: "direct_rows" (``csrc/direct.cuh``) adds
+    ``view`` is "in place" where the kernel read every operand where the
+    caller's tensor lies, and "copied" where an operand was copied first
+    (``LAYOUT_COPIES``). ``kernel`` names which: "direct_rows"
+    (``csrc/direct.cuh``) adds
     ``warps_per_row`` (1: a warp owns its row), ``warps_per_block``,
     ``blocks`` and ``rows_per_warp`` (the most rows a warp walked).
     one_input adds its counter ``layout`` (one of ``ONE_INPUT_LAYOUTS``'
@@ -397,9 +451,10 @@ def last_launch():
     out = (ctypes.c_int * 11)()
     _build.load().xh_last_launch(out)
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
-    loads, device = _LAST_LOADS[0]
+    loads, device, copied = _LAST_LOADS[0]
     rec = {"kernel": kernel, "cluster": out[0], "passes": out[1],
-           "shared": bool(out[2]), "cells": (out[3], out[4]), "loads": loads}
+           "shared": bool(out[2]), "cells": (out[3], out[4]), "loads": loads,
+           "view": "copied" if copied else "in place"}
     if out[8]:
         rec.update(warps_per_row=1, warps_per_block=out[8], blocks=out[9],
                    rows_per_warp=out[10])
@@ -449,14 +504,60 @@ def _out_dtype(weights):
     return _CLASS_OUT[_WEIGHT_CLASS[weights.dtype][0]]
 
 
-def _weight_args(weights, strides=True):
+def _weight_args(weights, strides=None):
     """(suffix of the kernel's weighted C entry, the weights' arguments:
-    pointer, strides if the entry reads a view, type code), or ("", [])
-    unweighted."""
+    pointer, the four strides ``strides`` of its view as a C array where
+    the entry reads one, type code), or ("", []) unweighted."""
     if weights is None:
         return "", []
     cls, code = _WEIGHT_CLASS[weights.dtype]
-    return f"_{cls}", [weights.data_ptr(), *(weights.stride() if strides else ()), code]
+    view = [] if strides is None else [(ctypes.c_int64 * 4)(*strides)]
+    return f"_{cls}", [weights.data_ptr(), *view, code]
+
+
+def _dims(x):
+    """``((m1, m0, c1, c0), strides)`` of a kernel operand: a 4-D view as
+    it is, an ``(m, c)`` layout as ``(1, m, 1, c)``."""
+    if x.ndim == 2:
+        (m, c), (sm, sc) = x.shape, x.stride()
+        return (1, m, 1, c), (0, sm, 0, sc)
+    return tuple(x.shape), tuple(x.stride())
+
+
+def _geometry(x, reduce_all):
+    """``_dims`` as a kernel walks them: the one row of a full reduction
+    with two column levels as ``c1`` rows of ``c0`` columns (every row is
+    summed), so its tiles may span the runs."""
+    dims, st = _dims(x)
+    if reduce_all and dims[0] * dims[1] == 1:
+        return (1, dims[2], 1, dims[3]), (0, st[2], 0, st[3])
+    return dims, st
+
+
+def _rows(x, reduce_all):
+    """The leading dims of a kernel's output: one row for a full
+    reduction, else the kept rows, ``(m,)`` of a layout, ``(m1, m0)`` of a
+    view."""
+    if reduce_all:
+        return (1,)
+    return tuple(x.shape[:-2]) if x.ndim == 4 else (x.shape[0],)
+
+
+def _flat(x):
+    """An operand as the plain version reads it: an ``(m, c)`` layout
+    (a view's elements in its order, copied where they do not merge)."""
+    if x.ndim == 2:
+        return x
+    m1, m0, c1, c0 = x.shape
+    return x.reshape(m1 * m0, c1 * c0)
+
+
+def _check_layout(name, x):
+    if x.ndim not in (2, 4):
+        raise ValueError(
+            f"{name} takes a 2-D layout, or an (m1, m0, c1, c0) view, got shape "
+            f"{tuple(x.shape)}"
+        )
 
 
 def _finish(out, weights):
@@ -470,25 +571,28 @@ def _slot_sums_reference(arrays_2d, thresholds, nbins, reduce_all, weights=None)
     bincount. ``(1 if reduce_all else m, prod(nbins) + 1)`` int64 counts,
     or sums of ``weights`` (shaped like the data) in their accumulator
     class's dtype (``_out_dtype``), as a kernel writes them; the trailing
-    trash slot is zero, as the JAX kernels return."""
-    indices = [digitize_edges(a, t) for a, t in zip(arrays_2d, thresholds)]
+    trash slot is zero, as the JAX kernels return. ``(m1, m0, c1, c0)``
+    views give ``(m1, m0, prod(nbins) + 1)`` per kept row, as the ops do."""
+    rows = _rows(arrays_2d[0], reduce_all)
+    indices = [digitize_edges(_flat(a), t) for a, t in zip(arrays_2d, thresholds)]
     g, n_slots = joint_bin_index(indices, nbins)
     if reduce_all:
         g = g.reshape(1, -1)
     if weights is None:
         counts = bincount2d_scatter(g, n_slots)
         counts[:, -1] = 0
-        return counts
-    sums = weight_sums(g, n_slots, weights.reshape(g.shape))
+        return counts.reshape(*rows, n_slots)
+    sums = weight_sums(g, n_slots, _flat(weights).reshape(g.shape))
     sums[:, -1] = 0
-    return sums.to(_out_dtype(weights))
+    return sums.to(_out_dtype(weights)).reshape(*rows, n_slots)
 
 
 def _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all,
                            weights=None):
-    """``_slot_sums_reference`` with the sums in their ``weighted_dtype``."""
-    return _finish(_slot_sums_reference(arrays_2d, thresholds, nbins, reduce_all,
-                                        weights), weights)
+    """``_slot_sums_reference`` with the sums in their ``weighted_dtype``,
+    one row a kept row: ``(1 if reduce_all else m, prod(nbins) + 1)``."""
+    sums = _slot_sums_reference(arrays_2d, thresholds, nbins, reduce_all, weights)
+    return _finish(sums.reshape(-1, sums.shape[-1]), weights)
 
 
 def one_input_reference(a2d, thr, nb, reduce_all, weights=None):
@@ -498,7 +602,8 @@ def one_input_reference(a2d, thr, nb, reduce_all, weights=None):
 
 
 def one_input(a2d, thr, nb, reduce_all, weights=None, finish=True):
-    """Histogram of one input's ``(m, c)`` layout, per row or over all rows.
+    """Histogram of one input's ``(m, c)`` layout or ``(m1, m0, c1, c0)``
+    view, per kept row or over all rows.
 
     ``thr`` is the compare-form thresholds
     (``bins.compare_form(edges, dtype).edges`` with ``n_hi_clip == 0``)
@@ -506,7 +611,8 @@ def one_input(a2d, thr, nb, reduce_all, weights=None, finish=True):
     dtype for narrow data (int32 for bool and 8- and 16-bit integers,
     float32 for bfloat16); ``nb`` (at most 1024) is the bin count, one
     fewer than the thresholds. ``a2d`` may have any strides: the kernel
-    reads the view in place, narrow data at its own width. Returns
+    reads the view in place, narrow data and uint32 and uint64 at their own
+    width. Returns
     ``(1 if reduce_all else m, nb + 1)`` int64 counts with a zero trailing
     trash slot; with ``weights`` (shaped like ``a2d``, any strides, read in
     place), the sums of the weights in their ``weighted_dtype`` instead
@@ -517,8 +623,7 @@ def one_input(a2d, thr, nb, reduce_all, weights=None, finish=True):
     narrow input never widens and retries). A CPU tensor runs
     ``one_input_reference``.
     """
-    if a2d.ndim != 2:
-        raise ValueError(f"one_input takes a 2-D layout, got shape {tuple(a2d.shape)}")
+    _check_layout("one_input", a2d)
     if not 1 <= nb <= _MAX_ONE_INPUT_BINS:
         raise ValueError(
             f"one_input takes 1 to {_MAX_ONE_INPUT_BINS} bins, got {nb}"
@@ -527,6 +632,7 @@ def one_input(a2d, thr, nb, reduce_all, weights=None, finish=True):
     if weights is not None:
         _check_weights("one_input", weights, a2d)
     out = torch.ops.xhistogram.one_input(a2d, thr, weights, nb, bool(reduce_all))
+    out = out.reshape(-1, nb + 1)
     return _finish(out, weights) if finish else out
 
 
@@ -540,23 +646,23 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     global ONE_INPUT_LAUNCHES
     if a2d.device.type == "cpu":
         return _slot_sums_reference([a2d], [thr], [nb], reduce_all, weights)
-    thr = thr.to(_NARROW_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
-    m, c = a2d.shape
-    out = torch.zeros(1 if reduce_all else m, nb + 1, dtype=_out_dtype(weights),
+    thr = thr.to(_ONE_INPUT_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
+    out = torch.zeros(*_rows(a2d, reduce_all), nb + 1, dtype=_out_dtype(weights),
                       device=a2d.device)
     if a2d.numel() == 0:
         return out
-    suffix, w_args = _weight_args(weights)
+    dims, strides = _geometry(a2d, reduce_all)
+    suffix, w_args = _weight_args(
+        weights, None if weights is None else _geometry(weights, reduce_all)[1])
     widest = _WIDEST.get(a2d.device)
     if widest is None:
         widest = _WIDEST[a2d.device] = torch.zeros(1, dtype=torch.int32,
                                                    device=a2d.device)
-    load = _NARROW_SUFFIX.get(a2d.dtype) or _SUFFIX[a2d.dtype]
-    fn = getattr(_build.load(), f"xh_one_input_{load}{suffix}")
-    _LAST_LOADS[0] = ((a2d.dtype,), a2d.device)
+    fn = getattr(_build.load(), f"xh_one_input_{_ONE_INPUT_SUFFIX[a2d.dtype]}{suffix}")
+    _record((a2d.dtype,), a2d.device)
     with torch.cuda.device(a2d.device):
         rc = fn(
-            a2d.data_ptr(), m, c, a2d.stride(0), a2d.stride(1),
+            a2d.data_ptr(), (ctypes.c_int64 * 4)(*dims), (ctypes.c_int64 * 4)(*strides),
             thr.data_ptr(), nb, int(reduce_all), *w_args, out.data_ptr(),
             widest.data_ptr(), _stream(a2d.device),
         )
@@ -568,8 +674,7 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
 
 @_one_input_op.register_fake
 def _(a2d, thr, weights, nb, reduce_all):
-    return a2d.new_empty((1 if reduce_all else a2d.shape[0], nb + 1),
-                         dtype=_out_dtype(weights))
+    return a2d.new_empty((*_rows(a2d, reduce_all), nb + 1), dtype=_out_dtype(weights))
 
 
 def joint2_reference(a, b, thr_a, thr_b, nba, nbb, weights=None):
@@ -587,10 +692,13 @@ def joint2(a, b, thr_a, thr_b, nba, nbb, weights=None, finish=True):
     ``thr_a``/``thr_b`` are the compare-form thresholds
     (``bins.compare_form(edges, x.dtype).edges`` with ``n_hi_clip == 0``)
     as tensors in their input's dtype on the data's device; ``nba``/``nbb``
-    are the bin counts (one fewer than the thresholds). Returns
+    are the bin counts (one fewer than the thresholds). ``a``, ``b`` and
+    ``weights`` may be views of any one shape: the kernel reads runs of
+    contiguous elements at one outer stride an operand (``_joint2_runs``:
+    a full reduction of a contiguous, halo-trimmed or broadcast-weighted
+    field), and copies only an operand that has none. Returns
     ``(1, nba * nbb + 1)`` int64 counts with a zero trailing trash slot;
-    with ``weights`` (shaped like ``a``; read contiguously, so a strided or
-    broadcast weight is copied first), the sums of the weights in their
+    with ``weights`` (shaped like ``a``), the sums of the weights in their
     ``weighted_dtype`` instead (``finish=False``: in their accumulator
     class, as the op ``xhistogram::joint2`` returns them).
 
@@ -631,22 +739,23 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
             None if weights is None else weights.reshape(1, -1),
         )
     op = operand_plan("joint2", (a.dtype, b.dtype))
-    # .contiguous() copies only a non-contiguous input, at the cost of a full
-    # pass over it; the main path's views are contiguous and pass through
-    a, b = a.contiguous(), b.contiguous()
     thr_a, thr_b = (x.to(t).contiguous() for x, t in zip((thr_a, thr_b), op.compare))
     out = torch.zeros(1, nba * nbb + 1, dtype=_out_dtype(weights), device=a.device)
-    n = a.numel()
-    if n == 0:
+    if a.numel() == 0:
         return out
-    if weights is not None:
-        weights = weights.contiguous()
-    suffix, w_args = _weight_args(weights, strides=False)
+    global LAYOUT_COPIES
+    operands = [a, b] if weights is None else [a, b, weights]
+    operands, (g, n), outer, copied = _joint2_runs(operands)
+    LAYOUT_COPIES += copied
+    a, b = operands[:2]
+    weights = operands[2] if weights is not None else None
+    runs = (ctypes.c_int64 * 5)(g, n, *outer)
+    suffix, w_args = _weight_args(weights)
     fn = getattr(_build.load(), f"xh_joint2_{op.entry}{suffix}")
-    _LAST_LOADS[0] = (op.loads, a.device)
+    _record(op.loads, a.device, copied > 0)
     with torch.cuda.device(a.device):
         rc = fn(
-            *_codes_arg(op), a.data_ptr(), b.data_ptr(), n,
+            *_codes_arg(op), a.data_ptr(), b.data_ptr(), runs,
             thr_a.data_ptr(), nba, thr_b.data_ptr(), nbb, MAX_CLUSTER_CTAS,
             *w_args, out.data_ptr(), _stream(a.device),
         )
@@ -672,10 +781,10 @@ def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
             f"tensors and {len(nbins)} bin counts"
         )
     shape = arrays_2d[0].shape
-    if len(shape) != 2 or any(a.shape != shape for a in arrays_2d):
+    if len(shape) not in (2, 4) or any(a.shape != shape for a in arrays_2d):
         raise ValueError(
-            f"{name} takes 2-D layouts of one shape, got "
-            f"{[tuple(a.shape) for a in arrays_2d]}"
+            f"{name} takes 2-D layouts of one shape, or (m1, m0, c1, c0) views, "
+            f"got {[tuple(a.shape) for a in arrays_2d]}"
         )
     if any(nb < 1 for nb in nbins):
         raise ValueError(f"{name} needs at least one bin per input, got {nbins}")
@@ -705,20 +814,49 @@ def _codes_arg(op):
     return [] if op.codes is None else [(ctypes.c_int * len(op.codes))(*op.codes)]
 
 
-def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, tail, out):
+def _joint2_runs(operands):
+    """``(operands, (g, n), outer strides, copied)``: joint2's operands (of
+    one shape) as ``g`` runs of ``n`` contiguous elements, run ``k`` of
+    operand ``i`` at ``k * outer[i]``; size-1 axes dropped and adjacent axes
+    merged where every operand's strides allow, as ``utils.axes`` merges
+    them. An operand that leaves more than two levels, or whose inner level
+    is not contiguous (a broadcast or a step along it), is copied
+    (``.contiguous()``; ``copied`` counts them); the rest are read in place.
+    """
+    shape = operands[0].shape
+    keep = [d for d, size in enumerate(shape) if size != 1]
+    copied = 0
+    while True:
+        levels = merged_levels(keep, shape, [o.stride() for o in operands])
+        inner = levels[-1][-1] if levels else None
+        bad = [len(levels) > 2 or (inner is not None and o.stride(inner) != 1)
+               for o in operands]
+        if not any(bad):
+            break
+        operands = [o.contiguous() if b else o for o, b in zip(operands, bad)]
+        copied += sum(bad)
+    sizes = [math.prod(shape[d] for d in level) for level in levels]
+    if len(sizes) < 2:
+        return operands, (1, max(sizes, default=1)), [0] * 3, copied
+    outer = [o.stride(levels[0][-1]) for o in operands] + [0] * (3 - len(operands))
+    return operands, tuple(sizes), outer, copied
+
+
+def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, reduce_all, tail, out):
     """Calls a flat-slot C entry: ``lead`` arguments, the inputs' pointers,
-    strides, thresholds and bin counts, (m, c), then ``tail`` and the
-    output and stream. Raises on a failed launch."""
+    strides (four each), thresholds and bin counts, (m1, m0, c1, c0), then
+    ``tail`` and the output and stream. Raises on a failed launch."""
     n = len(arrays)
-    m, c = arrays[0].shape
+    views = [_geometry(a, reduce_all) for a in arrays]
     with torch.cuda.device(out.device):
         rc = fn(
             *lead,
             (ctypes.c_void_p * n)(*(a.data_ptr() for a in arrays)),
-            (ctypes.c_int64 * (2 * n))(*(s for a in arrays for s in a.stride())),
+            (ctypes.c_int64 * (4 * n))(*(s for _, st in views for s in st)),
             (ctypes.c_void_p * n)(*(t.data_ptr() for t in thr)),
             (ctypes.c_int * n)(*nbins),
-            m, c, *tail, out.data_ptr(), _stream(out.device),
+            (ctypes.c_int64 * 4)(*views[0][0]), *tail, out.data_ptr(),
+            _stream(out.device),
         )
     if rc != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
@@ -731,17 +869,17 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     the operands of ``_slot_operands``; any failure raises."""
     op, arrays, thr = _slot_operands(name, arrays_2d, thresholds)
     n = len(arrays)
-    m, c = arrays[0].shape
-    shape = (1 if reduce_all else m, math.prod(nbins) + 1)
-    if m == 0 or c == 0:
+    shape = (*_rows(arrays[0], reduce_all), math.prod(nbins) + 1)
+    if arrays[0].numel() == 0:
         return torch.zeros(shape, dtype=_out_dtype(weights), device=arrays[0].device), 0
     # every slot of the output is written by the kernel or zeroed by its
     # launcher
     out = torch.empty(shape, dtype=_out_dtype(weights), device=arrays[0].device)
-    suffix, w_args = _weight_args(weights)
-    _LAST_LOADS[0] = (op.loads, out.device)
+    suffix, w_args = _weight_args(
+        weights, None if weights is None else _geometry(weights, reduce_all)[1])
+    _record(op.loads, out.device)
     _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{op.entry}{suffix}"),
-                       [n, *_codes_arg(op)], arrays, thr, nbins,
+                       [n, *_codes_arg(op)], arrays, thr, nbins, reduce_all,
                        [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args], out)
     return out, 1
 
@@ -758,9 +896,9 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     routes ``factored`` (``variant="full"``), ``factored_per_row``
     (``"per_row"``) and ``factored_packed`` (``"packed"``) of ``plan``.
 
-    ``arrays_2d`` are N ``(m, c)`` layouts of one shape, with any strides
-    (broadcast inputs keep their zero strides; the kernel reads every view
-    in place); ``thresholds[k]`` is input k's compare-form thresholds
+    ``arrays_2d`` are N ``(m, c)`` layouts or ``(m1, m0, c1, c0)`` views of
+    one shape, with any strides (broadcast inputs keep their zero strides;
+    the kernel reads every view in place); ``thresholds[k]`` is input k's compare-form thresholds
     (``bins.compare_form(edges, dtype).edges`` with ``n_hi_clip == 0``) in
     its dtype on its device, ``nbins[k]`` its bin count. Returns
     ``(1 if variant == "full" else m, prod(nbins) + 1)`` int64 counts with
@@ -785,6 +923,7 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     _check_slot_operands("factored", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.factored(list(arrays_2d), list(thresholds), weights,
                                         [int(nb) for nb in nbins], variant)
+    out = out.reshape(-1, out.shape[-1])
     return _finish(out, weights) if finish else out
 
 
@@ -807,8 +946,8 @@ def _factored_op(arrays, thresholds, weights, nbins, variant):
 
 @_factored_op.register_fake
 def _(arrays, thresholds, weights, nbins, variant):
-    rows = 1 if variant == "full" else arrays[0].shape[0]
-    return arrays[0].new_empty((rows, math.prod(nbins) + 1), dtype=_out_dtype(weights))
+    return arrays[0].new_empty((*_rows(arrays[0], variant == "full"), math.prod(nbins) + 1),
+                               dtype=_out_dtype(weights))
 
 
 def _rounds(weights, finish):
@@ -822,6 +961,7 @@ def direct_reference(arrays_2d, thresholds, nbins, weights=None, finish=True):
     (``pallas_hist._run_direct``'s counts): float64 sums of float weights,
     then, with ``finish``, ``finish_sums`` (float32 rounded once)."""
     sums = _slot_sums_reference(arrays_2d, thresholds, nbins, False, weights)
+    sums = sums.reshape(-1, sums.shape[-1])
     return _finish(sums, weights) if finish else sums
 
 
@@ -844,6 +984,7 @@ def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
                                       [int(nb) for nb in nbins], bool(finish))
+    out = out.reshape(-1, out.shape[-1])
     return _finish(out, weights) if finish else out
 
 
@@ -852,19 +993,19 @@ def _direct_rows_cuda(arrays_2d, thresholds, nbins, weights, rounds):
     (``csrc/direct.cuh``) on CUDA tensors, in the weights' accumulator
     class or, where ``rounds``, float32; any failure raises."""
     op, arrays, thr = _slot_operands("direct", arrays_2d, thresholds)
-    m, c = arrays[0].shape
     dtype = torch.float32 if rounds else _out_dtype(weights)
-    shape = (m, math.prod(nbins) + 1)
-    if m == 0 or c == 0:
+    shape = (*_rows(arrays[0], False), math.prod(nbins) + 1)
+    if arrays[0].numel() == 0:
         return torch.zeros(shape, dtype=dtype, device=arrays[0].device), 0
     out = torch.empty(shape, dtype=dtype, device=arrays[0].device)  # every slot written
-    suffix, w_args = _weight_args(weights)
+    suffix, w_args = _weight_args(weights, None if weights is None else _dims(weights)[1])
     if rounds:
         suffix = f"_{_build.ROUNDED_CLASS}"
-    _LAST_LOADS[0] = (op.loads, out.device)
+    _record(op.loads, out.device)
     _launch_slot_entry("direct",
                        getattr(_build.load(), f"xh_direct_rows_{op.entry}{suffix}"),
-                       [len(arrays), *_codes_arg(op)], arrays, thr, nbins, w_args, out)
+                       [len(arrays), *_codes_arg(op)], arrays, thr, nbins, False,
+                       w_args, out)
     return out, 1
 
 
@@ -882,8 +1023,8 @@ def _direct_op(arrays, thresholds, weights, nbins, finish=False):
     if arrays[0].device.type == "cpu":
         out = _slot_sums_reference(arrays, thresholds, nbins, False, weights)
         return out.to(torch.float32) if rounds else out
-    if (arrays[0].shape[1] <= _DIRECT_ROWS_MAX_COLS
-            and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS):
+    cols = math.prod(_dims(arrays[0])[0][2:])
+    if cols <= _DIRECT_ROWS_MAX_COLS and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS:
         out, launched = _direct_rows_cuda(arrays, thresholds, nbins, weights, rounds)
     else:
         out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
@@ -897,4 +1038,5 @@ def _direct_op(arrays, thresholds, weights, nbins, finish=False):
 @_direct_op.register_fake
 def _(arrays, thresholds, weights, nbins, finish=False):
     dtype = torch.float32 if _rounds(weights, finish) else _out_dtype(weights)
-    return arrays[0].new_empty((arrays[0].shape[0], math.prod(nbins) + 1), dtype=dtype)
+    return arrays[0].new_empty((*_rows(arrays[0], False), math.prod(nbins) + 1),
+                               dtype=dtype)

@@ -41,8 +41,10 @@ def digitize_edges(a, edges, n_hi_clip=0):
 
     ``edges`` is a 1-D tensor on ``a``'s device, in ``a``'s dtype or, for
     narrow data, the dtype it is compared in (int32 for bool and 8- and
-    16-bit integers, float32 for bfloat16 or float16), to which a copy of
-    ``a`` is widened first. Returns int64 indices in ``[0, len(edges)]``,
+    16-bit integers, float32 for bfloat16 or float16, int64 for uint32), to
+    which a copy of ``a`` is widened first; uint64 data meets int64
+    thresholds flipped by ``bins.flip_uint64``, and a flipped copy of it.
+    Returns int64 indices in ``[0, len(edges)]``,
     shaped like ``a``.
 
     ``n_hi_clip`` (from ``bins.compare_form``): number of thresholds whose
@@ -50,6 +52,8 @@ def digitize_edges(a, edges, n_hi_clip=0):
     clamped to it; elements equal to the top value subtract the count.
     """
     n_edges = edges.shape[0]
+    if a.dtype == torch.uint64:  # int64 thresholds flipped alike (bins.flip_uint64)
+        a = a.view(torch.int64) ^ -(1 << 63)
     if a.dtype != edges.dtype:
         a = a.to(edges.dtype)
     idx = torch.searchsorted(edges, a.contiguous(), right=True)

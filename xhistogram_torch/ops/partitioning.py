@@ -11,10 +11,11 @@ needs them; no operand is gathered. Per mesh dim, the rules allow:
 
   - data and weights sharded on the reduced (column) dim: each rank's slot
     sums are a ``Partial()`` (sum) of the result;
-  - data and weights sharded on the kept-row dim: the result is
-    ``Shard(0)``, or ``Partial()`` where the op reduces all rows
-    (joint2; one_input with ``reduce_all``; factored "full"), which
-    reduces both dims;
+  - data and weights sharded on a kept-row dim (the first of an ``(m, c)``
+    layout, either of the first two of an ``(m1, m0, c1, c0)`` view): the
+    result is ``Shard`` on that dim of its kept rows, or ``Partial()``
+    where the op reduces all rows (joint2; one_input with ``reduce_all``;
+    factored "full"), which reduces every dim;
   - everything replicated.
 
 Thresholds are always ``Replicate()``. The outputs are the ops' accumulator
@@ -36,11 +37,14 @@ import torch
 __all__ = ["rules"]
 
 
-def _rules(n_data, weighted, reduce_all, ndim=2, partial=True):
+def _rules(n_data, weighted, reduce_all, ndim=2, partial=True, kept_dims=1):
     """Acceptable (output, inputs) placements for one mesh dim: the inputs
     are the op's tensors in order, ``n_data`` data tensors, as many
-    thresholds, then the weights. ``partial=False`` leaves out the
-    placements whose output is a ``Partial()``."""
+    thresholds, then the weights. The first ``kept_dims`` dims of the data
+    are kept rows, each the same dim of the output (an ``(m, c)`` layout
+    keeps one, an ``(m1, m0, c1, c0)`` view two), and the rest reduced
+    columns. ``partial=False`` leaves out the placements whose output is a
+    ``Partial()``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     def inputs(p):
@@ -48,10 +52,16 @@ def _rules(n_data, weighted, reduce_all, ndim=2, partial=True):
 
     rules = [([Replicate()], inputs(Replicate()))]
     for dim in range(ndim):
-        kept = dim == 0 and not reduce_all and ndim == 2
+        kept = dim < kept_dims and not reduce_all
         if kept or partial:
-            rules.append(([Shard(0) if kept else Partial()], inputs(Shard(dim))))
+            rules.append(([Shard(dim) if kept else Partial()], inputs(Shard(dim))))
     return rules
+
+
+def _kept_dims(x):
+    """The kept-row dims of a kernel operand: two of a 4-D view, one of a
+    layout."""
+    return 2 if x.ndim == 4 else 1
 
 
 def rules():
@@ -63,7 +73,8 @@ def rules():
 
     @register_sharding(ops.one_input.default)
     def one_input(a2d, thr, weights, nb, reduce_all):
-        return _rules(1, weights is not None, reduce_all)
+        return _rules(1, weights is not None, reduce_all, a2d.ndim,
+                      kept_dims=_kept_dims(a2d))
 
     @register_sharding(ops.joint2.default)
     def joint2(a, b, thr_a, thr_b, weights, nba, nbb):
@@ -71,7 +82,8 @@ def rules():
 
     @register_sharding(ops.factored.default)
     def factored(arrays, thresholds, weights, nbins, variant):
-        return _rules(len(arrays), weights is not None, variant == "full")
+        return _rules(len(arrays), weights is not None, variant == "full",
+                      arrays[0].ndim, kept_dims=_kept_dims(arrays[0]))
 
     # DTensor caches a rule's choice by the arguments from the op's first
     # int on (register_sharding's RuntimeSchemaInfo), and factored has no
@@ -88,4 +100,5 @@ def rules():
     def direct(arrays, thresholds, weights, nbins, finish=False):
         rounded = (finish and weights is not None
                    and weights.tensor_meta.dtype in _ROUNDED)
-        return _rules(len(arrays), weights is not None, False, partial=not rounded)
+        return _rules(len(arrays), weights is not None, False, arrays[0].ndim,
+                      partial=not rounded, kept_dims=_kept_dims(arrays[0]))

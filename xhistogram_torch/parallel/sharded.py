@@ -259,7 +259,7 @@ def _data_range(block, dtype, mesh):
             return np.array([math.nan, math.nan], dtype)
         return np.array([-neg_lo, hi], dtype)
     x = block.view(torch.int64) ^ -(1 << 63) if block.dtype == torch.uint64 else block
-    x = x.to(torch.int64)
+    x = x.to(torch.int64)  # torch has no min or max of uint32
     lo = mesh.agree(x.amin().reshape(1), "min")
     hi = mesh.agree(x.amax().reshape(1), "max")
     out = np.array([int(lo), int(hi)], np.int64)
