@@ -1,16 +1,19 @@
-"""``utils/profiling``: the trace of the pipeline's stages on the CPU.
+"""``utils/profiling``: the trace of the pipeline's steps on the CPU.
 
 Counterpart of the JAX package's ``utils.profiling.trace``, which captures a
 JAX profiler trace: here ``torch.profiler`` writes a Chrome/Perfetto trace
-that holds the ``xhistogram.*`` ranges of the call it wraps.
+that holds the ``xhistogram.*`` ranges of the call it wraps, a labeled
+call's around the core call it makes.
 """
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 import xhistogram_torch
+from xhistogram_torch import labeled
 from xhistogram_torch.utils import profiling
 
 
@@ -27,8 +30,23 @@ def test_trace_holds_the_stage_ranges(tmp_path, weighted):
     path = log_dir / profiling.TRACE_FILE
     assert path.exists()
     names = {ev.get("name") for ev in json.loads(path.read_text())["traceEvents"]}
-    assert {"xhistogram.canonicalize", "xhistogram.digitize",
-            "xhistogram.bincount"} <= names
+    assert {"xhistogram.call", "xhistogram.edges", "xhistogram.canonicalize",
+            "xhistogram.plan", "xhistogram.digitize", "xhistogram.bincount",
+            "xhistogram.finish"} <= names
+
+
+def test_trace_holds_the_labeled_call_around_the_core_call(tmp_path):
+    data = torch.from_numpy(np.random.default_rng(1).normal(size=(6, 5)).astype(np.float32))
+    named = labeled.NamedArray(data, ("time", "cell"), name="sst")
+    with profiling.trace(tmp_path):
+        labeled.histogram(named, bins=[np.linspace(-3, 3, 7)], dim=("time",), device="cpu")
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())["traceEvents"]
+    spans = {ev["name"]: ev for ev in events if ev.get("ph") == "X"
+             and ev.get("name") in ("xhistogram.labeled", "xhistogram.call")}
+    outer, inner = spans["xhistogram.labeled"], spans["xhistogram.call"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert outer["args"]["call"] == inner["args"]["call"] == profiling.CALLS  # one call
 
 
 def test_trace_replaces_an_earlier_trace(tmp_path):

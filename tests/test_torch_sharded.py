@@ -195,19 +195,33 @@ def test_reduce_spec_matches_jax(spec, axis, ndim):
     assert tuple(out) == tuple(jout) and reduced == jreduced
 
 
-@pytest.mark.parametrize("name,count", [
+ALL_REDUCE_COUNTS = [
     ("one_input-axisNone", 2), ("one_input-axis(1,)", 1), ("one_input-axis(0,)", 1),
     ("layout-('x', None)", 1), ("layout-(None, 'y')", 1), ("layout-(('x', 'y'), None)", 2),
     ("kept-per-row-9600-slots", 1), ("delegate-full", 2), ("delegate-kept", 1),
     ("replicated-no-delegation", 0), ("one-rank-mesh-no-delegation", 0),
     ("f64-float32-weights", 4), ("f64-long-row", 2),
-])
+]
+
+
+@pytest.mark.parametrize("name,count", ALL_REDUCE_COUNTS)
 def test_one_all_reduce_per_reduced_mesh_dim(ranks, name, count):
     """One all-reduce of the partial sums per mesh dim that shards a
     reduced axis (a 'f64' call: per limb pass; two passes for weights in
     one exponent group), as the JAX path runs one psum over those axes."""
     for rank in ranks:
         assert rank[name]["all_reduces"] == count
+
+
+@pytest.mark.parametrize("name,count", ALL_REDUCE_COUNTS)
+def test_each_sharded_call_is_one_call_with_its_all_reduces_in_their_span(ranks, name, count):
+    """A sharded call counts one public call on each rank, a DTensor call
+    that core.histogram delegates too (its sharded call nests under core's
+    span), and its all-reduces of partial sums run inside the
+    ``xhistogram.all_reduce`` span."""
+    for rank in ranks:
+        assert rank[name]["calls"] == 1
+        assert rank[name]["all_reduce_span"] == (count > 0)
 
 
 @pytest.mark.parametrize("name", sorted(RAISES))

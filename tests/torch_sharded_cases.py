@@ -208,6 +208,7 @@ def run(rank, world):
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     from xhistogram_torch.parallel import sharded
+    from xhistogram_torch.utils import profiling
 
     mesh = init_device_mesh("cpu", MESH_SHAPE, mesh_dim_names=MESH_NAMES)
     # every rank creates every one-rank group, in the same order
@@ -216,9 +217,12 @@ def run(rank, world):
     results = {}
     for name, case in cases().items():
         before = sharded.ALL_REDUCES
+        calls, spent = profiling.CALLS, profiling.SELF_NS.get("all_reduce", 0)
         try:
             results[name] = _run_case(mesh, one_rank_mesh, case)
         except Exception as ex:  # recorded: the test holds every rank to it
             results[name] = {"error": (type(ex).__name__, str(ex))}
         results[name]["all_reduces"] = sharded.ALL_REDUCES - before
+        results[name]["calls"] = profiling.CALLS - calls
+        results[name]["all_reduce_span"] = profiling.SELF_NS.get("all_reduce", 0) > spent
     return results

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import math
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -57,7 +58,7 @@ from .ops.cuda_hist import (
 )
 from .ops.digitize import digitize_edges, joint_bin_index
 from .utils.axes import kept_shape, normalize_axis, strided_layout
-from .utils.profiling import scope
+from .utils.profiling import note_syncs, scope
 
 __all__ = ["histogram"]
 
@@ -267,6 +268,10 @@ def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
 #: oldest entry goes first past the cap, as in the JAX package.
 _THRESHOLD_CACHE = {}
 _THRESHOLD_CACHE_CAP = 128
+#: lookups of ``_THRESHOLD_CACHE`` in this process, and those it served
+THRESHOLD_LOOKUPS = 0
+THRESHOLD_HITS = 0
+_COUNT_LOCK = threading.Lock()  # guards the two counts
 
 
 @torch.compiler.disable  # host work on numpy edges: run it, do not trace it
@@ -275,12 +280,17 @@ def _device_thresholds(edges, compare_dtype, device, cache=True):
     compare_dtype)`` as a tensor on ``device`` (uint64 thresholds flipped
     onto int64, as the data are) and its count of thresholds clamped at the
     top value. With ``cache``, served from ``_THRESHOLD_CACHE``, so a
-    repeated call makes no host-to-device copy."""
+    repeated call makes no host-to-device copy (``THRESHOLD_LOOKUPS``,
+    ``THRESHOLD_HITS``)."""
+    global THRESHOLD_LOOKUPS, THRESHOLD_HITS
     key = None
     if cache:
         key = (edges.tobytes(), edges.dtype.str, edges.shape,
                np.dtype(compare_dtype).str, device)
         hit = _THRESHOLD_CACHE.get(key)
+        with _COUNT_LOCK:
+            THRESHOLD_LOOKUPS += 1
+            THRESHOLD_HITS += hit is not None
         if hit is not None:
             thr, n_hi_clip, copied = hit
             if copied is not None:  # a caller on another stream waits too
@@ -394,6 +404,7 @@ def _f64_groups(wf, amax, agree=_same):
     y = _scaled(wf, -s)  # exact, but where a weight far below 2**s underflows
     one_group = torch.stack([(y == torch.trunc(y)).all(),
                              torch.count_nonzero(y) == torch.count_nonzero(wf)])
+    note_syncs(wf.device)
     if bool(agree(one_group.to(torch.int32), "min").all()):
         return [(s, y.to(torch.int64))]
 
@@ -410,8 +421,10 @@ def _f64_groups(wf, amax, agree=_same):
     gid = torch.where(nonzero, (lowest - lmin) // _F64_GROUP_STRIDE, _F64_GROUP_IDS)
     # members per group: bincount's shared-memory histogram (an index_add_
     # serialises on the one or two groups that hold nearly every weight)
+    note_syncs(gid.device, 2)  # torch.bincount reads the ids' min and max
     per_group = torch.bincount(gid.reshape(-1), minlength=_F64_GROUP_IDS + 1)
     per_group = agree(per_group[:_F64_GROUP_IDS], "sum")
+    note_syncs(wf.device)
     stats = torch.cat([lmin.reshape(1), per_group]).cpu()
     lmin = int(stats[0])
     present = torch.nonzero(stats[1:]).reshape(-1).tolist()
@@ -464,6 +477,7 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count, agree=_same):
     w64 = weights.to(torch.float64)
     # (any weight not finite, the largest |weight| where all are finite)
     top = w64.abs().amax() if w64.numel() else w64.new_zeros(())
+    note_syncs(w64.device)
     nonfinite, amax = agree(torch.stack([(~torch.isfinite(top)).to(torch.float64),
                                          torch.where(torch.isfinite(top), top, 0.0)]),
                             "max").tolist()
@@ -471,6 +485,7 @@ def _f64_sums(weights, to_2d, n_cols, out_shape, count, agree=_same):
     if nonfinite:
         finite = torch.isfinite(w64)
         wf = torch.where(finite, w64, 0.0)
+        note_syncs(w64.device)
         amax = float(agree(wf.abs().amax(), "max"))
     width, n_limbs = _f64_limbs(n_cols)
     hi = lo = None
@@ -566,10 +581,6 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
     length.
     """
     n_inputs = len(args)
-    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
-    if min(nbins) < 1:
-        raise ValueError("each bins spec must define at least one bin")
-    cache = [isinstance(b, np.ndarray) for b in _bins.normalize_bins(bins, n_inputs)]
     device = args[0].device
     exact_f64 = False
     if precision == "f64":
@@ -582,28 +593,32 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
                 "use precision='highest' for gradients."
             )
         precision = None
-    thresholds, n_hi_clip = [], []
-    for a, e, cached in zip(args, edges_np, cache):
-        thr, nh = _device_thresholds(e, _compare_dtype(a), device, cache=cached)
-        thresholds.append(thr)
-        n_hi_clip.append(nh)
-
-    operands = args if weights is None else [*args, weights]
-    try:
-        shape = torch.broadcast_shapes(*(a.shape for a in operands))
-    except RuntimeError:
-        raise ValueError(
-            "Incompatible shapes for broadcasting: shapes="
-            f"{[tuple(a.shape) for a in operands]}"
-        ) from None
-    arrays = [a.expand(shape) for a in args]
-    axis_t = normalize_axis(axis, len(shape))
-    kshape = kept_shape(shape, axis_t)
-    full_reduce = kshape == ()
-    if precision is not None:
-        validate_public_precision(precision)
+    with scope("edges"):
+        nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+        if min(nbins) < 1:
+            raise ValueError("each bins spec must define at least one bin")
+        cache = [isinstance(b, np.ndarray) for b in _bins.normalize_bins(bins, n_inputs)]
+        thresholds, n_hi_clip = [], []
+        for a, e, cached in zip(args, edges_np, cache):
+            thr, nh = _device_thresholds(e, _compare_dtype(a), device, cache=cached)
+            thresholds.append(thr)
+            n_hi_clip.append(nh)
 
     with scope("canonicalize"):
+        operands = args if weights is None else [*args, weights]
+        try:
+            shape = torch.broadcast_shapes(*(a.shape for a in operands))
+        except RuntimeError:
+            raise ValueError(
+                "Incompatible shapes for broadcasting: shapes="
+                f"{[tuple(a.shape) for a in operands]}"
+            ) from None
+        arrays = [a.expand(shape) for a in args]
+        axis_t = normalize_axis(axis, len(shape))
+        kshape = kept_shape(shape, axis_t)
+        full_reduce = kshape == ()
+        if precision is not None:
+            validate_public_precision(precision)
         # the kernels read these views of the caller's memory in place
         operands = arrays if weights is None else [*arrays, weights.expand(shape)]
         layout = strided_layout(operands, axis_t)
@@ -614,12 +629,13 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
     reduce_all = full_reduce or m == 1
     n_slots = math.prod(nbins) + 1
 
-    kernel = plan(n_inputs, nbins, 1 if reduce_all else m, None if reduce_all else c)
-    if method in ("cuda", "pallas"):
-        # forced outside the efficient envelopes: the general kernel
-        kernel = kernel or ("factored" if reduce_all else "direct")
-    elif method != "auto" or device.type != "cuda" or any(n_hi_clip):
-        kernel = None  # a strategy (the JAX package's auto gate)
+    with scope("plan"):
+        kernel = plan(n_inputs, nbins, 1 if reduce_all else m, None if reduce_all else c)
+        if method in ("cuda", "pallas"):
+            # forced outside the efficient envelopes: the general kernel
+            kernel = kernel or ("factored" if reduce_all else "direct")
+        elif method != "auto" or device.type != "cuda" or any(n_hi_clip):
+            kernel = None  # a strategy (the JAX package's auto gate)
 
     def to_2d(w):
         """``w`` (of a shape that broadcasts to the call's) as the kernel or
@@ -667,8 +683,9 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
         return count(None), kshape, None
     # one device's sums are final: the kernels may round them (a sharded
     # call's partials round once, after the all-reduce)
-    sums = _WeightedSums.apply(w2d, lambda w: count(w, finish=mesh is None),
-                               arrays_2d, thresholds, nbins, n_hi_clip)
+    with scope("autograd"):  # the autograd Function around the sums
+        sums = _WeightedSums.apply(w2d, lambda w: count(w, finish=mesh is None),
+                                   arrays_2d, thresholds, nbins, n_hi_clip)
     return sums, kshape, weights.dtype
 
 
@@ -676,23 +693,24 @@ def _finish_histogram(sums, w_dtype, kshape, edges_np, density):
     """The histogram from ``_histogram_impl``'s sums (over every rank, for a
     sharded call): the sums in their dtype, the trash slot dropped, the
     kept shape and bin axes, and density."""
-    if w_dtype is not None:
-        sums = finish_sums(sums, w_dtype)  # sums already in it pass as they are
-    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
-    h = sums[..., :-1].reshape(kshape + nbins)  # drop the trash slot
-    if density:
-        # per-kept-row totals, areas from the original edges, in the JAX
-        # package's order: counts / area / totals, in float32 (float64 for
-        # float64 sums)
-        if h.dtype == torch.uint64:
-            h = h.to(torch.float32)  # torch sums and divides no uint64
-        area_dtype = torch.float64 if h.dtype == torch.float64 else torch.float32
-        bin_area = torch.as_tensor(
-            _bins.bin_areas(edges_np), dtype=area_dtype, device=h.device
-        )
-        totals = h.sum(dim=tuple(_builtin_range(-len(nbins), 0)), keepdim=True)
-        h = h / bin_area / totals
-    return h
+    with scope("finish"):
+        if w_dtype is not None:
+            sums = finish_sums(sums, w_dtype)  # sums already in it pass as they are
+        nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+        h = sums[..., :-1].reshape(kshape + nbins)  # drop the trash slot
+        if density:
+            # per-kept-row totals, areas from the original edges, in the JAX
+            # package's order: counts / area / totals, in float32 (float64 for
+            # float64 sums)
+            if h.dtype == torch.uint64:
+                h = h.to(torch.float32)  # torch sums and divides no uint64
+            area_dtype = torch.float64 if h.dtype == torch.float64 else torch.float32
+            bin_area = torch.as_tensor(
+                _bins.bin_areas(edges_np), dtype=area_dtype, device=h.device
+            )
+            totals = h.sum(dim=tuple(_builtin_range(-len(nbins), 0)), keepdim=True)
+            h = h / bin_area / totals
+        return h
 
 
 def histogram(
@@ -769,39 +787,44 @@ def histogram(
         sums, or float32 density (float64 for float64 and 'f64' sums).
     bin_edges : list of np.ndarray.
     """
-    if not args:
-        raise ValueError("histogram() requires at least one input array")
-    sharded = _mesh_layout([*args, *([] if weights is None else [weights])])
-    if sharded is not None:
-        from .parallel import histogram_sharded
+    with scope("call", call=True):
+        if not args:
+            raise ValueError("histogram() requires at least one input array")
+        with scope("plan"):  # the route: sharded or not
+            sharded = _mesh_layout([*args, *([] if weights is None else [weights])])
+        if sharded is not None:
+            from .parallel import histogram_sharded
 
-        mesh, in_spec = sharded
-        if device is not None and torch.device(device).type != mesh.device_type:
-            raise ValueError(
-                f"device={str(device)!r} conflicts with a DTensor input on a "
-                f"{mesh.device_type!r} mesh; histogram() moves no tensor"
+            mesh, in_spec = sharded
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(
+                    f"device={str(device)!r} conflicts with a DTensor input on a "
+                    f"{mesh.device_type!r} mesh; histogram() moves no tensor"
+                )
+            return histogram_sharded(
+                *args, mesh=mesh, in_spec=in_spec, bins=bins, range=range, axis=axis,
+                weights=weights, density=density, block_size=block_size,
+                method=method, precision=precision,
             )
-        return histogram_sharded(
-            *args, mesh=mesh, in_spec=in_spec, bins=bins, range=range, axis=axis,
-            weights=weights, density=density, block_size=block_size,
-            method=method, precision=precision,
-        )
-    args = [_coerce_host(_local_value(a)) for a in args]
-    if weights is not None:
-        weights = _coerce_weights(_local_value(weights))
-        args.append(weights)
-    args = _place(args, device)
-    device = args[0].device
-    if any(a.device != device for a in args):
-        raise ValueError(
-            f"histogram inputs must lie on one device, got {[str(a.device) for a in args]}"
-        )
-    if weights is not None:
-        *args, weights = args
+        with scope("canonicalize"):  # the inputs as tensors on one device
+            args = [_coerce_host(_local_value(a)) for a in args]
+            if weights is not None:
+                weights = _coerce_weights(_local_value(weights))
+                args.append(weights)
+            args = _place(args, device)
+            device = args[0].device
+            if any(a.device != device for a in args):
+                raise ValueError(
+                    "histogram inputs must lie on one device, got "
+                    f"{[str(a.device) for a in args]}"
+                )
+            if weights is not None:
+                *args, weights = args
 
-    edges_np = _resolve_bin_edges(args, bins, range, weights)
-    sums, kshape, w_dtype = _histogram_impl(
-        args, weights, edges_np, bins, axis, method=method, block_size=block_size,
-        precision=precision,
-    )
-    return _finish_histogram(sums, w_dtype, kshape, edges_np, density), edges_np
+        with scope("edges"):
+            edges_np = _resolve_bin_edges(args, bins, range, weights)
+        sums, kshape, w_dtype = _histogram_impl(
+            args, weights, edges_np, bins, axis, method=method, block_size=block_size,
+            precision=precision,
+        )
+        return _finish_histogram(sums, w_dtype, kshape, edges_np, density), edges_np

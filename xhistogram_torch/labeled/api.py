@@ -34,6 +34,7 @@ import torch
 from .. import bins as _bins_mod
 from ..core import _resolve_device, histogram as _positional_histogram
 from ..ops.cuda_hist import validate_public_precision
+from ..utils.profiling import scope
 from .array import NamedArray
 
 __all__ = ["histogram"]
@@ -131,51 +132,52 @@ def histogram(
     (counts/weighted sums/density on that device) with bin-center
     coordinates.
     """
-    if precision is not None and precision != "f64":
-        validate_public_precision(precision)  # eager; rejects internal
-        # modes ('f64' is not a kernel mode: core intercepts it first)
-    if weights is None:
-        precision = None  # unweighted counts are exact in every mode
-    inputs = list(args)
-    _require_labeled(inputs)
-    if weights is not None:
-        # weights need labels for alignment but no name (reference requires
-        # names only of the histogrammed inputs, xarray.py:116-117)
-        _require_labeled([weights], named=False)
-
-    # Drop non-dim coords to simplify alignment unless asked to keep them
-    # (reference xarray.py:120-123).
-    if not keep_coords:
-        inputs = [a.reset_coords(drop=True) for a in inputs]
+    with scope("labeled", call=True):
+        if precision is not None and precision != "f64":
+            validate_public_precision(precision)  # eager; rejects internal
+            # modes ('f64' is not a kernel mode: core intercepts it first)
+        if weights is None:
+            precision = None  # unweighted counts are exact in every mode
+        inputs = list(args)
+        _require_labeled(inputs)
         if weights is not None:
-            weights = weights.reset_coords(drop=True)
-    operands = inputs + ([weights] if weights is not None else [])
+            # weights need labels for alignment but no name (reference requires
+            # names only of the histogrammed inputs, xarray.py:116-117)
+            _require_labeled([weights], named=False)
 
-    union = list(_union_sizes(operands))
-    plans = [_layout_plan(a.dims, union) for a in operands]
-    axis, kept_dims = _reduction_axes(union, dim)
+        # Drop non-dim coords to simplify alignment unless asked to keep them
+        # (reference xarray.py:120-123).
+        if not keep_coords:
+            inputs = [a.reset_coords(drop=True) for a in inputs]
+            if weights is not None:
+                weights = weights.reset_coords(drop=True)
+        operands = inputs + ([weights] if weights is not None else [])
 
-    raw = [a.data for a in operands]
-    # by default the card a tensor input lies on, else the CUDA card
-    on_card = [d for d in raw if isinstance(d, torch.Tensor) and d.device.type != "cpu"]
-    device = _resolve_device(device, on_card, no_card_msg=_NO_CARD_MSG)
-    raw = [d.to(device) if isinstance(d, torch.Tensor) and d.device.type == "cpu"
-           else d for d in raw]
-    laid_out = [_apply_plan(d, p) for d, p in zip(raw, plans)]
-    w_data = laid_out.pop() if weights is not None else None
-    h_data, edges = _positional_histogram(
-        *laid_out,
-        bins=bins,
-        range=range,
-        axis=axis,
-        weights=w_data,
-        density=density,
-        block_size=block_size,
-        method=method,
-        precision=precision,
-        device=device,
-    )
-    return _relabel(h_data, edges, inputs, kept_dims, keep_coords, bin_dim_suffix)
+        union = list(_union_sizes(operands))
+        plans = [_layout_plan(a.dims, union) for a in operands]
+        axis, kept_dims = _reduction_axes(union, dim)
+
+        raw = [a.data for a in operands]
+        # by default the card a tensor input lies on, else the CUDA card
+        on_card = [d for d in raw if isinstance(d, torch.Tensor) and d.device.type != "cpu"]
+        device = _resolve_device(device, on_card, no_card_msg=_NO_CARD_MSG)
+        raw = [d.to(device) if isinstance(d, torch.Tensor) and d.device.type == "cpu"
+               else d for d in raw]
+        laid_out = [_apply_plan(d, p) for d, p in zip(raw, plans)]
+        w_data = laid_out.pop() if weights is not None else None
+        h_data, edges = _positional_histogram(
+            *laid_out,
+            bins=bins,
+            range=range,
+            axis=axis,
+            weights=w_data,
+            density=density,
+            block_size=block_size,
+            method=method,
+            precision=precision,
+            device=device,
+        )
+        return _relabel(h_data, edges, inputs, kept_dims, keep_coords, bin_dim_suffix)
 
 
 def _relabel(h_data, edges, inputs, kept_dims, keep_coords, bin_dim_suffix):

@@ -36,6 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import note_syncs
+
 __all__ = [
     "bincount2d",
     "bincount2d_scatter",
@@ -117,6 +119,7 @@ def _scatter_sums(g, n_slots, weights=None):
     if weights is not None:
         return weight_sums(g, n_slots, weights)
     m = g.shape[0]
+    note_syncs(g.device, 2)  # torch.bincount reads the indices' min and max
     return torch.bincount(_row_offset(g, n_slots).reshape(-1),
                           minlength=m * n_slots).reshape(m, n_slots)
 

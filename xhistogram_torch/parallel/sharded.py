@@ -49,6 +49,7 @@ from ..core import (
     _resolve_device,
 )
 from ..utils.axes import normalize_axis
+from ..utils.profiling import scope
 
 __all__ = ["histogram_sharded", "reduce_spec", "ALL_REDUCES"]
 
@@ -208,7 +209,8 @@ class _Mesh:
         of the mesh dims that shard reduced axes."""
         global ALL_REDUCES
         ALL_REDUCES += len(self.reduce_dims)
-        return self._all_reduce(t.contiguous(), "sum", self.reduce_dims)
+        with scope("all_reduce"):
+            return self._all_reduce(t.contiguous(), "sum", self.reduce_dims)
 
     def agree(self, t, op):
         """``t`` reduced by ``op`` ("min", "max", "sum") over every rank of
@@ -342,36 +344,38 @@ def histogram_sharded(
         call's gradient.
     bin_edges : list of np.ndarray, the same on every rank.
     """
-    if not args:
-        raise ValueError("histogram_sharded() requires at least one input array")
-    from torch.distributed.tensor import DTensor
+    with scope("call", call=True):
+        if not args:
+            raise ValueError("histogram_sharded() requires at least one input array")
+        from torch.distributed.tensor import DTensor
 
-    def coerce(x, weights=False):
-        if isinstance(x, DTensor):
-            return x
-        return (_coerce_weights if weights else _coerce_host)(x)
+        def coerce(x, weights=False):
+            if isinstance(x, DTensor):
+                return x
+            return (_coerce_weights if weights else _coerce_host)(x)
 
-    args = [coerce(a) for a in args]
-    if weights is not None:
-        weights = coerce(weights, weights=True)
-    operands = args if weights is None else [*args, weights]
-    try:
-        shape = tuple(np.broadcast_shapes(*(tuple(a.shape) for a in operands)))
-    except ValueError:
-        raise ValueError(
-            "Incompatible shapes for broadcasting: shapes="
-            f"{[tuple(a.shape) for a in operands]}"
-        ) from None
-    axis_t = normalize_axis(axis, len(shape))
-    layout = _Mesh(mesh, tuple(in_spec), shape, axis_t)
-    blocks = [layout.local(a, DTensor) for a in args]
-    w_block = None if weights is None else layout.local(weights, DTensor)
+        args = [coerce(a) for a in args]
+        if weights is not None:
+            weights = coerce(weights, weights=True)
+        operands = args if weights is None else [*args, weights]
+        try:
+            shape = tuple(np.broadcast_shapes(*(tuple(a.shape) for a in operands)))
+        except ValueError:
+            raise ValueError(
+                "Incompatible shapes for broadcasting: shapes="
+                f"{[tuple(a.shape) for a in operands]}"
+            ) from None
+        axis_t = normalize_axis(axis, len(shape))
+        layout = _Mesh(mesh, tuple(in_spec), shape, axis_t)
+        blocks = [layout.local(a, DTensor) for a in args]
+        w_block = None if weights is None else layout.local(weights, DTensor)
 
-    edges_np = _resolve_edges(args, blocks, weights, bins, range, layout, DTensor)
-    sums, kshape, w_dtype = _histogram_impl(
-        blocks, w_block, edges_np, bins, axis_t, method=method,
-        block_size=block_size, precision=precision, mesh=layout,
-    )
-    h = _finish_histogram(sums, w_dtype, kshape, edges_np, density)
-    nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
-    return layout.output(h, nbins), edges_np
+        with scope("edges"):
+            edges_np = _resolve_edges(args, blocks, weights, bins, range, layout, DTensor)
+        sums, kshape, w_dtype = _histogram_impl(
+            blocks, w_block, edges_np, bins, axis_t, method=method,
+            block_size=block_size, precision=precision, mesh=layout,
+        )
+        h = _finish_histogram(sums, w_dtype, kshape, edges_np, density)
+        nbins = tuple(int(e.shape[0]) - 1 for e in edges_np)
+        return layout.output(h, nbins), edges_np
