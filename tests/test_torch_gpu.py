@@ -312,6 +312,89 @@ def test_auto_runs_the_one_input_kernel(cuda):
         xhistogram_torch.histogram(torch.from_numpy(x_np), bins=[edges], device="cuda")
 
 
+# --- one_input past the JAX package's kept-row cap ------------------------------
+
+def _sst_year(cuda):
+    """A year of daily 0.25-degree SST, (365, 720, 1440) float32 on the card
+    (28 - 30 sin^2(lat) deg C and N(0, 0.6^2) noise, clamped at -1.8), with
+    land, 29% of the cells in smooth blobs, NaN every day; and 80 bins of
+    0.5 deg C on [-2, 38]."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    lat = torch.deg2rad(torch.linspace(-89.875, 89.875, 720, device=cuda))[:, None]
+    lon = torch.deg2rad(torch.linspace(0.125, 359.875, 1440, device=cuda))[None, :]
+    field = torch.sin(3 * lat) * torch.cos(2 * lon) + 0.5 * torch.sin(5 * lon + 1) * torch.cos(lat)
+    land = field > torch.quantile(field.reshape(-1), 0.71)
+    x = torch.randn((365, 720, 1440), device=cuda, generator=gen)
+    x.mul_(0.6).add_(28 - 30 * torch.sin(lat) ** 2).clamp_min_(-1.8)
+    return x.masked_fill_(land, float("nan")), np.linspace(-2, 38, 81).astype(np.float32)
+
+
+def test_one_input_runs_the_per_cell_year(cuda):
+    """1,036,800 kept rows of 80 bins, past the JAX package's kept-row cap:
+    one launch a call and no host sync, counts bit-equal to the plain
+    scatter path and to numpy."""
+    from xhistogram_torch.utils import profiling
+
+    x, edges = _sst_year(cuda)
+    assert cuda_hist.plan(1, (80,), 720 * 1440, 365) == "one_input"
+    before = cuda_hist.ONE_INPUT_LAUNCHES, profiling.HOST_SYNCS
+    for _ in range(2):
+        h, _ = xhistogram_torch.histogram(x, bins=[edges], axis=0)
+    assert (cuda_hist.ONE_INPUT_LAUNCHES, profiling.HOST_SYNCS) == (before[0] + 2, before[1])
+    torch.cuda.synchronize()
+    assert h.shape == (720, 1440, 80) and h.dtype == torch.int64
+    plain, _ = xhistogram_torch.histogram(x, bins=[edges], axis=0, method="scatter")
+    assert torch.equal(h, plain)
+    sample = x[:, ::7, ::11].cpu().numpy()
+    np.testing.assert_array_equal(h[::7, ::11].cpu().numpy(),
+                                  reference_numpy(sample, edges, (0,)))
+
+
+def test_one_input_weighted_per_cell_year(cuda):
+    """The year weighted by float32 weights: float32 sums within one float32
+    rounding of the plain path's, one launch a call."""
+    x, edges = _sst_year(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    w = torch.rand(x.shape, device=cuda, generator=gen) * 4 - 1
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    h, _ = xhistogram_torch.histogram(x, bins=[edges], axis=0, weights=w)
+    assert cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+    plain, _ = xhistogram_torch.histogram(x, bins=[edges], axis=0, weights=w,
+                                          method="scatter")
+    assert h.dtype == plain.dtype == torch.float32
+    _assert_sums_equal(h, plain)
+
+
+def test_one_input_chunks_within_its_32_bit_counters(cuda):
+    """Kept rows of several runs of columns: each block walks a contiguous
+    chunk of tiles, ceil(tiles / resident blocks), into 32-bit shared
+    counters, and the launcher refuses a chunk of more than 2^32 - 1
+    elements. Past that edge, chunk_tiles cuts the chunks to fit and
+    launches more blocks. Two rows of sms x 65,536 + 1 int8 values, each
+    broadcast (stride 0) over 65,536 columns, in 100 bins: lane-private
+    counters of 100 KB a block, at most two blocks an SM, and tiles of one
+    run of 65,536 columns, so a chunk of ceil(tiles / (2 sms)) tiles is past
+    the edge. 1.1e12 elements read from 17 MB."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile = 1 << 16
+    width = sms * tile + 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randint(-128, 128, (2, width), device=cuda, generator=gen,
+                         dtype=torch.int8)
+    x = base.expand(tile, 2, width)
+    edges = np.linspace(-128, 128, 101)
+    tiles = 2 * width
+    assert -(-tiles // (2 * sms)) * tile > 0xFFFFFFFF
+    before = cuda_hist.ONE_INPUT_LAUNCHES
+    h, _ = xhistogram_torch.histogram(x, bins=[edges], axis=(0, 2))
+    assert cuda_hist.ONE_INPUT_LAUNCHES == before + 1
+    launch = cuda_hist.last_launch()
+    assert launch["layout"] == "lane-private" and launch["view"] == "in place"
+    assert launch["blocks"] == -(-tiles // (0xFFFFFFFF // tile))
+    want = tile * reference_numpy(base.cpu().numpy(), edges, (1,))
+    np.testing.assert_array_equal(h.cpu().numpy(), want)
+
+
 # --- factored and direct (csrc/slot.cuh) ---------------------------------------
 
 ROUTES = ("full", "per_row", "packed", "direct")

@@ -215,6 +215,78 @@ def test_plan_sends_the_slice_to_one_input(nb, m, c):
     assert (kernel == "one_input") == (nb <= 1024)
 
 
+# The JAX package's kept-row cap: rows times its padded slot layout (1024
+# slots up to 1023 bins, 2048 at 1024 bins) above 2^28 runs its scatter
+# strategy. Its first row count past the cap, by bin count.
+PAST_THE_JAX_CAP = {1: 262_145, 80: 262_145, 1023: 262_145, 1024: 131_073}
+
+
+def test_plan_sends_the_per_cell_year_to_one_input():
+    # a year of daily 0.25-degree fields per grid cell: 720 x 1440 kept rows
+    # of 365 days in 80 bins, 1.06e9 padded slots
+    assert cuda_hist.plan(1, (80,), 1_036_800, 365) == "one_input"
+    assert pallas_hist.plan(1, (80,), 1_036_800, c=365, weighted=False,
+                            uniform=None) is None
+
+
+@pytest.mark.parametrize("nb", list(PAST_THE_JAX_CAP))
+@pytest.mark.parametrize("c", [1, 2, 365, 100_000])
+def test_plan_keeps_one_input_past_the_jax_cap(nb, c):
+    """At the JAX package's kept-row cap: one row below it both plan()s
+    name one_input; past it the JAX package runs scatter and the port
+    still runs one_input, up to any row count."""
+    edge = PAST_THE_JAX_CAP[nb]
+    jax = lambda m: pallas_hist.plan(1, (nb,), m, c=c, weighted=False, uniform=None)  # noqa: E731
+    assert jax(edge - 1) == cuda_hist.plan(1, (nb,), edge - 1, c) == "one_input"
+    assert jax(edge) is None
+    for m in (edge, 2 * edge, 1 << 40):
+        assert cuda_hist.plan(1, (nb,), m, c) == "one_input"
+
+
+@pytest.mark.parametrize("nbins,m,c", [
+    ((1025,), 131_073, 365), ((1025,), 131_072, 365), ((1025,), 1_036_800, 365),
+    ((40, 40), 131_073, 64), ((40, 40), 131_072, 64), ((80, 80), 1_036_800, 365),
+], ids=str)
+def test_plan_past_the_jax_cap_elsewhere_is_the_jax_plan(nbins, m, c):
+    """Past the cap, one input in more than 1024 bins and two inputs keep
+    the JAX package's route (None: scatter)."""
+    ours = cuda_hist.plan(len(nbins), nbins, m, c)
+    assert ours == pallas_hist.plan(len(nbins), nbins, m, c=c, weighted=False,
+                                    uniform=None)
+    if m > 131_072:
+        assert ours is None
+
+
+@pytest.mark.parametrize("axis", [(0,), (1,)], ids=["strided-rows", "rows"])
+def test_kept_rows_past_the_jax_cap_equal_its_scatter_answer(monkeypatch, axis):
+    """The first row count past the cap, 80 bins, NaN included: the port's
+    one_input route (its plain version on the CPU) gives the JAX package's
+    answer, which its scatter strategy gives there, and numpy's."""
+    from xhistogram_torch import core
+
+    m = PAST_THE_JAX_CAP[80]
+    rng = np.random.default_rng(16)
+    x = rng.normal(18.0, 9.0, (3, m) if axis == (0,) else (m, 3)).astype(np.float32)
+    x[..., ::5] = np.nan
+    edges = np.linspace(-2, 38, 81).astype(np.float32)
+    ran = []
+
+    def spy(*args, **kwargs):
+        ran.append("one_input")
+        return cuda_hist.one_input(*args, **kwargs)
+
+    monkeypatch.setattr(core, "one_input", spy)
+    expected = reference_numpy(x, edges, axis)
+    jh, _ = xhistogram_tpu.histogram(x, bins=[edges], axis=axis)
+    np.testing.assert_array_equal(np.asarray(jh), expected)
+    for method in ("cuda", "auto"):  # the kernel's route, and scatter on the CPU
+        h, _ = xhistogram_torch.histogram(torch.from_numpy(x), bins=[edges], axis=axis,
+                                          method=method)
+        assert h.shape == (m, 80) and h.dtype == torch.int64
+        np.testing.assert_array_equal(h.numpy(), expected, err_msg=method)
+    assert ran == ["one_input"]
+
+
 def _load(path):
     import importlib.util
     import pathlib

@@ -287,12 +287,14 @@ def _syncs_reported(fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["levels_vol", "year_per_cell", "f64"])
+@pytest.mark.parametrize("case", ["levels_vol", "year_per_cell", "year_per_cell_scatter",
+                                  "f64"])
 def test_host_syncs_equal_what_the_sync_debug_mode_reports(cuda, case):
     """Small versions of the benchmark's calls: the README call per level
     by cell volume on the strided (time, depth, cell) view (the factored
     kernel: no sync), the labeled PDF per cell over time with more kept
-    rows than ``plan()`` takes (the plain scatter path: ``torch.bincount``
+    rows than the JAX package's ``plan()`` takes (the one_input kernel: no
+    sync), the same call on the plain scatter path (``torch.bincount``
     reads its indices), and the exact float64 tier's reads."""
     g = torch.Generator(device=cuda).manual_seed(8)
     if case == "levels_vol":
@@ -304,13 +306,14 @@ def test_host_syncs_equal_what_the_sync_debug_mode_reports(cuda, case):
 
         def fn():
             return xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=vol)
-    elif case == "year_per_cell":
+    elif case.startswith("year_per_cell"):
         sst = torch.randn((3, 512, 520), device=cuda, generator=g) * 8 + 15
         named = labeled.NamedArray(sst, ("time", "lat", "lon"), name="sst")
         edges = [np.linspace(-2, 38, 81).astype(np.float32)]
+        method = "scatter" if case.endswith("scatter") else "auto"
 
         def fn():
-            return labeled.histogram(named, bins=edges, dim=("time",))
+            return labeled.histogram(named, bins=edges, dim=("time",), method=method)
     else:
         x = torch.randn((4, 3000), device=cuda, generator=g)
         w = torch.rand((4, 3000), device=cuda, generator=g, dtype=torch.float64)
@@ -322,7 +325,7 @@ def test_host_syncs_equal_what_the_sync_debug_mode_reports(cuda, case):
     fn()  # thresholds cached, kernels built
     _, reported, counted = _syncs_reported(fn)
     assert counted == reported
-    assert (reported == 0) == (case == "levels_vol")
+    assert (reported == 0) == (case in ("levels_vol", "year_per_cell"))
 
 
 def _idle_tool():

@@ -12,7 +12,9 @@ float32, 50 bins, every axis reduced), config 2 with U(0,1) float32 weights
 float32, bfloat16, int16 (8000 N(0,1) rounded, 64 bins over
 [-32768, 32768)) and int8 (30 N(0,1) rounded, in 64 bins over
 [-128, 128)), and config 4 ((365, 180, 360) float32, ``axis=0``, 80 bins,
-strided kept rows):
+strided kept rows), and the per-cell year ((365, 720, 1440) float32, 29% of
+the cells NaN land, ``axis=0``, 80 bins on [-2, 38]: 1,036,800 kept rows,
+unweighted and with float32 weights):
 
 - the kernel's launch: its counter layout, copies, cells K and widest
   window L (``cuda_hist.last_launch()``);
@@ -26,10 +28,13 @@ strided kept rows):
 - for the narrow rows, what the path cost before the kernel read them in
   place: a widening copy to float32 or int32, then the kernel on it.
 
-Then, for config 1 and config 4, the public call's host time from the call
-to its return with the card idle, and over back-to-back calls their wall
-time against the device time of the kernel's own launches in the same
-calls (the device's idle share). It imports nothing of JAX.
+Then, for config 1, config 4 and the year, the public call's host time
+from the call to its return with the card idle, and over back-to-back
+calls their wall time against the device time of the kernel's own
+launches in the same calls (the device's idle share); for the year also
+the public call (CUDA events) against the plain scatter path
+(``method="scatter"``), unweighted and weighted. It imports nothing of
+JAX.
 """
 
 import json
@@ -43,6 +48,7 @@ import torch
 
 CONFIG1 = (1000, 100_000)
 SST = (365, 180, 360)
+YEAR = (365, 720, 1440)
 N_ROW = 1 << 30
 N_SMALL = 1 << 19
 BACK_TO_BACK = 50
@@ -68,6 +74,18 @@ def event_ms(fn, reps=10):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def sst_year(dev, gen):
+    """A year of daily 0.25-degree SST with land (29% of the cells, smooth
+    blobs) NaN every day, as the benchmark's ``sst_025deg_year`` lays it."""
+    lat = torch.deg2rad(torch.linspace(-89.875, 89.875, YEAR[1], device=dev))[:, None]
+    lon = torch.deg2rad(torch.linspace(0.125, 359.875, YEAR[2], device=dev))[None, :]
+    field = torch.sin(3 * lat) * torch.cos(2 * lon) + 0.5 * torch.sin(5 * lon + 1) * torch.cos(lat)
+    land = field > torch.quantile(field.reshape(-1), 0.71)
+    x = torch.randn(YEAR, device=dev, generator=gen)
+    x.mul_(0.6).add_(28 - 30 * torch.sin(lat) ** 2).clamp_min_(-1.8)
+    return x.masked_fill_(land, float("nan"))
 
 
 def main():
@@ -215,6 +233,28 @@ def main():
     idle_share("config 1 public call", lambda: xhistogram_torch.histogram(x, bins=[e50]))
     idle_share("config 4 public call",
                lambda: xhistogram_torch.histogram(sst, bins=[e80], axis=0))
+    del x, sst
+    torch.cuda.empty_cache()
+
+    year = sst_year(dev, gen)
+    e_year = np.linspace(-2, 38, 81).astype(np.float32)
+    w_year = torch.rand(YEAR, device=dev, generator=gen)
+    layout = canonicalize_2d(year, (0,))
+    label = f"year, {tuple(layout.shape)} strides {layout.stride()} float32, 80 bins"
+    breakdown(label, layout, e_year, e_year - 100, False)
+    breakdown(f"{label}, U(0,1) float32 weights", layout, e_year, e_year - 100, False,
+              weights=canonicalize_2d(w_year, (0,)))
+    for weights in (None, w_year):
+        kind = "unweighted" if weights is None else "float32 weights"
+        public = {m: event_ms(lambda: xhistogram_torch.histogram(
+            year, bins=[e_year], axis=0, weights=weights, method=m), reps=5)
+            for m in ("auto", "scatter")}
+        result.setdefault("year_public_ms", {})[kind] = public
+        print(f"# year public call, {kind}: one_input {public['auto']:.4f} ms, plain "
+              f"scatter path {public['scatter']:.4f} ms (CUDA events, host work "
+              f"included) [{card}]")
+    idle_share("year public call",
+               lambda: xhistogram_torch.histogram(year, bins=[e_year], axis=0))
     print(json.dumps(result))
 
 

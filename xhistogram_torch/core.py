@@ -9,7 +9,10 @@ card; without a card they need ``device="cpu"``. The counts come back on
 the inputs' device. On a CUDA tensor each call runs the hand-written
 kernel that ``plan()`` names (one_input, joint2, factored or direct;
 ``ops/cuda_hist``), the JAX package's unweighted routing table, for
-weighted calls too, or the plain scatter strategy outside it.
+weighted calls too, or the plain scatter strategy outside it. The table
+departs from the JAX package's in one band: one input in at most 1024
+bins over kept rows past 2^28 padded slots runs one_input here, where the
+JAX package runs scatter.
 
 dtype rules: unweighted counts are int64, the reference's dtype (the JAX
 package's int32 is a TPU word-size artifact). Weighted sums take a dtype
@@ -757,7 +760,10 @@ def histogram(
     method : 'auto' | 'scatter' | 'onehot' | 'sort' | 'cuda' (alias 'pallas')
         'auto' runs the CUDA kernel that the JAX package's ``plan()`` names
         for a CUDA tensor, and the scatter strategy on the CPU or where the
-        JAX package runs its scatter strategy too. 'cuda' forces the fused
+        JAX package runs its scatter strategy too, with one exception: one
+        input in at most 1024 bins over kept rows past the JAX package's
+        cap of 2^28 padded slots runs the one_input kernel, which needs no
+        such cap (``ops.cuda_hist.plan``). 'cuda' forces the fused
         kernel route at any shape, with the JAX package's fallback outside
         ``plan()``'s envelopes (factored for a full reduction, direct for
         kept rows); on a CPU tensor it runs the kernel's plain version.

@@ -488,8 +488,8 @@ int launch(const void* a, const xh::Dims& dims, const long long* st, const void*
                                     : xh::chunk_tiles(tl, dims, resident);
   // a block's shared counters are 32-bit: bound the elements one block
   // visits before it flushes (a full reduction flushes only at the end, a
-  // chunk at most once a tile); weighted sums wrap or round by their own
-  // type's rules instead
+  // chunk at most once a tile, and chunk_tiles keeps a chunk within the
+  // bound); weighted sums wrap or round by their own type's rules instead
   const long long visits = reduce_all ? xh::ceil_div(n_tiles, grid)
                            : tl.chunk ? tl.chunk : 1;
   if (!W::kWeighted && visits * tl.rows * tl.cols > 0xffffffffLL)
@@ -501,7 +501,7 @@ int launch(const void* a, const xh::Dims& dims, const long long* st, const void*
                      (kAggregated ? sizeof(Shared) * kThreads : 0);
   xh::last_launch = {1, 1, 1, {cells, 0}, 1,
                      kPrivate ? kLanePrivate : kAggregated ? oi::kAggregated : kReplicas,
-                     tl.copies};
+                     tl.copies, 0, (int)grid};
   one_input_kernel<L, C, W, kPrivate><<<(unsigned int)grid, kThreads, smem, stream>>>(
       static_cast<const L*>(a), dims, st[0], st[1], st[2], st[3],
       static_cast<const C*>(thr), nb, cells, tl, reduce_all, w,

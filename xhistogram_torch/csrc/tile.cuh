@@ -192,11 +192,15 @@ inline Tiling make_tiling(const Dims& d, bool row_fast, long long max_rows,
 
 // Contiguous chunks of tiles, one a block, where a row's tiles span several
 // runs of columns (d.c1 > 1), so a block flushes a row once a chunk rather
-// than once a run; `blocks` of them at most. Returns the blocks to launch.
+// than once a run; `blocks` of them, or more where a chunk would hold more
+// elements than a block's 32-bit shared counters take before a flush
+// (2^32 - 1; a tile holds at most 2^20). Returns the blocks to launch.
 inline long long chunk_tiles(Tiling& tl, const Dims& d, long long blocks) {
   const long long n = tl.row_tiles * tl.col_tiles;
   if (d.c1 <= 1) return n < blocks ? n : blocks;
+  const long long most = 0xffffffffLL / (tl.rows * tl.cols);
   tl.chunk = ceil_div(n, blocks);
+  if (tl.chunk > most) tl.chunk = most;
   return ceil_div(n, tl.chunk);
 }
 

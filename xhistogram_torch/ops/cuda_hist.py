@@ -260,17 +260,23 @@ def plan(n_inputs, nbins, m, c=None):
 
     ``m == 1`` means a full reduction. Mirrors the JAX package's unweighted
     ``pallas_hist.planned_kernel`` with no uniform-spacing certificates and
-    faithful NaN/inf handling (its default). Weighted problems take the
-    same caps: the port's kernels write one output whatever the weights,
-    where the JAX package's weighted gates count its TPU kernels' NaN/inf
-    channels, Kahan output and integer digit modes (removed in the port).
+    faithful NaN/inf handling (its default), in every band but one: kept
+    rows of one input in 1 to 1024 bins go to one_input at any row count,
+    as a full reduction does, where the JAX package sends those past 2^28
+    padded slots (rows times its factored slot layout) to scatter. That cap
+    sizes its TPU kernels' padded slot layout; one_input writes only its
+    ``(m, nb + 1)`` output and reads the view in place. The other kept-row
+    routes keep the cap. Weighted problems take the same caps: the port's
+    kernels write one output whatever the weights, where the JAX package's
+    weighted gates count its TPU kernels' NaN/inf channels, Kahan output
+    and integer digit modes (removed in the port).
     """
     full_cap, kept_cap = 1 << 21, 1 << 25
     n_slots = math.prod(int(b) for b in nbins) + 1
     edges_ok = sum(nb + 1 for nb in nbins) <= _MAX_EDGES
+    if n_inputs == 1 and nbins[0] <= _MAX_ONE_INPUT_BINS:
+        return "one_input"  # full or kept rows, at any row count
     if m == 1:
-        if n_inputs == 1 and nbins[0] <= 1024:
-            return "one_input"
         if not edges_ok:
             return None
         if (
@@ -286,8 +292,6 @@ def plan(n_inputs, nbins, m, c=None):
     padded_slots = max(n1 << log2_n2, _round_up(n_slots, 1024))
     if m * padded_slots > (1 << 28):
         return None
-    if n_inputs == 1 and nbins[0] <= 1024:
-        return "one_input"
     if n_slots <= kept_cap // 2 and edges_ok and (c is None or c >= 256) and m > 1:
         return "factored_per_row"
     if n_slots <= 8192:
@@ -444,10 +448,10 @@ def last_launch():
     ``blocks`` and ``rows_per_warp`` (the most rows a warp walked).
     one_input adds its counter ``layout`` (one of ``ONE_INPUT_LAYOUTS``'
     names), ``copies`` (the histogram's copies in shared memory: one per
-    lane, per warp, or replicas), ``load`` (the dtype it read) and
-    ``widest``, the widest window L of the cell table its first block
-    built (K is ``cells[0]``); reading ``widest`` synchronises with the
-    card."""
+    lane, per warp, or replicas), ``blocks`` (its grid), ``load`` (the
+    dtype it read) and ``widest``, the widest window L of the cell table
+    its first block built (K is ``cells[0]``); reading ``widest``
+    synchronises with the card."""
     out = (ctypes.c_int * 11)()
     _build.load().xh_last_launch(out)
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
@@ -459,8 +463,8 @@ def last_launch():
         rec.update(warps_per_row=1, warps_per_block=out[8], blocks=out[9],
                    rows_per_warp=out[10])
     if out[5]:
-        rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], load=loads[0],
-                   widest=int(_WIDEST[device].item()))
+        rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], blocks=out[9],
+                   load=loads[0], widest=int(_WIDEST[device].item()))
     return rec
 
 
