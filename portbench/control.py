@@ -26,7 +26,10 @@ HOOK = "portbench.control:in_the_programs_place"
 
 def in_the_programs_place(cell):
     """Put the control in place of the program's sums
-    (``core._histogram_impl``, under every public entry); returns the undo."""
+    (``core._histogram_impl``, under every public entry, and its copy in
+    ``parallel.sharded`` where that is loaded); returns the undo. In a
+    sharded call the control makes this rank's part and the program's
+    all-reduce (``mesh.sum``) adds the parts, as it adds the program's."""
     import torch
 
     import xhistogram_torch.core as core
@@ -34,20 +37,37 @@ def in_the_programs_place(cell):
     from portbench import reference
 
     lowp = getattr(torch, cell.config["control_dtype"])
-    impl = core._histogram_impl
 
-    def control(args, weights, edges_np, bins, axis, **kwargs):
+    def control(args, weights, edges_np, bins, axis, mesh=None, **kwargs):
         h = reference.histogram(list(args), list(edges_np), axis, weights, lowp)
         nslots = math.prod(len(e) - 1 for e in edges_np)
         rows = h.reshape(-1, nslots)
         sums = torch.cat([rows, rows.new_zeros((rows.shape[0], 1))], dim=1)  # trash slot
         kshape = tuple(h.shape[: h.ndim - len(edges_np)])
+        if mesh is not None:
+            sums = mesh.sum(sums)
         return sums, kshape, None if weights is None else weights.dtype
 
-    core._histogram_impl = control
+    return replace_impl(lambda impl: control)
+
+
+def replace_impl(make):
+    """Replace the program's ``_histogram_impl`` by ``make(impl)`` in
+    ``xhistogram_torch.core`` and, where it is loaded, in
+    ``xhistogram_torch.parallel.sharded``, which holds its own reference to
+    it; returns the undo."""
+    import xhistogram_torch.core as core
+
+    modules = [core]
+    if "xhistogram_torch.parallel.sharded" in sys.modules:
+        modules.append(sys.modules["xhistogram_torch.parallel.sharded"])
+    impl = core._histogram_impl
+    for module in modules:
+        module._histogram_impl = make(impl)
 
     def undo():
-        core._histogram_impl = impl
+        for module in modules:
+            module._histogram_impl = impl
 
     return undo
 

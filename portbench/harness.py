@@ -3,11 +3,16 @@ check against the reference, and the result line.
 
 Every call of the window is one public call of ``xhistogram_torch``, ended
 by a synchronise of the card: a closed loop with one caller, as an analysis
-script loops over its data.
+script loops over its data. A traffic mix that names ``in_flight`` keeps that
+many calls on the card ahead of the one it waits for, as a script does that
+reads no answer before it sends the next call: the card is then never left
+waiting on the host. Its window closes when its time is up: nothing more is
+sent, every call sent is waited for, and the clock is read after that wait.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import importlib
 import json
@@ -38,7 +43,8 @@ class Run:
     setup_s: float
     n_calls: int
     window_s: float  # host clock
-    call_s: np.ndarray  # each call's wall time, entry to synchronised
+    call_s: np.ndarray  # each call's wall time, entry to synchronised (in flight: to
+    # the wait for the call ``in_flight`` before it)
     host_s: np.ndarray  # each call's entry to return, before the synchronise
     bytes_in: float  # input bytes of all calls
     bound_s: float | None  # the calls' bytes bound at the card's bandwidth
@@ -50,6 +56,15 @@ class Run:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mark(device):
+    """An event on the device's stream after what was sent so far, or None."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 def _counter_reader(readers):
@@ -102,13 +117,20 @@ def _one_seed(cell, device, seed, seconds, trace, t_process, setup_marks=()):
     prof = devtrace.start(device) if trace else None
     marks, walls = [], []
     n_items, i = len(items), 0
+    in_flight = int(cell.traffic.get("in_flight", 0))
+    sent = collections.deque()
     t_start, wall_start = time.perf_counter(), time.time_ns()
     while True:
         k = i % n_items
         t0, w0 = time.perf_counter(), time.time_ns()
         out = calls.program(items[k])
         t1, w1 = time.perf_counter(), time.time_ns()
-        _sync(device)
+        if in_flight:
+            sent.append(_mark(device))
+            if len(sent) > in_flight and (event := sent.popleft()) is not None:
+                event.synchronize()
+        else:
+            _sync(device)
         t2, w2 = time.perf_counter(), time.time_ns()
         marks.append((t0, t1, t2))
         walls.append((w0, w1, w2))
@@ -118,7 +140,11 @@ def _one_seed(cell, device, seed, seconds, trace, t_process, setup_marks=()):
         if t2 - t_start >= seconds:
             break
     del out
-    t_end, wall_end = marks[-1][2], walls[-1][2]
+    if in_flight:  # every call sent counts, over the time to its end
+        _sync(device)
+        t_end, wall_end = time.perf_counter(), time.time_ns()
+    else:
+        t_end, wall_end = marks[-1][2], walls[-1][2]
     events = devtrace.stop(prof)
     gc.unfreeze()
     window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -195,7 +221,10 @@ def _power_limit(index):
 def _line(cell, run, extra, trace, device):
     """The result line and the lines for standard error, checked."""
     wait = run.call_s - run.host_s
-    notes = [f"window {run.window_s:.3f} s, {run.n_calls} calls; a call's host part "
+    ahead = cell.traffic.get("in_flight", 0)
+    notes = [f"window {run.window_s:.3f} s, {run.n_calls} calls"
+             + (f", {ahead} in flight ahead of the one waited for" if ahead else "")
+             + f"; a call's host part "
              f"{run.host_s.mean() * 1e6:.1f} us (median {np.median(run.host_s) * 1e6:.1f}), "
              f"its wait for the card {wait.mean() * 1e6:.1f} us (median "
              f"{np.median(wait) * 1e6:.1f}); the check against the reference "
@@ -214,7 +243,7 @@ def _line(cell, run, extra, trace, device):
     dev = {
         "platform": "gpu" if cuda else "cpu",
         "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-        "count": 1,
+        "count": cell.chips,
         "memory_peak_bytes": int(extra["memory_peak_bytes"]),
     }
     if trace and run.trace is not None:
@@ -233,7 +262,8 @@ def _line(cell, run, extra, trace, device):
         line["breakdown"] = {"device_ops": run.trace["ops"], "idle_gaps": run.trace["gaps"]}
     line["checks"] = checks
     problems = check_line(line, [m["name"] for m in cell.metrics(trace)], trace,
-                          platform=dev["platform"], count=1)
+                          platform=dev["platform"], count=cell.chips)
+    problems += extra.get("problems", [])  # a cell on several cards: each rank's own
     if problems:
         line["correct"] = False
         notes += [f"result line unsound: {p}" for p in problems]
@@ -246,19 +276,25 @@ def _line(cell, run, extra, trace, device):
 
 
 def run_cell(cell_name, seeds, seconds, trace, device_type="cuda", t_process=None,
-             hook=None, here=registry.HERE, marks=()):
+             hook=None, here=registry.HERE, marks=(), children=None):
     """Run a cell on ``seeds`` in turn, in this process; [(line, notes)] of
     each. ``hook`` ("module:function") is called with the cell before the
     runs, and what it returns after them: the control (``control.py``) and
     the tests' planted faults take the program's place with it. ``here`` is
     the benchmark's folder (tests give a copy with tiny configurations),
     beside its ``BENCHMARK.json``; ``marks`` time the process's set-up
-    before it (``_one_seed``)."""
+    before it (``_one_seed``).
+
+    A cell on several cards runs one process a card, this one rank 0
+    (``ranks.run_rank0``; ``children``, ``procs.Children``, where run.py
+    started the others already), and every rank takes the hook."""
     t_process = time.perf_counter() if t_process is None else t_process
     cell = registry.Cell(cell_name, here=here)
-    if cell.chips != 1:
-        raise ValueError(f"cell {cell_name} asks for {cell.chips} cards; the harness "
-                         "drives one")
+    if cell.chips > 1 or getattr(cell.kind, "RANKS", False):
+        from portbench import ranks
+
+        return ranks.run_rank0(cell, seeds, seconds, trace, device_type, t_process, hook,
+                               here, marks, children)
     device = torch.device("cuda", 0) if device_type == "cuda" else torch.device("cpu")
     undo = None
     results = []

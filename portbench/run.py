@@ -12,6 +12,11 @@ which also close standard error. Exits non-zero and prints no result
 without a CUDA card or with fewer cards than the cell asks for, when the
 program is not in the checkout, or when a module of JAX or of the JAX
 package was loaded.
+
+A cell on several cards runs one process a card: this one is rank 0, on
+``cuda:0``, and starts the others (``portbench/procs.py``) before its own
+imports; it alone prints the line. If a rank fails or hangs, every rank
+exits non-zero and no line is printed (``procs``' deadlines).
 """
 
 import time
@@ -44,6 +49,24 @@ def main(argv=None):
     p.add_argument("--trace", type=int, choices=(0, 1), required=True)
     args = p.parse_args(argv)
 
+    from portbench import procs, registry
+
+    children = None
+    chips = {w["name"]: w["chips"] for w in registry.benchmark()["workloads"]}
+    if chips.get(args.workload, 1) > 1:  # the other ranks' imports overlap this one's
+        children = procs.Children(args.workload, chips[args.workload], [args.seed],
+                                  args.seconds, bool(args.trace), "cuda")
+    try:
+        return _run(args, children)
+    except procs.RankFailure as e:
+        print(f"no line: {e}", file=sys.stderr)
+        return procs.EXIT_RANK
+    finally:
+        if children is not None:
+            children.stop()
+
+
+def _run(args, children):
     from portbench.registry import Cell
 
     cell = Cell(args.workload)
@@ -72,7 +95,8 @@ def main(argv=None):
 
     marks.append(("the harness's imports", time.perf_counter()))
     [(line, notes)] = harness.run_cell(cell.name, [args.seed], args.seconds,
-                                       bool(args.trace), "cuda", T_PROCESS, marks=marks)
+                                       bool(args.trace), "cuda", T_PROCESS, marks=marks,
+                                       children=children)
     found = harness.forbidden_modules()
     if found:
         print(f"modules loaded that no run may load: {found}", file=sys.stderr)

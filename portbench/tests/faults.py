@@ -4,19 +4,14 @@ it. Each fault must make ``correct`` false."""
 
 from __future__ import annotations
 
+import time
+
 import torch
+import torch.distributed as dist
 
-import xhistogram_torch.core as core
+from xhistogram_torch.parallel import sharded
 
-
-def _patch_impl(fn):
-    impl = core._histogram_impl
-    core._histogram_impl = fn(impl)
-
-    def undo():
-        core._histogram_impl = impl
-
-    return undo
+from portbench.control import replace_impl as _patch_impl
 
 
 def altered_answer(cell):
@@ -47,3 +42,39 @@ def half_the_data(cell):
         return halved
 
     return _patch_impl(wrap)
+
+
+def dropped_part(cell):
+    """The last rank's part left out of the program's all-reduce
+    (``parallel.sharded._Mesh.sum``): it adds zeros in its place."""
+    add = sharded._Mesh.sum
+
+    def dropped(self, t):
+        if _last_rank():
+            t = torch.zeros_like(t)
+        return add(self, t)
+
+    sharded._Mesh.sum = dropped
+
+    def undo():
+        sharded._Mesh.sum = add
+
+    return undo
+
+
+def _last_rank():
+    return dist.get_rank() == dist.get_world_size() - 1
+
+
+def a_rank_fails(cell):
+    """The last rank raises before its first seed."""
+    if _last_rank():
+        raise RuntimeError("a failure planted on the last rank")
+    return lambda: None
+
+
+def a_rank_hangs(cell):
+    """The last rank never reaches its first seed."""
+    if _last_rank():
+        time.sleep(3600)
+    return lambda: None

@@ -1,7 +1,7 @@
-"""Card-only tests (marked ``gpu``; each skips without a CUDA card): every
-cell at its tiny size, traced and not, and at its own size with the
-control in the program's place, which the harness's own check has to find
-not correct."""
+"""Card-only tests (marked ``gpu``; each skips without a CUDA card, or
+with fewer cards than its cell asks for): every cell at its tiny size,
+traced and not, and at its own size with the control in the program's
+place, which the harness's own check has to find not correct."""
 
 import pytest
 
@@ -14,11 +14,14 @@ CELLS = cells()
 
 
 @pytest.fixture
-def card():
+def card(name):
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    chips = registry.Cell(name).chips
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"cell {name} needs {chips} CUDA cards")
 
 
 @pytest.mark.gpu
@@ -29,7 +32,7 @@ def test_each_cell_tiny_on_the_card(card, tmp_path, name, trace):
     [(line, notes)] = harness.run_cell(name, [2**31 + 3], 0.5, trace, "cuda", here=here)
     assert line["correct"] is True, notes
     names = [m["name"] for m in registry.Cell(name, here=here).metrics(trace)]
-    assert check(line, names, trace, count=1) == []
+    assert check(line, names, trace, count=registry.Cell(name).chips) == []
 
 
 @pytest.mark.gpu
@@ -37,5 +40,6 @@ def test_each_cell_tiny_on_the_card(card, tmp_path, name, trace):
 def test_the_control_at_the_cells_own_size_is_not_correct(card, name):
     [(line, notes)] = harness.run_cell(name, [2**32 + 17], 1.0, False, "cuda", hook=HOOK)
     assert line["correct"] is False, notes
-    assert check(line, [m["name"] for m in registry.Cell(name).metrics(False)], False,
-                 count=1) == []
+    cell = registry.Cell(name)
+    assert check(line, [m["name"] for m in cell.metrics(False)], False,
+                 count=cell.chips) == []

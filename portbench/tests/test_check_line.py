@@ -4,7 +4,9 @@ prints it, and what check_line.py holds a saved line to."""
 import copy
 import json
 
-from portbench import check_line
+import pytest
+
+from portbench import check_line, registry
 
 NAMES = ["kernel_roofline", "device_idle_pct"]
 LINE = {
@@ -58,16 +60,29 @@ def test_device_and_keys():
     assert _problems(lambda l: l["breakdown"].update(device_ops=[["k", 1.0]] * 11))
 
 
-def test_the_command_reads_a_saved_line(tmp_path, capsys):
+@pytest.mark.parametrize("workload", [w["name"] for w in registry.benchmark()["workloads"]])
+def test_the_command_reads_a_saved_line(workload, tmp_path, capsys):
+    cell = registry.Cell(workload)
     line = copy.deepcopy(LINE)
-    line["device"]["count"] = 1
-    names = ["host_call_us", "layout_copies_per_call", "kernels_per_call",
-             "kernel_roofline", "device_idle_pct"]
-    line["metrics"] = {n: {"value": 1.0, "unit": "u"} for n in names}
+    line["device"]["count"] = cell.chips
+    line["metrics"] = {m["name"]: {"value": 1.0, "unit": m["unit"]}
+                       for m in cell.metrics(True)}
     f = tmp_path / "run.out"
     f.write_text("warm-up notes\n" + json.dumps(line) + "\n")
-    assert check_line.main(["--workload", "ts_ecco_levels_vol", "--trace", "1", str(f)]) == 0
+    assert check_line.main(["--workload", workload, "--trace", "1", str(f)]) == 0
+    line["device"]["count"] = 1 if cell.chips > 1 else 4
+    f.write_text(json.dumps(line) + "\n")
+    assert check_line.main(["--workload", workload, "--trace", "1", str(f)]) == 1
+    line["device"]["count"] = cell.chips
     line["device"]["busy_s"] = 0.0
     f.write_text(json.dumps(line) + "\n")
-    assert check_line.main(["--workload", "ts_ecco_levels_vol", "--trace", "1", str(f)]) == 1
-    assert "busy_s" in capsys.readouterr().out
+    assert check_line.main(["--workload", workload, "--trace", "1", str(f)]) == 1
+    out = capsys.readouterr().out
+    assert "device.count" in out and "busy_s" in out
+
+
+def test_a_saved_line_of_the_four_card_cell_has_its_collectives():
+    names = [m["name"] for m in registry.Cell("ts_01deg_global_4card").metrics(True)]
+    assert "allreduce_ms" in names
+    assert "allreduce_ms" not in [m["name"] for m in
+                                  registry.Cell("ts_ecco_levels_vol").metrics(True)]

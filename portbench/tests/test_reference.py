@@ -90,7 +90,8 @@ def test_relative_gap_of_sums():
 
 
 def test_the_reference_imports_nothing_of_the_program_or_jax():
-    for name in ("reference.py", "seeding.py", "recipes/ts_depth.py", "recipes/sst_daily.py"):
+    for name in ("reference.py", "seeding.py", "recipes/ts_depth.py", "recipes/sst_daily.py",
+                 "recipes/ts_depth_sharded.py"):
         tree = ast.parse((Path(reference.__file__).parent / name).read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

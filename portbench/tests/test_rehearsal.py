@@ -5,6 +5,7 @@ bfloat16 in the program's place) and every fault planted under the timed
 path are not."""
 
 import json
+import shutil
 import subprocess
 import sys
 
@@ -17,7 +18,7 @@ from portbench.tests.tiny import cells, tree
 CELLS = cells()
 #: what only a card can give: its memory, its profiler's trace
 DEVICE_ONLY = ("mem_peak_GB", "kernels_per_call", "kernel_roofline", "device_idle_pct",
-               "memory_peak_bytes", "busy_s")
+               "allreduce_ms", "memory_peak_bytes", "busy_s")
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +45,7 @@ def test_each_cell_is_correct_and_its_control_is_not(here, cell):
     assert notes[-len(checks):] == [f"check {n} {c['value']!r} limit {c['limit']!r}"
                                     for n, c in checks.items()]
     assert list(line)[-1] == "checks"
+    assert line["device"]["count"] == registry.Cell(cell).chips
     [(control, _)] = _run(here, cell, hook=control_hook)
     assert control["correct"] is False, control["checks"]
 
@@ -56,13 +58,54 @@ def test_traced_run_reads_its_host_metrics(here, cell):
     assert _sound_but_for_the_card(notes) == []
 
 
-FAULTS = [(cell, fault) for cell in CELLS for fault in ("altered_answer", "half_the_data")]
+#: faults of a cell on several cards: one rank's part left out of the exchange
+RANK_FAULTS = ("dropped_part",)
+FAULTS = [(cell, fault) for cell in CELLS for fault in ("altered_answer", "half_the_data")] + [
+    (cell, fault) for cell in CELLS if registry.Cell(cell).chips > 1 for fault in RANK_FAULTS]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
 def test_a_fault_under_the_timed_path_is_not_correct(here, cell, fault):
     [(line, notes)] = _run(here, cell, hook=f"portbench.tests.faults:{fault}")
     assert line["correct"] is False, line["checks"]
+
+
+def test_a_window_with_calls_in_flight_waits_for_every_call_it_sent(tmp_path, monkeypatch):
+    """The year's traffic keeps calls in flight: after each call the harness
+    waits for the one ``in_flight`` before it, and the window closes only
+    after a wait for every call sent. The tiny run makes few calls on the
+    CPU, so it keeps 2 in flight where the cell keeps more."""
+    cell = "sst_025deg_year"
+    assert registry.Cell(cell).traffic["in_flight"] > 1
+    here = tree(tmp_path)
+    (here / "traffic").unlink()
+    shutil.copytree(registry.HERE / "traffic", here / "traffic")
+    year = here / "traffic" / "year_per_cell.json"
+    year.write_text(json.dumps({**json.loads(year.read_text()), "in_flight": 2}))
+    ahead = registry.Cell(cell, here=here).traffic["in_flight"]
+    log = []
+
+    class Event:
+        def __init__(self):
+            self.n = sum(e[0] == "sent" for e in log)
+            log.append(("sent", self.n))
+
+        def synchronize(self):
+            log.append(("waited", self.n))
+
+    monkeypatch.setattr(harness, "_mark", lambda device: Event())
+    monkeypatch.setattr(harness, "_sync", lambda device: log.append(("all",)))
+    [(line, _)] = harness.run_cell(cell, [3_000_000_011], 0.5, False, "cpu", here=here)
+    sent = [e[1] for e in log if e[0] == "sent"]
+    assert sent == list(range(line["attempted"])) and line["correct"] is not None
+    waited = [e[1] for e in log if e[0] == "waited"]
+    assert line["attempted"] > ahead and waited == list(range(line["attempted"] - ahead))
+    last_sent = max(i for i, e in enumerate(log) if e[0] == "sent")
+    assert ("all",) in log[last_sent:]
+    for i, e in enumerate(log):  # each wait comes after the call ``ahead`` later was sent
+        if e[0] == "waited":
+            assert ("sent", e[1] + ahead) in log[:i]
+    assert all(c["value"] <= c["limit"] for c in line["checks"].values()), line["checks"]
 
 
 def test_seeds_give_the_same_data(here):
