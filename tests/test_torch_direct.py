@@ -181,3 +181,69 @@ def test_plan_sends_the_paths_to_direct(path):
     n_inputs, nbins, m, c = PATHS[path]
     assert cuda_hist.plan(n_inputs, nbins, m, c) == "direct"
     assert pallas_hist.plan(n_inputs, nbins, m, c=c, weighted=False, uniform=None) == "direct"
+
+
+def _numpy_rows(arrays, edges):
+    """numpy's joint histogram of each column of ``arrays`` (member axis
+    first), all at once: searchsorted-right with the last edge closed, one
+    offset bincount. int64 counts ``(columns,) + nbins``."""
+    nbins = [len(e) - 1 for e in edges]
+    m = arrays[0].shape[1]
+    slot = np.zeros(arrays[0].shape, np.int64)
+    inside = np.ones(arrays[0].shape, bool)
+    for x, e, nb in zip(arrays, edges, nbins):
+        x = x.astype(np.float64)
+        e = np.asarray(e, np.float64)
+        idx = np.searchsorted(e, x, side="right") - 1
+        idx[x == e[-1]] = nb - 1
+        inside &= (idx >= 0) & (idx < nb)
+        slot = slot * nb + np.clip(idx, 0, nb - 1)
+    n = int(np.prod(nbins))
+    flat = (np.arange(m)[None, :] * n + slot)[inside]
+    return np.bincount(flat, minlength=m * n).reshape(m, *nbins)
+
+
+def test_an_ensemble_past_the_jax_cap_runs_direct(monkeypatch):
+    """The first row count past the JAX package's kept-row cap at 3 x 4
+    bins: 262,145 kept rows of 5 members, the member axis outermost (a
+    (1, m)-strided layout), every seventh row NaN in every member. The port
+    runs the direct route (its plain version on the CPU), where the JAX
+    package runs scatter, and both, numpy and the benchmark's plain
+    reference give the same counts."""
+    from portbench import reference
+    from xhistogram_torch import core
+    from xhistogram_torch.utils import profiling
+
+    m, members = 262_145, 5
+    assert pallas_hist.plan(2, (3, 4), m, c=members, weighted=False, uniform=None) is None
+    assert pallas_hist.plan(2, (3, 4), m - 1, c=members, weighted=False,
+                            uniform=None) == "direct"
+    assert cuda_hist.plan(2, (3, 4), m, members) == "direct"
+    rng = np.random.default_rng(18)
+    t = rng.normal(15.0, 8.0, (members, m)).astype(np.float32)
+    s = rng.normal(34.7, 0.8, (members, m)).astype(np.float32)
+    t[:, ::7] = np.nan
+    s[:, ::7] = np.nan
+    te = np.array([-2.0, 10.0, 20.0, 38.0], np.float32)
+    se = np.array([33.0, 34.0, 34.5, 35.0, 36.0], np.float32)
+    ran = []
+
+    def spy(*args, **kwargs):
+        ran.append("direct")
+        return cuda_hist.direct(*args, **kwargs)
+
+    monkeypatch.setattr(core, "direct", spy)
+    expected = _numpy_rows([t, s], [te, se])
+    assert expected[::7].sum() == 0 and expected.sum() > 0
+    jh, _ = xhistogram_tpu.histogram(t, s, bins=[te, se], axis=(0,), method="scatter")
+    np.testing.assert_array_equal(np.asarray(jh), expected)
+    tt, st = torch.from_numpy(t), torch.from_numpy(s)
+    want = reference.histogram([tt, st], [te, se], (0,))
+    np.testing.assert_array_equal(want.numpy(), expected)
+    for method, route in (("cuda", "direct"), ("auto", "scatter")):
+        before = dict(profiling.ROUTES)
+        h, _ = xhistogram_torch.histogram(tt, st, bins=[te, se], axis=0, method=method)
+        assert profiling.ROUTES[route] == before[route] + 1, method
+        assert h.shape == (m, 3, 4) and h.dtype == torch.int64
+        np.testing.assert_array_equal(h.numpy(), expected, err_msg=method)
+    assert ran == ["direct"]  # cuda ran the direct wrapper, auto the scatter path

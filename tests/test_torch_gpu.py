@@ -1710,6 +1710,77 @@ def test_direct_outside_the_rows_envelope_runs_the_template(cuda):
     assert cuda_hist.last_launch()["loads"] == (torch.int64, torch.float32)
 
 
+# --- the direct-row kernel past the JAX package's kept-row cap ------------------
+
+def _ensemble(cuda, months, seed):
+    """Monthly surface T and S of 100 ensemble members on a 320 x 384 grid,
+    (member, month, lat, lon) float32, the member axis outermost: each
+    cell's mean state (T 28 - 30 sin^2(lat) deg C clamped at -1.8, S drawn
+    from N(35.29, 1.48^2) psu) and each member's anomaly, N(0, 0.6^2) and
+    N(0, 0.15^2); land, 29% of the cells in smooth blobs, NaN in every
+    member. And 40 edges of 1 deg C on [-2, 38], 40 of 0.25 psu on [30,
+    40]."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    lat = torch.deg2rad(torch.linspace(-89.765625, 89.765625, 384, device=cuda))[:, None]
+    lon = torch.deg2rad(torch.linspace(0.5625, 359.4375, 320, device=cuda))[None, :]
+    field = torch.sin(3 * lat) * torch.cos(2 * lon) + 0.5 * torch.sin(5 * lon + 1) * torch.cos(lat)
+    land = field > torch.quantile(field.reshape(-1), 0.708)
+    shape = (100, months, 384, 320)
+    t = torch.randn(shape, device=cuda, generator=gen).mul_(0.6)
+    t.add_((28 - 30 * torch.sin(lat) ** 2).clamp_min(-1.8))
+    s_mean = torch.randn((384, 320), device=cuda, generator=gen).mul_(1.48).add_(35.29)
+    s = torch.randn(shape, device=cuda, generator=gen).mul_(0.15).add_(s_mean)
+    edges = [np.linspace(-2, 38, 41).astype(np.float32),
+             np.linspace(30, 40, 41).astype(np.float32)]
+    return t.masked_fill_(land, float("nan")), s.masked_fill_(land, float("nan")), edges
+
+
+def test_direct_rows_an_ensemble_call_reads_its_view_in_place(cuda):
+    """The joint T-S of each cell and month over 100 members, six months:
+    737,280 kept rows in 40 x 40 bins, past the JAX package's kept-row cap.
+    plan() names direct, the direct-row kernel reads the member-strided view
+    in place (no layout copy) with no host sync, once a call, and its counts
+    equal the plain scatter path's."""
+    from xhistogram_torch.utils import profiling
+
+    t, s, edges = _ensemble(cuda, 6, seed=18)
+    assert cuda_hist.plan(2, (40, 40), 737_280, 100) == "direct"
+    before = (cuda_hist.DIRECT_LAUNCHES, cuda_hist.LAYOUT_COPIES, profiling.HOST_SYNCS,
+              profiling.ROUTES["direct"])
+    for _ in range(2):
+        h, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=0)
+        launch = cuda_hist.last_launch()
+        assert launch["kernel"] == "direct_rows" and launch["view"] == "in place", launch
+    assert (cuda_hist.DIRECT_LAUNCHES, cuda_hist.LAYOUT_COPIES, profiling.HOST_SYNCS,
+            profiling.ROUTES["direct"]) == (before[0] + 2, before[1], before[2], before[3] + 2)
+    assert h.shape == (6, 384, 320, 40, 40) and h.dtype == torch.int64
+    plain, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=0, method="scatter")
+    assert torch.equal(h, plain)
+
+
+def test_direct_rows_past_two_to_the_31_output_elements(cuda):
+    """The full year of the same ensemble: 1,474,560 kept rows of 100
+    members, an output of 1,474,560 x 1,601 = 2.36e9 int64 slots, more
+    than 2^31. The direct-row kernel runs once and every row equals the
+    plain version, walked in blocks of rows."""
+    t, s, edges = _ensemble(cuda, 12, seed=19)
+    m = 12 * 384 * 320
+    assert m * 1601 > 2**31 and cuda_hist.plan(2, (40, 40), m, 100) == "direct"
+    before = cuda_hist.DIRECT_LAUNCHES
+    h, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=0)
+    assert cuda_hist.DIRECT_LAUNCHES == before + 1
+    assert cuda_hist.last_launch()["kernel"] == "direct_rows"
+    rows = h.reshape(m, 1600)
+    thr = [_thresholds(e, cuda) for e in edges]
+    t2, s2 = t.reshape(100, m).t(), s.reshape(100, m).t()  # (row, member) views
+    block = 1 << 17
+    for r0 in range(0, m, block):
+        want = cuda_hist.direct_reference([t2[r0:r0 + block], s2[r0:r0 + block]], thr,
+                                          [40, 40])
+        assert not want[:, -1].any()
+        assert torch.equal(rows[r0:r0 + block], want[:, :-1]), r0
+
+
 # --- inputs of two dtypes, each read in place ----------------------------------
 
 PAIRS = [(a, b) for a in ALL_DATA_DTYPES for b in ALL_DATA_DTYPES if a != b]

@@ -245,16 +245,35 @@ def test_plan_keeps_one_input_past_the_jax_cap(nb, c):
 
 @pytest.mark.parametrize("nbins,m,c", [
     ((1025,), 131_073, 365), ((1025,), 131_072, 365), ((1025,), 1_036_800, 365),
-    ((40, 40), 131_073, 64), ((40, 40), 131_072, 64), ((80, 80), 1_036_800, 365),
+    ((40, 40), 131_072, 64), ((80, 80), 1_036_800, 365),
+    ((40, 40), 131_073, 256), ((64, 128), 131_073, 64),
 ], ids=str)
 def test_plan_past_the_jax_cap_elsewhere_is_the_jax_plan(nbins, m, c):
-    """Past the cap, one input in more than 1024 bins and two inputs keep
-    the JAX package's route (None: scatter)."""
+    """Past the cap, one input in more than 1024 bins, and kept rows outside
+    the direct-row kernel's envelope (rows of 256 elements or more, over
+    8192 slots), keep the JAX package's route (None: scatter)."""
     ours = cuda_hist.plan(len(nbins), nbins, m, c)
     assert ours == pallas_hist.plan(len(nbins), nbins, m, c=c, weighted=False,
                                     uniform=None)
     if m > 131_072:
         assert ours is None
+
+
+@pytest.mark.parametrize("nbins,m,c", [
+    ((40, 40), 131_073, 64),
+    # the CESM2 Large Ensemble's joint SST-SSS of each cell and month over its
+    # 100 members: six months of the 320 x 384 POP grid a call
+    ((40, 40), 737_280, 100),
+    ((40, 40), 1_474_560, 100), ((40, 40), 1 << 40, 255), ((40, 40), 3 << 41, 1),
+    ((3, 4), 262_145, 5), ((90, 91), 1 << 20, 64), ((4, 8, 16, 15), 1 << 33, 200),
+], ids=str)
+def test_plan_sends_the_direct_band_past_the_jax_cap_to_direct(nbins, m, c):
+    """Kept rows of fewer than 256 elements over at most 8192 slots, past
+    the JAX package's cap (which runs scatter there), run direct at any row
+    count: the direct-row kernel writes only its output, whose rows it
+    indexes in 64 bits."""
+    assert pallas_hist.plan(len(nbins), nbins, m, c=c, weighted=False, uniform=None) is None
+    assert cuda_hist.plan(len(nbins), nbins, m, c) == "direct"
 
 
 @pytest.mark.parametrize("axis", [(0,), (1,)], ids=["strided-rows", "rows"])

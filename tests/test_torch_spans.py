@@ -107,6 +107,41 @@ def test_each_public_call_counts_one_call(api):
     assert profiling.CALLS == before + 1
 
 
+#: a tiny call on the CPU that takes each route: (inputs' shape, bins of
+#: each input, axis, method); method="cuda" runs the route's plain version
+ROUTE_CALLS = {
+    "one_input": ((4, 50), (8,), 1, "cuda"),
+    "joint2": ((4, 50), (8, 8), None, "cuda"),
+    "factored": ((4, 50), (5, 6, 7), None, "cuda"),
+    "factored_per_row": ((3, 300), (8, 8), 1, "cuda"),
+    "factored_packed": ((4, 60), (100, 100), 1, "cuda"),
+    "direct": ((4, 60), (8, 8), 1, "cuda"),
+    "scatter": ((4, 60), (8, 8), 1, "auto"),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTE_CALLS))
+def test_each_call_counts_its_route_once(route):
+    shape, nbins, axis, method = ROUTE_CALLS[route]
+    assert set(profiling.ROUTES) == set(ROUTE_CALLS)
+    rng = np.random.default_rng(len(route))
+    args = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)) for _ in nbins]
+    bins = [np.linspace(-3, 3, nb + 1) for nb in nbins]
+    before, calls = dict(profiling.ROUTES), profiling.CALLS
+    for _ in range(2):
+        xhistogram_torch.histogram(*args, bins=bins, axis=axis, method=method)
+    moved = {k: v - before[k] for k, v in profiling.ROUTES.items() if v != before[k]}
+    assert moved == {route: 2} and profiling.CALLS == calls + 2
+
+
+def test_a_labeled_call_counts_one_route():
+    before = dict(profiling.ROUTES)
+    labeled.histogram(_labeled_input(np.random.default_rng(9)),
+                      bins=[np.linspace(-3, 3, 9)], dim=("time",), device="cpu")
+    moved = {k: v - before[k] for k, v in profiling.ROUTES.items() if v != before[k]}
+    assert moved == {"scatter": 1}
+
+
 def test_repeated_edges_miss_once_then_hit_and_edited_edges_miss():
     edges = np.sort(np.random.default_rng().normal(size=17))
     x = np.random.default_rng(3).normal(size=(3, 40)).astype(np.float32)

@@ -10,9 +10,10 @@ the inputs' device. On a CUDA tensor each call runs the hand-written
 kernel that ``plan()`` names (one_input, joint2, factored or direct;
 ``ops/cuda_hist``), the JAX package's unweighted routing table, for
 weighted calls too, or the plain scatter strategy outside it. The table
-departs from the JAX package's in one band: one input in at most 1024
-bins over kept rows past 2^28 padded slots runs one_input here, where the
-JAX package runs scatter.
+departs from the JAX package's in two bands of kept rows past 2^28 padded
+slots, where the JAX package runs scatter: one input in at most 1024 bins
+runs one_input here, and rows of fewer than 256 elements over at most 8192
+slots run direct.
 
 dtype rules: unweighted counts are int64, the reference's dtype (the JAX
 package's int32 is a TPU word-size artifact). Weighted sums take a dtype
@@ -61,7 +62,7 @@ from .ops.cuda_hist import (
 )
 from .ops.digitize import digitize_edges, joint_bin_index
 from .utils.axes import kept_shape, normalize_axis, strided_layout
-from .utils.profiling import note_syncs, scope
+from .utils.profiling import note_route, note_syncs, scope
 
 __all__ = ["histogram"]
 
@@ -639,6 +640,7 @@ def _histogram_impl(args, weights, edges_np, bins, axis, *, method, block_size,
             kernel = kernel or ("factored" if reduce_all else "direct")
         elif method != "auto" or device.type != "cuda" or any(n_hi_clip):
             kernel = None  # a strategy (the JAX package's auto gate)
+        note_route(kernel)
 
     def to_2d(w):
         """``w`` (of a shape that broadcasts to the call's) as the kernel or
@@ -760,10 +762,11 @@ def histogram(
     method : 'auto' | 'scatter' | 'onehot' | 'sort' | 'cuda' (alias 'pallas')
         'auto' runs the CUDA kernel that the JAX package's ``plan()`` names
         for a CUDA tensor, and the scatter strategy on the CPU or where the
-        JAX package runs its scatter strategy too, with one exception: one
-        input in at most 1024 bins over kept rows past the JAX package's
-        cap of 2^28 padded slots runs the one_input kernel, which needs no
-        such cap (``ops.cuda_hist.plan``). 'cuda' forces the fused
+        JAX package runs its scatter strategy too, with two exceptions
+        past the JAX package's kept-row cap of 2^28 padded slots: one input
+        in at most 1024 bins runs the one_input kernel, and rows of fewer
+        than 256 elements over at most 8192 slots the direct kernel, which
+        need no such cap (``ops.cuda_hist.plan``). 'cuda' forces the fused
         kernel route at any shape, with the JAX package's fallback outside
         ``plan()``'s envelopes (factored for a full reduction, direct for
         kept rows); on a CPU tensor it runs the kernel's plain version.

@@ -4,7 +4,8 @@ Counterpart of ``xhistogram_tpu.ops.pallas_hist``. ``plan`` is that
 module's unweighted routing table copied as host code (no uniform-spacing
 certificates: the kernels' bucketed digitize is exact for any thresholds
 and needs none), so both packages name the same kernel for the same
-unweighted problem; weighted calls take the same caps, the port's own
+unweighted problem, but in the two bands of kept rows past the TPU's cap
+that ``plan`` names; weighted calls take the same caps, the port's own
 limits, where the JAX package's weighted gates count its TPU kernels'
 extra outputs. Every kernel family it names is ported, each a
 hand-written CUDA kernel with its plain PyTorch version beside it:
@@ -260,22 +261,32 @@ def plan(n_inputs, nbins, m, c=None):
 
     ``m == 1`` means a full reduction. Mirrors the JAX package's unweighted
     ``pallas_hist.planned_kernel`` with no uniform-spacing certificates and
-    faithful NaN/inf handling (its default), in every band but one: kept
-    rows of one input in 1 to 1024 bins go to one_input at any row count,
-    as a full reduction does, where the JAX package sends those past 2^28
-    padded slots (rows times its factored slot layout) to scatter. That cap
-    sizes its TPU kernels' padded slot layout; one_input writes only its
-    ``(m, nb + 1)`` output and reads the view in place. The other kept-row
-    routes keep the cap. Weighted problems take the same caps: the port's
-    kernels write one output whatever the weights, where the JAX package's
-    weighted gates count its TPU kernels' NaN/inf channels, Kahan output
-    and integer digit modes (removed in the port).
+    faithful NaN/inf handling (its default), in every band but two, where
+    the JAX package sends kept rows past 2^28 padded slots (rows times its
+    factored slot layout) to scatter. That cap sizes its TPU kernels'
+    padded slot layout, which the port's kernels do not have:
+
+    - kept rows of one input in 1 to 1024 bins go to one_input at any row
+      count, as a full reduction does; one_input writes only its ``(m, nb
+      + 1)`` output and reads the view in place;
+    - kept rows of fewer than 256 elements over at most 8192 slots (the
+      direct-row kernel's envelope, ``csrc/direct.cuh``) go to direct at
+      any row count; it writes every slot of its ``(m, S + 1)`` output
+      once, reads the view in place and indexes rows in 64 bits.
+
+    ``factored_per_row`` and ``factored_packed`` keep the cap. Weighted
+    problems take the same caps: the port's kernels write one output
+    whatever the weights, where the JAX package's weighted gates count its
+    TPU kernels' NaN/inf channels, Kahan output and integer digit modes
+    (removed in the port).
     """
     full_cap, kept_cap = 1 << 21, 1 << 25
     n_slots = math.prod(int(b) for b in nbins) + 1
     edges_ok = sum(nb + 1 for nb in nbins) <= _MAX_EDGES
     if n_inputs == 1 and nbins[0] <= _MAX_ONE_INPUT_BINS:
         return "one_input"  # full or kept rows, at any row count
+    if m > 1 and c is not None and c <= _DIRECT_ROWS_MAX_COLS and n_slots <= 8192:
+        return "direct"  # the direct-row kernel, at any row count
     if m == 1:
         if not edges_ok:
             return None

@@ -30,7 +30,9 @@ labeled API calling ``core.histogram``) is part of its caller's call.
 
 ``HOST_SYNCS`` counts the times the program blocked the host on the card:
 its own reads of a CUDA tensor's values and the torch calls known to read
-one inside (``note_syncs``).
+one inside (``note_syncs``). ``ROUTES`` counts the calls that took each
+route (``note_route``): the kernel that ``plan()`` and the method gate
+settled on, or ``"scatter"`` for the plain path, once a call.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["scope", "note_syncs", "trace", "measure", "SELF_NS", "CALLS", "HOST_SYNCS"]
+__all__ = ["scope", "note_syncs", "note_route", "trace", "measure", "SELF_NS", "CALLS",
+           "HOST_SYNCS", "ROUTES"]
 
 #: the file ``trace`` writes in its log directory
 TRACE_FILE = "trace.json"
@@ -55,6 +58,10 @@ SELF_NS = {}
 CALLS = 0
 #: host syncs on the card in this process (``note_syncs``)
 HOST_SYNCS = 0
+#: {route: calls in this process that took it} (``note_route``): the kernels
+#: of ``ops.cuda_hist.plan`` and ``"scatter"``, the plain path
+ROUTES = dict.fromkeys(("one_input", "joint2", "factored", "factored_per_row",
+                        "factored_packed", "direct", "scatter"), 0)
 
 _LOCK = threading.Lock()  # guards the totals and counters above
 _OPEN = threading.local()  # .spans: this thread's open spans; .call: its call's id
@@ -125,6 +132,16 @@ def note_syncs(device, n=1):
     if device.type == "cuda":
         with _LOCK:
             HOST_SYNCS += n
+
+
+def note_route(kernel):
+    """Count one call on ``kernel``'s route in ``ROUTES`` (None: the plain
+    path, ``"scatter"``). Under ``torch.compile`` it does nothing, as
+    ``scope`` does."""
+    if torch.compiler.is_compiling():
+        return
+    with _LOCK:
+        ROUTES[kernel or "scatter"] += 1
 
 
 @contextlib.contextmanager
