@@ -16,6 +16,7 @@ from xhistogram_torch import bins as tbins
 from xhistogram_torch.core import _compare_dtype
 from xhistogram_torch.ops import cuda_hist
 from xhistogram_torch.ops.bincount import finish_sums, weighted_dtype
+from xhistogram_torch.utils import profiling
 from ts_cases import (
     BUCKET_EDGE_SETS, EDGE_SETS, S_EDGES, T_EDGES, bucket_case_values, edge_case_data,
     edge_case_values, numpy_hist2d, reference_numpy, ts_data,
@@ -789,8 +790,9 @@ def test_weighted_strided_and_broadcast_weights(cuda, kernel):
 def test_weighted_slot_counts_around_the_shared_memory_limit(cuda, route, nb):
     # either side of what one block held of 8-byte sums (169^2 = 28,561)
     # and of 32-bit ones (239^2) beside the thresholds alone: beside their
-    # cell tables uint64 and uint32 sums take clusters of two or four,
-    # float64 sums add in device memory
+    # cell tables uint64 and uint32 sums take clusters of two or four, and
+    # float sums of kept rows too, as exact integers (a full reduction's add
+    # in device memory)
     m, c = (3, 1 << 17) if route != "packed" else (40, 64)
     layouts = _layouts(route, m, c, cuda, seed=nb)
     for dtype in (torch.float32, torch.int32, torch.int64):
@@ -960,7 +962,9 @@ def test_bucket_edge_sets_at_every_cluster_size(cuda, name, kernel, monkeypatch)
     for wdtype in ACCUMULATORS:
         w = None if wdtype is None else _weights(layouts[0].shape, wdtype, cuda, seed=1)
         want = _run(kernel, layouts, edges, w, plain=True)
-        acc_bytes = 4 if wdtype in (None, torch.int32) else 8
+        # (float sums of kept rows: exact integers in 32-bit words)
+        acc_bytes = 4 if wdtype in (None, torch.int32) or (
+            wdtype == torch.float32 and kernel in ("per_row", "packed", "direct")) else 8
         for most in (1, 2, 4, 8):
             monkeypatch.setattr(cuda_hist, "MAX_CLUSTER_CTAS", most)
             got = _run(kernel, layouts, edges, w, plain=False)
@@ -977,12 +981,13 @@ def test_bucket_edge_sets_at_every_cluster_size(cuda, name, kernel, monkeypatch)
 
 def test_readme_call_runs_in_a_cluster(cuda):
     # the README's per-depth T-S call: 95,201 slots a row, two blocks of
-    # int32 counters, four of uint64 sums; float64 sums add in device
-    # memory, which beats a cluster for them
+    # int32 counters, four of uint64 sums, and two of float sums kept as
+    # exact integers in 32-bit words (a float64 shared atomic loses to device
+    # memory)
     t_np, s_np = ts_data((6, 4, 500), seed=11)
     vol = np.random.default_rng(12).uniform(0.5, 1.5, (4, 500)).astype(np.float32)
     for weights, cluster, shared in ((None, 2, True), ((vol * 1000).astype(np.int64), 4, True),
-                                     (vol, 1, False)):
+                                     (vol, 2, True)):
         before = cuda_hist.FACTORED_LAUNCHES["per_row"]
         args = [torch.from_numpy(x).to(cuda) for x in (t_np, s_np)]
         w = None if weights is None else torch.from_numpy(weights).to(cuda)
@@ -992,12 +997,220 @@ def test_readme_call_runs_in_a_cluster(cuda):
         launch = cuda_hist.last_launch()
         assert cuda_hist.FACTORED_LAUNCHES["per_row"] == before + 1
         assert (launch["cluster"], launch["passes"], launch["shared"]) == (cluster, 1, shared)
+        assert launch["exact"] == (weights is not None and weights.dtype == np.float32)
         h_cpu, _ = xhistogram_torch.histogram(t_np, s_np, bins=[T_EDGES, S_EDGES],
                                               axis=(0, 2), weights=weights, device="cpu")
         if weights is None or weights.dtype == np.int64:
             assert torch.equal(h.cpu(), h_cpu)
         else:
             torch.testing.assert_close(h.cpu(), h_cpu, rtol=3e-7, atol=1e-5)
+
+
+# --- float sums kept as exact integers in a cluster (csrc/weights.cuh) -------
+
+def _exact_launch():
+    torch.cuda.synchronize()
+    return cuda_hist.last_launch()
+
+
+def _raw(route, layouts, edges, weights, plain):
+    """A flat-slot route's float64 sums (not rounded to float32), kernel or
+    plain version."""
+    thr = [torch.from_numpy(tbins.compare_form(np.asarray(e), np.float32).edges)
+           .to(layouts[0].device) for e in edges]
+    nbins = [len(e) - 1 for e in edges]
+    if plain:
+        out = cuda_hist._slot_sums_reference(layouts, thr, nbins, route == "full", weights)
+        return out.reshape(-1, out.shape[-1])
+    if route == "direct":
+        return cuda_hist.direct(layouts, thr, nbins, weights=weights, finish=False)
+    return cuda_hist.factored(layouts, thr, nbins, route, weights=weights, finish=False)
+
+
+def _fell_back(layouts, edges, weights):
+    """The counted elements whose weight the exact sums add as a float (the
+    plain mirror's rule, ``cuda_hist.exact_integer``)."""
+    w = weights.double().cpu().flatten()
+    finite = w[torch.isfinite(w)]
+    u = cuda_hist.exact_unit(float(finite.abs().max()) if finite.numel() else 0.0)
+    counted = torch.ones_like(w, dtype=torch.bool)
+    for x, e in zip(layouts, edges):
+        x = x.double().cpu().flatten()
+        counted &= (x >= float(e[0])) & (x <= float(e[-1]))
+    return sum(cuda_hist.exact_integer(float(v), u) is None for v in w[counted])
+
+
+def _ecco_like(cuda, shape, seed):
+    """(T, S, volume) of an ECCO-like census: (time, depth, cell) T and S with
+    NaN land and rock, the cells' volume (depth, cell) thickening with depth
+    and 0 where dry."""
+    times, levels, cells = shape
+    rng = np.random.default_rng(seed)
+    t, s = ts_data(shape, seed)
+    floor = rng.integers(0, levels + 1, cells)  # 0: land
+    wet = np.arange(levels)[:, None] < floor[None, :]
+    area = np.cos(np.deg2rad(rng.uniform(-89.75, 89.75, cells))) * 3.09e9
+    dz = np.geomspace(10.0, 456.5, levels)
+    vol = np.where(wet, dz[:, None] * area[None, :], 0.0).astype(np.float32)
+    t[:, ~wet] = np.nan
+    s[:, ~wet] = np.nan
+    return [torch.from_numpy(x).to(cuda) for x in (t, s, vol)]
+
+
+def _numpy_levels(t, s, vol, te, se):
+    """float64 numpy sums per level (axis=(0, 2)), volume broadcast over time."""
+    t, s = t.cpu().numpy(), s.cpu().numpy()
+    w = np.broadcast_to(vol.cpu().numpy().astype(np.float64), t.shape)
+    return np.stack([np.histogram2d(t[:, k].ravel(), s[:, k].ravel(), bins=[te, se],
+                                    weights=w[:, k].ravel())[0]
+                     for k in range(t.shape[1])])
+
+
+def test_exact_sums_at_an_ecco_like_shape(cuda):
+    # the README call by cell volume on NaN land and rock, zero volume where
+    # dry: two blocks of exact integers; volumes whose bits reach below the
+    # unit (more than 2^8 below the largest, low bits set) fall back
+    t, s, vol = _ecco_like(cuda, (12, 8, 20_000), seed=19)
+    before = dict(profiling.WEIGHTED_SLOTS)
+    h, _ = xhistogram_torch.histogram(t, s, bins=[T_EDGES, S_EDGES], axis=(0, 2),
+                                      weights=vol)
+    launch = _exact_launch()
+    assert (launch["exact"], launch["cluster"], launch["shared"]) == (True, 2, True)
+    wide = vol.unsqueeze(0).expand_as(t)
+    assert launch["fell_back"] == _fell_back([t, s], [T_EDGES, S_EDGES], wide)
+    assert profiling.WEIGHTED_SLOTS["exact"] == before["exact"] + 1
+    want = _numpy_levels(t, s, vol, T_EDGES, S_EDGES)
+    assert h.dtype == torch.float32
+    np.testing.assert_allclose(h.cpu().numpy(), want.astype(np.float32), rtol=2.4e-7,
+                               atol=0)
+
+
+def test_exact_sums_with_weights_past_2_to_the_8_of_the_largest(cuda):
+    # weights over 2^20 of their largest: those whose bits reach below the
+    # unit add as floats, and the tally counts them
+    t, s, _ = _ecco_like(cuda, (6, 4, 30_000), seed=20)
+    layouts = [x.permute(1, 0, 2).reshape(4, -1) for x in (t, s)]
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    w = torch.rand(layouts[0].shape, device=cuda, generator=gen)
+    w = w * torch.exp2(-torch.randint(0, 21, w.shape, device=cuda, generator=gen).float())
+    got = _raw("per_row", layouts, [T_EDGES, S_EDGES], w, plain=False)
+    launch = _exact_launch()
+    assert launch["exact"] and launch["cluster"] == 2
+    fell = _fell_back(layouts, [T_EDGES, S_EDGES], w)
+    assert 0 < launch["fell_back"] == fell
+    want = _raw("per_row", layouts, [T_EDGES, S_EDGES], w, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16,
+                                   torch.bfloat16], ids=str)
+def test_exact_sums_signed_and_nonfinite(cuda, dtype):
+    # mixed signs add in two's complement; NaN, +inf, -inf and +inf with
+    # -inf reach their bins as a float64 atomic would put them there
+    m, c = 5, 40_000
+    layouts = _layouts("per_row", m, c, cuda, seed=22)
+    edges = [_edges(300), _edges(300)]  # 90,001 slots: two blocks
+    w = _weights((m, c), torch.float32, cuda, seed=23).to(dtype)
+    w[0, 1:6] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                              float("inf"), -float("inf")], dtype=dtype)
+    layouts[0][0, 1:6] = torch.tensor([-2.5, -1.5, -0.5, 0.01, 0.01])
+    layouts[1][0, 1:6] = 0.01  # +inf and -inf in one bin: NaN
+    got = _raw("per_row", layouts, edges, w, plain=False)
+    launch = _exact_launch()
+    assert launch["exact"] and launch["fell_back"] >= 5
+    want = _raw("per_row", layouts, edges, w, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12, equal_nan=True)
+    assert torch.isnan(got).sum() == torch.isnan(want).sum() >= 2
+    assert torch.isinf(got).sum() == torch.isinf(want).sum() >= 1
+
+
+def test_exact_sums_wrap_in_one_slot(cuda):
+    # more than 2^26 adds of the largest weight into one slot of a row: its
+    # integer (2^32 - 256 a weight) wraps the slot's word at nearly every
+    # add, each wrap into the output, and the sum is exact; a row of
+    # alternating signs sums to its few odd ones out
+    c = (1 << 26) + 3
+    t = torch.full((2, c), 10.0, device=cuda)
+    s = torch.full((2, c), 35.0, device=cuda)
+    big = float(np.nextafter(np.float32(2.0), np.float32(0.0)))  # 2 - 2^-23
+    w = torch.full((2, c), big, device=cuda)
+    w[1, ::2] = -big
+    w[1, :6] = 0.5
+    got = _raw("per_row", [t, s], [T_EDGES, S_EDGES], w, plain=False)
+    launch = _exact_launch()
+    assert launch["exact"] and launch["fell_back"] == 0
+    slot = int(torch.nonzero(got[0]).flatten()[0])
+    assert got[0, slot].item() == c * big
+    # odd columns +big, even ones -big, the first six 0.5
+    assert got[1, slot].item() == 6 * 0.5 + ((c - 1) // 2 - 3) * big - ((c + 1) // 2 - 3) * big
+    want = _raw("per_row", [t, s], [T_EDGES, S_EDGES], w, plain=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("most", [1, 2, 4, 8])
+@pytest.mark.parametrize("nbins,fewest", [((200, 200), 1), ((280, 340), 2),
+                                          ((400, 400), 4), ((600, 600), 8)], ids=str)
+def test_exact_sums_at_every_cluster_size(cuda, nbins, fewest, most, monkeypatch):
+    # 40,000 slots (past one block's room for float64 ones), 95,200, 160,000
+    # and 360,000 in 32-bit words: the fewest blocks that hold them, within
+    # MAX_CLUSTER_CTAS; where those are more, the launcher refuses the
+    # cluster and the sums add in device memory
+    m, c = 3, 50_000
+    layouts = _layouts("per_row", m, c, cuda, seed=sum(nbins))
+    edges = [_edges(nbins[0]), _edges(nbins[1])]
+    w = _weights((m, c), torch.float32, cuda, seed=24)
+    monkeypatch.setattr(cuda_hist, "MAX_CLUSTER_CTAS", most)
+    before = dict(profiling.WEIGHTED_SLOTS)
+    got = _raw("per_row", layouts, edges, w, plain=False)
+    launch = _exact_launch()
+    exact = fewest <= most
+    assert launch["exact"] == exact and launch["shared"] == exact
+    assert launch["cluster"] == (fewest if exact else 1)
+    where = "exact" if exact else "device"
+    assert profiling.WEIGHTED_SLOTS[where] == before[where] + 1
+    want = _raw("per_row", layouts, edges, w, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_exact_sums_on_every_route(cuda, route, monkeypatch):
+    # kept rows of every route past one block keep exact sums; a full
+    # reduction, and MAX_SHARED_SLOTS = 0, add in device memory
+    m, c = (3, 40_000) if route != "packed" else (600, 200)
+    layouts = _layouts(route, m, c, cuda, seed=25)
+    edges = [_edges(250), _edges(250)]
+    w = _weights((m, c), torch.float32, cuda, seed=26)
+    for slots in (cuda_hist.MAX_SHARED_SLOTS, 0):
+        monkeypatch.setattr(cuda_hist, "MAX_SHARED_SLOTS", slots)
+        got = _raw(route, layouts, edges, w, plain=False)
+        launch = _exact_launch()
+        assert launch["exact"] == (route != "full" and slots > 0), (route, slots)
+        torch.testing.assert_close(got, _raw(route, layouts, edges, w, plain=True),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_exact_sums_with_full_size_weights(cuda):
+    # weights as large as the data (not broadcast): the prologue reads all of
+    # them, and the sums are those of the broadcast volume's copy
+    t, s, vol = _ecco_like(cuda, (8, 6, 20_000), seed=27)
+    full = vol.unsqueeze(0).expand_as(t).contiguous()
+    h_full, _ = xhistogram_torch.histogram(t, s, bins=[T_EDGES, S_EDGES], axis=(0, 2),
+                                           weights=full)
+    assert _exact_launch()["exact"]
+    h, _ = xhistogram_torch.histogram(t, s, bins=[T_EDGES, S_EDGES], axis=(0, 2),
+                                      weights=vol)
+    assert _exact_launch()["exact"]
+    np.testing.assert_allclose(h_full.cpu().numpy(), h.cpu().numpy(), rtol=2.4e-7, atol=0)
+
+
+def test_integer_weights_count_as_shared(cuda):
+    t, s, vol = _ecco_like(cuda, (4, 4, 5_000), seed=28)
+    before = dict(profiling.WEIGHTED_SLOTS)
+    xhistogram_torch.histogram(t, s, bins=[T_EDGES, S_EDGES], axis=(0, 2),
+                               weights=(vol / 1e6).to(torch.int64))
+    launch = _exact_launch()
+    assert not launch["exact"] and launch["shared"]
+    assert profiling.WEIGHTED_SLOTS["shared"] == before["shared"] + 1
 
 
 def test_grids_past_eight_blocks_take_chunk_passes(cuda):

@@ -8,6 +8,20 @@ toolkit:
 
 It prints, each line beside the card's name and power limit:
 
+- at ECCO v4r4's own shape, the benchmark's ``ts_ecco_levels_vol`` call
+  ((312, 50, 259,200) x 2 float32 T and S by ``portbench``'s ``ts_depth``
+  recipe, NaN land and rock, weighted by the (50, 259,200) cell volume
+  broadcast over time, ``axis=(0, 2)`` on the strided view): the factored
+  per-row kernel's device time (a) reading and searching with nothing
+  summed (T above every edge), (b) counting, unweighted, (c) summing the
+  volume in float64 in device memory (``MAX_SHARED_SLOTS = 0``: the
+  placement float sums took before they were kept exact), (d) summing it as
+  exact integers in a cluster (the default), with the share of counted
+  elements whose weight fell back to a float add and each kernel's device
+  time in (d) from the profiler; then the same call with full-size float32
+  weights (not broadcast: the prologue reads all of them), exact against
+  device memory in turns; and (b)-(d) for the README call by a (50, 64800)
+  cell volume;
 - for each path of the factored and direct kernels (the README's per-depth
   T–S diagram, (73, 50, 64800) x 2 with ``axis=(0, 2)``; 5e7 pairs in
   1000x1000 bins; (1000, 100000) x 2 in 150x90 bins per row; (16384, 64) x 2
@@ -33,7 +47,7 @@ It prints, each line beside the card's name and power limit:
 - the searches without atomics (data above every edge) at the per-row and
   full shapes, and the factored kernel against joint2 at 280x340.
 
-It imports nothing of JAX.
+It imports nothing of JAX. ``--ecco-only`` stops after the ECCO lines.
 """
 
 import os
@@ -69,6 +83,109 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
+def census(label, T, S, vol, edges, card):
+    """A (time, depth, cell) T-S census by cell volume, ``axis=(0, 2)`` on
+    the strided view the public call hands the factored per-row kernel (the
+    volume's time level a stride of 0): kernel ms (b) unweighted, (c) float64
+    in device memory, (d) exact, in turns, and the share of counted
+    elements whose weight fell back to a float add. Returns ``run``."""
+    from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.ops import cuda_hist
+
+    times, levels, cells = T.shape
+    view = (1, levels, times, cells)
+    views = [x.as_strided(view, (0, cells, levels * cells, 1)) for x in (T, S)]
+    wv = vol.as_strided(view, (0, cells, 0, 1))
+    thr = [torch.from_numpy(compare_form(e, np.float32).edges).to(T.device) for e in edges]
+    nbins = [len(e) - 1 for e in edges]
+    slots = cuda_hist.MAX_SHARED_SLOTS
+
+    def run(weights=wv, device_memory=False, views=views):
+        cuda_hist.MAX_SHARED_SLOTS = 0 if device_memory else slots
+        try:
+            return cuda_hist.factored(views, thr, nbins, "per_row", weights=weights,
+                                      finish=False)
+        finally:
+            cuda_hist.MAX_SHARED_SLOTS = slots
+
+    def where():
+        rec = cuda_hist.last_launch()
+        return (("exact" if rec["exact"] else "shared") + f" cluster {rec['cluster']}"
+                if rec["shared"] else "device memory")
+
+    counted = int(run(None).sum())
+    b = [event_ms(lambda: run(None), reps=5)]
+    where_b = where()
+    c = [event_ms(lambda: run(device_memory=True), reps=5)]
+    d = [event_ms(run, reps=5)]
+    fell = cuda_hist.last_launch()["fell_back"]
+    where_d = where()
+    c.append(event_ms(lambda: run(device_memory=True), reps=5))
+    b.append(event_ms(lambda: run(None), reps=5))
+    d.append(event_ms(run, reps=5))
+    exact = run()
+    err = ((exact - run(device_memory=True)).abs().max() / exact.abs().max()).item()
+    print(f"# {label}: {counted} of {T.numel()} pairs counted; kernel ms "
+          f"(b) unweighted {b} ({where_b}), (c) float64 in device memory {c}, "
+          f"(d) exact {d} ({where_d}); {fell} counted elements fell back to a float "
+          f"add ({100 * fell / counted:.4f}%); largest gap of (d) from (c) over the "
+          f"largest sum {err:.3e} [{card}]")
+    return run
+
+
+def ecco(dev, card):
+    """The ECCO cell's call, kernel by kernel: (a)-(d), the full-size
+    weights' guard and the README call by cell volume (module docstring)."""
+    from portbench import registry
+
+    cell = registry.Cell("ts_ecco_levels_vol")
+    data = cell.recipe.make(cell.config, 1900000001, dev, ["T", "S", "volume"])
+    T, S, vol = data["T"], data["S"], data["volume"]
+    times, levels, cells = T.shape
+    edges = [data["T_edges"], data["S_edges"]]
+    run = census("ECCO (312, 50, 259200) x 2 float32, 280x340 bins per level, by the "
+                 "(50, 259200) volume", T, S, vol, edges, card)
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                print(f"# ECCO (d), device ms a call: {ev.key[:90]} "
+                      f"{ev.device_time_total / 3e3:.4f} [{card}]")
+    except Exception as exc:  # the profiler is a diagnostic: report and go on
+        print(f"# ECCO (d): no profiler breakdown ({exc!r}) [{card}]")
+    full = vol.unsqueeze(0).expand(times, levels, cells).contiguous()
+    fv = full.as_strided((1, levels, times, cells), (0, cells, levels * cells, 1))
+    turns = {}
+    for name, dm in (("exact", False), ("device memory", True), ("device memory", True),
+                     ("exact", False)):
+        turns.setdefault(name, []).append(event_ms(lambda: run(fv, dm), reps=3))
+    print(f"# ECCO by full-size float32 weights (16.2 GB more read by the "
+          f"prologue): kernel ms " + ", ".join(f"{k} {v}" for k, v in turns.items())
+          + f" [{card}]")
+    del full, fv
+    T.add_(100.0)  # above every edge: read and searched, nothing summed
+    a = event_ms(lambda: run(None), reps=5)
+    print(f"# ECCO (a) T above every edge (reads and searches, nothing "
+          f"summed): kernel {a:.4f} ms [{card}]")
+    del data, T, S, vol, run
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    T = 14.0 + 8.0 * torch.randn(README_TS, device=dev, generator=gen)
+    S = 35.0 + 1.5 * torch.randn(README_TS, device=dev, generator=gen)
+    vol = 1e9 * (0.5 + torch.rand(README_TS[1:], device=dev, generator=gen))
+    census("README (73, 50, 64800) x 2 float32, 280x340 bins per level, by a "
+           "(50, 64800) cell volume", T, S, vol,
+           [np.linspace(-2.0, 30.0, 281).astype(np.float32),
+            np.linspace(30.0, 40.0, 341).astype(np.float32)], card)
+    del T, S, vol
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("factored_probe.py needs a CUDA card")
@@ -83,6 +200,9 @@ def main():
     card = card_line()
     print(f"# card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.load()
+    ecco(dev, card)
+    if "--ecco-only" in sys.argv[1:]:
+        return
 
     def edges(nb):
         return np.linspace(-4.0, 4.0, nb + 1)
@@ -157,7 +277,8 @@ def main():
                 cuda_hist.MAX_SHARED_SLOTS, cuda_hist.MAX_CLUSTER_CTAS = limit, cap
                 ms = event_ms(run)
                 launch = cuda_hist.last_launch()
-                where = (f"cluster {launch['cluster']}" if launch["shared"]
+                where = (("exact " if launch["exact"] else "")
+                         + f"cluster {launch['cluster']}" if launch["shared"]
                          else "device memory")
                 times.setdefault(f"{name} ({where})", []).append(ms)
         finally:

@@ -33,8 +33,8 @@
 // rows are bound by the per-element searches and atomics (PERF.md §5);
 // packed rows by the output writes (8 B a slot against 2 sizeof(T) B an
 // element read). Weighted: one more read of the weight an element, and
-// float64 or 64-bit shared atomics, which keep half the slots in shared
-// memory.
+// 8-byte sums, which keep half the slots in shared memory: float sums of
+// kept rows past one block as exact integers in a cluster (slot.cuh).
 
 #include "slot.cuh"
 

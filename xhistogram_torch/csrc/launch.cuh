@@ -16,7 +16,8 @@ namespace xh {
 // first two inputs; a one_input launch sets one_input and its counter
 // layout (one_input.cuh) and copies of the histogram; a direct-row launch
 // (direct.cuh) its warps a block (one row each at a time), blocks and the
-// most rows a warp walks.
+// most rows a warp walks; a flat-slot launch whose float sums were kept as
+// exact integers in shared memory (slot.cuh) sets exact.
 struct LaunchRecord {
   int cluster;
   int passes;
@@ -28,6 +29,7 @@ struct LaunchRecord {
   int warps;
   int blocks;
   int rows_per_warp;
+  int exact;
 };
 inline LaunchRecord last_launch = {};
 

@@ -28,22 +28,34 @@
 //   full reduction, one per block in up to 16 warp-private replicas
 //   against hot bins; 32-bit counters, flushed into the int64 output.
 // - a cluster's shared memory (S fits C = 2, 4 or 8 blocks, C <=
-//   max_cluster; not float64 sums, which add faster in device memory):
-//   the histogram of one row (or of the full reduction) is
+//   max_cluster): the histogram of one row (or of the full reduction) is
 //   spread over the cluster in runs of 32 slots, run g / 32 in block
 //   (g / 32) % C, and every element adds with one atomic in its owner's
 //   shared memory (distributed shared memory for another block's). The
 //   cluster walks its tiles together: one row a tile, each row cut into
 //   the column tiles that balance the tiles over the resident clusters
-//   against a flush per tile.
+//   against a flush per tile. Float weights (Sum<double>) past one block's
+//   room for float64 slots take it for kept rows only, as exact integers
+//   (weights.cuh's Exact) in 32-bit words, so in as few blocks as counts
+//   (one, where 4 bytes a slot fit one block): a float64 shared atomic is
+//   a compare-and-swap loop, slower than device memory's native float64
+//   add, while a word takes one native 32-bit atomic, and only where it
+//   wraps (an add of w does so with odds of about |w| / 2^(u + 32)) a
+//   float64 add of the wrap into the output. A prologue kernel first finds the largest finite
+//   |weight| of the weights' own storage (a broadcast level read once),
+//   from which every block takes the call's unit 2^u; a weight that is not
+//   a whole multiple of it, or not finite, adds into the output in device
+//   memory as it would without the cluster, and counts in a tally of such
+//   elements.
 // - device memory (more slots than that, or max_shared_slots == 0): every
 //   element adds one with a 64-bit atomic straight into the zeroed int64
 //   output, which stays in the card's 50 MB L2 cache up to about six
 //   million slots.
 // A tile of whole kept rows stores every slot of its rows, zeros and the
 // trash slot included, so the output needs no zeroing pass; a row split over
-// column tiles, and a full reduction, add with 64-bit atomics into an output
-// the launcher zeroes first.
+// column tiles, a full reduction, and exact sums (whose weights that fall
+// back add into the output), add with 64-bit atomics into an output the
+// launcher zeroes first.
 // The input count is read at run time, except for two inputs, the common
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
@@ -119,6 +131,8 @@ template <typename T>
 constexpr bool kNarrow = std::is_same<T, Narrow>::value;
 template <typename T>
 constexpr bool kCoded = kMixed<T> || kNarrow<T>;
+template <typename W>
+constexpr bool kExact = std::is_same<W, xh::Exact>::value;
 // The compare type: T, double when mixed (int64 inputs aside), float for
 // Narrow.
 template <typename T>
@@ -183,6 +197,9 @@ struct Mode {
   int log2c;           // log2 of the blocks a cluster
   int reduce_all;
   int whole_rows;  // each tile holds whole rows and stores all their slots
+  // exact sums: the largest finite |weight|, as its bits, then the tally of
+  // elements whose weight added as a float (the caller's 16 bytes)
+  unsigned long long* exact;
 };
 
 // Where a piece of a view lies: the offset of its corner, and the strides
@@ -329,7 +346,75 @@ __device__ __forceinline__ long long slot_of(long long l, int log2c, int rank) {
                     : ((((l >> kRunBits) << log2c) + rank) << kRunBits) + (l & 31);
 }
 
-// W: xh::Count (adds one) or xh::Sum<A> (adds the weight in w).
+// A weights' view walked once per stored element: four levels of n[k]
+// elements at stride st[k], a broadcast level (stride 0) as one element,
+// the last level the one of least stride.
+struct Levels {
+  long long n[4];
+  long long st[4];
+};
+
+inline Levels levels_of(const xh::Weights& w, const xh::Dims& d) {
+  Levels lv = {{d.m1, d.m0, d.c1, d.c0}, {w.sm1, w.sm, w.sc1, w.sc}};
+  for (int k = 0; k < 4; ++k)
+    if (lv.st[k] == 0) lv.n[k] = 1;
+  int inner = 3;
+  for (int k = 0; k < 3; ++k)
+    if (lv.n[k] > 1 && (lv.n[inner] == 1 || lv.st[k] < lv.st[inner])) inner = k;
+  std::swap(lv.n[inner], lv.n[3]);
+  std::swap(lv.st[inner], lv.st[3]);
+  return lv;
+}
+
+constexpr int kAmaxThreads = 256;
+constexpr long long kAmaxChunk = 16 * kAmaxThreads;  // elements a block takes at once
+
+// Exact sums' prologue: the largest finite |weight| over the weights'
+// stored elements (lv), as the bits of a non-negative double (whose order
+// is theirs as unsigned integers), into *amax, which the launcher zeroes.
+__global__ void __launch_bounds__(kAmaxThreads)
+weight_amax_kernel(const void* w, int code, Levels lv, unsigned long long* amax) {
+  const long long cpl = (lv.n[3] + kAmaxChunk - 1) / kAmaxChunk;  // chunks a line
+  const long long items = lv.n[0] * lv.n[1] * lv.n[2] * cpl;
+  double m = 0.0;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    long long line = it / cpl;
+    const long long j0 = (it - line * cpl) * kAmaxChunk;
+    const long long i2 = line % lv.n[2];
+    line /= lv.n[2];
+    const long long i1 = line % lv.n[1];
+    const long long i0 = line / lv.n[1];
+    const long long base = i0 * lv.st[0] + i1 * lv.st[1] + i2 * lv.st[2];
+    const long long end = j0 + kAmaxChunk < lv.n[3] ? j0 + kAmaxChunk : lv.n[3];
+    for (long long j = j0 + threadIdx.x; j < end; j += kAmaxThreads) {
+      double v;
+      xh::load_weight(w, base + j * lv.st[3], code, v);
+      if (isfinite(v)) m = fmax(m, fabs(v));
+    }
+  }
+  __shared__ double part[kAmaxThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_down_sync(0xffffffffu, m, o));
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < kAmaxThreads / 32; ++k) m = fmax(m, part[k]);
+    if (m > 0.0) atomicMax(amax, (unsigned long long)__double_as_longlong(m));
+  }
+}
+
+// A slot's sum as the output takes it: Exact's integer times the unit 2^u
+// (rounded once), the others' as they are.
+template <typename W>
+__device__ __forceinline__ typename W::Out flushed(typename W::Shared s, int u) {
+  if constexpr (kExact<W>)
+    return scalbn((double)s, u);
+  else
+    return typename W::Out(s);
+}
+
+// W: xh::Count (adds one), xh::Sum<A> (adds the weight in w) or xh::Exact
+// (adds the float weight in w as an integer of the unit; kShared only).
 template <typename T, typename W, bool kShared, int kN>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
@@ -407,6 +492,15 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
   if (kShared && cl > 1) cluster.sync();  // zeroed before another's add
   Shared* mine = hist + (threadIdx.x / 32) % tl.copies * one_copy;
   const long long out_row = S + 1;
+  // Exact: the call's unit 2^u, and this thread's elements whose weight
+  // added as a float
+  int unit = 0;
+  double inv = 0.0;  // 2^-u
+  unsigned long long fell = 0;
+  if constexpr (kExact<W>) {
+    unit = xh::exact_unit(__longlong_as_double((long long)*md.exact));
+    inv = scalbn(1.0, -unit);
+  }
 
   // the blocks of a cluster walk each of its tiles together, as one
   // block of lanes threads would
@@ -454,11 +548,13 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
       flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged,
                                  reinterpret_cast<const int*>(smem), org, fs, ss,
                                  ok, g);
-      Shared wt[kUnroll];  // each counted element's weight
+      // each counted element's weight (Exact: the float weight, as loaded)
+      using Wt = typename std::conditional<kExact<W>, double, Shared>::type;
+      Wt wt[kUnroll];
       if constexpr (W::kWeighted) {
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          wt[u] = Shared(0);
+          wt[u] = Wt(0);
           if (g[u] >= 0)
             xh::load_weight(w.data, ww.origin + fs[u] * ww.fast + ss[u] * ww.slow,
                             w.code, wt[u]);
@@ -467,22 +563,59 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) wt[u] = Shared(1);
       }
+      if constexpr (kExact<W>) {
+        // every element's word add first, then the few wraps: the returning
+        // atomics' round trips overlap
+        long long at[kUnroll];  // the element's slot in the output, or -1
+        unsigned lo[kUnroll];
+        unsigned old[kUnroll];
+        bool neg[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (g[u] < 0) continue;
-        // (a piece of one row: its row 0, whatever the slow dimension)
-        const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
-        if (kShared && cl == 1) {
-          atomicAdd(&mine[row * s_local + g[u]], wt[u]);
-        } else if (kShared) {
+        for (int u = 0; u < kUnroll; ++u) {
+          at[u] = -1;
+          if (g[u] < 0) continue;
+          const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
+          const long long o = (md.reduce_all ? 0 : r0 + row) * out_row + g[u];
+          unsigned m;
+          if (!xh::exact_integer(wt[u], inv, m, neg[u])) {
+            atomicAdd(&out[o], wt[u]);
+            ++fell;
+            continue;
+          }
+          if (m == 0) continue;
           const long long run = g[u] >> kRunBits;
-          const long long slot = row * s_local +
-                                 ((run >> log2c) << kRunBits) + (g[u] & 31);
-          atomicAdd(cluster.map_shared_rank(hist, (int)(run & (cl - 1))) + slot,
-                    wt[u]);
-        } else {
-          atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
-                    (Out)wt[u]);
+          Shared* h = cl == 1 ? &mine[row * s_local + g[u]]
+                              : cluster.map_shared_rank(hist, (int)(run & (cl - 1))) +
+                                    row * s_local + ((run >> log2c) << kRunBits) +
+                                    (g[u] & 31);
+          at[u] = o;
+          lo[u] = xh::exact_low(m, neg[u]);
+          old[u] = atomicAdd(h, lo[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (at[u] >= 0) {
+            const int wrap = xh::exact_wrap(old[u], lo[u], neg[u]);
+            if (wrap != 0) atomicAdd(&out[at[u]], scalbn((double)wrap, unit + 32));
+          }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (g[u] < 0) continue;
+          // (a piece of one row: its row 0, whatever the slow dimension)
+          const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
+          if (kShared && cl == 1) {
+            atomicAdd(&mine[row * s_local + g[u]], wt[u]);
+          } else if (kShared) {
+            const long long run = g[u] >> kRunBits;
+            const long long slot = row * s_local +
+                                   ((run >> log2c) << kRunBits) + (g[u] & 31);
+            atomicAdd(cluster.map_shared_rank(hist, (int)(run & (cl - 1))) + slot,
+                      wt[u]);
+          } else {
+            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
+                      (Out)wt[u]);
+          }
         }
       }
     }
@@ -506,7 +639,7 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
           if (sl < S)
             for (int cp = 0; cp < tl.copies; ++cp) {
               Shared* h = hist + cp * one_copy + r * s_local + l;
-              v += *h;
+              v += flushed<W>(*h, unit);
               *h = Shared(0);
             }
           if (md.whole_rows)
@@ -531,9 +664,15 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
       const long long sl = slot_of(l, log2c, rank);
       if (sl >= S) break;
       Out v = 0;
-      for (int cp = 0; cp < tl.copies; ++cp) v += hist[cp * one_copy + l];
+      for (int cp = 0; cp < tl.copies; ++cp) v += flushed<W>(hist[cp * one_copy + l], unit);
       if (v != Out(0)) atomicAdd(&out[sl], v);
     }
+  }
+
+  if constexpr (kExact<W>) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) fell += __shfl_down_sync(0xffffffffu, fell, o);
+    if (threadIdx.x % 32 == 0 && fell != 0) atomicAdd(md.exact + 1, fell);
   }
 }
 
@@ -571,7 +710,9 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, const xh::Dims& dims
   using Out = typename W::Out;
   static xh::ClusterShape shape;
   const int cl = 1 << md.log2c;
-  const int threads = cl > 1 ? kClusterThreads : kThreads;
+  // (exact sums past one block's float64 room fill an SM's shared memory
+  // even in one block)
+  const int threads = cl > 1 || kExact<W> ? kClusterThreads : kThreads;
   const size_t smem_most =
       md.stage_bytes + sizeof(Shared) * (size_t)most_counters;
   long long resident = 0;  // clusters
@@ -614,20 +755,34 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, const xh::Dims& dims
   // adds into them: bound the elements one cluster counts before it
   // flushes (a full reduction flushes only at the end, a chunk at most once
   // a tile, a range of runs once a row); weighted sums wrap or round by
-  // their own type's rules instead
+  // their own type's rules instead, and exact sums move each word's wraps
+  // into the output as they happen
   const long long visits = md.reduce_all ? xh::ceil_div(n_tiles, clusters)
                            : tl.runs ? tl.runs : tl.chunk ? tl.chunk : 1;
   if (!W::kWeighted && kShared && visits * tl.rows * tl.cols > 0xffffffffLL)
     return (int)cudaErrorInvalidValue;
 
-  md.whole_rows = kShared && !md.reduce_all && tl.col_tiles == 1;
+  md.whole_rows = kShared && !md.reduce_all && tl.col_tiles == 1 && !kExact<W>;
   if (!md.whole_rows) {
     const long long rows_out = md.reduce_all ? 1 : dims.m1 * dims.m0;
     err = cudaMemsetAsync(out, 0, sizeof(Out) * rows_out * (S + 1), stream);
     if (err != cudaSuccess) return (int)err;
   }
+  if constexpr (kExact<W>) {
+    // the unit's prologue: the largest |weight| and the tally start at 0
+    err = cudaMemsetAsync(md.exact, 0, 2 * sizeof(unsigned long long), stream);
+    if (err != cudaSuccess) return (int)err;
+    const Levels lv = levels_of(w, dims);
+    const long long items =
+        lv.n[0] * lv.n[1] * lv.n[2] * xh::ceil_div(lv.n[3], kAmaxChunk);
+    weight_amax_kernel<<<(unsigned)(items < 1024 ? items : 1024), kAmaxThreads, 0,
+                         stream>>>(w.data, w.code, lv, md.exact);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   xh::last_launch = {cl, 1, kShared ? 1 : 0,
                      {p.in[0].cells, p.n > 1 ? p.in[1].cells : 0}};
+  xh::last_launch.exact = kExact<W> ? 1 : 0;
   return (int)xh::launch_clustered(slot_hist_kernel<T, W, kShared, kN>,
                                    dim3((unsigned int)(clusters * cl)), threads,
                                    smem, cl, stream, p, w, dims, S, tl, md,
@@ -654,13 +809,16 @@ inline long long share(long long S, int log2c) {
 // where they fit. Launches on `stream` and returns cudaGetLastError() (or
 // the first failing CUDA call's error); never synchronises.
 // codes[k]: input k's stored type (Input<Mixed>), read only when T is
-// Mixed.
+// Mixed. scratch: 16 bytes of device memory, or null, with which float
+// sums of kept rows past one block's room for float64 slots (W =
+// xh::Sum<double>) are kept exactly in shared memory (the largest |weight|
+// and the tally of weights that added as floats; Mode::exact).
 template <typename T, typename W>
 int launch_slot_hist(int n, const int* codes, const void* const* data,
                      const long long* strides, const void* const* thr,
                      const int* nb, const long long* dim, int reduce_all,
                      long long max_shared_slots, int max_cluster,
-                     const xh::Weights& w, void* out, void* stream) {
+                     const xh::Weights& w, void* scratch, void* out, void* stream) {
   const xh::Dims dims = {dim[0], dim[1], dim[2], dim[3]};
   if (n < 1 || n > kMaxInputs || dims.m1 <= 0 || dims.m0 <= 0 || dims.c1 <= 0 ||
       dims.c0 <= 0 || w.sm < 0 || w.sc < 0 || w.sm1 < 0 || w.sc1 < 0 ||
@@ -747,9 +905,16 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
   // sums add by compare-and-swap loops, slower still into another block,
   // and lose to device memory's native float64 adds wherever a cluster
   // would hold them (README call 5.26 against 3.29 ms, 60^3 1.43 against
-  // 1.02; tools/factored_probe.py, PERF.md §5): one block or device memory
-  const int kind_most = std::is_same<Shared, double>::value ? 1 : kMaxCluster;
-  const int most = max_cluster < kind_most ? max_cluster : kind_most;
+  // 1.02; tools/factored_probe.py, PERF.md §6): one block, or, past it, kept
+  // rows' float sums as exact integers in 32-bit words (xh::Exact) in the
+  // fewest blocks that hold them, or device memory. Each block of a cluster
+  // costs (H100, ECCO's call: exact sums in 8-byte slots 37.4 ms over four
+  // blocks and 56 over eight, counts 21.6 over two blocks and 30.4 over
+  // four; PERF.md §6), so a slot's word is 4 bytes and its wraps go to the
+  // output
+  constexpr bool kFloat = std::is_same<Shared, double>::value;
+  const int cap = max_cluster < kMaxCluster ? max_cluster : kMaxCluster;
+  const int most = kFloat ? 1 : cap;
   int log2c = -1;
   if (S <= max_shared_slots)
     for (int l = 0; (1 << l) <= most; ++l)
@@ -757,6 +922,21 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
         log2c = l;
         break;
       }
+  if constexpr (kFloat) {
+    const long long words = (long long)((budget - md.stage_bytes) / sizeof(unsigned));
+    if (log2c < 0 && scratch != nullptr && !md.reduce_all && S <= max_shared_slots)
+      for (int l = 0; (1 << l) <= cap; ++l)
+        if (share(S, l) <= words) {
+          md.log2c = l;
+          md.s_local = share(S, l);
+          md.exact = static_cast<unsigned long long*>(scratch);
+          if (n == 2 && !kMixed<T>)
+            return launch_kernel<T, xh::Exact, true, (kMixed<T> ? 0 : 2)>(
+                p, w, dims, S, md.s_local, row_fast, md, out, st);
+          return launch_kernel<T, xh::Exact, true, 0>(p, w, dims, S, md.s_local,
+                                                      row_fast, md, out, st);
+        }
+  }
   if (log2c == 0) {
     long long most = S > target ? S : target;
     if (most > room) most = room;
@@ -794,23 +974,24 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
         n, nullptr, data, strides, thr, nb, dims, reduce_all,                \
-        max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
+        max_shared_slots, max_cluster, xh::Weights{}, nullptr, out, stream); \
   }
 
 // The weighted C entry of one route: sums of the weights w (a view with
 // the four strides wst, of the type `wcode` names within accumulator class
-// A; weights.cuh) into out, of type A; see launch_slot_hist.
+// A; weights.cuh) into out, of type A, with 16 bytes of device scratch for
+// exact float sums (or null); see launch_slot_hist.
 #define XH_SLOT_WEIGHTED_ENTRY(name, T, A, reduce_all)                        \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
                       const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster,           \
                       const void* w, const long long* wst, int wcode,        \
-                      void* out, void* stream) {                             \
+                      void* scratch, void* out, void* stream) {              \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
         n, nullptr, data, strides, thr, nb, dims, reduce_all,                \
-        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode), out,   \
-        stream);                                                             \
+        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode),        \
+        scratch, out, stream);                                               \
   }
 
 // Every route's weighted entries xh_<route>_<data>_<cls> of the
@@ -846,7 +1027,7 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
         n, codes, data, strides, thr, nb, dims, reduce_all,                  \
-        max_shared_slots, max_cluster, xh::Weights{}, out, stream);          \
+        max_shared_slots, max_cluster, xh::Weights{}, nullptr, out, stream); \
   }
 
 // The weighted coded entry of one route, for accumulator type A.
@@ -856,11 +1037,11 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
                       const int* nb, const long long* dims,                  \
                       long long max_shared_slots, int max_cluster,           \
                       const void* w, const long long* wst, int wcode,        \
-                      void* out, void* stream) {                             \
+                      void* scratch, void* out, void* stream) {              \
     return slot::launch_slot_hist<T, xh::Sum<A>>(                            \
         n, codes, data, strides, thr, nb, dims, reduce_all,                  \
-        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode), out,   \
-        stream);                                                             \
+        max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode),        \
+        scratch, out, stream);                                               \
   }
 
 // The mixed entry of one route (slot_mixed.cu).

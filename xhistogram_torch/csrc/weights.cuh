@@ -16,6 +16,17 @@
 // So three accumulator types, and not every weight dtype, multiply the
 // instantiations; within a class the stored type is a run-time code, the
 // same for every thread, so its switch never diverges.
+// - Exact, the float class's placement past one block's shared memory
+//   (slot.cuh): each weight that is a whole multiple of the call's unit 2^u
+//   adds the integer w / 2^u (below 2^kExactBits in magnitude) to its
+//   slot's 32-bit word with one native atomic, and where that word wraps
+//   (a carry, or a borrow for a negative weight) adds the wrap,
+//   +-2^(u + 32), into the float64 output; any other weight adds as
+//   Sum<double> does, straight into the output. A flush adds each word
+//   times 2^u into the output. Every add into the output is a whole
+//   multiple of 2^u, so the sums are exact while they stay below
+//   2^(u + 53) in magnitude, and round far less often than a float64
+//   atomic for every element does.
 //
 // The weighted kernels add with atomics, which take IEEE semantics slot by
 // slot (np.bincount's): a NaN weight makes its own slot NaN, +inf and -inf
@@ -63,6 +74,57 @@ struct Sum {
   using Shared = A;
   using Out = A;
 };
+
+// float16, bfloat16, float32 and float64 weights (load_weight's double)
+// summed as integers of the unit 2^u: a slot's 32-bit word, its wraps and
+// the flush into a float64 output.
+struct Exact {
+  static constexpr bool kWeighted = true;
+  using Shared = unsigned int;
+  using Out = double;
+};
+
+// The bits of an exact weight's integer |w| / 2^u: a word wraps on about
+// |w| / 2^(u + 32) of its adds, and a weight falls back to a float add where
+// it has set bits below 2^u, so fewer bits trade wraps for fallbacks
+constexpr int kExactBits = 32;
+
+// u of the unit 2^u for weights whose largest finite magnitude is amax: every
+// |w| <= amax is below 2^(u + kExactBits), so w / 2^u fits a 32-bit word and
+// a sign (u = 0 when amax is 0: every finite weight is then 0).
+__device__ __forceinline__ int exact_unit(double amax) {
+  return amax > 0.0 ? ilogb(amax) - (kExactBits - 1) : 0;
+}
+
+// Whether w adds exactly under the unit 2^u, given inv = 2^-u, and then
+// |w| / 2^u in m and its sign in neg: a finite whole multiple of 2^u below
+// 2^(u + kExactBits) in magnitude. NaN, infinities and weights with set bits
+// below 2^u (a scaled w that is not whole, or that underflowed to 0) add as
+// floats instead, as every weight does where 2^-u overflows (weights below
+// 2^-992).
+__device__ __forceinline__ bool exact_integer(double w, double inv, unsigned& m, bool& neg) {
+  const double q = w * inv;  // exact: a power of two, q whole or below 1
+  if (!(fabs(q) < (double)(1ull << kExactBits)) || q != trunc(q) || (q == 0.0 && w != 0.0))
+    return false;
+  m = (unsigned)fabs(q);
+  neg = q < 0.0;
+  return true;
+}
+
+// The word's add for (neg ? -m : m), 0 < m < 2^32: m, or -m modulo 2^32.
+__device__ __forceinline__ unsigned exact_low(unsigned m, bool neg) {
+  return neg ? 0u - m : m;
+}
+
+// Once `old = atomicAdd(word, lo)` added lo = exact_low(m, neg): the
+// multiple of 2^32 the add moved out of the word, +1 where it carried past
+// 2^32 - 1, -1 where a negative add borrowed below 0, else 0 (most adds). A
+// word plus its wraps times 2^32 is the exact sum of its adds, whatever the
+// order of other threads' adds.
+__device__ __forceinline__ int exact_wrap(unsigned old, unsigned lo, bool neg) {
+  const bool carry = old + lo < old;
+  return carry == neg ? 0 : neg ? -1 : 1;
+}
 
 // Weight i of p, stored as the type `code` names: 0 float32, 1 float64,
 // 2 float16, 3 bfloat16.

@@ -105,6 +105,8 @@ def symbols():
     slot_args = [i32, p, p, p, p, p, i64, i32]
     # the weights' pointer, their view's four strides, their type code
     weight_view = [p, p, i32]
+    # the flat-slot routes': then 16 bytes of scratch for exact float sums
+    slot_weights = [*weight_view, p]
     # each kernel's arguments before and after the weights' that its
     # weighted entries take, its suffixes and its weight classes
     kernels = {
@@ -118,10 +120,10 @@ def symbols():
         "one_input": ([p, p, p, p, i32, i32], weight_view, [p, p],
                       DTYPE_SUFFIXES + NARROW_SUFFIXES + UNSIGNED_SUFFIXES,
                       WEIGHT_CLASSES),
-        **{route: (slot_args, weight_view, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
+        **{route: (slot_args, slot_weights, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
            for route in SLOT_ROUTES},
         # the coded entries take each input's stored type after the count
-        **{f"{route}_{kind}": ([i32, p, *slot_args[1:]], weight_view, [p], ("",),
+        **{f"{route}_{kind}": ([i32, p, *slot_args[1:]], slot_weights, [p], ("",),
                                WEIGHT_CLASSES)
            for route in SLOT_ROUTES for kind in ("mixed", "narrow")},
         "direct_rows": (slot_args[:6], weight_view, [p], DTYPE_SUFFIXES,

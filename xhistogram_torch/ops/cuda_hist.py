@@ -28,8 +28,10 @@ counts. The weighted kernels
 (``csrc/weights.cuh``) add each weight with an atomic in float64 (float
 weights) or in 32- or 64-bit integers, in place of the TPU kernels' weight
 limbs, Kahan outputs and NaN/inf channels, so every public ``precision=``
-runs the same kernel. ``validate_public_precision`` keeps the JAX package's
-contract for that argument. The direct kernel can also store float sums
+runs the same kernel; the flat-slot kernel keeps kept rows' float sums that
+pass one block's room for float64 slots as exact integers of a unit 2^u in
+shared memory (``exact_integer``). ``validate_public_precision`` keeps the
+JAX package's contract for that argument. The direct kernel can also store float sums
 finished, as float32 rounded once from float64 (``finish=True``).
 
 The kernels compare float32, float64, int32 and int64 data in its own
@@ -78,6 +80,7 @@ import torch
 from . import _build
 from .bincount import bincount2d_scatter, finish_sums, weight_sums
 from ..utils.axes import merged_levels
+from ..utils.profiling import note_weighted_slot
 from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
@@ -103,6 +106,11 @@ __all__ = [
     "LAYOUT_COPIES",
     "last_launch",
     "note_layout_copy",
+    "EXACT_BITS",
+    "exact_unit",
+    "exact_integer",
+    "exact_add",
+    "exact_value",
 ]
 
 _SUB = 8  # the JAX package's sublane rounding, kept so plan() agrees with it
@@ -126,8 +134,9 @@ MAX_SHARED_SLOTS = 8 * 232448 // 4
 #: the most blocks of a cluster whose shared memory joint2, factored and
 #: direct spread one histogram over (1, 2, 4 or 8); each launch takes the
 #: fewest that hold it (float64 sums, as measured faster: at most two in
-#: joint2, none in factored and direct). tools and the card-only tests set
-#: 1, 2 and 4 to time and check each cluster size
+#: joint2; in factored and direct only kept rows past one block's room for
+#: float64 slots, as exact integers, ``exact_integer``). tools and the
+#: card-only tests set 1, 2 and 4 to time and check each cluster size
 MAX_CLUSTER_CTAS = 8
 _MAX_SLOT_INPUTS = 32  # csrc/slot.cuh and csrc/direct.cuh kMaxInputs
 #: the direct-row kernel's envelope (csrc/direct.cuh): rows of at most 255
@@ -439,6 +448,18 @@ def _record(loads, device, copied=False):
     _LAST_LOADS[0] = (loads, device, copied or _COPY_PENDING[0])
     _COPY_PENDING[0] = False
 _WIDEST = {}  # per device: one int32 the one_input kernel writes L into
+#: the 16 bytes of scratch of the last flat-slot launch whose float sums were
+#: exact (``csrc/slot.cuh``: the largest |weight|, then the elements whose
+#: weight added as a float)
+_EXACT_SCRATCH = [None]
+
+
+def _launch_record():
+    """``xh_last_launch``'s twelve ints (``csrc/launch.cuh``), read on the
+    host."""
+    out = (ctypes.c_int * 12)()
+    _build.load().xh_last_launch(out)
+    return out
 
 
 def last_launch():
@@ -462,14 +483,18 @@ def last_launch():
     lane, per warp, or replicas), ``blocks`` (its grid), ``load`` (the
     dtype it read) and ``widest``, the widest window L of the cell table
     its first block built (K is ``cells[0]``); reading ``widest``
-    synchronises with the card."""
-    out = (ctypes.c_int * 11)()
-    _build.load().xh_last_launch(out)
+    synchronises with the card. ``exact`` says whether a flat-slot launch
+    kept its float sums as exact integers in shared memory (``exact_integer``),
+    and then ``fell_back`` counts the elements whose weight added as a
+    float instead; reading it synchronises with the card."""
+    out = _launch_record()
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
     loads, device, copied = _LAST_LOADS[0]
     rec = {"kernel": kernel, "cluster": out[0], "passes": out[1],
            "shared": bool(out[2]), "cells": (out[3], out[4]), "loads": loads,
-           "view": "copied" if copied else "in place"}
+           "view": "copied" if copied else "in place", "exact": bool(out[11])}
+    if out[11]:
+        rec["fell_back"] = int(_EXACT_SCRATCH[0][1].item())
     if out[8]:
         rec.update(warps_per_row=1, warps_per_block=out[8], blocks=out[9],
                    rows_per_warp=out[10])
@@ -509,6 +534,57 @@ def _check_weights(name, weights, data):
             f"{name} weights must lie on the data's device {data.device}, got "
             f"{weights.device}"
         )
+
+
+# --- exact float sums (csrc/weights.cuh's Exact), as plain Python -------------
+# The flat-slot kernel keeps kept rows' float sums past one block's room for
+# float64 slots as integers of a unit 2^u in 32-bit words in shared memory,
+# each word's wraps added into the float64 output as they happen: these
+# mirror its rules on Python numbers, for the tests.
+
+_WORD = (1 << 32) - 1
+#: the bits of an exact weight's integer (csrc/weights.cuh kExactBits)
+EXACT_BITS = 32
+
+
+def exact_unit(amax):
+    """u of the unit 2^u for weights whose largest finite magnitude is
+    ``amax``: every ``|w| <= amax`` is below 2^(u + EXACT_BITS), and
+    ``amax`` itself at least 2^(u + EXACT_BITS - 1); 0 when ``amax`` is 0."""
+    return math.frexp(amax)[1] - EXACT_BITS if amax > 0 else 0
+
+
+def exact_integer(w, u):
+    """``w / 2^u`` as an int where the weight ``w`` adds exactly under the
+    unit 2^u (a finite whole multiple of it below 2^(u + EXACT_BITS) in
+    magnitude), else None: NaN, infinities and weights with set bits below
+    2^u add as float64s."""
+    if not math.isfinite(w):
+        return None
+    q = math.ldexp(w, -u)
+    if abs(q) >= 1 << EXACT_BITS or q != math.trunc(q) or (q == 0 and w != 0):
+        return None
+    return int(q)
+
+
+def exact_add(word, n):
+    """``(word, wrap)`` after adding the integer ``n`` (``|n| < 2^32``) to a
+    32-bit word as the kernel does: ``n`` modulo 2^32 onto the word, and
+    ``wrap`` the multiple of 2^32 that left it (+1 a carry past 2^32 - 1, -1
+    a negative add's borrow below 0, else 0), which the kernel adds, times
+    2^(u + 32), into the output. ``word + 2^32 * (sum of wraps)`` is the sum
+    of the adds."""
+    add = n & _WORD
+    carry = word + add > _WORD
+    wrap = 0 if carry == (n < 0) else -1 if n < 0 else 1
+    return (word + add) & _WORD, wrap
+
+
+def exact_value(word, wraps, u):
+    """What a slot's adds put into the output: its word at the flush, times
+    2^u, and its wraps, each 2^(u + 32), added in float64 (exact while the
+    sum stays below 2^(u + 53) in magnitude)."""
+    return math.ldexp(float(word), u) + math.ldexp(float(wraps), u + 32)
 
 
 def _out_dtype(weights):
@@ -892,10 +968,21 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     out = torch.empty(shape, dtype=_out_dtype(weights), device=arrays[0].device)
     suffix, w_args = _weight_args(
         weights, None if weights is None else _geometry(weights, reduce_all)[1])
+    scratch = None
+    if weights is not None and _WEIGHT_CLASS[weights.dtype][0] == "wf64" and not reduce_all:
+        # where the kernel keeps float sums exact (its launcher zeroes it)
+        scratch = torch.empty(2, dtype=torch.int64, device=out.device)
     _record(op.loads, out.device)
     _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{op.entry}{suffix}"),
                        [n, *_codes_arg(op)], arrays, thr, nbins, reduce_all,
-                       [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args], out)
+                       [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args,
+                        *([] if weights is None else
+                          [None if scratch is None else scratch.data_ptr()])], out)
+    if weights is not None:
+        rec = _launch_record()
+        if rec[11]:
+            _EXACT_SCRATCH[0] = scratch
+        note_weighted_slot("exact" if rec[11] else "shared" if rec[2] else "device")
     return out, 1
 
 

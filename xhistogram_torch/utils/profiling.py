@@ -33,6 +33,8 @@ its own reads of a CUDA tensor's values and the torch calls known to read
 one inside (``note_syncs``). ``ROUTES`` counts the calls that took each
 route (``note_route``): the kernel that ``plan()`` and the method gate
 settled on, or ``"scatter"`` for the plain path, once a call.
+``WEIGHTED_SLOTS`` counts the weighted launches of the flat-slot kernel
+(``csrc/slot.cuh``) by where their sums went (``note_weighted_slot``).
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["scope", "note_syncs", "note_route", "trace", "measure", "SELF_NS", "CALLS",
-           "HOST_SYNCS", "ROUTES"]
+__all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot", "trace", "measure",
+           "SELF_NS", "CALLS", "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS"]
 
 #: the file ``trace`` writes in its log directory
 TRACE_FILE = "trace.json"
@@ -62,6 +64,12 @@ HOST_SYNCS = 0
 #: of ``ops.cuda_hist.plan`` and ``"scatter"``, the plain path
 ROUTES = dict.fromkeys(("one_input", "joint2", "factored", "factored_per_row",
                         "factored_packed", "direct", "scatter"), 0)
+#: {where: weighted flat-slot launches in this process whose sums went there}
+#: (``note_weighted_slot``): ``"exact"``, float sums kept as exact integers
+#: in shared memory; ``"shared"``, sums in their own type in
+#: shared memory (one block's, or a cluster's for integer weights);
+#: ``"device"``, sums added straight into the output in device memory
+WEIGHTED_SLOTS = dict.fromkeys(("exact", "shared", "device"), 0)
 
 _LOCK = threading.Lock()  # guards the totals and counters above
 _OPEN = threading.local()  # .spans: this thread's open spans; .call: its call's id
@@ -142,6 +150,13 @@ def note_route(kernel):
         return
     with _LOCK:
         ROUTES[kernel or "scatter"] += 1
+
+
+def note_weighted_slot(where):
+    """Count one weighted flat-slot launch whose sums went to ``where`` (a
+    key of ``WEIGHTED_SLOTS``)."""
+    with _LOCK:
+        WEIGHTED_SLOTS[where] += 1
 
 
 @contextlib.contextmanager
