@@ -8,11 +8,12 @@ the CUDA toolkit:
 It builds the port's CUDA kernels (``csrc/joint2.cu`` with
 ``csrc/joint2_mixed.cu``, ``csrc/joint2_narrow.cu``, ``csrc/joint2_pairs.cu``
 and ``csrc/joint2_pairs_swapped.cu``, ``csrc/one_input.cu``
-with ``csrc/one_input_narrow.cu`` and ``csrc/one_input_unsigned.cu``, ``csrc/factored.cu``, the direct route's
-kernel ``csrc/direct.cuh`` with its entries ``csrc/direct_rows*.cu`` and,
-outside its envelope, ``csrc/direct.cu``, the weighted flat-slot entries
-``csrc/slot_w*.cu``, the mixed ones ``csrc/slot_mixed.cu`` and the narrow
-ones ``csrc/slot_narrow.cu``) from the sources in this checkout, printing
+with ``csrc/one_input_narrow.cu`` and ``csrc/one_input_unsigned.cu``, the
+direct route's kernel ``csrc/direct.cuh`` with its entries
+``csrc/direct_rows*.cu``, and the flat-slot kernel of the factored routes
+and of direct outside that envelope, ``csrc/slot.cu`` with the weighted
+entries ``csrc/slot_w*.cu``, the mixed ones ``csrc/slot_mixed.cu`` and the
+narrow ones ``csrc/slot_narrow.cu``) from the sources in this checkout, printing
 each source's nvcc seconds, holds each
 bit-exact against its plain PyTorch version on the card (weighted float
 sums within a stated tolerance), and
@@ -192,7 +193,7 @@ N_FULL = 50_000_000  # doc/perf_model.md:54, 1000x1000 bins on [-4, 4], full
 PER_ROW = (1000, 100_000)  # perf_model.md:55, axis=1, 150x90 bins
 PACKED = (16384, 64)  # perf_model.md:56, axis=1, 120x90 bins
 DIRECT = ((64800, 64), (1000, 64))  # perf_model.md:57 at config 4's grid and its own
-SLOT_ROUTES = ("full", "per_row", "packed", "direct")
+SLOT_ROUTES = ("full", "per_row", "direct")  # factored over every row or per row; direct
 
 # the weighted paths
 N_TS_W = (256, 1 << 20)  # 2^28 pairs: the weighted T-S rows of doc/perf_model.md:49-53
@@ -224,6 +225,26 @@ def event_ms(fn, reps=10):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def measure(fn, *args, reps=5, warmup=1):
+    """Wall-clock ``fn(*args)`` to completion on its device (synchronising
+    CUDA before and after each call). Returns (median_seconds, seconds)."""
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for _ in range(warmup):
+        fn(*args)
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), times
 
 
 def in_turns(plain, kernel, reps=10):
@@ -317,8 +338,9 @@ def bucket_phase(dev, max_abs_err):
                         got = cuda_hist.direct(layouts, th, nbins)
                         want = cuda_hist.direct_reference(layouts, th, nbins)
                     else:
-                        got = cuda_hist.factored(layouts, th, nbins, route)
-                        want = cuda_hist.factored_reference(layouts, th, nbins, route)
+                        full = route == "full"
+                        got = cuda_hist.factored(layouts, th, nbins, full)
+                        want = cuda_hist.factored_reference(layouts, th, nbins, full)
                     torch.cuda.synchronize()
                     _, note = launch_note(thr)
                 finally:
@@ -346,8 +368,6 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
     import xhistogram_torch
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
-    from xhistogram_torch.utils.profiling import measure
-
 
     def operands(layouts, edges):
         """Each input's thresholds on the card, and the bin counts."""
@@ -361,7 +381,7 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(layouts, thr, nbins)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(layouts, thr, nbins, route)
+        return fn(layouts, thr, nbins, route == "full")
 
     def check(label, got, want, route):
         key = "direct" if route == "direct" else "factored"
@@ -414,16 +434,16 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
     compare("one input, 5000 bins", [x3[0].reshape(1, -1)], [linspace_edges(5000)],
             routes=("full",))
     compare("one input, 5000 bins, kept rows", [x3[0].reshape(-1, 4096)[:512]],
-            [linspace_edges(5000)], routes=("per_row", "packed", "direct"))
+            [linspace_edges(5000)], routes=("per_row", "direct"))
     compare("one input, 5000 bins, narrow rows", [x3[0].reshape(-1, 64)[:4096]],
-            [linspace_edges(5000)], routes=("packed", "direct"))
+            [linspace_edges(5000)], routes=("per_row", "direct"))
     for nb in (239, 240):  # either side of one block's limit before the cell tables
         compare(f"{nb}x{nb}, either side of the shared-memory limit",
                 [x.reshape(1, -1) for x in x3[:2]], [linspace_edges(nb)] * 2,
                 routes=("full",))
         compare(f"{nb}x{nb}, either side of the shared-memory limit, kept rows",
                 [x.reshape(64, -1) for x in x3[:2]], [linspace_edges(nb)] * 2,
-                routes=("per_row", "packed", "direct"))
+                routes=("per_row", "direct"))
     x64 = x3[0].reshape(4096, -1).double()
     for dtypes in ((torch.float64,) * 2, (torch.int32,) * 2, (torch.int64,) * 2,
                    (torch.float16,) * 2, (torch.float32, torch.float64),
@@ -608,7 +628,7 @@ def factored_and_direct(dev, card, thresholds, reset_counts, counts_now,
         {
             "name": "factored",
             "route": "cuda",
-            "source": "xhistogram_torch/csrc/factored.cu",
+            "source": "xhistogram_torch/csrc/slot.cu",
             "replaces": "xhistogram_tpu/ops/pallas_hist.py:1757",
             "launches": sum(p["launches"] for p in factored_paths),
             "max_abs_err": max_abs_err["factored"],
@@ -862,7 +882,7 @@ def kernel_holder(dev, max_abs_err):
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(layouts, thr, nbins, weights=w, finish=finish)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(layouts, thr, nbins, route, weights=w)
+        return fn(layouts, thr, nbins, route == "full", weights=w)
 
     cases = [0]
 
@@ -1037,8 +1057,8 @@ def narrow_bucket_sets(dev, max_abs_err):
                     got = cuda_hist.direct(layouts, thr_t, nbins)
                     want = cuda_hist.direct_reference(wl, wt, nbins)
                 else:
-                    got = cuda_hist.factored(layouts, thr_t, nbins, route)
-                    want = cuda_hist.factored_reference(wl, wt, nbins, route)
+                    got = cuda_hist.factored(layouts, thr_t, nbins, route == "full")
+                    want = cuda_hist.factored_reference(wl, wt, nbins, route == "full")
                 torch.cuda.synchronize()
                 rec = cuda_hist.last_launch()
                 if rec["loads"] != (nd, nd):
@@ -1062,8 +1082,8 @@ def public_paths(dev, card, reset_counts, counts_now, max_abs_err, tag):
     others=(), reps=5)`` drives one cell through the public ``histogram``
     and records, under ``label``: its launch count (``key`` of
     ``counts_now()``, once and nothing else), that its kernel (``kernel``:
-    "joint2", a factored variant or "direct") read each input as its own
-    dtype (and direct the row kernel), the peak memory the call allocated
+    "joint2", factored's "full" or "per_row", or "direct") read each input
+    as its own dtype (and direct the row kernel), the peak memory the call allocated
     beside its inputs (less than one widened copy of the narrowest input at
     4 bytes an element, beside the output and the layout copies of data and
     weights that a kept middle axis or a broadcast weight takes), its result
@@ -1080,7 +1100,6 @@ def public_paths(dev, card, reset_counts, counts_now, max_abs_err, tag):
     from xhistogram_torch.core import _compare_dtype
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
-    from xhistogram_torch.utils.profiling import measure
 
     def thr_of(edges, dtype):
         x = torch.empty(0, dtype=dtype)
@@ -1105,7 +1124,7 @@ def public_paths(dev, card, reset_counts, counts_now, max_abs_err, tag):
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(ls, ts, nbins, weights=w)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(ls, ts, nbins, kernel, weights=w)
+        return fn(ls, ts, nbins, kernel == "full", weights=w)
 
     def path(label, args, bins, axis, key, kernel, today=None, weights=None,
              plain_blocks=1, numpy_check=None, others=(), reps=5):
@@ -1357,7 +1376,6 @@ def direct_rows_phase(dev, card, reset_counts, counts_now, max_abs_err):
     from xhistogram_torch.core import _compare_dtype
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.ops.bincount import finish_sums
-    from xhistogram_torch.utils.profiling import measure
 
     def operands(layouts, edges):
         thr = [torch.from_numpy(tbins.compare_form(np.asarray(e), _compare_dtype(x)).edges)
@@ -1543,7 +1561,7 @@ def direct_rows_phase(dev, card, reset_counts, counts_now, max_abs_err):
         return cuda_hist._direct_rows_cuda(layouts, thr, nb, w, rounds)[0]
 
     def template(layouts, thr, nb, w, rounds):
-        out, _ = cuda_hist._slot_hist_cuda("direct", "direct", layouts, thr, nb, False, w)
+        out, _ = cuda_hist._slot_hist_cuda("direct", layouts, thr, nb, False, w)
         return out.to(torch.float32) if rounds else out
 
     timings = {}
@@ -1664,8 +1682,9 @@ def mixed_and_uint64_phase(dev, card, reset_counts, counts_now, max_abs_err):
                         want = cuda_hist.direct_reference(layouts, thr, nbins, weights=w)
                         key = "direct"
                     else:
-                        got = cuda_hist.factored(layouts, thr, nbins, route, weights=w)
-                        want = cuda_hist.factored_reference(layouts, thr, nbins, route,
+                        full = route == "full"
+                        got = cuda_hist.factored(layouts, thr, nbins, full, weights=w)
+                        want = cuda_hist.factored_reference(layouts, thr, nbins, full,
                                                             weights=w)
                         key = "factored"
                     torch.cuda.synchronize()
@@ -1883,7 +1902,7 @@ def mixed_pair_paths(dev, card, reset_counts, counts_now, max_abs_err):
     del S
 
     def factored_full(layouts, thr):
-        return cuda_hist.factored(layouts, thr, [280, 340], "full")
+        return cuda_hist.factored(layouts, thr, [280, 340], True)
     path("T-S 2^30 pairs, T bfloat16 beside S float16, 280x340 bins", [Tb, Sh],
          [T_EDGES, S_EDGES], None, "joint2", "joint2", (f32, f32), plain_blocks=16,
          others=(("factored_full", factored_full),))
@@ -1908,8 +1927,7 @@ def mixed_pair_paths(dev, card, reset_counts, counts_now, max_abs_err):
     del a, b
 
     def template(layouts, thr):
-        out, _ = cuda_hist._slot_hist_cuda("direct", "direct", layouts, thr, [40, 40],
-                                           False, None)
+        out, _ = cuda_hist._slot_hist_cuda("direct", layouts, thr, [40, 40], False, None)
         return out
     a = torch.round(1000 * torch.randn(DIRECT[0], device=dev, generator=gen)).to(torch.int16)
     b = torch.round(2.0**40 * torch.randn(DIRECT[0], device=dev, generator=gen)).to(i64)
@@ -1957,7 +1975,6 @@ def view_paths(dev, card, reset_counts, counts_now, max_abs_err):
     from xhistogram_torch.core import _compare_dtype
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis, strided_layout
-    from xhistogram_torch.utils.profiling import measure
 
     def thr_of(edges, x):
         t = compare_form(np.asarray(edges), _compare_dtype(x)).edges
@@ -1974,7 +1991,7 @@ def view_paths(dev, card, reset_counts, counts_now, max_abs_err):
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(layouts, thr, nbins, weights=w)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(layouts, thr, nbins, kernel, weights=w)
+        return fn(layouts, thr, nbins, kernel == "full", weights=w)
 
     launches = {"joint2": 0, "one_input": 0, "factored": 0, "direct": 0}
     records = {}
@@ -2159,7 +2176,6 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.ops.bincount import weighted_dtype
     from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
-    from xhistogram_torch.utils.profiling import measure
 
     family = {"joint2": "joint2", "one_input_full": "one_input",
               "one_input_rows": "one_input", "full": "factored",
@@ -2185,7 +2201,7 @@ def weighted_phase(dev, card, thresholds, reset_counts, counts_now):
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(layouts, thr, nbins, weights=weights)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(layouts, thr, nbins, kernel, weights=weights)
+        return fn(layouts, thr, nbins, kernel == "full", weights=weights)
 
     def check(label, kernel, got, want, exact=False, rtol=None, atol=0.0):
         """got against want: bit for bit when ``exact`` or integer, else
@@ -2598,7 +2614,6 @@ def api_phase(dev, card, reset_counts, counts_now):
     from xhistogram_torch.labeled import NamedArray
     from xhistogram_torch.labeled import histogram as labeled_histogram
     from xhistogram_torch.ops.digitize import digitize_edges, joint_bin_index
-    from xhistogram_torch.utils.profiling import measure
 
     launches = dict.fromkeys(("joint2", "one_input", "factored", "direct"), 0)
     ts_bins = [T_EDGES, S_EDGES]
@@ -2935,7 +2950,6 @@ def _sharded_rank(rank, world, init, out_dir, device_type, full):
     import xhistogram_torch
     from xhistogram_torch.ops import cuda_hist
     from xhistogram_torch.parallel import histogram_sharded, sharded
-    from xhistogram_torch.utils.profiling import measure
 
     if device_type == "cuda":
         torch.cuda.set_device(0)
@@ -2950,8 +2964,7 @@ def _sharded_rank(rank, world, init, out_dir, device_type, full):
             args, w = _sharded_inputs(shapes, weights, bins, device, seed=100 + i)
             want, _ = xhistogram_torch.histogram(*args, bins=bins, weights=w, **kw)
             cuda_hist.JOINT2_LAUNCHES = cuda_hist.ONE_INPUT_LAUNCHES = 0
-            cuda_hist.DIRECT_LAUNCHES = 0
-            cuda_hist.FACTORED_LAUNCHES.update(dict.fromkeys(cuda_hist.FACTORED_LAUNCHES, 0))
+            cuda_hist.DIRECT_LAUNCHES = cuda_hist.FACTORED_LAUNCHES = 0
             before = sharded.ALL_REDUCES
             h, _ = histogram_sharded(*args, mesh=mesh, in_spec=spec, bins=bins, weights=w,
                                      **kw)
@@ -2959,7 +2972,7 @@ def _sharded_rank(rank, world, init, out_dir, device_type, full):
                 torch.cuda.synchronize()
             launches = {"joint2": cuda_hist.JOINT2_LAUNCHES,
                         "one_input": cuda_hist.ONE_INPUT_LAUNCHES,
-                        "factored": sum(cuda_hist.FACTORED_LAUNCHES.values()),
+                        "factored": cuda_hist.FACTORED_LAUNCHES,
                         "direct": cuda_hist.DIRECT_LAUNCHES}
             all_reduces = sharded.ALL_REDUCES - before
             got = h.to_local()
@@ -3050,7 +3063,6 @@ def sharded_phase(dev, card, reset_counts, counts_now):
     from ts_cases import S_EDGES, T_EDGES
     import xhistogram_torch
     from xhistogram_torch.parallel import histogram_sharded, sharded
-    from xhistogram_torch.utils.profiling import measure
 
     launches = dict.fromkeys(("joint2", "one_input", "factored", "direct"), 0)
     # --- (a) one rank over NCCL -----------------------------------------------
@@ -3118,7 +3130,7 @@ def main():
         from xhistogram_torch.bins import compare_form
         from xhistogram_torch.ops import _build, cuda_hist
         from xhistogram_torch.utils.axes import canonicalize_2d
-        from xhistogram_torch.utils.profiling import measure
+        from xhistogram_torch.utils import profiling
     except ImportError as ex:
         # run alone, outside a checkout: nothing to build or drive
         raise SystemExit(f"chip_smoke.py runs from the root of a checkout of the "
@@ -3129,16 +3141,30 @@ def main():
     print(f"# card: {card} | torch.cuda: {torch.cuda.get_device_name(0)} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    # the key of the factored kernel's launches under each of plan()'s
+    # factored routes
+    factored_keys = {"factored": "factored full", "factored_per_row": "factored per_row",
+                     "factored_packed": "factored packed"}
+    routes_at_reset = {}
+
     def reset_counts():
         cuda_hist.JOINT2_LAUNCHES = 0
         cuda_hist.ONE_INPUT_LAUNCHES = 0
-        cuda_hist.FACTORED_LAUNCHES.update(dict.fromkeys(cuda_hist.FACTORED_LAUNCHES, 0))
+        cuda_hist.FACTORED_LAUNCHES = 0
         cuda_hist.DIRECT_LAUNCHES = 0
+        routes_at_reset.update(profiling.ROUTES)
 
     def counts_now():
+        """Each kernel's launches since ``reset_counts()``; the factored
+        kernel's under the factored route ``profiling.ROUTES`` counted since
+        (under "factored" where it counted none, or more than one)."""
+        took = [r for r in factored_keys if profiling.ROUTES[r] > routes_at_reset[r]]
+        factored = dict.fromkeys(factored_keys.values(), 0)
+        if cuda_hist.FACTORED_LAUNCHES:
+            key = factored_keys[took[0]] if len(took) == 1 else "factored"
+            factored[key] = cuda_hist.FACTORED_LAUNCHES
         return {"joint2": cuda_hist.JOINT2_LAUNCHES,
-                "one_input": cuda_hist.ONE_INPUT_LAUNCHES,
-                **{f"factored {v}": n for v, n in cuda_hist.FACTORED_LAUNCHES.items()},
+                "one_input": cuda_hist.ONE_INPUT_LAUNCHES, **factored,
                 "direct": cuda_hist.DIRECT_LAUNCHES}
 
     def one_input_note():

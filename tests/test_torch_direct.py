@@ -2,7 +2,8 @@
 the JAX package.
 
 On the CPU the wrapper runs ``direct_reference``, the plain version the
-CUDA kernel (``csrc/direct.cu``) is held to on the card
+CUDA kernels (``csrc/direct.cuh``, and ``csrc/slot.cu`` outside its
+envelope) are held to on the card
 (tests/test_torch_gpu.py, chip_smoke.py). Here the port's ``method="cuda"``
 and ``method="auto"``, the JAX package's ``_direct_kernel`` under the
 Pallas interpreter (``method="pallas"``) and numpy must give the same

@@ -2,13 +2,13 @@
 package.
 
 On the CPU the wrapper runs ``factored_reference``, the plain version the
-CUDA kernel (``csrc/factored.cu``) is held to on the card
+CUDA kernel (``csrc/slot.cu``) is held to on the card
 (tests/test_torch_gpu.py, chip_smoke.py). Here the port's
 ``method="cuda"`` (which runs the kernel's wrapper) and ``method="auto"``
 (the scatter strategy on the CPU), the JAX package's ``_factored_kernel``
 under the Pallas interpreter (``method="pallas"``; a spy on
-``_run_factored`` shows which variant ran) and numpy must give the same
-counts, bit for bit.
+``_run_factored`` shows which route ran, and ``profiling.ROUTES`` the
+port's) and numpy must give the same counts, bit for bit.
 """
 
 import jax
@@ -22,8 +22,10 @@ import xhistogram_torch
 from xhistogram_torch import bins as tbins
 from xhistogram_torch import core
 from xhistogram_torch.ops import cuda_hist
+from xhistogram_torch.utils import profiling
 from ts_cases import (
-    EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, reference_numpy_joint, ts_data,
+    EDGE_SETS, S_EDGES, T_EDGES, edge_case_data, reference_numpy_joint,
+    reference_numpy_weighted, ts_data,
 )
 
 ROUTE = {"full": "factored", "per_row": "factored_per_row",
@@ -76,12 +78,13 @@ def _spy(monkeypatch):
         ran["jax"].append("direct")
         return run_direct(*args, **kwargs)
 
-    def port_factored(arrays_2d, thresholds, nbins, variant, weights=None, **kwargs):
-        ran["port"].append(ROUTE[variant])
-        return cuda_hist.factored(arrays_2d, thresholds, nbins, variant, weights, **kwargs)
+    def port_factored(arrays_2d, thresholds, nbins, reduce_all, weights=None, **kwargs):
+        ran["port"].append(("factored", reduce_all))
+        return cuda_hist.factored(arrays_2d, thresholds, nbins, reduce_all, weights,
+                                  **kwargs)
 
     def port_direct(arrays_2d, thresholds, nbins, weights=None, **kwargs):
-        ran["port"].append("direct")
+        ran["port"].append(("direct", False))
         return cuda_hist.direct(arrays_2d, thresholds, nbins, weights, **kwargs)
 
     monkeypatch.setattr(pallas_hist, "_run_factored", jax_factored)
@@ -105,6 +108,7 @@ def all_agree(monkeypatch, args, bins, axis=None, kernel=None, numpy=True,
     assert pallas_hist.plan(len(args), nbins, m, c=c, weighted=False, uniform=None) == kernel
     route = kernel or ("factored" if m == 1 else "direct")
     ran = _spy(monkeypatch)
+    routes = dict(profiling.ROUTES)
     got = {}
     for method in ("cuda", "auto"):
         h, got_edges = xhistogram_torch.histogram(
@@ -116,7 +120,11 @@ def all_agree(monkeypatch, args, bins, axis=None, kernel=None, numpy=True,
         for e, want in zip(got_edges, bins):
             np.testing.assert_array_equal(e, want)
         got[method] = h.numpy()
-    assert ran["port"] == [route]  # cuda ran the kernel's wrapper, auto scatter
+    # cuda ran the kernel's wrapper on the route, auto scatter
+    assert ran["port"] == [("direct", False) if route == "direct"
+                           else ("factored", route == "factored")]
+    assert {r: n - routes[r] for r, n in profiling.ROUTES.items()
+            if n != routes[r]} == {route: 1, "scatter": 1}
     np.testing.assert_array_equal(got["cuda"], got["auto"])
     if numpy and not density:
         np.testing.assert_array_equal(got["cuda"], reference_numpy_joint(args, bins, axis))
@@ -240,51 +248,58 @@ def test_negative_subnormal_is_below_a_zero_edge():
         assert int(h.sum()) == 3  # -1e-45 lands below the range
 
 
-@pytest.mark.parametrize("variant", list(ROUTE))
+@pytest.mark.parametrize("kind", ["full", "rows", "rows-weighted"])
 @pytest.mark.parametrize("m,c", [(0, 5), (5, 0), (1, 1), (7, 1), (3, 4097)])
-def test_empty_and_ragged(variant, m, c):
+def test_empty_and_ragged(kind, m, c):
+    """Over every element, per kept row, and per kept row weighted
+    (integer-valued float32 weights, so that the float32 sums are exact)."""
     args = [torch.from_numpy(x) for x in data((m, c), 2, seed=m + c)]
     bins = [edges(50), edges(30)]
     thr = [torch.from_numpy(tbins.compare_form(e, np.float32).edges) for e in bins]
-    out = cuda_hist.factored(args, thr, [50, 30], variant)
-    rows = 1 if variant == "full" else m
-    assert out.shape == (rows, 50 * 30 + 1) and out.dtype == torch.int64
+    reduce_all = kind == "full"
+    w = None
+    if kind == "rows-weighted":
+        w = torch.from_numpy(np.random.default_rng(m + c).integers(-3, 4, (m, c))
+                             .astype(np.float32))
+    out = cuda_hist.factored(args, thr, [50, 30], reduce_all, weights=w)
+    rows = 1 if reduce_all else m
+    assert out.shape == (rows, 50 * 30 + 1)
+    assert out.dtype == (torch.int64 if w is None else torch.float32)
     assert (out[:, -1] == 0).all()  # the trash slot stays empty, as in JAX
-    axis = None if variant == "full" else (1,)
-    np.testing.assert_array_equal(
-        out[:, :-1].reshape((rows,) + (50, 30)).numpy(),
-        reference_numpy_joint([a.numpy() for a in args], bins, axis).reshape(rows, 50, 30),
-    )
+    axis = None if reduce_all else (1,)
+    arrays = [a.numpy() for a in args]
+    want = (reference_numpy_joint(arrays, bins, axis) if w is None else
+            reference_numpy_weighted(arrays, bins, w.numpy(), axis).astype(np.float32))
+    np.testing.assert_array_equal(out[:, :-1].reshape((rows,) + (50, 30)).numpy(),
+                                  want.reshape(rows, 50, 30))
 
 
 def test_wrapper_contract_on_cpu():
     a, b = (torch.from_numpy(x) for x in data((6, 40), 2, seed=1))
     thr = [torch.from_numpy(tbins.compare_form(e, np.float32).edges)
            for e in (edges(50), edges(30))]
-    before = dict(cuda_hist.FACTORED_LAUNCHES)
+    before = cuda_hist.FACTORED_LAUNCHES
     # a strided view gives the same counts as its copy
-    for variant in ROUTE:
-        got = cuda_hist.factored([a.t(), b.t()], thr, [50, 30], variant)
+    for reduce_all in (True, False):
+        got = cuda_hist.factored([a.t(), b.t()], thr, [50, 30], reduce_all)
         want = cuda_hist.factored([a.t().contiguous(), b.t().contiguous()], thr,
-                                  [50, 30], variant)
+                                  [50, 30], reduce_all)
         assert torch.equal(got, want)
         assert torch.equal(got, cuda_hist.factored_reference([a.t(), b.t()], thr,
-                                                             [50, 30], variant))
+                                                             [50, 30], reduce_all))
     assert cuda_hist.FACTORED_LAUNCHES == before  # the CPU path launches nothing
-    with pytest.raises(ValueError, match="variant must be one of"):
-        cuda_hist.factored([a, b], thr, [50, 30], "chunked")
     with pytest.raises(ValueError, match="one threshold tensor and one bin count"):
-        cuda_hist.factored([a, b], thr[:1], [50], "full")
+        cuda_hist.factored([a, b], thr[:1], [50], True)
     with pytest.raises(ValueError, match="2-D layouts of one shape"):
-        cuda_hist.factored([a, b[:3]], thr, [50, 30], "full")
+        cuda_hist.factored([a, b[:3]], thr, [50, 30], True)
     with pytest.raises(ValueError, match="at least one bin"):
-        cuda_hist.factored([a, b], thr, [50, 0], "full")
+        cuda_hist.factored([a, b], thr, [50, 0], True)
     with pytest.raises(TypeError, match="thresholds must be in the data's dtype"):
-        cuda_hist.factored([a.double(), b], thr, [50, 30], "full")
+        cuda_hist.factored([a.double(), b], thr, [50, 30], True)
     with pytest.raises(ValueError, match="needs 31 thresholds"):
-        cuda_hist.factored([a, b], [thr[0], thr[1][:-1]], [50, 30], "full")
+        cuda_hist.factored([a, b], [thr[0], thr[1][:-1]], [50, 30], True)
     with pytest.raises(ValueError, match="share a device"):
-        cuda_hist.factored([a, b], [thr[0], thr[1].to("meta")], [50, 30], "full")
+        cuda_hist.factored([a, b], [thr[0], thr[1].to("meta")], [50, 30], True)
 
 
 def test_widen_keeps_broadcasts():

@@ -398,16 +398,20 @@ def test_one_input_chunks_within_its_32_bit_counters(cuda):
 
 # --- factored and direct (csrc/slot.cuh) ---------------------------------------
 
+# factored over every element, per kept row (rows of 256 or more elements,
+# and narrow rows), and direct
 ROUTES = ("full", "per_row", "packed", "direct")
+#: the index in ``_launches()`` of each route's counter
+_COUNTER = {"full": 0, "per_row": 0, "packed": 0, "direct": 1}
 
 
 def _launches():
-    return (*cuda_hist.FACTORED_LAUNCHES.values(), cuda_hist.DIRECT_LAUNCHES)
+    return (cuda_hist.FACTORED_LAUNCHES, cuda_hist.DIRECT_LAUNCHES)
 
 
 def _slot_pair(layouts, edges, route):
     """(kernel counts, plain counts) on the card for N (m, c) layouts, one
-    route (a variant of factored, or direct)."""
+    route (factored over every element or per kept row, or direct)."""
     thr, nbins = [], []
     for x, e in zip(layouts, edges):
         ce = tbins.compare_form(np.asarray(e), _compare_dtype(x))
@@ -419,11 +423,12 @@ def _slot_pair(layouts, edges, route):
         got = cuda_hist.direct(layouts, thr, nbins)
         want = cuda_hist.direct_reference(layouts, thr, nbins)
     else:
-        got = cuda_hist.factored(layouts, thr, nbins, route)
-        want = cuda_hist.factored_reference(layouts, thr, nbins, route)
+        got = cuda_hist.factored(layouts, thr, nbins, route == "full")
+        want = cuda_hist.factored_reference(layouts, thr, nbins, route == "full")
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(_launches(), before)]
-    assert launched == [int(r == route and layouts[0].numel() > 0) for r in ROUTES]
+    assert launched == [int(i == _COUNTER[route] and layouts[0].numel() > 0)
+                        for i in range(2)]
     assert got.dtype == torch.int64 and got.device == layouts[0].device
     rows = 1 if route == "full" else layouts[0].shape[0]
     assert got.shape == (rows, int(np.prod(nbins)) + 1)
@@ -544,7 +549,7 @@ def test_int64_beside_a_float_equals_plain(cuda, kernel, float_dtype, wdtype):
     got = _run(kernel, layouts, edges, w, plain=False)
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(_launch_counts(), before)]
-    assert launched == [int(i == (0 if kernel == "joint2" else 2 + ROUTES.index(kernel)))
+    assert launched == [int(i == (0 if kernel == "joint2" else 2 + _COUNTER[kernel]))
                         for i in range(len(launched))]
     want = _run(kernel, layouts, edges, w, plain=True)
     if w is None:
@@ -613,13 +618,13 @@ def test_auto_runs_factored_and_direct(cuda, shape, nbins, axis, kernel):
     rng = np.random.default_rng(len(nbins) + shape[0])
     args = [rng.normal(0, 1.5, shape).astype(np.float32) for _ in nbins]
     bins = [_edges(nb) for nb in nbins]
-    variant = {"factored": "full", "factored_per_row": "per_row",
-               "factored_packed": "packed"}.get(kernel)
-    before = _launches()
+    before, routes = _launches(), dict(profiling.ROUTES)
     h, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
                                       bins=bins, axis=axis)
     launched = [a - b for a, b in zip(_launches(), before)]
-    assert launched == [int(r == (variant or "direct")) for r in ROUTES]
+    assert launched == [int(kernel != "direct"), int(kernel == "direct")]
+    assert {r: n - routes[r] for r, n in profiling.ROUTES.items()
+            if n != routes[r]} == {kernel: 1}
     h_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, device="cpu")
     assert h.device.type == "cuda" and torch.equal(h.cpu(), h_cpu)
 
@@ -641,10 +646,12 @@ def test_forced_beyond_the_caps(cuda):
         (lambda dev: xhistogram_torch.histogram(x, bins=[edges], axis=1, device=dev,
                                                 method="cuda"), "direct"),
     ):
-        before = _launches()
+        before, routes = _launches(), dict(profiling.ROUTES)
         h, _ = call(cuda)
         launched = [a - b for a, b in zip(_launches(), before)]
-        assert launched == [int(r == route) for r in ROUTES]
+        assert launched == [int(i == _COUNTER[route]) for i in range(2)]
+        took = "factored" if route == "full" else "direct"
+        assert profiling.ROUTES[took] == routes[took] + 1
         h_cpu, _ = call("cpu")
         assert torch.equal(h.cpu(), h_cpu)
 
@@ -659,6 +666,12 @@ KERNELS = ("joint2", "one_input_full", "one_input_rows", *ROUTES)
 
 def _launch_counts():
     return (cuda_hist.JOINT2_LAUNCHES, cuda_hist.ONE_INPUT_LAUNCHES, *_launches())
+
+
+#: the index in ``_launch_counts()`` of each route of ``plan()``: the three
+#: factored routes run one kernel
+_ROUTE_COUNTER = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 2,
+                  "factored_packed": 2, "direct": 3}
 
 
 def _weights(shape, dtype, device, seed):
@@ -698,7 +711,7 @@ def _run(kernel, layouts, edges, weights, plain):
         fn = cuda_hist.direct_reference if plain else cuda_hist.direct
         return fn(layouts, thr, nbins, weights=weights)
     fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-    return fn(layouts, thr, nbins, kernel, weights=weights)
+    return fn(layouts, thr, nbins, kernel == "full", weights=weights)
 
 
 def _assert_sums_equal(got, want, exact=False):
@@ -724,7 +737,7 @@ def _weighted_pair(kernel, layouts, edges, weights, exact=False):
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(_launch_counts(), before)]
     slot = {"joint2": 0, "one_input_full": 1, "one_input_rows": 1}.get(
-        kernel, 2 + ROUTES.index(kernel) if kernel in ROUTES else None)
+        kernel, 2 + _COUNTER[kernel] if kernel in ROUTES else None)
     nonempty = int(layouts[0].numel() > 0)
     assert launched == [nonempty * (i == slot) for i in range(len(launched))]
     want = _run(kernel, layouts, edges, weights, plain=True)
@@ -850,13 +863,13 @@ def test_auto_runs_the_weighted_kernels(cuda, shape, nbins, axis, wdtype, kernel
     args = [rng.normal(0, 1.5, shape).astype(np.float32) for _ in nbins]
     w = _weights(shape, wdtype, "cpu", seed=16)
     bins = [_edges(nb) for nb in nbins]
-    counters = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 3,
-                "factored_packed": 4, "direct": 5}
-    before = _launch_counts()
+    before, routes = _launch_counts(), dict(profiling.ROUTES)
     h, _ = xhistogram_torch.histogram(*(torch.from_numpy(a).to(cuda) for a in args),
                                       bins=bins, axis=axis, weights=w.to(cuda))
     launched = [a - b for a, b in zip(_launch_counts(), before)]
-    assert launched == [int(i == counters[kernel]) for i in range(len(launched))]
+    assert launched == [int(i == _ROUTE_COUNTER[kernel]) for i in range(len(launched))]
+    assert {r: n - routes[r] for r, n in profiling.ROUTES.items()
+            if n != routes[r]} == {kernel: 1}
     h_cpu, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
                                           device="cpu")
     _assert_sums_equal(h.cpu(), h_cpu)
@@ -870,7 +883,8 @@ def test_auto_runs_the_weighted_kernels(cuda, shape, nbins, axis, wdtype, kernel
             *(torch.from_numpy(a).to(cuda) for a in big), bins=bins, axis=(1,),
             weights=w_big)
         launched = [a - b for a, b in zip(_launch_counts(), before)]
-        assert launched == [int(i == counters["direct"]) for i in range(len(launched))]
+        assert launched == [int(i == _ROUTE_COUNTER["direct"])
+                            for i in range(len(launched))]
         assert cuda_hist.last_launch()["kernel"] == "direct_rows"
         h_cpu, _ = xhistogram_torch.histogram(*big, bins=bins, axis=(1,),
                                               weights=w_big.cpu(), device="cpu")
@@ -988,14 +1002,15 @@ def test_readme_call_runs_in_a_cluster(cuda):
     vol = np.random.default_rng(12).uniform(0.5, 1.5, (4, 500)).astype(np.float32)
     for weights, cluster, shared in ((None, 2, True), ((vol * 1000).astype(np.int64), 4, True),
                                      (vol, 2, True)):
-        before = cuda_hist.FACTORED_LAUNCHES["per_row"]
+        before = cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"]
         args = [torch.from_numpy(x).to(cuda) for x in (t_np, s_np)]
         w = None if weights is None else torch.from_numpy(weights).to(cuda)
         h, _ = xhistogram_torch.histogram(*args, bins=[T_EDGES, S_EDGES], axis=(0, 2),
                                           weights=w)
         torch.cuda.synchronize()
         launch = cuda_hist.last_launch()
-        assert cuda_hist.FACTORED_LAUNCHES["per_row"] == before + 1
+        assert (cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"]) == (
+            before[0] + 1, before[1] + 1)
         assert (launch["cluster"], launch["passes"], launch["shared"]) == (cluster, 1, shared)
         assert launch["exact"] == (weights is not None and weights.dtype == np.float32)
         h_cpu, _ = xhistogram_torch.histogram(t_np, s_np, bins=[T_EDGES, S_EDGES],
@@ -1024,7 +1039,8 @@ def _raw(route, layouts, edges, weights, plain):
         return out.reshape(-1, out.shape[-1])
     if route == "direct":
         return cuda_hist.direct(layouts, thr, nbins, weights=weights, finish=False)
-    return cuda_hist.factored(layouts, thr, nbins, route, weights=weights, finish=False)
+    return cuda_hist.factored(layouts, thr, nbins, route == "full", weights=weights,
+                              finish=False)
 
 
 def _fell_back(layouts, edges, weights):
@@ -1403,7 +1419,7 @@ def _narrow_route_run(route, layouts, edges, weights=None):
             fn = cuda_hist.direct_reference if plain else cuda_hist.direct
             return fn(ls, ts, nbins, weights=weights)
         fn = cuda_hist.factored_reference if plain else cuda_hist.factored
-        return fn(ls, ts, nbins, route, weights=weights)
+        return fn(ls, ts, nbins, route == "full", weights=weights)
 
     got = run(layouts, thr, False)
     torch.cuda.synchronize()
@@ -1497,10 +1513,6 @@ def test_narrow_public_calls_allocate_no_widened_copy(cuda, dtype):
 
 # --- the public API above core: the f64 tier, streaming, labeled, compat ------
 
-_ROUTE_COUNTER = {"joint2": 0, "one_input": 1, "factored": 2, "factored_per_row": 3,
-                  "factored_packed": 4, "direct": 5}
-
-
 def _f64_weights(shape, device, seed, spread=12):
     gen = torch.Generator(device=device).manual_seed(seed)
     w = torch.randn(shape, device=device, generator=gen, dtype=torch.float64)
@@ -1526,12 +1538,14 @@ def test_f64_runs_the_int64_kernels_bit_identically(cuda, shape, nbins, axis, ke
     args = [torch.randn(shape, device=cuda, generator=gen) * 1.5 for _ in nbins]
     w = _f64_weights(shape, cuda, seed=32)
     bins = [_edges(nb) for nb in nbins]
-    before = _launch_counts()
+    before, routes = _launch_counts(), dict(profiling.ROUTES)
     h1, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
                                        precision="f64")
     launched = [a - b for a, b in zip(_launch_counts(), before)]
     assert launched[_ROUTE_COUNTER[kernel]] >= 2  # groups x limbs passes
     assert sum(launched) == launched[_ROUTE_COUNTER[kernel]]
+    assert {r: n - routes[r] for r, n in profiling.ROUTES.items()
+            if n != routes[r]} == {kernel: 1}
     h2, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
                                        precision="f64")
     plain, _ = xhistogram_torch.histogram(*args, bins=bins, axis=axis, weights=w,
@@ -1692,7 +1706,7 @@ def test_labeled_and_compat_on_the_card(cuda):
 
 
 def _op_cases(device, weights):
-    """(op, arguments) of each kernel op and variant on the card."""
+    """(op, arguments) of each kernel op on the card."""
     ops = torch.ops.xhistogram
     gen = torch.Generator(device=device).manual_seed(40)
     a, b = (torch.rand(64, 4096, device=device, generator=gen) for _ in range(2))
@@ -1703,8 +1717,8 @@ def _op_cases(device, weights):
     return [
         (ops.one_input, (a, thr, w, 40, False)), (ops.one_input, (a, thr, w, 40, True)),
         (ops.joint2, (a, b, thr, thr, w, 40, 40)),
-        *((ops.factored, ([a, b], [thr, thr], w, [40, 40], v))
-          for v in ("full", "per_row", "packed")),
+        *((ops.factored, ([a, b], [thr, thr], w, [40, 40], reduce_all))
+          for reduce_all in (True, False)),
         (ops.direct, ([a, b], [thr, thr], w, [40, 40])),
         # rows of 64: the direct-row kernel (csrc/direct.cuh), raw and finished
         (ops.direct, ([a[:, :64], b[:, :64]], [thr, thr], w_rows, [40, 40])),
@@ -2197,11 +2211,12 @@ def test_readme_call_allocates_no_copy_of_its_view(cuda, dtype, weighted):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = dict(cuda_hist.FACTORED_LAUNCHES)
+    before = cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"]
     h, _ = xhistogram_torch.histogram(t, s, bins=[te, se], axis=(0, 2), weights=volume)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
-    assert cuda_hist.FACTORED_LAUNCHES["per_row"] == before["per_row"] + 1
+    assert (cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"]) == (
+        before[0] + 1, before[1] + 1)
     assert cuda_hist.last_launch()["view"] == "in place"
     out_bytes = 8 * 50 * (len(te) - 1) * (len(se) - 1)
     assert extra < 2 * out_bytes + (1 << 20), extra
@@ -2212,7 +2227,7 @@ def test_readme_call_allocates_no_copy_of_its_view(cuda, dtype, weighted):
     w2d = None if volume is None else canonicalize_2d(volume.expand(t.shape), (0, 2))
     thr = [torch.from_numpy(tbins.compare_form(e, _compare_dtype(x)).edges).to(cuda)
            for e, x in zip((te, se), (t, s))]
-    want = cuda_hist.factored(layouts, thr, [len(te) - 1, len(se) - 1], "per_row",
+    want = cuda_hist.factored(layouts, thr, [len(te) - 1, len(se) - 1], False,
                               weights=w2d)
     want = want[:, :-1].reshape(h.shape)
     _assert_sums_equal(h, want)

@@ -92,8 +92,8 @@ def test_no_port_file_imports_jax():
 def test_every_declared_kernel_symbol_is_defined():
     """The C symbols ``ops/_build.py`` binds (joint2 with its narrow types,
     its pairs of two types and its mixed entry, one_input with its narrow
-    loads, the four flat-slot routes of csrc/factored.cu and csrc/direct.cu
-    with their mixed and narrow entries, and the direct-row kernel of
+    loads, the flat-slot kernel of csrc/slot.cu with its mixed and narrow
+    entries, and the direct-row kernel of
     csrc/direct.cuh with its narrow and mixed entries, per data type,
     unweighted and per weight class, its rounded float32 class included)
     are each defined once by a ``csrc/*.cu`` entry macro: one that names
@@ -127,7 +127,7 @@ def test_every_declared_kernel_symbol_is_defined():
                 defined += [paste(t, params, args) for t in names]
     declared = [name for name, _ in _build.symbols()]
     # each unweighted and in 3 classes (joint2 32 suffixes and its mixed
-    # entry, one_input 12, four routes of 4 types, mixed and narrow); the
-    # direct-row kernel in 5, for its 4 types, narrow and mixed
-    assert len(declared) == 4 * (32 + 1 + 12 + 4 * 4 + 4 + 4) + 5 * 6
+    # entry, one_input 12, the flat-slot kernel's 4 types, mixed and
+    # narrow); the direct-row kernel in 5, for its 4 types, narrow and mixed
+    assert len(declared) == 4 * (32 + 1 + 12 + 4 + 1 + 1) + 5 * 6
     assert sorted(defined) == sorted(declared)

@@ -195,25 +195,33 @@ def _view4(x):
     return torch.from_numpy(x).reshape(4, 4, 8, 12)
 
 
-@pytest.mark.parametrize("variant", ["full", "per_row", "packed"])
-def test_ops_take_4d_views_with_fake_shapes(variant):
+@pytest.mark.parametrize("kind", ["full", "rows", "rows-weighted"])
+def test_ops_take_4d_views_with_fake_shapes(kind):
+    """The factored op over every element and per kept row, unweighted and
+    by a float32 view (float64 sums, in the fake output too)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     rng = np.random.RandomState(0)
-    a, b = (_view4(rng.rand(16, 96).astype("f4")).transpose(2, 3) for _ in range(2))
+    a, b, w = (_view4(rng.rand(16, 96).astype("f4")).transpose(2, 3) for _ in range(3))
+    w = w if kind == "rows-weighted" else None
+    reduce_all = kind == "full"
     thr = torch.linspace(0, 1, 8)
-    out = torch.ops.xhistogram.factored([a, b], [thr, thr], None, [7, 7], variant)
-    rows = (1,) if variant == "full" else (4, 4)
+    out = torch.ops.xhistogram.factored([a, b], [thr, thr], w, [7, 7], reduce_all)
+    rows = (1,) if reduce_all else (4, 4)
     assert tuple(out.shape) == (*rows, 50)
     with FakeTensorMode() as mode:
         fa, fb, ft = (mode.from_tensor(x) for x in (a, b, thr))
-        fake = torch.ops.xhistogram.factored([fa, fb], [ft, ft], None, [7, 7], variant)
+        fw = None if w is None else mode.from_tensor(w)
+        fake = torch.ops.xhistogram.factored([fa, fb], [ft, ft], fw, [7, 7], reduce_all)
     assert fake.shape == out.shape
-    want = cuda_hist.factored_reference([a.reshape(16, 96), b.reshape(16, 96)],
-                                        [thr, thr], [7, 7], variant)
-    assert torch.equal(cuda_hist.factored([a, b], [thr, thr], [7, 7], variant), want)
-    torch.library.opcheck(torch.ops.xhistogram.factored, ([a, b], [thr, thr], None,
-                                                          [7, 7], variant))
+    assert fake.dtype == out.dtype == (torch.int64 if w is None else torch.float64)
+    want = cuda_hist.factored_reference(
+        [a.reshape(16, 96), b.reshape(16, 96)], [thr, thr], [7, 7], reduce_all,
+        weights=None if w is None else w.reshape(16, 96))
+    assert torch.equal(cuda_hist.factored([a, b], [thr, thr], [7, 7], reduce_all,
+                                          weights=w), want)
+    torch.library.opcheck(torch.ops.xhistogram.factored, ([a, b], [thr, thr], w,
+                                                          [7, 7], reduce_all))
 
 
 def test_sharding_rules_of_4d_views():

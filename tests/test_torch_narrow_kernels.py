@@ -57,7 +57,7 @@ ROUTES = {
     "factored_packed": ((4, 64), 2, 100, (1,)),
     "direct": ((6, 40), 2, 12, (1,)),
 }
-# the variant each JAX dispatch names
+# the route each JAX dispatch names
 _JAX_ROUTE = {(False, False): "factored", (True, False): "factored_per_row",
               (False, True): "factored_packed"}
 WEIGHT_DTYPES = (np.float32, np.int32, np.int64)
@@ -217,9 +217,8 @@ def test_narrow_routes_match_the_jax_kernels(monkeypatch, name, route, wdtype):
     elif route == "direct":
         plain = cuda_hist.direct_reference(layouts, thr, nbins, weights=w2d)
     else:
-        variant = {"factored": "full", "factored_per_row": "per_row",
-                   "factored_packed": "packed"}[route]
-        plain = cuda_hist.factored_reference(layouts, thr, nbins, variant, weights=w2d)
+        plain = cuda_hist.factored_reference(layouts, thr, nbins, route == "factored",
+                                             weights=w2d)
     _assert_close(plain[:, :-1].numpy().reshape(jh.shape), jh, float_sums,
                   "plain version against the JAX kernel")
 

@@ -34,21 +34,21 @@ def _operands(weights):
 
 
 def _op_args(name, weights):
-    """(op, arguments) of each op and variant on CPU tensors."""
+    """(op, arguments) of each op on CPU tensors."""
     a, b, w, thr = _operands(weights)
     return {
         "one_input-kept": (OPS.one_input, (a, thr, w, 7, False)),
         "one_input-full": (OPS.one_input, (a, thr, w, 7, True)),
         "joint2": (OPS.joint2, (a, b, thr, thr, w, 7, 7)),
-        "factored-full": (OPS.factored, ([a, b], [thr, thr], w, [7, 7], "full")),
-        "factored-per_row": (OPS.factored, ([a, b], [thr, thr], w, [7, 7], "per_row")),
-        "factored-packed": (OPS.factored, ([a, b], [thr, thr], w, [7, 7], "packed")),
+        "factored-full": (OPS.factored, ([a, b], [thr, thr], w, [7, 7], True)),
+        "factored-rows": (OPS.factored, ([a, b], [thr, thr], w, [7, 7], False)),
+        "factored-rows-3in": (OPS.factored, ([a, b, a], [thr] * 3, w, [7] * 3, False)),
         "direct": (OPS.direct, ([a, b], [thr, thr], w, [7, 7])),
     }[name]
 
 
 OP_NAMES = ["one_input-kept", "one_input-full", "joint2", "factored-full",
-            "factored-per_row", "factored-packed", "direct"]
+            "factored-rows", "factored-rows-3in", "direct"]
 WEIGHTS = [None, torch.float32, torch.float64, torch.int32, torch.int8, torch.int64,
            torch.uint64]
 #: each weight dtype's accumulator class: the dtype every op returns
@@ -76,7 +76,7 @@ def test_fake_shapes_and_dtypes(name, weights):
     real = op(*args)
     assert real.dtype == CLASS[weights]
     rows = 1 if name in ("one_input-full", "joint2", "factored-full") else 16
-    n_slots = 8 if name.startswith("one_input") else 50
+    n_slots = 8 if name.startswith("one_input") else 7**3 + 1 if name.endswith("3in") else 50
     assert tuple(real.shape) == (rows, n_slots)
     with FakeTensorMode() as mode:
         fake_args = torch.utils._pytree.tree_map_only(torch.Tensor, mode.from_tensor, args)
@@ -105,9 +105,9 @@ def test_wrappers_give_the_op_its_dtype(name):
         got = cuda_hist.direct(arrays, thr, nbins, weights=w)
         kept = cuda_hist.direct(arrays, thr, nbins, weights=w, finish=False)
     else:
-        arrays, thr, w, nbins, variant = args
-        got = cuda_hist.factored(arrays, thr, nbins, variant, weights=w)
-        kept = cuda_hist.factored(arrays, thr, nbins, variant, weights=w, finish=False)
+        arrays, thr, w, nbins, reduce_all = args
+        got = cuda_hist.factored(arrays, thr, nbins, reduce_all, weights=w)
+        kept = cuda_hist.factored(arrays, thr, nbins, reduce_all, weights=w, finish=False)
     assert torch.equal(kept, raw)
     assert got.dtype == torch.float32 and torch.equal(got, raw.to(torch.float32))
 
@@ -202,8 +202,9 @@ def test_dtensor_op_runs_per_rank_without_gathering(ranks, name):
     thr = torch.from_numpy(EDGES.astype("f4"))
     want = call(op, [torch.from_numpy(x) for x in data], [thr] * len(data),
                 None if weights is None else torch.from_numpy(weights), rest)
-    keeps_rows = name in ("one_input-kept", "one_input-kept-weighted", "factored-per_row",
-                          "factored-packed", "direct", "direct-weighted")
+    keeps_rows = name in ("one_input-kept", "one_input-kept-weighted",
+                          "factored-rows-weighted", "factored-rows", "direct",
+                          "direct-weighted")
     for rank in ranks:
         got = rank[name]
         assert got["in_op"] == {}

@@ -105,7 +105,7 @@ def _check_plan(kernel, dtypes):
     if kernel == "joint2":
         names = [f"xh_joint2_{op.entry}"]
     else:
-        names = [f"xh_{route}_{op.entry}" for route in (*_build.SLOT_ROUTES, "direct_rows")]
+        names = [f"xh_{kernel}_{op.entry}" for kernel in ("slot", "direct_rows")]
     for name in names:
         assert name in _DECLARED and name in _SOURCES, (kernel, dtypes, name)
     return op

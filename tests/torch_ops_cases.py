@@ -27,9 +27,9 @@ def cases():
         "one_input-full-int32-weights": ("one_input", [a], wi, (7, True)),
         "joint2": ("joint2", [a, b], None, (7, 7)),
         "joint2-weighted": ("joint2", [a, b], w, (7, 7)),
-        "factored-full": ("factored", [a, b], None, ([7, 7], "full")),
-        "factored-per_row": ("factored", [a, b], w, ([7, 7], "per_row")),
-        "factored-packed": ("factored", [a, b], None, ([7, 7], "packed")),
+        "factored-full": ("factored", [a, b], None, ([7, 7], True)),
+        "factored-rows-weighted": ("factored", [a, b], w, ([7, 7], False)),
+        "factored-rows": ("factored", [a, b], None, ([7, 7], False)),
         "direct": ("direct", [a, b], None, ([7, 7],)),
         "direct-weighted": ("direct", [a, b], w, ([7, 7],)),
     }
@@ -44,9 +44,9 @@ def view_cases():
     return {
         "view-one_input-kept": ("one_input", [a], w, (7, False), (0, 1)),
         "view-one_input-full": ("one_input", [a], None, (7, True), (2, 3)),
-        "view-factored-per_row": ("factored", [a, b], w, ([7, 7], "per_row"), (0, 1)),
-        "view-factored-columns": ("factored", [a, b], None, ([7, 7], "per_row"), (2, 3)),
-        "view-factored-full": ("factored", [a, b], w, ([7, 7], "full"), (0, 1)),
+        "view-factored-rows": ("factored", [a, b], w, ([7, 7], False), (0, 1)),
+        "view-factored-columns": ("factored", [a, b], None, ([7, 7], False), (2, 3)),
+        "view-factored-full": ("factored", [a, b], w, ([7, 7], True), (0, 1)),
         "view-direct": ("direct", [a, b], None, ([7, 7],), (0, 1)),
         "view-direct-columns": ("direct", [a, b], w, ([7, 7],), (2, 3)),
     }

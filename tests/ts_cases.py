@@ -148,8 +148,9 @@ def reference_numpy_weighted(arrays, edges, weights, axis=None, exact=False):
     else:
         kept = tuple(n for i, n in enumerate(shape) if i not in axis)
         m = int(np.prod(kept, dtype=np.int64))
+        c = int(np.prod([shape[i] for i in axis], dtype=np.int64))
         rows = (lambda a: np.moveaxis(a, axis, tuple(range(-len(axis), 0)))
-                .reshape(m, -1))
+                .reshape(m, c))
     flat, valid = 0, True
     for a, e, nb in zip(arrays, edges, nbins):
         idx = _searchsorted_inclusive(rows(a).astype(np.float64),

@@ -8,8 +8,8 @@ toolkit:
 It builds the port's kernels, holds the direct-row kernel
 (``csrc/direct.cuh``) bit for bit against the plain version (float32 rows
 within two float32 ulps) at the shapes it times, then times it in turns
-with the flat-slot template's direct entry (``csrc/direct.cu`` on
-``csrc/slot.cuh``: template, row kernel, row kernel, template), each
+with the flat-slot template per kept row (``csrc/slot.cuh``'s
+``xh_slot_*`` entries: template, row kernel, row kernel, template), each
 beside its bound, at:
 
 - (64800, 64) x 2 float32 in 40x40 bins (``doc/perf_model.md:57`` at
@@ -116,8 +116,7 @@ def main():
         return cuda_hist._direct_rows_cuda(layouts, thr, nbins, w, rounds)[0]
 
     def template(layouts, thr, nbins, w, finish):
-        out, _ = cuda_hist._slot_hist_cuda("direct", "direct", layouts, thr, nbins,
-                                           False, w)
+        out, _ = cuda_hist._slot_hist_cuda("direct", layouts, thr, nbins, False, w)
         return out.to(torch.float32) if finish and w is not None and \
             w.dtype == torch.float32 else out
 

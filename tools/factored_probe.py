@@ -103,7 +103,7 @@ def census(label, T, S, vol, edges, card):
     def run(weights=wv, device_memory=False, views=views):
         cuda_hist.MAX_SHARED_SLOTS = 0 if device_memory else slots
         try:
-            return cuda_hist.factored(views, thr, nbins, "per_row", weights=weights,
+            return cuda_hist.factored(views, thr, nbins, False, weights=weights,
                                       finish=False)
         finally:
             cuda_hist.MAX_SHARED_SLOTS = slots
@@ -215,7 +215,7 @@ def main():
         thr, nbins = ops
         if route == "direct":
             return lambda: cuda_hist.direct(layouts, thr, nbins)
-        return lambda: cuda_hist.factored(layouts, thr, nbins, route)
+        return lambda: cuda_hist.factored(layouts, thr, nbins, route == "full")
 
     def idle_share(label, call, wrapper):
         """Host time to return, then back-to-back wall against the kernel's
@@ -267,8 +267,8 @@ def main():
         if route == "direct":
             run = lambda: cuda_hist.direct(layouts, thr, nbins, weights=weights)  # noqa: E731
         else:
-            run = lambda: cuda_hist.factored(layouts, thr, nbins, route,  # noqa: E731
-                                             weights=weights)
+            run = lambda: cuda_hist.factored(layouts, thr, nbins,  # noqa: E731
+                                             route == "full", weights=weights)
         try:
             for name, limit, cap in (("default", slots, most), ("one block", slots, 1),
                                      ("device memory", 0, most),

@@ -10,9 +10,12 @@ For every kernel whose name contains ``--match`` and that both libraries
 define (matched by their template arguments, so a kernel of one type for
 both inputs, ``joint2_kernel<T, W>``, ``joint2_kernel<T, T, W>`` and
 ``joint2_kernel<T, T, T, T, W>`` (load types beside compare types), pairs
-with its counterpart), it prints whether the two compile to the
-same instructions (addresses, encodings and branch targets left out), or
-how many instructions each has. It imports nothing of JAX.
+with its counterpart; a kernel that is no template, by its parameters),
+it prints whether the two compile to the same instructions (addresses,
+encodings and branch targets left out), or how many instructions each
+has. A kernel that several sources compile (each in its own anonymous
+namespace) matches only where every copy on both sides is the same. It
+imports nothing of JAX.
 """
 
 import argparse
@@ -24,8 +27,9 @@ import subprocess
 
 
 def kernel_bodies(root, match):
-    """{template arguments: instructions} of the kernels named ``match``
-    in the library built under ``root``."""
+    """{template arguments (or parameters): the set of their copies'
+    instructions} of the kernels named ``match`` in the library built
+    under ``root``."""
     libs = glob.glob(os.path.join(root, "xhistogram_torch", "_build", "*.so"))
     if not libs:
         raise SystemExit(f"no built library under {root}/xhistogram_torch/_build")
@@ -34,10 +38,10 @@ def kernel_bodies(root, match):
                          check=True, timeout=600).stdout
     bodies = {}
     for block in re.split(r"\n(?=\s*Function : )", out):
-        m = re.search(rf"Function : \S*{match}I(\w+?)EEE?v", block)
+        m = re.search(rf"Function : \S*{match}(?:I(\w+?)EEE?v|E(\w+))", block)
         if not m:
             continue
-        args = m.group(1)
+        args = m.group(1) if m.group(1) is not None else m.group(2)
         # joint2: <T, W>, <T, T, W> and <T, T, T, T, W> (one type for both
         # inputs, read as itself) pair up, as do <A, B, W> and <A, B, A, B, W>
         args = re.sub(r"^([fdix])\1+(?=N2xh)", r"\1", args)
@@ -50,7 +54,7 @@ def kernel_bodies(root, match):
             if re.search(r"\b(BRA|BSSY|CALL|JMP)\b", line):  # a branch target
                 line = re.sub(r"0x[0-9a-f]+", "", line)
             body.append(line)
-        bodies[args] = body
+        bodies.setdefault(args, set()).add(tuple(body))
     return bodies
 
 
@@ -64,7 +68,8 @@ def main():
     theirs = kernel_bodies(os.path.abspath(args.other_root), args.match)
     for name in sorted(set(mine) & set(theirs)):
         a, b = theirs[name], mine[name]
-        verdict = "identical" if a == b else f"differs: {len(a)} against {len(b)} instructions"
+        verdict = "identical" if a == b else (
+            f"differs: {sorted(map(len, a))} against {sorted(map(len, b))} instructions")
         print(f"# {args.match}<{name}>: {verdict}")
     print(f"# {len(set(mine) & set(theirs))} kernels in both; only here: "
           f"{len(set(mine) - set(theirs))}, only in {args.other_root}: "

@@ -161,7 +161,7 @@ def main():
             x, t1, 50, False, weights=w2),
         "one_input config 4": lambda: cuda_hist.one_input(sst, t80, 80, False),
         "one_input 2^30 row": lambda: cuda_hist.one_input(xr, t64, 64, True),
-        "factored": lambda: cuda_hist.factored(readme, [ta, tb], [280, 340], "per_row"),
+        "factored": lambda: cuda_hist.factored(readme, [ta, tb], [280, 340], False),
         "direct": lambda: cuda_hist.direct([a, b], t40, [40, 40]),
     }
     times = {name: [] for name in calls}
@@ -194,7 +194,7 @@ def main():
                 t.shape, lambda w: cuda_hist.joint2(t, s, ta, tb, 280, 340, weights=w)),
             "factored per row 150x90 (shared)": (
                 pair[0].shape, lambda w: cuda_hist.factored(pair, [t150, t90], [150, 90],
-                                                            "per_row", weights=w)),
+                                                            False, weights=w)),
             "direct (64800, 64) 40x40": (
                 a.shape, lambda w: cuda_hist.direct([a, b], t40, [40, 40], weights=w)),
         }

@@ -66,13 +66,6 @@ from .utils.profiling import note_route, note_syncs, scope
 
 __all__ = ["histogram"]
 
-# the variant of the factored kernel each factored route of plan() runs
-_FACTORED_VARIANT = {
-    "factored": "full",
-    "factored_per_row": "per_row",
-    "factored_packed": "packed",
-}
-
 # `range` is a histogram keyword (reference API name)
 _builtin_range = range
 
@@ -258,8 +251,9 @@ def _count_fused(method, kernel, arrays_2d, thresholds, nbins, n_hi_clip,
                           weights=w2d, finish=finish)
         if kernel == "direct":
             return direct(arrays_2d, thresholds, nbins, weights=w2d, finish=finish)
-        return factored(arrays_2d, thresholds, nbins, _FACTORED_VARIANT[kernel],
-                        weights=w2d, finish=finish)
+        # factored, factored_per_row and factored_packed: one kernel
+        return factored(arrays_2d, thresholds, nbins, reduce_all, weights=w2d,
+                        finish=finish)
 
 
 #: explicit edge arrays' compare-form thresholds, already on their device:

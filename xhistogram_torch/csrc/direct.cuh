@@ -74,8 +74,8 @@
 //   thresholds (narrow.cuh's mixed entries); 8-bit data through its table.
 //
 // Outside this envelope (rows of 256 elements or more, over 8192 slots) the
-// direct route runs the flat-slot template's entries of direct.cu
-// (slot.cuh).
+// direct route runs the flat-slot template's xh_slot_* entries (slot.cuh)
+// per kept row.
 //
 // Entries: xh_direct_rows_<data> (counts; direct_rows.cu) and
 // xh_direct_rows_<data>_<class>, per accumulator class of weights.cuh

@@ -1,8 +1,10 @@
 // N-input flat-slot histogram, full reduction or kept rows: int64 counts,
 // or weighted sums (weights.cuh).
 //
-// The one template behind factored.cu (routes factored, factored_per_row,
-// factored_packed) and direct.cu (route direct). Each input k is an (m1,
+// The one template behind the xh_slot_* entries (slot.cu, slot_narrow.cu,
+// slot_mixed.cu, slot_w*.cu), which run plan()'s routes factored,
+// factored_per_row and factored_packed, and direct outside direct.cuh's
+// envelope: a run-time reduce_all is all that tells them apart. Each input k is an (m1,
 // m0, c1, c0) view of data type T (kept rows r = i1 * m0 + i0, columns j =
 // j1 * c0 + j0; tile.cuh) with its own non-negative strides on each level,
 // read in place (a broadcast input has stride 0 on a level, a halo-trimmed
@@ -965,11 +967,12 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
 }  // namespace slot
 }  // namespace
 
-// The C entry of one route: counts into out; see launch_slot_hist.
-#define XH_SLOT_ENTRY(name, T, reduce_all)                                    \
+// The C entry: counts into out, over every row (reduce_all) or one
+// histogram a kept row; see launch_slot_hist.
+#define XH_SLOT_ENTRY(name, T)                                                \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, const long long* dims,                  \
+                      const int* nb, const long long* dims, int reduce_all,  \
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
@@ -977,14 +980,14 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
         max_shared_slots, max_cluster, xh::Weights{}, nullptr, out, stream); \
   }
 
-// The weighted C entry of one route: sums of the weights w (a view with
-// the four strides wst, of the type `wcode` names within accumulator class
-// A; weights.cuh) into out, of type A, with 16 bytes of device scratch for
+// The weighted C entry: sums of the weights w (a view with the four
+// strides wst, of the type `wcode` names within accumulator class A;
+// weights.cuh) into out, of type A, with 16 bytes of device scratch for
 // exact float sums (or null); see launch_slot_hist.
-#define XH_SLOT_WEIGHTED_ENTRY(name, T, A, reduce_all)                        \
+#define XH_SLOT_WEIGHTED_ENTRY(name, T, A)                                    \
   extern "C" int name(int n, const void* const* data,                        \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, const long long* dims,                  \
+                      const int* nb, const long long* dims, int reduce_all,  \
                       long long max_shared_slots, int max_cluster,           \
                       const void* w, const long long* wst, int wcode,        \
                       void* scratch, void* out, void* stream) {              \
@@ -994,35 +997,23 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
         scratch, out, stream);                                               \
   }
 
-// Every route's weighted entries xh_<route>_<data>_<cls> of the
-// accumulator class cls (accumulator type A), for the four data types.
+// The weighted entries xh_slot_<data>_<cls> of the accumulator class cls
+// (accumulator type A), for the four data types.
 #define XH_SLOT_WEIGHTED_CLASS(cls, A)                                        \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_f32_##cls, float, A, 1)             \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_f64_##cls, double, A, 1)            \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_i32_##cls, int, A, 1)               \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_full_i64_##cls, long long, A, 1)         \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_f32_##cls, float, A, 0)          \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_f64_##cls, double, A, 0)         \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_i32_##cls, int, A, 0)            \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_per_row_i64_##cls, long long, A, 0)      \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_f32_##cls, float, A, 0)           \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_f64_##cls, double, A, 0)          \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_i32_##cls, int, A, 0)             \
-  XH_SLOT_WEIGHTED_ENTRY(xh_factored_packed_i64_##cls, long long, A, 0)       \
-  XH_SLOT_WEIGHTED_ENTRY(xh_direct_f32_##cls, float, A, 0)                    \
-  XH_SLOT_WEIGHTED_ENTRY(xh_direct_f64_##cls, double, A, 0)                   \
-  XH_SLOT_WEIGHTED_ENTRY(xh_direct_i32_##cls, int, A, 0)                      \
-  XH_SLOT_WEIGHTED_ENTRY(xh_direct_i64_##cls, long long, A, 0)
+  XH_SLOT_WEIGHTED_ENTRY(xh_slot_f32_##cls, float, A)                         \
+  XH_SLOT_WEIGHTED_ENTRY(xh_slot_f64_##cls, double, A)                        \
+  XH_SLOT_WEIGHTED_ENTRY(xh_slot_i32_##cls, int, A)                           \
+  XH_SLOT_WEIGHTED_ENTRY(xh_slot_i64_##cls, long long, A)
 
-// The entry of one route for inputs with run-time stored types (T =
-// slot::Mixed or slot::Narrow): as XH_SLOT_ENTRY, with codes[k] naming input
-// k's stored type (narrow.cuh's load codes) and its thresholds in the
+// The entry for inputs with run-time stored types (T = slot::Mixed or
+// slot::Narrow): as XH_SLOT_ENTRY, with codes[k] naming input k's stored
+// type (narrow.cuh's load codes) and its thresholds in the
 // instantiation's compare type (when mixed: int64 for int64 data, float64
 // for the others; Narrow: float32).
-#define XH_SLOT_CODED_ENTRY(name, T, reduce_all)                              \
+#define XH_SLOT_CODED_ENTRY(name, T)                                          \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, const long long* dims,                  \
+                      const int* nb, const long long* dims, int reduce_all,  \
                       long long max_shared_slots, int max_cluster, void* out, \
                       void* stream) {                                        \
     return slot::launch_slot_hist<T, xh::Count>(                             \
@@ -1030,11 +1021,11 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
         max_shared_slots, max_cluster, xh::Weights{}, nullptr, out, stream); \
   }
 
-// The weighted coded entry of one route, for accumulator type A.
-#define XH_SLOT_CODED_WEIGHTED_ENTRY(name, T, A, reduce_all)                  \
+// The weighted coded entry, for accumulator type A.
+#define XH_SLOT_CODED_WEIGHTED_ENTRY(name, T, A)                              \
   extern "C" int name(int n, const int* codes, const void* const* data,      \
                       const long long* strides, const void* const* thr,      \
-                      const int* nb, const long long* dims,                  \
+                      const int* nb, const long long* dims, int reduce_all,  \
                       long long max_shared_slots, int max_cluster,           \
                       const void* w, const long long* wst, int wcode,        \
                       void* scratch, void* out, void* stream) {              \
@@ -1043,25 +1034,3 @@ int launch_slot_hist(int n, const int* codes, const void* const* data,
         max_shared_slots, max_cluster, xh::weights_of(w, wst, wcode),        \
         scratch, out, stream);                                               \
   }
-
-// The mixed entry of one route (slot_mixed.cu).
-#define XH_SLOT_MIXED_ENTRY(name, reduce_all) \
-  XH_SLOT_CODED_ENTRY(name, slot::Mixed, reduce_all)
-
-// Every route's weighted mixed entries xh_<route>_mixed_<cls>.
-#define XH_SLOT_MIXED_WEIGHTED_CLASS(cls, A)                                  \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_full_mixed_##cls, slot::Mixed, A, 1) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_per_row_mixed_##cls, slot::Mixed, A, 0) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_packed_mixed_##cls, slot::Mixed, A, 0) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_direct_mixed_##cls, slot::Mixed, A, 0)
-
-// The narrow entry of one route (slot_narrow.cu).
-#define XH_SLOT_NARROW_ENTRY(name, reduce_all) \
-  XH_SLOT_CODED_ENTRY(name, slot::Narrow, reduce_all)
-
-// Every route's weighted narrow entries xh_<route>_narrow_<cls>.
-#define XH_SLOT_NARROW_WEIGHTED_CLASS(cls, A)                                 \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_full_narrow_##cls, slot::Narrow, A, 1) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_per_row_narrow_##cls, slot::Narrow, A, 0) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_factored_packed_narrow_##cls, slot::Narrow, A, 0) \
-  XH_SLOT_CODED_WEIGHTED_ENTRY(xh_direct_narrow_##cls, slot::Narrow, A, 0)

@@ -9,20 +9,14 @@
 // the counts equal the plain path's bit for bit and no input is widened in
 // device memory.
 //
-// The entries of the routes factored (full, per_row, packed; factored.cu,
-// which replaces xhistogram_tpu/ops/pallas_hist.py::_factored_kernel) and
-// direct (direct.cu, which replaces _direct_kernel) for such inputs,
-// unweighted and per accumulator class, in a source of their own that
-// compiles beside the others. It runs the general N-input kernel, with no
-// two-input specialisation.
+// The xh_slot_* entries (slot.cu) for such inputs, unweighted and per
+// accumulator class, in a source of their own that compiles beside the
+// others. It runs the general N-input kernel, with no two-input
+// specialisation.
 
 #include "slot.cuh"
 
-XH_SLOT_MIXED_ENTRY(xh_factored_full_mixed, 1)
-XH_SLOT_MIXED_ENTRY(xh_factored_per_row_mixed, 0)
-XH_SLOT_MIXED_ENTRY(xh_factored_packed_mixed, 0)
-XH_SLOT_MIXED_ENTRY(xh_direct_mixed, 0)
-
-XH_SLOT_MIXED_WEIGHTED_CLASS(wf64, double)
-XH_SLOT_MIXED_WEIGHTED_CLASS(wu32, unsigned int)
-XH_SLOT_MIXED_WEIGHTED_CLASS(wu64, unsigned long long)
+XH_SLOT_CODED_ENTRY(xh_slot_mixed, slot::Mixed)
+XH_SLOT_CODED_WEIGHTED_ENTRY(xh_slot_mixed_wf64, slot::Mixed, double)
+XH_SLOT_CODED_WEIGHTED_ENTRY(xh_slot_mixed_wu32, slot::Mixed, unsigned int)
+XH_SLOT_CODED_WEIGHTED_ENTRY(xh_slot_mixed_wu64, slot::Mixed, unsigned long long)

@@ -2,11 +2,9 @@
 // bfloat16, float32 and float64 weights, summed in float64
 // (csrc/weights.cuh).
 //
-// The weighted entries of the routes factored (full, per_row, packed; see
-// factored.cu, which replaces _factored_kernel) and direct (direct.cu,
-// which replaces _direct_kernel) for this class, in a source of their own:
-// the routes share one template instantiation per data type here, and the
-// three classes compile side by side, each in its own nvcc.
+// The weighted xh_slot_<data>_wf64 entries of the four wide data
+// types (slot.cu) for this class, in a source of their own: the three
+// classes compile side by side, each in its own nvcc.
 
 #include "slot.cuh"
 

@@ -78,15 +78,14 @@ JOINT2_PAIRS = (
     *(f"f32_{s}" for s in (*NARROW_SUFFIXES, "i32")),
     "f32_f64", "f64_f32", "i32_i64", "i64_i32",
 )
-#: the flat-slot routes of csrc/slot.cuh, each its own C symbol
-#: ``xh_<route>_<suffix>`` (csrc/factored.cu, csrc/direct.cu), and, for
-#: inputs with run-time stored types, ``xh_<route>_narrow`` (float32 and
-#: narrow data, csrc/slot_narrow.cu) and ``xh_<route>_mixed`` (no exact
-#: every other mix of types, csrc/slot_mixed.cu); the direct route's own
-#: kernel (csrc/direct.cuh) is ``xh_direct_rows_<suffix>``,
+#: the flat-slot kernel of csrc/slot.cuh, behind plan()'s factored routes
+#: and direct outside the direct-row kernel's envelope, is ``xh_slot_<suffix>``
+#: (csrc/slot.cu) and, for inputs with run-time stored types,
+#: ``xh_slot_narrow`` (float32 and narrow data, csrc/slot_narrow.cu) and
+#: ``xh_slot_mixed`` (every other mix of types, csrc/slot_mixed.cu); the
+#: direct route's own kernel (csrc/direct.cuh) is ``xh_direct_rows_<suffix>``,
 #: ``xh_direct_rows_narrow`` (csrc/direct_rows_narrow.cu) and
 #: ``xh_direct_rows_mixed`` (csrc/direct_rows_mixed.cu)
-SLOT_ROUTES = ("factored_full", "factored_per_row", "factored_packed", "direct")
 #: the weighted kernels' accumulator classes (csrc/weights.cuh): each
 #: kernel's weighted C symbol is ``xh_<kernel>_<suffix>_<class>``
 WEIGHT_CLASSES = ("wf64", "wu32", "wu64")
@@ -101,11 +100,11 @@ def symbols():
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     # input count, data pointers, strides (m1, m0, c1, c0 of each input),
     # thresholds, bin counts, dims (m1, m0, c1, c0), then the flat-slot
-    # routes' shared-slot and cluster caps
-    slot_args = [i32, p, p, p, p, p, i64, i32]
+    # kernel's reduce_all and its shared-slot and cluster caps
+    slot_args = [i32, p, p, p, p, p, i32, i64, i32]
     # the weights' pointer, their view's four strides, their type code
     weight_view = [p, p, i32]
-    # the flat-slot routes': then 16 bytes of scratch for exact float sums
+    # the flat-slot kernel's: then 16 bytes of scratch for exact float sums
     slot_weights = [*weight_view, p]
     # each kernel's arguments before and after the weights' that its
     # weighted entries take, its suffixes and its weight classes
@@ -120,12 +119,11 @@ def symbols():
         "one_input": ([p, p, p, p, i32, i32], weight_view, [p, p],
                       DTYPE_SUFFIXES + NARROW_SUFFIXES + UNSIGNED_SUFFIXES,
                       WEIGHT_CLASSES),
-        **{route: (slot_args, slot_weights, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES)
-           for route in SLOT_ROUTES},
+        "slot": (slot_args, slot_weights, [p], DTYPE_SUFFIXES, WEIGHT_CLASSES),
         # the coded entries take each input's stored type after the count
-        **{f"{route}_{kind}": ([i32, p, *slot_args[1:]], slot_weights, [p], ("",),
-                               WEIGHT_CLASSES)
-           for route in SLOT_ROUTES for kind in ("mixed", "narrow")},
+        **{f"slot_{kind}": ([i32, p, *slot_args[1:]], slot_weights, [p], ("",),
+                            WEIGHT_CLASSES)
+           for kind in ("mixed", "narrow")},
         "direct_rows": (slot_args[:6], weight_view, [p], DTYPE_SUFFIXES,
                         (*WEIGHT_CLASSES, ROUNDED_CLASS)),
         **{f"direct_rows_{kind}": ([i32, p, *slot_args[1:6]], weight_view, [p], ("",),

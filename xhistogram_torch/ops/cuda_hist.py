@@ -10,11 +10,11 @@ limits, where the JAX package's weighted gates count its TPU kernels'
 extra outputs. Every kernel family it names is ported, each a
 hand-written CUDA kernel with its plain PyTorch version beside it:
 ``one_input`` (``csrc/one_input.cuh``), ``joint2`` (``csrc/joint2.cuh``),
-``factored`` in its three variants (``csrc/factored.cu``) and ``direct``
-(``csrc/direct.cuh``: a warp per kept row; outside its envelope the
-direct entries of ``csrc/direct.cu``). ``factored`` and those entries
-share the flat-slot histogram of ``csrc/slot.cuh``. Each ``*_reference``
-is the plain version: digitize, flat slot, bincount.
+``factored`` (``csrc/slot.cuh``: the flat-slot histogram, over every
+element or one a kept row, as ``reduce_all`` says) and ``direct``
+(``csrc/direct.cuh``: a warp per kept row; outside its envelope the same
+flat-slot kernel per kept row). Each ``*_reference`` is the plain
+version: digitize, flat slot, bincount.
 
 Every wrapper takes its data as ``(m, c)`` layouts or as the ``(m1, m0,
 c1, c0)`` views of ``utils.axes.strided_layout``: kept rows ``r = i1 * m0 +
@@ -56,7 +56,7 @@ it read (``last_launch()["loads"]``). A wrapper takes the plain version
 only for CPU tensors; for a CUDA tensor it launches the kernel or raises.
 
 Each kernel is a registered torch op, ``torch.ops.xhistogram.one_input``,
-``.joint2``, ``.factored`` (the variant a ``str``) and ``.direct``
+``.joint2``, ``.factored`` and ``.direct``
 (``torch.library.custom_op``): the op runs the kernel on CUDA tensors and
 the plain version on CPU tensors, counts the kernel's launches, and returns
 the output in the weights' accumulator class (int64 counts; float64, int32
@@ -120,8 +120,7 @@ _MAX_EDGES = 32768
 #: does not count)
 ONE_INPUT_LAUNCHES = 0
 JOINT2_LAUNCHES = 0
-#: by variant: "full", "per_row", "packed"
-FACTORED_LAUNCHES = {"full": 0, "per_row": 0, "packed": 0}
+FACTORED_LAUNCHES = 0
 DIRECT_LAUNCHES = 0
 
 #: the most slots of a row's histogram that factored and direct keep in
@@ -141,7 +140,7 @@ MAX_CLUSTER_CTAS = 8
 _MAX_SLOT_INPUTS = 32  # csrc/slot.cuh and csrc/direct.cuh kMaxInputs
 #: the direct-row kernel's envelope (csrc/direct.cuh): rows of at most 255
 #: elements, at most 8192 slots, inputs of any dtypes. The direct route runs
-#: the flat-slot template's entries (csrc/direct.cu) outside it
+#: the flat-slot kernel (csrc/slot.cuh) outside it
 _DIRECT_ROWS_MAX_COLS = 255
 _DIRECT_ROWS_MAX_SLOTS = 8192
 #: the weight dtypes whose finished sums are float32, rounded once from
@@ -861,9 +860,6 @@ def _(a, b, thr_a, thr_b, weights, nba, nbb):
     return a.new_empty((1, nba * nbb + 1), dtype=_out_dtype(weights))
 
 
-_FACTORED_VARIANTS = tuple(FACTORED_LAUNCHES)
-
-
 def _check_slot_operands(name, arrays_2d, thresholds, nbins, weights):
     if not 1 <= len(arrays_2d) == len(thresholds) == len(nbins):
         raise ValueError(
@@ -953,11 +949,10 @@ def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, reduce_all, tail, out
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
 
 
-def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
-                    weights):
+def _slot_hist_cuda(name, arrays_2d, thresholds, nbins, reduce_all, weights):
     """(counts or weighted sums in their accumulator class, launches) of the
-    flat-slot kernel of ``route`` (``csrc/slot.cuh``) on CUDA tensors, with
-    the operands of ``_slot_operands``; any failure raises."""
+    flat-slot kernel (``csrc/slot.cuh``, the ``xh_slot_*`` entries) on CUDA
+    tensors, with the operands of ``_slot_operands``; any failure raises."""
     op, arrays, thr = _slot_operands(name, arrays_2d, thresholds)
     n = len(arrays)
     shape = (*_rows(arrays[0], reduce_all), math.prod(nbins) + 1)
@@ -973,9 +968,9 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
         # where the kernel keeps float sums exact (its launcher zeroes it)
         scratch = torch.empty(2, dtype=torch.int64, device=out.device)
     _record(op.loads, out.device)
-    _launch_slot_entry(name, getattr(_build.load(), f"xh_{route}_{op.entry}{suffix}"),
+    _launch_slot_entry(name, getattr(_build.load(), f"xh_slot_{op.entry}{suffix}"),
                        [n, *_codes_arg(op)], arrays, thr, nbins, reduce_all,
-                       [MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args,
+                       [int(reduce_all), MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args,
                         *([] if weights is None else
                           [None if scratch is None else scratch.data_ptr()])], out)
     if weights is not None:
@@ -986,30 +981,29 @@ def _slot_hist_cuda(name, route, arrays_2d, thresholds, nbins, reduce_all,
     return out, 1
 
 
-def factored_reference(arrays_2d, thresholds, nbins, variant, weights=None):
+def factored_reference(arrays_2d, thresholds, nbins, reduce_all, weights=None):
     """Plain PyTorch factored, with ``factored``'s contract
     (``pallas_hist._run_factored``'s counts)."""
-    return _slot_counts_reference(arrays_2d, thresholds, nbins, variant == "full",
-                                  weights)
+    return _slot_counts_reference(arrays_2d, thresholds, nbins, reduce_all, weights)
 
 
-def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
-    """Joint histogram of N inputs over all elements or per kept row: the
-    routes ``factored`` (``variant="full"``), ``factored_per_row``
-    (``"per_row"``) and ``factored_packed`` (``"packed"``) of ``plan``.
+def factored(arrays_2d, thresholds, nbins, reduce_all, weights=None, finish=True):
+    """Joint histogram of N inputs over all elements (``reduce_all``) or per
+    kept row: the routes ``factored`` (``reduce_all``), ``factored_per_row``
+    and ``factored_packed`` of ``plan``, which run the same kernel.
 
     ``arrays_2d`` are N ``(m, c)`` layouts or ``(m1, m0, c1, c0)`` views of
     one shape, with any strides (broadcast inputs keep their zero strides;
     the kernel reads every view in place); ``thresholds[k]`` is input k's compare-form thresholds
     (``bins.compare_form(edges, dtype).edges`` with ``n_hi_clip == 0``) in
     its dtype on its device, ``nbins[k]`` its bin count. Returns
-    ``(1 if variant == "full" else m, prod(nbins) + 1)`` int64 counts with
+    ``(1 if reduce_all else m, prod(nbins) + 1)`` int64 counts with
     a zero trailing trash slot; with ``weights`` (an ``(m, c)`` view with
     any strides, read in place like the data), the sums of the weights in
     their ``weighted_dtype`` instead (``finish=False``: in their
     accumulator class, as the op ``xhistogram::factored`` returns them).
 
-    A CUDA tensor launches the CUDA kernel (``csrc/factored.cu``), and any
+    A CUDA tensor launches the CUDA kernel (``csrc/slot.cu``), and any
     failure raises. Every input is read in place at its own width: inputs
     of one wide dtype by its entry; float32 and narrow inputs (bool, 8- and
     16-bit integers, float16, bfloat16; thresholds in their compare dtype)
@@ -1018,13 +1012,9 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
     (``csrc/slot_mixed.cu``: int64 compared in int64, the rest in float64)
     (``operand_plan``). A CPU tensor runs ``factored_reference``.
     """
-    if variant not in _FACTORED_VARIANTS:
-        raise ValueError(
-            f"factored variant must be one of {_FACTORED_VARIANTS}, got {variant!r}"
-        )
     _check_slot_operands("factored", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.factored(list(arrays_2d), list(thresholds), weights,
-                                        [int(nb) for nb in nbins], variant)
+                                        [int(nb) for nb in nbins], bool(reduce_all))
     out = out.reshape(-1, out.shape[-1])
     return _finish(out, weights) if finish else out
 
@@ -1032,23 +1022,23 @@ def factored(arrays_2d, thresholds, nbins, variant, weights=None, finish=True):
 @torch.library.custom_op(
     "xhistogram::factored", mutates_args=(),
     schema="(Tensor[] arrays, Tensor[] thresholds, Tensor? weights, int[] nbins, "
-           "str variant) -> Tensor",
+           "bool reduce_all) -> Tensor",
 )
-def _factored_op(arrays, thresholds, weights, nbins, variant):
-    """The factored kernel in ``variant`` (its plain version on CPU
-    tensors), with its output in the weights' accumulator class."""
+def _factored_op(arrays, thresholds, weights, nbins, reduce_all):
+    """The factored kernel (its plain version on CPU tensors), with its
+    output in the weights' accumulator class."""
+    global FACTORED_LAUNCHES
     if arrays[0].device.type == "cpu":
-        return _slot_sums_reference(arrays, thresholds, nbins, variant == "full",
+        return _slot_sums_reference(arrays, thresholds, nbins, reduce_all, weights)
+    out, launched = _slot_hist_cuda("factored", arrays, thresholds, nbins, reduce_all,
                                     weights)
-    out, launched = _slot_hist_cuda("factored", f"factored_{variant}", arrays,
-                                    thresholds, nbins, variant == "full", weights)
-    FACTORED_LAUNCHES[variant] += launched
+    FACTORED_LAUNCHES += launched
     return out
 
 
 @_factored_op.register_fake
-def _(arrays, thresholds, weights, nbins, variant):
-    return arrays[0].new_empty((*_rows(arrays[0], variant == "full"), math.prod(nbins) + 1),
+def _(arrays, thresholds, weights, nbins, reduce_all):
+    return arrays[0].new_empty((*_rows(arrays[0], reduce_all), math.prod(nbins) + 1),
                                dtype=_out_dtype(weights))
 
 
@@ -1079,9 +1069,9 @@ def direct(arrays_2d, thresholds, nbins, weights=None, finish=True):
     per row; float sums are rounded to float32 as each row is stored,
     unless ``finish=False``), with the entries of ``operand_plan("slot",
     ...)`` (``direct_rows_narrow.cu``, ``direct_rows_mixed.cu`` for inputs
-    of several types, each read in place); the rest the flat-slot
-    template's direct entries (``csrc/direct.cu``, ``slot_narrow.cu``,
-    ``slot_mixed.cu``). A CPU tensor runs ``direct_reference``.
+    of several types, each read in place); the rest the flat-slot kernel
+    per kept row, as ``factored`` runs it. A CPU tensor runs
+    ``direct_reference``.
     """
     _check_slot_operands("direct", arrays_2d, thresholds, nbins, weights)
     out = torch.ops.xhistogram.direct(list(arrays_2d), list(thresholds), weights,
@@ -1129,8 +1119,8 @@ def _direct_op(arrays, thresholds, weights, nbins, finish=False):
     if cols <= _DIRECT_ROWS_MAX_COLS and math.prod(nbins) <= _DIRECT_ROWS_MAX_SLOTS:
         out, launched = _direct_rows_cuda(arrays, thresholds, nbins, weights, rounds)
     else:
-        out, launched = _slot_hist_cuda("direct", "direct", arrays, thresholds, nbins,
-                                        False, weights)
+        out, launched = _slot_hist_cuda("direct", arrays, thresholds, nbins, False,
+                                        weights)
         if rounds:
             out = out.to(torch.float32)
     DIRECT_LAUNCHES += launched

@@ -14,8 +14,8 @@ needs them; no operand is gathered. Per mesh dim, the rules allow:
   - data and weights sharded on a kept-row dim (the first of an ``(m, c)``
     layout, either of the first two of an ``(m1, m0, c1, c0)`` view): the
     result is ``Shard`` on that dim of its kept rows, or ``Partial()``
-    where the op reduces all rows (joint2; one_input with ``reduce_all``;
-    factored "full"), which reduces every dim;
+    where the op reduces all rows (joint2; one_input and factored with
+    ``reduce_all``), which reduces every dim;
   - everything replicated.
 
 Thresholds are always ``Replicate()``. The outputs are the ops' accumulator
@@ -81,13 +81,14 @@ def rules():
         return _rules(2, weights is not None, True, ndim=a.ndim)
 
     @register_sharding(ops.factored.default)
-    def factored(arrays, thresholds, weights, nbins, variant):
-        return _rules(len(arrays), weights is not None, variant == "full",
+    def factored(arrays, thresholds, weights, nbins, reduce_all):
+        return _rules(len(arrays), weights is not None, reduce_all,
                       arrays[0].ndim, kept_dims=_kept_dims(arrays[0]))
 
     # DTensor caches a rule's choice by the arguments from the op's first
     # int on (register_sharding's RuntimeSchemaInfo), and factored has no
-    # int: without this, "full" and "per_row" would share one choice
+    # int: an int[] and a bool do not count, so without this a full
+    # reduction and kept rows would share one choice
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
 

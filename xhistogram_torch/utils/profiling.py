@@ -44,11 +44,10 @@ import os
 import threading
 import time
 
-import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot", "trace", "measure",
+__all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot", "trace",
            "SELF_NS", "CALLS", "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS"]
 
 #: the file ``trace`` writes in its log directory
@@ -177,23 +176,3 @@ def trace(log_dir):
     with profile(activities=activities, record_shapes=True) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(os.fspath(log_dir), TRACE_FILE))
-
-
-def measure(fn, *args, reps=5, warmup=1):
-    """Wall-clock ``fn(*args)`` to completion on its device (synchronising
-    CUDA before and after each call). Returns (median_seconds, seconds)."""
-
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    for _ in range(warmup):
-        fn(*args)
-    times = []
-    for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        fn(*args)
-        sync()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times)), times
