@@ -396,6 +396,114 @@ def test_one_input_chunks_within_its_32_bit_counters(cuda):
     np.testing.assert_array_equal(h.cpu().numpy(), want)
 
 
+# --- one_input into an uninitialised output -------------------------------------
+
+#: a non-zero pattern for each dtype of one_input's output
+_POISON = {torch.int64: -1, torch.int32: -1, torch.float64: float("nan")}
+
+
+def _dirty_one_input(monkeypatch, x, edges, reduce_all, weights=None, want=None):
+    """one_input's raw output (``finish=False``) on the card, its output
+    allocated dirty: the ``torch.empty`` of the call hands back memory
+    filled with a non-zero pattern (-1 in integers, NaN in float64), as a
+    block the caching allocator reuses may hold. Every slot must equal the
+    plain version's (or ``want``), the trash slot a zero. Returns the launch
+    record and the change of ``profiling.ONE_INPUT_OUTPUTS``."""
+    real_empty = torch.empty
+    handed = []
+
+    def dirty_empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        if t.is_cuda and t.dtype in _POISON:
+            handed.append(t.fill_(_POISON[t.dtype]).data_ptr())
+        return t
+
+    nb = len(edges) - 1
+    ce = tbins.compare_form(np.asarray(edges), _compare_dtype(x))
+    thr = torch.from_numpy(ce.edges).to(x.device)
+    before = dict(profiling.ONE_INPUT_OUTPUTS)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", dirty_empty)
+        got = cuda_hist.one_input(x, thr, nb, reduce_all, weights=weights, finish=False)
+    torch.cuda.synchronize()
+    assert handed == [got.data_ptr()]  # the output is the dirty block
+    launch = cuda_hist.last_launch()
+    counted = {k: profiling.ONE_INPUT_OUTPUTS[k] - before[k] for k in before}
+    assert (got[:, -1] == 0).all()
+    if want is None:
+        want = cuda_hist._slot_sums_reference([x], [thr], [nb], reduce_all, weights)
+    _assert_sums_equal(got, want.reshape(got.shape).to(got.device))
+    return launch, counted
+
+
+# (shape, bins, full reduction, weight dtype, counter layout, zeroed): whole
+# kept rows a block in each layout (the kernel stores every slot), rows split
+# across column tiles and full reductions (the launcher zeroes the output)
+DIRTY_CASES = [
+    ((4096, 8192), 8, False, None, "lane-private", False),
+    ((4096, 8192), 8, False, torch.float64, "lane-private", False),
+    ((4096, 64), 50, False, None, "warp replicas", False),
+    ((4096, 64), 50, False, torch.int32, "warp replicas", False),
+    ((4096, 64), 50, False, torch.int64, "aggregated", False),
+    ((16, 1 << 17), 50, False, torch.float32, "lane-private", True),
+    ((16, 1 << 17), 200, False, None, "warp replicas", True),
+    ((4, 1 << 18), 50, True, None, "lane-private", True),
+    ((4, 1 << 18), 1024, True, torch.int64, "aggregated", True),
+]
+
+
+@pytest.mark.parametrize("shape,nb,reduce_all,wdtype,layout,zeroed", DIRTY_CASES,
+                         ids=[f"{c[0][0]}x{c[0][1]}-{c[1]}-{'full' if c[2] else 'rows'}"
+                              f"-{c[3]}" for c in DIRTY_CASES])
+def test_one_input_writes_every_slot_of_a_dirty_output(cuda, monkeypatch, shape, nb,
+                                                       reduce_all, wdtype, layout, zeroed):
+    gen = torch.Generator(device=cuda).manual_seed(nb + shape[1])
+    x = 1.5 * torch.randn(shape, device=cuda, generator=gen)
+    x[::7, ::3] = float("nan")
+    w = None if wdtype is None else _weights(shape, wdtype, cuda, seed=nb)
+    edges = _edges(nb) if nb <= 64 else np.sort(
+        np.random.default_rng(nb).normal(0, 1.5, nb + 1))
+    launch, counted = _dirty_one_input(monkeypatch, x, edges, reduce_all, weights=w)
+    assert (launch["layout"], launch["zeroed"]) == (layout, zeroed), launch
+    assert counted == {"stored": int(not zeroed), "zeroed": int(zeroed)}
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["counts", "float32-weights"])
+def test_one_input_stores_every_slot_of_the_year(cuda, monkeypatch, weighted):
+    """The per-cell year's 1,036,800 kept rows of 80 bins, as the public
+    call lays them out ((cells, days), strides (1, cells)): blocks own whole
+    rows, so the launcher zeroes nothing and the kernel stores all 81 slots
+    of every row into the dirty output."""
+    x, edges = _sst_year(cuda)
+    layout = x.reshape(365, -1).t()
+    w = None
+    if weighted:
+        gen = torch.Generator(device=cuda).manual_seed(17)
+        w = (torch.rand(x.shape, device=cuda, generator=gen) * 4 - 1).reshape(365, -1).t()
+    launch, counted = _dirty_one_input(monkeypatch, layout, edges, False, weights=w)
+    assert launch["layout"] == ("aggregated" if weighted else "warp replicas"), launch
+    assert not launch["zeroed"] and counted == {"stored": 1, "zeroed": 0}
+
+
+def test_one_input_zeroes_rows_split_into_chunks(cuda, monkeypatch):
+    """The chunk test's view, (1, 2, 65,536, sms x 65,536 + 1) int8 with the
+    65,536 a broadcast: each kept row spans column tiles of several runs, so
+    blocks add into it and the launcher zeroes the dirty output first."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile = 1 << 16
+    width = sms * tile + 1
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randint(-128, 128, (2, width), device=cuda, generator=gen,
+                         dtype=torch.int8)
+    view = base.expand(tile, 2, width).permute(1, 0, 2).unsqueeze(0)
+    edges = np.linspace(-128, 128, 101)
+    counts = tile * reference_numpy(base.cpu().numpy(), edges, (1,))
+    want = torch.from_numpy(np.pad(counts, ((0, 0), (0, 1))))
+    launch, counted = _dirty_one_input(monkeypatch, view, edges, False, want=want)
+    assert launch["layout"] == "lane-private" and launch["zeroed"], launch
+    assert counted == {"stored": 0, "zeroed": 1}
+
+
 # --- factored and direct (csrc/slot.cuh) ---------------------------------------
 
 # factored over every element, per kept row (rows of 256 or more elements,

@@ -18,6 +18,7 @@ from xhistogram_tpu.ops import pallas_hist
 import xhistogram_torch
 from xhistogram_torch import bins as tbins
 from xhistogram_torch.ops import cuda_hist
+from xhistogram_torch.utils import profiling
 from xhistogram_torch.utils.axes import canonicalize_2d, normalize_axis
 from ts_cases import EDGE_SETS, edge_case_values, reference_numpy
 
@@ -200,6 +201,41 @@ def test_wrapper_contract_on_cpu():
         cuda_hist.one_input(x.reshape(-1), thr, 50, True)
     with pytest.raises(ValueError, match="share a device"):
         cuda_hist.one_input(x, thr.to("meta"), 50, False)
+
+
+def test_the_output_counter_has_one_key_a_way():
+    # "stored": the kernel wrote every slot; "zeroed": the launcher zeroed
+    # the output first
+    assert set(profiling.ONE_INPUT_OUTPUTS) == {"stored", "zeroed"}
+    assert all(isinstance(n, int) and n >= 0
+               for n in profiling.ONE_INPUT_OUTPUTS.values())
+
+
+@pytest.mark.parametrize("how", ["stored", "zeroed"])
+def test_the_output_counter_counts_one_launch_once(how):
+    before = dict(profiling.ONE_INPUT_OUTPUTS)
+    profiling.note_one_input_output(how)
+    after = profiling.ONE_INPUT_OUTPUTS
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == how) for k in before}
+    with pytest.raises(KeyError):
+        profiling.note_one_input_output("filled")
+    assert profiling.ONE_INPUT_OUTPUTS == after
+
+
+@pytest.mark.parametrize("weights", [None, torch.float32, torch.int64], ids=str)
+@pytest.mark.parametrize("reduce_all", [False, True], ids=["rows", "full"])
+def test_a_cpu_call_notes_no_output(reduce_all, weights):
+    """The CPU path launches nothing, so it counts no launch's output; its
+    answer's trash slot is zero, as the kernel's is."""
+    x = torch.from_numpy(_data(np.float32, (6, 40), seed=4))
+    thr = torch.from_numpy(tbins.compare_form(_edges(50), np.float32).edges)
+    w = None if weights is None else torch.arange(240).reshape(6, 40).to(weights)
+    before = dict(profiling.ONE_INPUT_OUTPUTS), cuda_hist.ONE_INPUT_LAUNCHES
+    out = cuda_hist.one_input(x, thr, 50, reduce_all, weights=w, finish=False)
+    assert (profiling.ONE_INPUT_OUTPUTS, cuda_hist.ONE_INPUT_LAUNCHES) == before
+    assert out.shape == (1 if reduce_all else 6, 51)
+    assert (out[:, -1] == 0).all()
 
 
 @pytest.mark.parametrize(

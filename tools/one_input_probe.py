@@ -3,7 +3,12 @@
 Run from the repository root on a machine with a Hopper card and the CUDA
 toolkit:
 
-    python3 tools/one_input_probe.py
+    python3 tools/one_input_probe.py [--root DIR] [--year-only]
+
+``--root`` imports ``xhistogram_torch`` from another checkout (for example
+a parent commit unpacked with ``git archive``), so two versions can be
+measured in turns within one run on one card; ``--year-only`` measures the
+per-cell year alone.
 
 It prints, each line beside the card's name and power limit, and as one
 JSON line at the end, for each one_input cell: BASELINE config 1 (10^8
@@ -33,10 +38,13 @@ from the call to its return with the card idle, and over back-to-back
 calls their wall time against the device time of the kernel's own
 launches in the same calls (the device's idle share); for the year also
 the public call (CUDA events) against the plain scatter path
-(``method="scatter"``), unweighted and weighted. It imports nothing of
-JAX.
+(``method="scatter"``), unweighted and weighted, and the op's whole device
+time a call (``cuda_hist.one_input``: its output's allocation, any zero
+fill or memset of it, and the kernel; CUDA events over back-to-back calls),
+split by device op under ``torch.profiler``. It imports nothing of JAX.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -88,11 +96,33 @@ def sst_year(dev, gen):
     return x.masked_fill_(land, float("nan"))
 
 
+def op_split(run, reps):
+    """Device milliseconds a call of ``run()`` by device op (kernels, fills
+    and memsets), from ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return {e.key[:100]: e.device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("one_input_probe.py needs a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=None)
+    p.add_argument("--year-only", action="store_true")
+    args = p.parse_args()
+    root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), ".."))
+    sys.path.insert(0, root)
     import xhistogram_torch
+    if not os.path.dirname(xhistogram_torch.__file__).startswith(root):
+        raise SystemExit(f"imported {xhistogram_torch.__file__}, not from {root}")
     from xhistogram_torch import core
     from xhistogram_torch.bins import compare_form
     from xhistogram_torch.ops import _build, cuda_hist
@@ -100,9 +130,10 @@ def main():
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    print(f"# card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"# root {root} | card: {card} | torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
     _build.load()
-    result = {"card": card, "cells": {}}
+    result = {"root": root, "card": card, "cells": {}}
 
     def thresholds(edges, x):
         return torch.from_numpy(compare_form(edges, core._compare_dtype(x)).edges).to(dev)
@@ -150,8 +181,30 @@ def main():
               + (f"; widening copy then kernel {row['widened_copy_and_kernel_ms']:.4f} ms"
                  if widen is not None else "") + f" [{card}]")
 
-    e50, e64 = np.linspace(-4, 4, 51), np.linspace(-4, 4, 65)
+    def year_cells(gen):
+        year = sst_year(dev, gen)
+        e_year = np.linspace(-2, 38, 81).astype(np.float32)
+        layout = canonicalize_2d(year, (0,))
+        label = f"year, {tuple(layout.shape)} strides {layout.stride()} float32, 80 bins"
+        breakdown(label, layout, e_year, e_year - 100, False)
+        thr = thresholds(e_year, layout)
+        run = lambda: cuda_hist.one_input(layout, thr, 80, False)  # noqa: E731
+        op_ms = event_ms(run, reps=BACK_TO_BACK)
+        split = op_split(run, BACK_TO_BACK)
+        result["year_op"] = {"op_ms": op_ms, "by_device_op_ms": split}
+        print(f"# year op, the whole call on the card (output allocation, any zero "
+              f"fill or memset, kernel), {BACK_TO_BACK} back-to-back calls: "
+              f"{op_ms:.4f} ms a call; by device op (profiler): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" [{card}]")
+        return year, e_year, layout
+
     gen = torch.Generator(device=dev).manual_seed(0)
+    if args.year_only:
+        year_cells(gen)
+        print(json.dumps(result))
+        return
+
+    e50, e64 = np.linspace(-4, 4, 51), np.linspace(-4, 4, 65)
     x = torch.randn(CONFIG1, device=dev, generator=gen)
     w = torch.rand(CONFIG1, device=dev, generator=gen)
     breakdown("config 1, (1, 10^8) float32, 50 bins, full", x.reshape(1, -1), e50,
@@ -226,8 +279,9 @@ def main():
             "kernel_ms": kernel_ms / BACK_TO_BACK, "idle_share": 1 - kernel_ms / wall_ms}
         print(f"# {label}: host ms from call to return, card idle: "
               f"{[round(v, 3) for v in host]}; {BACK_TO_BACK} back-to-back calls: "
-              f"{wall_ms / BACK_TO_BACK:.4f} ms per call on the wall, kernel "
-              f"(output zeroing included) {kernel_ms / BACK_TO_BACK:.4f} ms per call, "
+              f"{wall_ms / BACK_TO_BACK:.4f} ms per call on the wall, kernel (any "
+              f"zeroing of the output included) {kernel_ms / BACK_TO_BACK:.4f} ms per "
+              f"call, "
               f"device idle share {1 - kernel_ms / wall_ms:.4f} [{card}]")
 
     idle_share("config 1 public call", lambda: xhistogram_torch.histogram(x, bins=[e50]))
@@ -236,13 +290,10 @@ def main():
     del x, sst
     torch.cuda.empty_cache()
 
-    year = sst_year(dev, gen)
-    e_year = np.linspace(-2, 38, 81).astype(np.float32)
+    year, e_year, layout = year_cells(gen)
     w_year = torch.rand(YEAR, device=dev, generator=gen)
-    layout = canonicalize_2d(year, (0,))
-    label = f"year, {tuple(layout.shape)} strides {layout.stride()} float32, 80 bins"
-    breakdown(label, layout, e_year, e_year - 100, False)
-    breakdown(f"{label}, U(0,1) float32 weights", layout, e_year, e_year - 100, False,
+    breakdown(f"year, {tuple(layout.shape)} float32, 80 bins, U(0,1) float32 weights",
+              layout, e_year, e_year - 100, False,
               weights=canonicalize_2d(w_year, (0,)))
     for weights in (None, w_year):
         kind = "unweighted" if weights is None else "float32 weights"

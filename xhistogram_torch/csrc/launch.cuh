@@ -17,7 +17,9 @@ namespace xh {
 // layout (one_input.cuh) and copies of the histogram; a direct-row launch
 // (direct.cuh) its warps a block (one row each at a time), blocks and the
 // most rows a warp walks; a flat-slot launch whose float sums were kept as
-// exact integers in shared memory (slot.cuh) sets exact.
+// exact integers in shared memory (slot.cuh) sets exact; a one_input launch
+// whose launcher zeroed the output before the kernel (a full reduction, rows
+// split across column tiles; else the kernel stores every slot) sets zeroed.
 struct LaunchRecord {
   int cluster;
   int passes;
@@ -30,6 +32,7 @@ struct LaunchRecord {
   int blocks;
   int rows_per_warp;
   int exact;
+  int zeroed;
 };
 inline LaunchRecord last_launch = {};
 

@@ -20,8 +20,12 @@
 // (xhistogram_torch.bins.compare_form in C, or its int32 thresholds
 // converted to float32 for 16-bit integers, which keeps every comparison
 // of a 16-bit value). Output:
-// int64 (1 or m1 m0, nb + 1), zeroed by the caller; bin b of row r goes to
-// out[r * (nb + 1) + b], and the trailing trash slot stays zero.
+// int64 (1 or m1 m0, nb + 1); bin b of row r goes to out[r * (nb + 1) + b],
+// and the trailing trash slot is zero. A block that owns whole kept rows
+// stores every slot of them, zeros and the trash slot included, so the
+// output needs no zeroing pass; the launcher zeroes it first only where
+// blocks add into it instead (a full reduction, rows split across column
+// tiles).
 //
 // Weighted (policy xh::Sum<A>, weights.cuh): each counted element adds its
 // weight, a view with its own strides, read in place and converted
@@ -55,8 +59,10 @@
 //   warp that share a slot and the lowest of them adds their sum, in lane
 //   order, with a plain add.
 // - The flush sums lanes (a warp reduction), then copies, into the output:
-//   plain stores for whole rows, 64-bit atomics where a row is split across
-//   column tiles and for a full reduction, once a block.
+//   plain stores of every slot, trash slot included, for whole rows (one
+//   dense run of stores a tile); 64-bit atomics of the non-zero sums where
+//   a row is split across column tiles and for a full reduction, once a
+//   block, into an output the launcher zeroed.
 // - Reads: a tile that is contiguous in memory (a full reduction of a
 //   contiguous array, or one row of a row-major layout) and starts on a
 //   16-byte boundary is read 16 bytes a lane (4 float32, 8 bfloat16, 16
@@ -390,26 +396,34 @@ one_input_kernel(const L* __restrict__ a, xh::Dims dims, long long sm1,
       // a chunk's next tile of the same rows adds into their counters first
       if (!flush) continue;
       __syncthreads();
-      const bool owned = tl.col_tiles == 1;  // the block owns these whole rows
+      // the block owns these whole rows: it stores each of their slots,
+      // the trash slot (b == nb) a zero; else it adds the non-zero sums
+      const bool owned = tl.col_tiles == 1;
+      Out* row_out = out + r0 * (nb + 1);
       if constexpr (kPrivate) {  // one row: lanes, then the warp
-        for (int b = warp; b < nb; b += kWarps) {
+        for (int b = warp; b <= nb; b += kWarps) {
           Out v = 0;
-          for (int j = lane; j < kThreads; j += 32) {
-            v += hist[b * kThreads + j];
-            hist[b * kThreads + j] = Shared(0);
+          if (b < nb) {
+            for (int j = lane; j < kThreads; j += 32) {
+              v += hist[b * kThreads + j];
+              hist[b * kThreads + j] = Shared(0);
+            }
+            v = warp_sum(v);
           }
-          v = warp_sum(v);
-          if (lane == 0) flush_to(out + r0 * (nb + 1) + b, v, owned);
+          if (lane == 0) flush_to(row_out + b, v, owned);
         }
-      } else {
-        for (unsigned sl = threadIdx.x; sl < rr * nb; sl += blockDim.x) {
+      } else {  // the tile's rows' slots as one run
+        for (unsigned sl = threadIdx.x; sl < rr * (nb + 1); sl += blockDim.x) {
+          const unsigned r = sl / (nb + 1);
+          const unsigned b = sl - r * (nb + 1);
           Out v = 0;
-          for (int cp = 0; cp < copies; ++cp) {
-            v += hist[cp * one_copy + sl];
-            hist[cp * one_copy + sl] = Shared(0);
+          if (b < (unsigned)nb) {
+            for (int cp = 0; cp < copies; ++cp) {
+              v += hist[cp * one_copy + r * nb + b];
+              hist[cp * one_copy + r * nb + b] = Shared(0);
+            }
           }
-          const unsigned r = sl / nb;
-          flush_to(out + (r0 + r) * (nb + 1) + (sl - r * nb), v, owned);
+          flush_to(row_out + sl, v, owned);
         }
       }
       __syncthreads();
@@ -499,9 +513,20 @@ int launch(const void* a, const xh::Dims& dims, const long long* st, const void*
       kPrivate ? smem_most
                : stage + sizeof(Shared) * (size_t)(tl.copies * one_copy) +
                      (kAggregated ? sizeof(Shared) * kThreads : 0);
+  // blocks that own whole kept rows store every slot of the output; a full
+  // reduction and rows split across column tiles add into it, so it starts
+  // at zero
+  const bool zero = reduce_all || tl.col_tiles > 1;
+  if (zero) {
+    const size_t rows = reduce_all ? 1 : (size_t)(dims.m1 * dims.m0);
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, rows * (nb + 1) * sizeof(typename W::Out), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   xh::last_launch = {1, 1, 1, {cells, 0}, 1,
                      kPrivate ? kLanePrivate : kAggregated ? oi::kAggregated : kReplicas,
                      tl.copies, 0, (int)grid};
+  xh::last_launch.zeroed = zero ? 1 : 0;
   one_input_kernel<L, C, W, kPrivate><<<(unsigned int)grid, kThreads, smem, stream>>>(
       static_cast<const L*>(a), dims, st[0], st[1], st[2], st[3],
       static_cast<const C*>(thr), nb, cells, tl, reduce_all, w,
@@ -509,12 +534,14 @@ int launch(const void* a, const xh::Dims& dims, const long long* st, const void*
   return (int)cudaGetLastError();
 }
 
-// Adds the counts (or weighted sums) of the (m1, m0, c1, c0) view a (dims
+// Writes the counts (or weighted sums) of the (m1, m0, c1, c0) view a (dims
 // dim[0..3], strides st[0..3] = (sm1, sm, sc1, sc) in elements, of load type
-// L) against nb + 1 thresholds of compare type C into out, which the caller
-// zeroes; the first block writes the widest window of its cell table into
-// *widest. A full reduction's one row of two column levels comes as (1, c1,
-// 1, c0), its rows summed (cuda_hist._geometry). Launches on `stream` and
+// L) against nb + 1 thresholds of compare type C into out, every slot of it
+// (the trash slot zero), whatever out held: the kernel stores whole rows,
+// and the launcher zeroes out on the stream first where the kernel adds
+// (xh::last_launch.zeroed); the first block writes the widest window of its
+// cell table into *widest. A full reduction's one row of two column levels
+// comes as (1, c1, 1, c0), its rows summed (cuda_hist._geometry). Launches on `stream` and
 // returns cudaGetLastError() (or the first failing CUDA call's error);
 // never synchronises.
 template <typename L, typename C, typename W>
@@ -557,9 +584,9 @@ int launch_one_input(const void* a, const long long* dim, const long long* st,
         stream);                                                             \
   }
 
-// Weighted: adds the sums of the weights w (a view with the four strides
+// Weighted: writes the sums of the weights w (a view with the four strides
 // wst, of the type `wcode` names within accumulator class A; weights.cuh)
-// into out, of type A, which the caller zeroes.
+// into out, of type A, as the counts are written.
 #define XH_ONE_INPUT_WEIGHTED(name, L, C, A)                                  \
   extern "C" int name(const void* a, const long long* dims,                  \
                       const long long* strides, const void* thr, int nb,     \

@@ -80,7 +80,7 @@ import torch
 from . import _build
 from .bincount import bincount2d_scatter, finish_sums, weight_sums
 from ..utils.axes import merged_levels
-from ..utils.profiling import note_weighted_slot
+from ..utils.profiling import note_one_input_output, note_weighted_slot
 from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
@@ -454,9 +454,9 @@ _EXACT_SCRATCH = [None]
 
 
 def _launch_record():
-    """``xh_last_launch``'s twelve ints (``csrc/launch.cuh``), read on the
+    """``xh_last_launch``'s thirteen ints (``csrc/launch.cuh``), read on the
     host."""
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * 13)()
     _build.load().xh_last_launch(out)
     return out
 
@@ -480,12 +480,14 @@ def last_launch():
     one_input adds its counter ``layout`` (one of ``ONE_INPUT_LAYOUTS``'
     names), ``copies`` (the histogram's copies in shared memory: one per
     lane, per warp, or replicas), ``blocks`` (its grid), ``load`` (the
-    dtype it read) and ``widest``, the widest window L of the cell table
-    its first block built (K is ``cells[0]``); reading ``widest``
-    synchronises with the card. ``exact`` says whether a flat-slot launch
-    kept its float sums as exact integers in shared memory (``exact_integer``),
-    and then ``fell_back`` counts the elements whose weight added as a
-    float instead; reading it synchronises with the card."""
+    dtype it read), ``zeroed`` (whether its launcher zeroed the output
+    before the kernel, for a full reduction or rows split across column
+    tiles; else the kernel stored every slot) and ``widest``, the widest
+    window L of the cell table its first block built (K is ``cells[0]``);
+    reading ``widest`` synchronises with the card. ``exact`` says whether a
+    flat-slot launch kept its float sums as exact integers in shared memory
+    (``exact_integer``), and then ``fell_back`` counts the elements whose
+    weight added as a float instead; reading it synchronises with the card."""
     out = _launch_record()
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
     loads, device, copied = _LAST_LOADS[0]
@@ -499,7 +501,8 @@ def last_launch():
                    rows_per_warp=out[10])
     if out[5]:
         rec.update(layout=ONE_INPUT_LAYOUTS[out[6]], copies=out[7], blocks=out[9],
-                   load=loads[0], widest=int(_WIDEST[device].item()))
+                   load=loads[0], zeroed=bool(out[12]),
+                   widest=int(_WIDEST[device].item()))
     return rec
 
 
@@ -737,10 +740,12 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     if a2d.device.type == "cpu":
         return _slot_sums_reference([a2d], [thr], [nb], reduce_all, weights)
     thr = thr.to(_ONE_INPUT_COMPARE.get(a2d.dtype, thr.dtype)).contiguous()
-    out = torch.zeros(*_rows(a2d, reduce_all), nb + 1, dtype=_out_dtype(weights),
-                      device=a2d.device)
+    shape = (*_rows(a2d, reduce_all), nb + 1)
     if a2d.numel() == 0:
-        return out
+        return torch.zeros(shape, dtype=_out_dtype(weights), device=a2d.device)
+    # every slot of the output is stored by the kernel or zeroed by its
+    # launcher
+    out = torch.empty(shape, dtype=_out_dtype(weights), device=a2d.device)
     dims, strides = _geometry(a2d, reduce_all)
     suffix, w_args = _weight_args(
         weights, None if weights is None else _geometry(weights, reduce_all)[1])
@@ -759,6 +764,7 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     if rc != 0:
         raise RuntimeError(f"one_input CUDA kernel failed to launch: cudaError {rc}")
     ONE_INPUT_LAUNCHES += 1
+    note_one_input_output("zeroed" if _launch_record()[12] else "stored")
     return out
 
 

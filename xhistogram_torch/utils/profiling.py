@@ -34,7 +34,10 @@ one inside (``note_syncs``). ``ROUTES`` counts the calls that took each
 route (``note_route``): the kernel that ``plan()`` and the method gate
 settled on, or ``"scatter"`` for the plain path, once a call.
 ``WEIGHTED_SLOTS`` counts the weighted launches of the flat-slot kernel
-(``csrc/slot.cuh``) by where their sums went (``note_weighted_slot``).
+(``csrc/slot.cuh``) by where their sums went (``note_weighted_slot``), and
+``ONE_INPUT_OUTPUTS`` the launches of the one_input kernel
+(``csrc/one_input.cuh``) by how their output got its every slot
+(``note_one_input_output``).
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ import time
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot", "trace",
-           "SELF_NS", "CALLS", "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS"]
+__all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot",
+           "note_one_input_output", "trace", "SELF_NS", "CALLS", "HOST_SYNCS",
+           "ROUTES", "WEIGHTED_SLOTS", "ONE_INPUT_OUTPUTS"]
 
 #: the file ``trace`` writes in its log directory
 TRACE_FILE = "trace.json"
@@ -69,6 +73,12 @@ ROUTES = dict.fromkeys(("one_input", "joint2", "factored", "factored_per_row",
 #: shared memory (one block's, or a cluster's for integer weights);
 #: ``"device"``, sums added straight into the output in device memory
 WEIGHTED_SLOTS = dict.fromkeys(("exact", "shared", "device"), 0)
+#: {how: one_input launches in this process whose output was written so}
+#: (``note_one_input_output``): ``"stored"``, blocks that own whole kept rows
+#: stored every slot, trash slot included, into an uninitialised output;
+#: ``"zeroed"``, the launcher zeroed the output first and blocks added into
+#: it (a full reduction, or rows split across column tiles)
+ONE_INPUT_OUTPUTS = dict.fromkeys(("stored", "zeroed"), 0)
 
 _LOCK = threading.Lock()  # guards the totals and counters above
 _OPEN = threading.local()  # .spans: this thread's open spans; .call: its call's id
@@ -156,6 +166,13 @@ def note_weighted_slot(where):
     key of ``WEIGHTED_SLOTS``)."""
     with _LOCK:
         WEIGHTED_SLOTS[where] += 1
+
+
+def note_one_input_output(how):
+    """Count one one_input launch whose output was written ``how`` (a key
+    of ``ONE_INPUT_OUTPUTS``)."""
+    with _LOCK:
+        ONE_INPUT_OUTPUTS[how] += 1
 
 
 @contextlib.contextmanager
