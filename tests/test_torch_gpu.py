@@ -2341,6 +2341,51 @@ def test_readme_call_allocates_no_copy_of_its_view(cuda, dtype, weighted):
     _assert_sums_equal(h, want)
 
 
+def test_packed_int16_census_by_level_reads_in_place_with_exact_sums(cuda):
+    # GLORYS12V1's census by level (the benchmark's ts_glorys12v1_int16) on
+    # 4 months of a 0.5-degree grid: CF-packed int16 T and S with the fill
+    # value on land and rock, edges in packed units (no edge an integer),
+    # the product's 50 levels, whose thin top layers' volumes are not all
+    # whole multiples of the unit the largest sets. The public call runs
+    # factored per row on the narrow flat-slot entry, both inputs read as
+    # int16 where they lie, the volume summed as exact integers in a
+    # cluster but for the weights that fall back; counts equal the plain
+    # path's, sums the benchmark's reference within the cell's limit
+    import json
+
+    from portbench import reference, registry
+    from portbench.recipes import ts_depth_packed
+
+    config = {**json.loads((registry.HERE / "configs" / "ts_glorys12v1_int16.json")
+                           .read_text()), "months": 4, "nlat": 360, "nlon": 720}
+    limit = json.loads((registry.HERE / "traffic" / "levels_vol_packed.json")
+                       .read_text())["limits"]["sum_rel_gap"]
+    d = ts_depth_packed.make(config, 2**33 + 29, cuda, ["T", "S", "volume"])
+    t, s, vol = d["T"], d["S"], d["volume"]
+    assert t.shape == (4, 50, 259200) and t.dtype == torch.int16
+    edges = [d["T_edges"], d["S_edges"]]
+    before = (cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"],
+              dict(profiling.NARROW_READS))
+    h, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=vol)
+    torch.cuda.synchronize()
+    rec = cuda_hist.last_launch()
+    assert (cuda_hist.FACTORED_LAUNCHES, profiling.ROUTES["factored_per_row"]) == (
+        before[0] + 1, before[1] + 1)
+    assert rec["exact"] and rec["fell_back"] > 0 and rec["cluster"] > 1
+    assert rec["view"] == "in place" and rec["loads"] == (torch.int16, torch.int16)
+    assert {k: profiling.NARROW_READS[k] - before[2][k] for k in before[2]} == {
+        "in_place": 2, "widened": 0}
+    want = reference.histogram([t, s], edges, (0, 2), vol)
+    found = reference.compare({"hist": h, "edges": edges}, {"hist": want, "edges": edges})
+    assert found["sum_rel_gap"] <= limit, found
+    counts, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2))
+    assert cuda_hist.last_launch()["view"] == "in place"
+    plain, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), method="scatter")
+    assert counts.dtype == torch.int64 and int(counts.sum()) > 0
+    assert torch.equal(counts, plain)
+    assert torch.equal(counts.cpu(), reference.histogram([t, s], edges, (0, 2)).cpu())
+
+
 U32_EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1],
                      np.uint64)
 # the kernels take no edge at the top value (its closed bin needs the plain

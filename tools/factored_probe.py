@@ -22,6 +22,12 @@ It prints, each line beside the card's name and power limit:
   weights (not broadcast: the prologue reads all of them), exact against
   device memory in turns; and (b)-(d) for the README call by a (50, 64800)
   cell volume;
+- at GLORYS12V1's shape, the benchmark's ``ts_glorys12_levels_int16`` call
+  ((24, 50, 8,817,120) x 2 CF-packed int16 T and S by the
+  ``ts_depth_packed`` recipe, the fill value on land and rock, edges in
+  packed units, weighted by the (50, 8,817,120) cell volume): (a)-(d) as
+  for ECCO, the fallback share, each kernel's device time in (d) and the
+  kernel against the call's bytes bound (``--glorys-only``: these alone);
 - for each path of the factored and direct kernels (the README's per-depth
   T–S diagram, (73, 50, 64800) x 2 with ``axis=(0, 2)``; 5e7 pairs in
   1000x1000 bins; (1000, 100000) x 2 in 150x90 bins per row; (16384, 64) x 2
@@ -90,13 +96,15 @@ def census(label, T, S, vol, edges, card):
     in device memory, (d) exact, in turns, and the share of counted
     elements whose weight fell back to a float add. Returns ``run``."""
     from xhistogram_torch.bins import compare_form
+    from xhistogram_torch.core import _compare_dtype
     from xhistogram_torch.ops import cuda_hist
 
     times, levels, cells = T.shape
     view = (1, levels, times, cells)
     views = [x.as_strided(view, (0, cells, levels * cells, 1)) for x in (T, S)]
     wv = vol.as_strided(view, (0, cells, 0, 1))
-    thr = [torch.from_numpy(compare_form(e, np.float32).edges).to(T.device) for e in edges]
+    thr = [torch.from_numpy(compare_form(e, _compare_dtype(x)).edges).to(T.device)
+           for e, x in zip(edges, (T, S))]
     nbins = [len(e) - 1 for e in edges]
     slots = cuda_hist.MAX_SHARED_SLOTS
 
@@ -133,6 +141,50 @@ def census(label, T, S, vol, edges, card):
     return run
 
 
+def device_ops(label, run, card):
+    """Each device op's milliseconds a call of ``run()``, by the profiler."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                print(f"# {label}, device ms a call: {ev.key[:90]} "
+                      f"{ev.device_time_total / 3e3:.4f} [{card}]")
+    except Exception as exc:  # the profiler is a diagnostic: report and go on
+        print(f"# {label}: no profiler breakdown ({exc!r}) [{card}]")
+
+
+def glorys(dev, card):
+    """The GLORYS12V1 cell's call, kernel by kernel: (a)-(d) on its packed
+    int16 data, and the kernel against the call's bytes bound."""
+    from portbench import registry
+
+    cell = registry.Cell("ts_glorys12_levels_int16")
+    data = cell.recipe.make(cell.config, 2200000001, dev, ["T", "S", "volume"])
+    T, S, vol = data["T"], data["S"], data["volume"]
+    edges = [data["T_edges"], data["S_edges"]]
+    run = census(f"GLORYS12V1 {tuple(T.shape)} x 2 CF-packed int16, 280x340 bins per "
+                 f"level in packed units, by the {tuple(vol.shape)} volume", T, S, vol,
+                 edges, card)
+    device_ops("GLORYS12V1 (d)", run, card)
+    out_bytes = 4 * T.shape[1] * (len(edges[0]) - 1) * (len(edges[1]) - 1)
+    bound = (2 * T.numel() * T.element_size() + vol.numel() * 4 + out_bytes) / 3.35e12
+    d = event_ms(run, reps=5)
+    print(f"# GLORYS12V1 (d) kernel {d:.4f} ms against a bytes bound of "
+          f"{bound * 1e3:.4f} ms (the inputs read once and a float32 answer written "
+          f"once at 3.35 TB/s): {100 * bound * 1e3 / d:.2f}% [{card}]")
+    T.fill_(32767)  # above every edge: read and searched, nothing summed
+    a = event_ms(lambda: run(None), reps=5)
+    print(f"# GLORYS12V1 (a) T above every edge (reads and searches, nothing "
+          f"summed): kernel {a:.4f} ms [{card}]")
+    del data, T, S, vol, run
+    torch.cuda.empty_cache()
+
+
 def ecco(dev, card):
     """The ECCO cell's call, kernel by kernel: (a)-(d), the full-size
     weights' guard and the README call by cell volume (module docstring)."""
@@ -145,19 +197,7 @@ def ecco(dev, card):
     edges = [data["T_edges"], data["S_edges"]]
     run = census("ECCO (312, 50, 259200) x 2 float32, 280x340 bins per level, by the "
                  "(50, 259200) volume", T, S, vol, edges, card)
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                run()
-            torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if ev.device_time_total > 0:
-                print(f"# ECCO (d), device ms a call: {ev.key[:90]} "
-                      f"{ev.device_time_total / 3e3:.4f} [{card}]")
-    except Exception as exc:  # the profiler is a diagnostic: report and go on
-        print(f"# ECCO (d): no profiler breakdown ({exc!r}) [{card}]")
+    device_ops("ECCO (d)", run, card)
     full = vol.unsqueeze(0).expand(times, levels, cells).contiguous()
     fv = full.as_strided((1, levels, times, cells), (0, cells, levels * cells, 1))
     turns = {}
@@ -200,9 +240,13 @@ def main():
     card = card_line()
     print(f"# card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.load()
+    if "--glorys-only" in sys.argv[1:]:
+        glorys(dev, card)
+        return
     ecco(dev, card)
     if "--ecco-only" in sys.argv[1:]:
         return
+    glorys(dev, card)
 
     def edges(nb):
         return np.linspace(-4.0, 4.0, nb + 1)

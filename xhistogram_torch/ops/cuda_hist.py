@@ -80,7 +80,7 @@ import torch
 from . import _build
 from .bincount import bincount2d_scatter, finish_sums, weight_sums
 from ..utils.axes import merged_levels
-from ..utils.profiling import note_one_input_output, note_weighted_slot
+from ..utils.profiling import note_narrow_read, note_one_input_output, note_weighted_slot
 from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
@@ -446,6 +446,16 @@ def _record(loads, device, copied=False):
     """The launch record's loads, device and layout, for ``last_launch``."""
     _LAST_LOADS[0] = (loads, device, copied or _COPY_PENDING[0])
     _COPY_PENDING[0] = False
+
+
+def _note_in_place(inputs):
+    """Count the inputs of a 1- or 2-byte stored type that a launch just
+    read at their own width (``profiling.NARROW_READS["in_place"]``)."""
+    n = sum(x.element_size() <= 2 for x in inputs)
+    if n:
+        note_narrow_read("in_place", n)
+
+
 _WIDEST = {}  # per device: one int32 the one_input kernel writes L into
 #: the 16 bytes of scratch of the last flat-slot launch whose float sums were
 #: exact (``csrc/slot.cuh``: the largest |weight|, then the elements whose
@@ -764,6 +774,7 @@ def _one_input_op(a2d, thr, weights, nb, reduce_all):
     if rc != 0:
         raise RuntimeError(f"one_input CUDA kernel failed to launch: cudaError {rc}")
     ONE_INPUT_LAUNCHES += 1
+    _note_in_place([a2d])
     note_one_input_output("zeroed" if _launch_record()[12] else "stored")
     return out
 
@@ -858,6 +869,7 @@ def _joint2_op(a, b, thr_a, thr_b, weights, nba, nbb):
     if rc != 0:
         raise RuntimeError(f"joint2 CUDA kernel failed to launch: cudaError {rc}")
     JOINT2_LAUNCHES += 1
+    _note_in_place([a, b])
     return out
 
 
@@ -938,7 +950,8 @@ def _joint2_runs(operands):
 def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, reduce_all, tail, out):
     """Calls a flat-slot C entry: ``lead`` arguments, the inputs' pointers,
     strides (four each), thresholds and bin counts, (m1, m0, c1, c0), then
-    ``tail`` and the output and stream. Raises on a failed launch."""
+    ``tail`` and the output and stream. Raises on a failed launch; counts
+    the narrow inputs it read in place."""
     n = len(arrays)
     views = [_geometry(a, reduce_all) for a in arrays]
     with torch.cuda.device(out.device):
@@ -953,6 +966,7 @@ def _launch_slot_entry(name, fn, lead, arrays, thr, nbins, reduce_all, tail, out
         )
     if rc != 0:
         raise RuntimeError(f"{name} CUDA kernel failed to launch: cudaError {rc}")
+    _note_in_place(arrays)
 
 
 def _slot_hist_cuda(name, arrays_2d, thresholds, nbins, reduce_all, weights):

@@ -27,6 +27,8 @@ import math
 
 import torch
 
+from ..utils.profiling import note_narrow_read
+
 __all__ = [
     "digitize_edges",
     "joint_bin_index",
@@ -45,13 +47,17 @@ def digitize_edges(a, edges, n_hi_clip=0):
     which a copy of ``a`` is widened first; uint64 data meets int64
     thresholds flipped by ``bins.flip_uint64``, and a flipped copy of it.
     Returns int64 indices in ``[0, len(edges)]``,
-    shaped like ``a``.
+    shaped like ``a``. A CUDA input of a 1- or 2-byte stored type counts in
+    ``profiling.NARROW_READS``: "widened" where it is widened first, else
+    "in_place".
 
     ``n_hi_clip`` (from ``bins.compare_form``): number of thresholds whose
     true value lies above the dtype's top value (int max / +inf) and were
     clamped to it; elements equal to the top value subtract the count.
     """
     n_edges = edges.shape[0]
+    if a.is_cuda and a.element_size() <= 2:
+        note_narrow_read("widened" if a.dtype != edges.dtype else "in_place")
     if a.dtype == torch.uint64:  # int64 thresholds flipped alike (bins.flip_uint64)
         a = a.view(torch.int64) ^ -(1 << 63)
     if a.dtype != edges.dtype:

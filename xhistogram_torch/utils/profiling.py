@@ -37,7 +37,9 @@ settled on, or ``"scatter"`` for the plain path, once a call.
 (``csrc/slot.cuh``) by where their sums went (``note_weighted_slot``), and
 ``ONE_INPUT_OUTPUTS`` the launches of the one_input kernel
 (``csrc/one_input.cuh``) by how their output got its every slot
-(``note_one_input_output``).
+(``note_one_input_output``). ``NARROW_READS`` counts the inputs of 1 or 2
+bytes an element that the card's histograms read, by how they were read
+(``note_narrow_read``).
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot",
-           "note_one_input_output", "trace", "SELF_NS", "CALLS", "HOST_SYNCS",
-           "ROUTES", "WEIGHTED_SLOTS", "ONE_INPUT_OUTPUTS"]
+           "note_one_input_output", "note_narrow_read", "trace", "SELF_NS", "CALLS",
+           "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS", "ONE_INPUT_OUTPUTS", "NARROW_READS"]
 
 #: the file ``trace`` writes in its log directory
 TRACE_FILE = "trace.json"
@@ -79,6 +81,12 @@ WEIGHTED_SLOTS = dict.fromkeys(("exact", "shared", "device"), 0)
 #: ``"zeroed"``, the launcher zeroed the output first and blocks added into
 #: it (a full reduction, or rows split across column tiles)
 ONE_INPUT_OUTPUTS = dict.fromkeys(("stored", "zeroed"), 0)
+#: {how: inputs of a 1- or 2-byte stored type read so on the card in this
+#: process} (``note_narrow_read``), one an input each kernel launch
+#: (``ops.cuda_hist``) or plain digitize (``ops.digitize.digitize_edges``):
+#: ``"in_place"``, read at its own width; ``"widened"``, converted to a
+#: wider type in device memory first (the plain path)
+NARROW_READS = dict.fromkeys(("in_place", "widened"), 0)
 
 _LOCK = threading.Lock()  # guards the totals and counters above
 _OPEN = threading.local()  # .spans: this thread's open spans; .call: its call's id
@@ -173,6 +181,16 @@ def note_one_input_output(how):
     of ``ONE_INPUT_OUTPUTS``)."""
     with _LOCK:
         ONE_INPUT_OUTPUTS[how] += 1
+
+
+def note_narrow_read(how, n=1):
+    """Count ``n`` inputs of a 1- or 2-byte stored type read ``how`` (a key
+    of ``NARROW_READS``) on the card. Under ``torch.compile`` it does
+    nothing, as ``scope`` does."""
+    if torch.compiler.is_compiling():
+        return
+    with _LOCK:
+        NARROW_READS[how] += n
 
 
 @contextlib.contextmanager
