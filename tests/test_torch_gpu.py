@@ -2386,6 +2386,113 @@ def test_packed_int16_census_by_level_reads_in_place_with_exact_sums(cuda):
     assert torch.equal(counts.cpu(), reference.histogram([t, s], edges, (0, 2)).cpu())
 
 
+# --- run pieces read a group of four neighbours a thread (csrc/slot.cuh) -----
+
+# (times, levels, cells) of the census, the cells a row of the tensor the
+# view is cut from holds, the view's first cell in it, and whether its run
+# pieces take the vector walk
+VECTOR_CASES = {
+    "aligned": ((6, 5, 4000), 4000, 0, True),
+    # 4001 columns a run: each run's last one walked element by element
+    "ragged-runs": ((6, 4, 4001), 4004, 0, True),
+    # every run one element past a group's boundary: element by element
+    "offset-by-one": ((6, 5, 4000), 4001, 1, False),
+    # 192 (level, time) runs over the clusters: several runs a piece, a
+    # level's runs over several pieces, groups carried from run to run
+    "runs-over-pieces": ((48, 4, 4000), 4000, 0, True),
+}
+# the inputs as float32 (NaN where dry) or CF-packed int16 (the fill value
+# where dry, edges in packed units, none an integer)
+PACKED_FILL = -32767
+
+
+def _vector_census(cuda, case, dtype, weights):
+    """(T, S, weights or None, T and S edges) of a census by level on the
+    view of VECTOR_CASES[case]: ECCO-like T and S with dry cells, and the
+    cell volume broadcast over time ("broadcast"), or full-size float32,
+    bfloat16 or int32 weights."""
+    (times, levels, cells), width, first, _ = VECTOR_CASES[case]
+    t, s, vol = _ecco_like(cuda, (times, levels, width), seed=len(case) + times)
+    te, se = T_EDGES, S_EDGES
+    if dtype == torch.int16:
+        dry = torch.isnan(t)
+        t = torch.where(dry, PACKED_FILL, (t / 0.01).round()).to(torch.int16)
+        s = torch.where(dry, PACKED_FILL, ((s - 35) / 0.002).round()).to(torch.int16)
+        te = (T_EDGES.astype(np.float64) + 0.0025) / 0.01
+        se = (S_EDGES.astype(np.float64) - 35.0005) / 0.002
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    if weights == "broadcast":
+        w = vol
+    elif weights == "int32":
+        w = torch.randint(-(2**20), 2**20, t.shape, device=cuda, generator=gen,
+                          dtype=torch.int32)
+    elif weights is not None:
+        w = (vol * torch.rand(t.shape, device=cuda, generator=gen)).to(weights)
+    else:
+        w = None
+    # the weights cut as the data are: a view of rows `width` apart
+    cut = slice(first, first + cells)
+    return t[..., cut], s[..., cut], None if w is None else w[..., cut], [te, se]
+
+
+@pytest.mark.parametrize("weights", [None, "broadcast", torch.float32, torch.bfloat16,
+                                     "int32"], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16], ids=str)
+@pytest.mark.parametrize("case", list(VECTOR_CASES))
+def test_vector_run_pieces_equal_the_reference(cuda, case, dtype, weights):
+    # the README call, axis=(0, 2) on (time, depth, cell), on factored per
+    # row's run pieces: counts bit for bit the plain path's and numpy's,
+    # float sums exact within one float32 rounding of numpy's float64 sums,
+    # integer sums bit for bit; the launch reads groups of four neighbours
+    # wherever every run starts on a group's boundary
+    t, s, w, edges = _vector_census(cuda, case, dtype, weights)
+    vector = VECTOR_CASES[case][3]
+    before = dict(profiling.SLOT_LOADS)
+    h, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=w)
+    torch.cuda.synchronize()
+    rec = cuda_hist.last_launch()
+    assert rec["vector"] is vector and rec["view"] == "in place"
+    assert rec["loads"] == (dtype, dtype)
+    assert {k: profiling.SLOT_LOADS[k] - before[k] for k in before} == {
+        "vector": int(vector), "scalar": int(not vector)}
+    if w is not None and w.dtype.is_floating_point:
+        assert rec["exact"] and rec["cluster"] == 2
+        want = _numpy_levels(t, s, w.float(), *edges)
+        assert h.dtype == torch.float32
+        np.testing.assert_allclose(h.cpu().numpy(), want.astype(np.float32), rtol=2.4e-7,
+                                   atol=0)
+        return
+    plain, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=w,
+                                          method="scatter")
+    assert h.dtype == plain.dtype and torch.equal(h, plain)
+    if w is None:
+        want = _numpy_levels(t, s, torch.ones_like(t, dtype=torch.float32), *edges)
+        assert int(h.sum()) > 0 and np.array_equal(h.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("weights", [None, torch.float32], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.uint8], ids=str)
+def test_vector_run_pieces_in_one_block(cuda, dtype, weights):
+    # 40x40 bins a level: the histogram in one block's shared memory (float
+    # sums in float64 there), 8-bit data through its table of bins
+    t, s, _ = _ecco_like(cuda, (6, 5, 4000), seed=31)
+    edges = [np.linspace(-2.0, 30.0, 41), np.linspace(30.0, 40.0, 41)]
+    if dtype != torch.float32:
+        t, s = (torch.nan_to_num(x, nan=0.0).round().clamp(0, 255).to(dtype)
+                for x in (t, s))
+        edges = [np.linspace(-0.5, 30.5, 41), np.linspace(29.5, 40.5, 41)]
+    w = None if weights is None else torch.rand(t.shape, device=cuda) * 4 - 1
+    before = dict(profiling.SLOT_LOADS)
+    h, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=w)
+    torch.cuda.synchronize()
+    rec = cuda_hist.last_launch()
+    assert rec["vector"] and rec["cluster"] == 1 and not rec["exact"]
+    assert profiling.SLOT_LOADS["vector"] == before["vector"] + 1
+    plain, _ = xhistogram_torch.histogram(t, s, bins=edges, axis=(0, 2), weights=w,
+                                          method="scatter")
+    _assert_sums_equal(h, plain)
+
+
 U32_EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2, 2**32 - 1],
                      np.uint64)
 # the kernels take no edge at the top value (its closed bin needs the plain

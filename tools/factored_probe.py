@@ -53,8 +53,21 @@ It prints, each line beside the card's name and power limit:
 - the searches without atomics (data above every edge) at the per-row and
   full shapes, and the factored kernel against joint2 at 280x340.
 
-It imports nothing of JAX. ``--ecco-only`` stops after the ECCO lines.
+Each (a) line also gives the kernel's milliseconds per 10^9 pairs, and each
+(d) line whether the run pieces took the vector loads (``last_launch()``'s
+``vector``; "n/a" for a package without it).
+
+It imports nothing of JAX. ``--ecco-only`` stops after the ECCO lines;
+``--glorys-only`` runs the GLORYS12V1 lines alone. ``--root DIR`` imports
+``xhistogram_torch`` from another checkout (for example a parent commit
+unpacked with ``git archive``), so that two versions are probed in turns in
+one call on one card:
+
+    python3 tools/factored_probe.py --glorys-only
+    python3 tools/factored_probe.py --glorys-only --root chipwork/parent
 """
+
+import argparse
 
 import os
 import subprocess
@@ -131,11 +144,13 @@ def census(label, T, S, vol, edges, card):
     c.append(event_ms(lambda: run(device_memory=True), reps=5))
     b.append(event_ms(lambda: run(None), reps=5))
     d.append(event_ms(run, reps=5))
+    vector = cuda_hist.last_launch().get("vector", "n/a")
     exact = run()
     err = ((exact - run(device_memory=True)).abs().max() / exact.abs().max()).item()
     print(f"# {label}: {counted} of {T.numel()} pairs counted; kernel ms "
           f"(b) unweighted {b} ({where_b}), (c) float64 in device memory {c}, "
-          f"(d) exact {d} ({where_d}); {fell} counted elements fell back to a float "
+          f"(d) exact {d} ({where_d}, vector loads {vector}); {fell} counted elements "
+          f"fell back to a float "
           f"add ({100 * fell / counted:.4f}%); largest gap of (d) from (c) over the "
           f"largest sum {err:.3e} [{card}]")
     return run
@@ -180,7 +195,8 @@ def glorys(dev, card):
     T.fill_(32767)  # above every edge: read and searched, nothing summed
     a = event_ms(lambda: run(None), reps=5)
     print(f"# GLORYS12V1 (a) T above every edge (reads and searches, nothing "
-          f"summed): kernel {a:.4f} ms [{card}]")
+          f"summed): kernel {a:.4f} ms, {a / (T.numel() / 1e9):.4f} ms per 10^9 pairs "
+          f"[{card}]")
     del data, T, S, vol, run
     torch.cuda.empty_cache()
 
@@ -211,7 +227,8 @@ def ecco(dev, card):
     T.add_(100.0)  # above every edge: read and searched, nothing summed
     a = event_ms(lambda: run(None), reps=5)
     print(f"# ECCO (a) T above every edge (reads and searches, nothing "
-          f"summed): kernel {a:.4f} ms [{card}]")
+          f"summed): kernel {a:.4f} ms, {a / (T.numel() / 1e9):.4f} ms per 10^9 pairs "
+          f"[{card}]")
     del data, T, S, vol, run
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -229,8 +246,19 @@ def ecco(dev, card):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("factored_probe.py needs a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=None)
+    p.add_argument("--ecco-only", action="store_true")
+    p.add_argument("--glorys-only", action="store_true")
+    args = p.parse_args()
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.abspath(args.root or here)
+    # the package from root; portbench's recipes from root, or from this
+    # checkout where root has none
+    sys.path[:0] = [root, here]
     import xhistogram_torch
+    if not os.path.dirname(xhistogram_torch.__file__).startswith(root):
+        raise SystemExit(f"imported {xhistogram_torch.__file__}, not from {root}")
     from xhistogram_torch import core
     from xhistogram_torch.bins import compare_form
     from xhistogram_torch.ops import _build, cuda_hist
@@ -238,13 +266,14 @@ def main():
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    print(f"# card: {card} | torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"# root {root} | card: {card} | torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
     _build.load()
-    if "--glorys-only" in sys.argv[1:]:
+    if args.glorys_only:
         glorys(dev, card)
         return
     ecco(dev, card)
-    if "--ecco-only" in sys.argv[1:]:
+    if args.ecco_only:
         return
     glorys(dev, card)
 

@@ -22,14 +22,15 @@ XH_JOINT2_WEIGHTED_CLASS(wf64, double)
 XH_JOINT2_WEIGHTED_CLASS(wu32, unsigned int)
 XH_JOINT2_WEIGHTED_CLASS(wu64, unsigned long long)
 
-// out[0..12]: what the last launch of this process chose (xh::LaunchRecord):
+// out[0..13]: what the last launch of this process chose (xh::LaunchRecord):
 // blocks a cluster, passes, histogram in shared memory (1) or device memory
 // (0), the cells asked for the first two inputs, then 1 for a one_input
 // launch (0 for joint2 and the flat-slot routes) with its counter layout
 // and the histogram's copies in shared memory, then a direct-row launch's
 // warps a block (0 for the other kernels), blocks and rows a warp, then 1
 // for a flat-slot launch that kept float sums as exact integers, then 1 for
-// a one_input launch whose launcher zeroed the output.
+// a one_input launch whose launcher zeroed the output, then 1 for a
+// flat-slot launch whose run pieces took the vector loads.
 extern "C" void xh_last_launch(int* out) {
   const xh::LaunchRecord r = xh::last_launch;
   out[0] = r.cluster;
@@ -45,4 +46,5 @@ extern "C" void xh_last_launch(int* out) {
   out[10] = r.rows_per_warp;
   out[11] = r.exact;
   out[12] = r.zeroed;
+  out[13] = r.vector;
 }

@@ -19,7 +19,9 @@ namespace xh {
 // most rows a warp walks; a flat-slot launch whose float sums were kept as
 // exact integers in shared memory (slot.cuh) sets exact; a one_input launch
 // whose launcher zeroed the output before the kernel (a full reduction, rows
-// split across column tiles; else the kernel stores every slot) sets zeroed.
+// split across column tiles; else the kernel stores every slot) sets zeroed;
+// a flat-slot launch whose run pieces read each input a vector of
+// neighbouring elements a thread (slot.cuh) sets vector.
 struct LaunchRecord {
   int cluster;
   int passes;
@@ -33,6 +35,7 @@ struct LaunchRecord {
   int rows_per_warp;
   int exact;
   int zeroed;
+  int vector;
 };
 inline LaunchRecord last_launch = {};
 

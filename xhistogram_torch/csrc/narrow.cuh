@@ -98,6 +98,77 @@ struct alignas(sizeof(L) * K) Pack {
   L v[K];
 };
 
+// The bytes of one element of the stored type `code` names.
+__host__ __device__ constexpr int code_bytes(int code) {
+  return code == kF64 || code == kI64 || code == kU64   ? 8
+         : code == kF32 || code == kI32 || code == kU32 ? 4
+         : is_byte(code)                                ? 1
+                                                        : 2;
+}
+
+// Four neighbouring elements of b bytes each (1, 2 or 4) at p, aligned to
+// 4 b bytes, by one load of 4 b bytes: their bits in the low 4 b bytes of
+// the result. Nothing here waits for the load: the bits are first read
+// where an element is unpacked (four_of, or the weights' weights.cuh), so
+// loads issued one after another are in flight together.
+__device__ __forceinline__ uint4 load_four(const void* p, int b) {
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (b == 4) {
+    r = *static_cast<const uint4*>(p);
+  } else if (b == 2) {
+    const uint2 h = *static_cast<const uint2*>(p);
+    r.x = h.x;
+    r.y = h.y;
+  } else {
+    r.x = *static_cast<const unsigned*>(p);
+  }
+  return r;
+}
+
+// The bits of element u of four loaded by load_four, of b bytes each.
+__device__ __forceinline__ unsigned bits_of(const uint4& r, int u, int b) {
+  const unsigned w4 = u == 0 ? r.x : u == 1 ? r.y : u == 2 ? r.z : r.w;
+  return b == 4 ? w4
+         : b == 2 ? ((u < 2 ? r.x : r.y) >> (16 * (u & 1))) & 0xffffu
+                  : (r.x >> (8 * u)) & 0xffu;
+}
+
+// v[u]: element u of four loaded by load_four, of the stored type `code`
+// (float32 or a narrow type), widened to float exactly, with one switch
+// for all four.
+__device__ __forceinline__ void four_of(const uint4& r, int code, float (&v)[4]) {
+  switch (code) {
+    case kF16:
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = __half2float(__ushort_as_half((unsigned short)bits_of(r, u, 2)));
+      break;
+    case kBF16:  // a bfloat16 is the high half of the float of its value
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __uint_as_float(bits_of(r, u, 2) << 16);
+      break;
+    case kI16:
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = (float)(short)bits_of(r, u, 2);
+      break;
+    case kU16:
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = (float)bits_of(r, u, 2);
+      break;
+    case kI8:
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = (float)(signed char)bits_of(r, u, 1);
+      break;
+    case kU8:
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = (float)bits_of(r, u, 1);
+      break;
+    default:
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __uint_as_float(bits_of(r, u, 4));
+  }
+}
+
 // v[q] for q in [Q0, Q1): element at[q] of p, stored as L, widened to C;
 // C(0) where !ok[q]. All the loads are issued before any conversion.
 template <typename L, typename C, int K, int Q0, int Q1>

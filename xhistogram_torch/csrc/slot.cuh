@@ -61,6 +61,23 @@
 // The input count is read at run time, except for two inputs, the common
 // case, which get kernels of their own with both inputs' loads and
 // searches unrolled.
+// A kept row of several runs of columns (the README call's (time, depth,
+// cell) view with axis=(0, 2)) is walked in run pieces (tile.cuh's
+// run_tiling). Where both inputs, and the weights, are read at stride 1
+// along the columns, at most 4 bytes an element, and every run starts on a
+// boundary of kUnroll elements (the launcher's vector_reads), a two-input
+// kernel walks each run of a piece in turn, a group of kUnroll neighbouring
+// columns a thread: one load of each input (8 bytes of int16, 16 of
+// float32) and one of the group's weights, all issued before the first
+// search, so the three round trips overlap. A run's first addresses are
+// computed once a run, each input's cell map and first step held for the
+// piece, and its other constants read from the kernel's parameters, which
+// take no registers (H100, GLORYS12V1's call: 71.1 ms where the same loads
+// with the addresses computed at every step took 91.7, spilling more;
+// PERF.md §6). The columns past a run's last whole group are then walked
+// element by element. Every element's weight is read, counted or not. Every
+// other piece is walked element by element, each element at its (fast,
+// slow) position, its weight read once its slot is known.
 //
 // Inputs of one wide type T (float, double, int32, int64) share an
 // instantiation. Two instantiations read each input's
@@ -199,6 +216,7 @@ struct Mode {
   int log2c;           // log2 of the blocks a cluster
   int reduce_all;
   int whole_rows;  // each tile holds whole rows and stores all their slots
+  int vec;         // run pieces read kUnroll neighbours a thread (vector_reads)
   // exact sums: the largest finite |weight|, as its bits, then the tally of
   // elements whose weight added as a float (the caller's 16 bytes)
   unsigned long long* exact;
@@ -339,6 +357,81 @@ __device__ __forceinline__ void flat_slots(
 #pragma unroll
   for (int u = 0; u < K; ++u)
     if (!valid[u]) g[u] = -1;
+}
+
+// The two-input kernels of inputs of at most 4 bytes (float32, int32 and
+// Narrow) whose kept rows' histograms are in shared memory read their run
+// pieces by groups of kUnroll neighbouring columns where the launcher finds
+// every run of every input, and of the weights (of at most 4 bytes), on a
+// boundary of such a group (vector_reads): one load an input and one of the
+// weights a group, all issued before the group's first search.
+template <typename T, typename W, bool kShared, int kN>
+constexpr bool kVector = kN == 2 && kShared && !kMixed<T> && sizeof(Stored<T>) == 4 &&
+                         !std::is_same<typename W::Shared, unsigned long long>::value;
+
+// The bytes of one element of input d as stored.
+template <typename T>
+__host__ __device__ __forceinline__ int bytes_of(const Input<T>& d) {
+  if constexpr (kNarrow<T>)
+    return xh::code_bytes(d.code);
+  else
+    return (int)sizeof(T);
+}
+
+// bin[u]: the bin of element u of a group of kUnroll neighbours of input d
+// loaded by load_four, or -1: through its 8-bit table where it has one, else
+// by the bucketed search of its thresholds staged at t with cell map mp,
+// cell tables win and first step step0.
+template <typename T>
+__device__ __forceinline__ void group_bins(const Input<T>& d, const uint4& r,
+                                           const Stored<T>* t, const Map<T>& mp,
+                                           const int2* win, int step0, const int* luts,
+                                           int (&bin)[kUnroll]) {
+  Cmp<T> x[kUnroll];
+  if constexpr (kNarrow<T>) {
+    if (d.lut >= 0) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) bin[u] = luts[d.lut + xh::bits_of(r, u, 1)];
+      return;
+    }
+    xh::four_of(r, d.code, x);
+  } else if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x[u] = __uint_as_float(xh::bits_of(r, u, 4));
+  } else {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x[u] = (T)xh::bits_of(r, u, 4);
+  }
+  xh::bins_bucketed<Cmp<T>, kUnroll>(reinterpret_cast<const Cmp<T>*>(t + d.soff), d.nb, mp,
+                                     win + d.toff, step0, x, bin);
+}
+
+// Whether every run piece of a view (data, of `bytes` bytes an element,
+// strides (sm1, sm, sc1, sc) over dims) starts each run on a boundary of
+// kUnroll elements, with the columns at stride 1: the piece's corner, i1 sm1
+// + i0 sm + j1 sc1 (j0 is 0), is then a multiple of kUnroll, and so is each
+// run's start.
+inline bool grouped(const void* data, long long sm1, long long sm, long long sc1,
+                    long long sc, int bytes, const xh::Dims& dims) {
+  return sc == 1 && bytes <= 4 &&
+         reinterpret_cast<unsigned long long>(data) % (unsigned)(kUnroll * bytes) == 0 &&
+         (dims.m1 == 1 || sm1 % kUnroll == 0) && (dims.m0 == 1 || sm % kUnroll == 0) &&
+         (dims.c1 == 1 || sc1 % kUnroll == 0);
+}
+
+// Whether a launch's run pieces take the vector walk (kVector): both
+// inputs' views and the weights' are grouped.
+template <typename T, typename W>
+bool vector_reads(const Inputs<T>& p, const xh::Weights& w, const xh::Dims& dims) {
+  for (int k = 0; k < 2; ++k) {
+    const Input<T>& d = p.in[k];
+    if (!grouped(d.data, d.sm1, d.sm, d.sc1, d.sc, bytes_of(d), dims)) return false;
+  }
+  if constexpr (W::kWeighted) {
+    using Wt = typename std::conditional<kExact<W>, double, typename W::Shared>::type;
+    return grouped(w.data, w.sm1, w.sm, w.sc1, w.sc, xh::weight_bytes<Wt>(w.code), dims);
+  }
+  return true;
 }
 
 // The slot of a row held at local index l by block `rank` of a cluster of
@@ -504,6 +597,7 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
     inv = scalbn(1.0, -unit);
   }
 
+  const int* luts = reinterpret_cast<const int*>(smem);  // the 8-bit tables
   // the blocks of a cluster walk each of its tiles together, as one
   // block of lanes threads would
   const unsigned lanes = blockDim.x << log2c;
@@ -520,107 +614,181 @@ slot_hist_kernel(const Inputs<T> p, const xh::Weights w, xh::Dims dims,
     const long long r0 = tc.r0;
     const unsigned rr = tc.rr;
     const unsigned cc = tc.cc;
-    const unsigned total = rr * cc * tc.cj;
     const Walk ww = walk_of(w, tc, tl);  // the weights' (all zero unweighted)
-    // (f, s): a thread's position along the fast and the slow dimension of
-    // the tile, advanced by `lanes` elements a step without a division
-    const unsigned fast_n = tl.row_fast ? rr : cc;
-    const unsigned df = lanes % fast_n;
-    const unsigned ds = lanes / fast_n;
-    unsigned f = tid % fast_n;
-    unsigned s = tid / fast_n;
+    // each counted element's weight (Exact: the float weight, as loaded)
+    using Wt = typename std::conditional<kExact<W>, double, Shared>::type;
 
-    for (unsigned k = tid; k < total; k += kUnroll * lanes) {
-      unsigned fs[kUnroll];
-      unsigned ss[kUnroll];
-      bool ok[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        ok[u] = k + u * lanes < total;
-        fs[u] = f;
-        ss[u] = s;
-        f += df;
-        s += ds;
-        if (f >= fast_n) {
-          f -= fast_n;
-          ++s;
-        }
-      }
-      long long g[kUnroll];
-      flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged,
-                                 reinterpret_cast<const int*>(smem), org, fs, ss,
-                                 ok, g);
-      // each counted element's weight (Exact: the float weight, as loaded)
-      using Wt = typename std::conditional<kExact<W>, double, Shared>::type;
-      Wt wt[kUnroll];
-      if constexpr (W::kWeighted) {
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          wt[u] = Wt(0);
-          if (g[u] >= 0)
-            xh::load_weight(w.data, ww.origin + fs[u] * ww.fast + ss[u] * ww.slow,
-                            w.code, wt[u]);
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) wt[u] = Shared(1);
-      }
+    // adds each element u with g[u] >= 0 (g: int or long long): its weight,
+    // weight(u), into slot g[u] of row row[u] of the piece
+    auto add = [&](const auto& g, const auto& weight, const unsigned (&row)[kUnroll]) {
       if constexpr (kExact<W>) {
         // every element's word add first, then the few wraps: the returning
         // atomics' round trips overlap
-        long long at[kUnroll];  // the element's slot in the output, or -1
+        bool added[kUnroll];
         unsigned lo[kUnroll];
         unsigned old[kUnroll];
         bool neg[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          at[u] = -1;
+          added[u] = false;
           if (g[u] < 0) continue;
-          const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
-          const long long o = (md.reduce_all ? 0 : r0 + row) * out_row + g[u];
+          const Wt wu = weight(u);
           unsigned m;
-          if (!xh::exact_integer(wt[u], inv, m, neg[u])) {
-            atomicAdd(&out[o], wt[u]);
+          if (!xh::exact_integer(wu, inv, m, neg[u])) {
+            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row[u]) * out_row + g[u]], wu);
             ++fell;
             continue;
           }
           if (m == 0) continue;
           const long long run = g[u] >> kRunBits;
-          Shared* h = cl == 1 ? &mine[row * s_local + g[u]]
+          Shared* h = cl == 1 ? &mine[row[u] * s_local + g[u]]
                               : cluster.map_shared_rank(hist, (int)(run & (cl - 1))) +
-                                    row * s_local + ((run >> log2c) << kRunBits) +
+                                    row[u] * s_local + ((run >> log2c) << kRunBits) +
                                     (g[u] & 31);
-          at[u] = o;
+          added[u] = true;
           lo[u] = xh::exact_low(m, neg[u]);
           old[u] = atomicAdd(h, lo[u]);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          if (at[u] >= 0) {
+          if (added[u]) {
             const int wrap = xh::exact_wrap(old[u], lo[u], neg[u]);
-            if (wrap != 0) atomicAdd(&out[at[u]], scalbn((double)wrap, unit + 32));
+            if (wrap != 0)
+              atomicAdd(&out[(md.reduce_all ? 0 : r0 + row[u]) * out_row + g[u]],
+                        scalbn((double)wrap, unit + 32));
           }
       } else {
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (g[u] < 0) continue;
-          // (a piece of one row: its row 0, whatever the slow dimension)
-          const long long row = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
           if (kShared && cl == 1) {
-            atomicAdd(&mine[row * s_local + g[u]], wt[u]);
+            atomicAdd(&mine[row[u] * s_local + g[u]], weight(u));
           } else if (kShared) {
             const long long run = g[u] >> kRunBits;
-            const long long slot = row * s_local +
+            const long long slot = row[u] * s_local +
                                    ((run >> log2c) << kRunBits) + (g[u] & 31);
             atomicAdd(cluster.map_shared_rank(hist, (int)(run & (cl - 1))) + slot,
-                      wt[u]);
+                      weight(u));
           } else {
-            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row) * out_row + g[u]],
-                      (Out)wt[u]);
+            atomicAdd(&out[(md.reduce_all ? 0 : r0 + row[u]) * out_row + g[u]],
+                      (Out)weight(u));
+          }
+        }
+      }
+    };
+
+    // the columns [first, first + fast_n) of each run of the piece (a
+    // tile's rows and columns: first = 0, its whole width), kUnroll elements
+    // a thread a step, each on its own; (f, s): a thread's position along
+    // the fast and the slow dimension, advanced by `lanes` elements a step
+    // without a division
+    auto walk_elements = [&](unsigned first, unsigned fast_n, unsigned total) {
+      const unsigned df = lanes % fast_n;
+      const unsigned ds = lanes / fast_n;
+      unsigned f = tid % fast_n;
+      unsigned s = tid / fast_n;
+      for (unsigned k = tid; k < total; k += kUnroll * lanes) {
+        unsigned fs[kUnroll];
+        unsigned ss[kUnroll];
+        bool ok[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          ok[u] = k + u * lanes < total;
+          fs[u] = first + f;
+          ss[u] = s;
+          f += df;
+          s += ds;
+          if (f >= fast_n) {
+            f -= fast_n;
+            ++s;
+          }
+        }
+        long long g[kUnroll];
+        flat_slots<T, kUnroll, kN>(in, n, t, maps, win, widest, staged, luts, org, fs,
+                                   ss, ok, g);
+        Wt wt[kUnroll];
+        if constexpr (W::kWeighted) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            wt[u] = Wt(0);
+            if (g[u] >= 0)
+              xh::load_weight(w.data, ww.origin + fs[u] * ww.fast + ss[u] * ww.slow,
+                              w.code, wt[u]);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) wt[u] = Wt(1);
+        }
+        // (a piece of one row: its row 0, whatever the slow dimension)
+        unsigned row[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          row[u] = md.reduce_all || rr == 1 ? 0 : (tl.row_fast ? fs[u] : ss[u]);
+        add(g, [&](int u) { return wt[u]; }, row);
+      }
+    };
+
+    // a run piece's vector walk takes each run's whole groups of kUnroll
+    // columns; the element walk then takes the columns past them
+    unsigned f0 = 0;
+    if constexpr (kVector<T, W, kShared, kN>) {
+      if (md.vec) {  // one row, whole runs of cc columns (run_tiling)
+        const unsigned groups = cc / kUnroll;
+        f0 = groups * kUnroll;
+        if (groups > 0) {
+          // each input's constants are read from the kernel's parameters,
+          // its cell map and first step held for the piece
+          const Input<T>& d0 = p.in[0];
+          const Input<T>& d1 = p.in[1];
+          const Map<T> mp0 = maps[0];
+          const Map<T> mp1 = maps[1];
+          const int step0 = xh::first_step(widest[0]);
+          const int step1 = xh::first_step(widest[1]);
+          const int bw = W::kWeighted ? xh::weight_bytes<Wt>(w.code) : 0;
+          // run by run, each run's groups dealt over the piece's lanes: a
+          // run's first element of each input and of the weights is
+          // addressed once a run
+          for (unsigned s = 0; s < tc.cj; ++s) {
+            const char* a0 = static_cast<const char*>(d0.data) +
+                             (org[0].origin + (long long)s * org[0].slow) * bytes_of(d0);
+            const char* a1 = static_cast<const char*>(d1.data) +
+                             (org[1].origin + (long long)s * org[1].slow) * bytes_of(d1);
+            const char* aw = static_cast<const char*>(w.data) +
+                             (ww.origin + (long long)s * ww.slow) * bw;
+            for (unsigned q = tid; q < groups; q += lanes) {
+              // every load of the group is issued before the first search:
+              // the weights' round trip overlaps the data's
+              const uint4 v0 =
+                  xh::load_four(a0 + (size_t)q * (kUnroll * bytes_of(d0)), bytes_of(d0));
+              const uint4 v1 =
+                  xh::load_four(a1 + (size_t)q * (kUnroll * bytes_of(d1)), bytes_of(d1));
+              uint4 vw;
+              if constexpr (W::kWeighted) vw = xh::load_four(aw + (size_t)q * (kUnroll * bw), bw);
+              int i0[kUnroll];
+              int i1[kUnroll];
+              group_bins(d0, v0, t, mp0, win, step0, luts, i0);
+              group_bins(d1, v1, t, mp1, win, step1, luts, i1);
+              // (a slot of a histogram in shared memory: below 2^31)
+              int g[kUnroll];
+#pragma unroll
+              for (int u = 0; u < kUnroll; ++u)
+                g[u] = i0[u] >= 0 && i1[u] >= 0 ? i0[u] * d1.nb + i1[u] : -1;
+              const unsigned row[kUnroll] = {};  // the piece's one row
+              // each weight unpacked where it is added
+              add(g, [&](int u) {
+                Wt x = Wt(1);
+                if constexpr (W::kWeighted) xh::weight_of_four(vw, u, w.code, x);
+                return x;
+              }, row);
+            }
           }
         }
       }
     }
+    if (f0 == 0)
+      walk_elements(0, tl.row_fast ? rr : cc, rr * cc * tc.cj);
+    else if (f0 < cc)
+      walk_elements(f0, cc - f0, (cc - f0) * tc.cj);
 
     if (kShared && !md.reduce_all) {
       // a chunk's next tile of the same rows adds into their histograms
@@ -782,9 +950,12 @@ int launch_kernel(const Inputs<T>& p, const xh::Weights& w, const xh::Dims& dims
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if constexpr (kVector<T, W, kShared, kN>)
+    md.vec = tl.runs > 0 && md.thr_bytes != 0 && vector_reads<T, W>(p, w, dims);
   xh::last_launch = {cl, 1, kShared ? 1 : 0,
                      {p.in[0].cells, p.n > 1 ? p.in[1].cells : 0}};
   xh::last_launch.exact = kExact<W> ? 1 : 0;
+  xh::last_launch.vector = md.vec;
   return (int)xh::launch_clustered(slot_hist_kernel<T, W, kShared, kN>,
                                    dim3((unsigned int)(clusters * cl)), threads,
                                    smem, cl, stream, p, w, dims, S, tl, md,

@@ -43,6 +43,10 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include <type_traits>
+
+#include "narrow.cuh"
+
 namespace xh {
 
 struct Weights {
@@ -142,6 +146,56 @@ __device__ __forceinline__ void load_weight(const void* p, long long i,
       break;
     default:
       w = __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  }
+}
+
+// The bytes of one weight stored as the type `code` names, for the load
+// type A of its class (load_weight's double, unsigned int or unsigned long
+// long).
+template <typename A>
+__host__ __device__ constexpr int weight_bytes(int code) {
+  if constexpr (std::is_same<A, double>::value)
+    return code == 1 ? 8 : code == 0 ? 4 : 2;
+  else if constexpr (std::is_same<A, unsigned int>::value)
+    return code == 0 ? 4 : code <= 2 ? 2 : 1;
+  else
+    return 8;
+}
+
+// w: weight u of four loaded by load_four (narrow.cuh), stored as the float
+// type `code` names (load_weight's codes; float64 is never loaded so).
+__device__ __forceinline__ void weight_of_four(const uint4& r, int u, int code, double& w) {
+  switch (code) {
+    case 0:
+      w = __uint_as_float(bits_of(r, u, 4));
+      break;
+    case 2:
+      w = __half2float(__ushort_as_half((unsigned short)bits_of(r, u, 2)));
+      break;
+    default:
+      w = __uint_as_float(bits_of(r, u, 2) << 16);
+  }
+}
+
+// ... stored as the integer type `code` names, modulo 2^32 (signed types
+// sign-extend).
+__device__ __forceinline__ void weight_of_four(const uint4& r, int u, int code,
+                                               unsigned int& w) {
+  switch (code) {
+    case 0:
+      w = bits_of(r, u, 4);
+      break;
+    case 1:
+      w = (unsigned int)(int)(short)bits_of(r, u, 2);
+      break;
+    case 2:
+      w = bits_of(r, u, 2);
+      break;
+    case 3:
+      w = (unsigned int)(int)(signed char)bits_of(r, u, 1);
+      break;
+    default:
+      w = bits_of(r, u, 1);
   }
 }
 

@@ -80,7 +80,9 @@ import torch
 from . import _build
 from .bincount import bincount2d_scatter, finish_sums, weight_sums
 from ..utils.axes import merged_levels
-from ..utils.profiling import note_narrow_read, note_one_input_output, note_weighted_slot
+from ..utils.profiling import (
+    note_narrow_read, note_one_input_output, note_slot_loads, note_weighted_slot,
+)
 from .digitize import digitize_edges, joint_bin_index
 
 __all__ = [
@@ -464,9 +466,9 @@ _EXACT_SCRATCH = [None]
 
 
 def _launch_record():
-    """``xh_last_launch``'s thirteen ints (``csrc/launch.cuh``), read on the
+    """``xh_last_launch``'s fourteen ints (``csrc/launch.cuh``), read on the
     host."""
-    out = (ctypes.c_int * 13)()
+    out = (ctypes.c_int * 14)()
     _build.load().xh_last_launch(out)
     return out
 
@@ -497,13 +499,17 @@ def last_launch():
     reading ``widest`` synchronises with the card. ``exact`` says whether a
     flat-slot launch kept its float sums as exact integers in shared memory
     (``exact_integer``), and then ``fell_back`` counts the elements whose
-    weight added as a float instead; reading it synchronises with the card."""
+    weight added as a float instead; reading it synchronises with the card.
+    ``vector`` says whether a flat-slot launch's run pieces read each input,
+    and the weights, a group of four neighbouring elements a thread by one
+    load (``csrc/slot.cuh``'s vector walk), else element by element."""
     out = _launch_record()
     kernel = "one_input" if out[5] else "direct_rows" if out[8] else "joint2/slot"
     loads, device, copied = _LAST_LOADS[0]
     rec = {"kernel": kernel, "cluster": out[0], "passes": out[1],
            "shared": bool(out[2]), "cells": (out[3], out[4]), "loads": loads,
-           "view": "copied" if copied else "in place", "exact": bool(out[11])}
+           "view": "copied" if copied else "in place", "exact": bool(out[11]),
+           "vector": bool(out[13])}
     if out[11]:
         rec["fell_back"] = int(_EXACT_SCRATCH[0][1].item())
     if out[8]:
@@ -993,8 +999,9 @@ def _slot_hist_cuda(name, arrays_2d, thresholds, nbins, reduce_all, weights):
                        [int(reduce_all), MAX_SHARED_SLOTS, MAX_CLUSTER_CTAS, *w_args,
                         *([] if weights is None else
                           [None if scratch is None else scratch.data_ptr()])], out)
+    rec = _launch_record()
+    note_slot_loads("vector" if rec[13] else "scalar")
     if weights is not None:
-        rec = _launch_record()
         if rec[11]:
             _EXACT_SCRATCH[0] = scratch
         note_weighted_slot("exact" if rec[11] else "shared" if rec[2] else "device")

@@ -37,7 +37,9 @@ settled on, or ``"scatter"`` for the plain path, once a call.
 (``csrc/slot.cuh``) by where their sums went (``note_weighted_slot``), and
 ``ONE_INPUT_OUTPUTS`` the launches of the one_input kernel
 (``csrc/one_input.cuh``) by how their output got its every slot
-(``note_one_input_output``). ``NARROW_READS`` counts the inputs of 1 or 2
+(``note_one_input_output``), and ``SLOT_LOADS`` every launch of the
+flat-slot kernel by how its run pieces read their elements
+(``note_slot_loads``). ``NARROW_READS`` counts the inputs of 1 or 2
 bytes an element that the card's histograms read, by how they were read
 (``note_narrow_read``).
 """
@@ -53,8 +55,9 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["scope", "note_syncs", "note_route", "note_weighted_slot",
-           "note_one_input_output", "note_narrow_read", "trace", "SELF_NS", "CALLS",
-           "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS", "ONE_INPUT_OUTPUTS", "NARROW_READS"]
+           "note_one_input_output", "note_slot_loads", "note_narrow_read", "trace",
+           "SELF_NS", "CALLS", "HOST_SYNCS", "ROUTES", "WEIGHTED_SLOTS",
+           "ONE_INPUT_OUTPUTS", "SLOT_LOADS", "NARROW_READS"]
 
 #: the file ``trace`` writes in its log directory
 TRACE_FILE = "trace.json"
@@ -81,6 +84,11 @@ WEIGHTED_SLOTS = dict.fromkeys(("exact", "shared", "device"), 0)
 #: ``"zeroed"``, the launcher zeroed the output first and blocks added into
 #: it (a full reduction, or rows split across column tiles)
 ONE_INPUT_OUTPUTS = dict.fromkeys(("stored", "zeroed"), 0)
+#: {how: flat-slot launches in this process whose run pieces read so}
+#: (``note_slot_loads``): ``"vector"``, each input and the weights a group of
+#: four neighbouring elements a thread by one load; ``"scalar"``, element by
+#: element (no run pieces, or a view the vector walk does not take)
+SLOT_LOADS = dict.fromkeys(("vector", "scalar"), 0)
 #: {how: inputs of a 1- or 2-byte stored type read so on the card in this
 #: process} (``note_narrow_read``), one an input each kernel launch
 #: (``ops.cuda_hist``) or plain digitize (``ops.digitize.digitize_edges``):
@@ -181,6 +189,13 @@ def note_one_input_output(how):
     of ``ONE_INPUT_OUTPUTS``)."""
     with _LOCK:
         ONE_INPUT_OUTPUTS[how] += 1
+
+
+def note_slot_loads(how):
+    """Count one flat-slot launch whose run pieces read ``how`` (a key of
+    ``SLOT_LOADS``)."""
+    with _LOCK:
+        SLOT_LOADS[how] += 1
 
 
 def note_narrow_read(how, n=1):
